@@ -1,0 +1,62 @@
+"""`python -m veles_tpu_torch <alexnet.py> --serve 0 --device cpu`: the
+port's command line serves a toy AlexNet, answers a request over
+loopback, and exits cleanly on SIGINT."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_cli_serves_and_stops_on_sigint():
+    cmd = [sys.executable, "-m", "veles_tpu_torch",
+           "veles_tpu_torch/samples/alexnet.py", "--serve", "0",
+           "--device", "cpu", "-r", "5", "--serve-ring", "4",
+           "--lrn-maxpool", "composed",
+           "root.alexnet.loader.input_hw=67", "root.alexnet.width_mult=0.125",
+           "root.alexnet.fc_width=64", "root.alexnet.n_classes=16",
+           "root.alexnet.loader.n_train=8",
+           "root.alexnet.loader.n_validation=4"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        reader = threading.Thread(
+            target=lambda: lines.append(proc.stdout.readline()),
+            daemon=True)
+        reader.start()
+        reader.join(timeout=120)
+        assert lines and lines[0].startswith("SERVING http://"), (
+            lines, proc.poll())
+        url = lines[0].split()[1]
+        x = np.random.RandomState(0).randn(2, 67, 67, 3).tolist()
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps({"inputs": x}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            resp = json.loads(r.read())
+        out = np.asarray(resp["outputs"])
+        assert out.shape == (2, 16) and np.isfinite(out).all()
+        assert resp["classes"] == out.argmax(axis=1).tolist()
+        with urllib.request.urlopen(url + "/info", timeout=60) as r:
+            info = json.loads(r.read())
+        assert info["variants"] == {"lrn": "kernel"}
+        assert info["device"] == "cpu" and info["ring_slots"] == 4
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()

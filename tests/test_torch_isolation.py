@@ -1,0 +1,107 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points ask for the card unless told otherwise."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import veles_tpu_torch
+from veles_tpu_torch import backends, launcher, prng, root
+from veles_tpu_torch.samples import alexnet
+from veles_tpu_torch.serving import InferenceServer
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = Path(veles_tpu_torch.__file__).resolve().parent
+TOY = ["root.alexnet.loader.input_hw=67", "root.alexnet.width_mult=0.125",
+       "root.alexnet.fc_width=64", "root.alexnet.n_classes=16",
+       "root.alexnet.loader.n_train=8", "root.alexnet.loader.n_validation=4"]
+
+
+def _forbidden(module: str) -> bool:
+    """An import of JAX or of the JAX package: the module `veles_tpu`
+    itself or anything under `veles_tpu.` — never a plain prefix match,
+    which would hit `veles_tpu_torch`."""
+    return any(module == m or module.startswith(m + ".")
+               for m in ("veles_tpu", "jax", "jaxlib"))
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_forbidden_matches_the_module_not_a_prefix():
+    assert _forbidden("veles_tpu") and _forbidden("veles_tpu.ops.xla")
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert not _forbidden("veles_tpu_torch")
+    assert not _forbidden("veles_tpu_torch.ops.kernels")
+    assert not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imports(REPO / path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['veles_tpu'] = None\n"
+        "import veles_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "veles_tpu_torch.__path__, 'veles_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'veles_tpu.'))"
+        " for k, v in sys.modules.items() if v is not None)\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert int(r.stdout.strip()) >= 15
+
+
+def test_entry_points_ask_for_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backends.make_device()
+    assert backends.make_device("cpu") == torch.device("cpu")
+    wf = alexnet.create_workflow(input_hw=67, width_mult=0.125, fc_width=8,
+                                 n_classes=4, n_train=4, n_validation=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wf.initialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceServer(wf)
+    saved = root.alexnet.to_dict()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launcher.serve([str(PKG / "samples" / "alexnet.py"), "--serve",
+                            "0", *TOY])
+    finally:
+        root.alexnet = saved    # the CLI's overrides stay in this test
+    assert not wf.is_initialized
+
+
+def test_torch_generator_follows_the_seed(monkeypatch):
+    monkeypatch.setattr(prng, "_generators", {})
+    monkeypatch.setattr(prng, "_base_seed", None)
+    prng.seed_all(11)
+    a = torch.rand(4, generator=prng.get().torch_generator("cpu"))
+    b = torch.rand(4, generator=prng.get().torch_generator("cpu"))
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert prng.get("other").state.get_state()[1][0] \
+        == np.random.RandomState(12).get_state()[1][0]

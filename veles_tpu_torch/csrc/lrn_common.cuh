@@ -1,0 +1,48 @@
+// Across-channel LRN value shared by the two LRN kernels of this directory.
+//
+// y = x * (k + alpha * sum_{|d| <= half} x[c+d]^2)^(-beta), zero outside
+// [0, C). The window sum adds the taps in the order the plain PyTorch
+// version (veles_tpu_torch/ops/functional.py:lrn_forward) and the JAX
+// package's `_window_sum` use: the centre, then +d and -d for d = 1..half.
+// s^(-beta) takes the sqrt/rsqrt decomposition of `_pow_neg_quarters`
+// when 4*beta is an integer q in [1, 16] (AlexNet: beta = 0.75, q = 3),
+// else powf.
+//
+// Every multiply and add is spelled with the round-to-nearest intrinsics
+// so that nvcc contracts none of them into an FMA: the LRN value is then
+// bit-identical in every kernel that includes this header, and the fused
+// LRN->max-pool kernel pools exactly the values the LRN kernel writes.
+#pragma once
+
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ float lrn_pow_neg(float s, int q, float beta) {
+  if (q == 0) return powf(s, -beta);
+  float t = sqrtf(rsqrtf(s));  // s^(-1/4)
+  float out = 0.0f;
+  bool have = false;
+  while (q) {
+    if (q & 1) {
+      out = have ? __fmul_rn(out, t) : t;
+      have = true;
+    }
+    q >>= 1;
+    if (q) t = __fmul_rn(t, t);
+  }
+  return out;
+}
+
+// LRN of the element at channel c of the C-wide channel row `row`.
+__device__ __forceinline__ float lrn_value(const float* __restrict__ row,
+                                           int c, int C, int half, float k,
+                                           float alpha, int q, float beta) {
+  const float xc = __ldg(row + c);
+  float acc = __fmul_rn(xc, xc);
+  for (int d = 1; d <= half; ++d) {
+    const float hi = (c + d < C) ? __ldg(row + c + d) : 0.0f;
+    const float lo = (c - d >= 0) ? __ldg(row + c - d) : 0.0f;
+    acc = __fadd_rn(__fadd_rn(acc, __fmul_rn(hi, hi)), __fmul_rn(lo, lo));
+  }
+  const float s = __fadd_rn(k, __fmul_rn(alpha, acc));
+  return __fmul_rn(xc, lrn_pow_neg(s, q, beta));
+}

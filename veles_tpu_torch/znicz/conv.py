@@ -1,0 +1,72 @@
+"""Convolutional forward units.
+
+The port's counterpart of `veles_tpu/znicz/conv.py`: y = act(conv2d(x, W)
++ b) with x NHWC and W HWIO (ky, kx, cin, n_kernels), symmetric padding
+and the bias before the activation. The convolution runs through
+`F.conv2d` on a channels-last view; the OIHW copy of the weights it needs
+is made once per weight tensor and cached. (The JAX package's
+space-to-depth stem is an exact rewrite of the same convolution and has
+no counterpart here.)
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Any, Tuple
+
+import torch
+
+from veles_tpu_torch.ops import functional as fn
+from veles_tpu_torch.znicz.nn_units import Forward
+
+
+class Conv(Forward):
+    """y = act(conv2d(x, W) + b); x: (N,H,W,C), W: (ky,kx,C,n_kernels)."""
+
+    activation = "linear"
+
+    def __init__(self, n_kernels: int = 16, kx: int = 3, ky: int = 3,
+                 stride: Tuple[int, int] = (1, 1),
+                 padding: Tuple[int, int] = (0, 0),
+                 **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.n_kernels = n_kernels
+        self.kx = kx
+        self.ky = ky
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        #: (weakref to the HWIO tensor, its version, its device)
+        self._oihw_src = None
+        self._oihw = None
+
+    def output_hw(self, h: int, w: int) -> Tuple[int, int]:
+        sy, sx = self.stride
+        ph, pw = self.padding
+        return ((h + 2 * ph - self.ky) // sy + 1,
+                (w + 2 * pw - self.kx) // sx + 1)
+
+    def initialize(self, sample_shape, device):
+        h, w, c = sample_shape
+        self.init_params((self.ky, self.kx, c, self.n_kernels),
+                         self.kx * self.ky * c, device)
+        return self.output_hw(h, w) + (self.n_kernels,)
+
+    def _weights_oihw(self, w: torch.Tensor) -> torch.Tensor:
+        """F.conv2d's layout of `w`, made once per weight tensor, in-place
+        version and device of it."""
+        src = self._oihw_src
+        if src is None or src[0]() is not w \
+                or src[1:] != (w._version, w.device):
+            self._oihw = fn.conv_weight_oihw(w)
+            self._oihw_src = (weakref.ref(w), w._version, w.device)
+        return self._oihw
+
+    def fused_apply(self, params, x, *, train=False):
+        w = params["weights"]
+        return fn.conv2d_forward(x, w, params["bias"], self.stride,
+                                 self.padding, self.activation,
+                                 w_oihw=self._weights_oihw(w))
+
+
+class ConvStrictRELU(Conv):
+    activation = "strictrelu"

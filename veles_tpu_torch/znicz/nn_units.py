@@ -1,0 +1,108 @@
+"""Forward base unit of the port: an `nn.Module` holding a layer's
+parameters, filled on the host from the seeded numpy streams.
+
+The port's counterpart of `Forward` in `veles_tpu/znicz/nn_units.py`:
+`weights_filling` "uniform" draws from ±stddev·√3 (so its std matches a
+gaussian fill), `weights_stddev` None means LeCun 1/√fan_in, and the bias
+falls back to the weights' stddev. The draws come from `prng.get()` in the
+JAX package's order, so one seed gives bit-identical parameters.
+
+Layouts at the boundary are the JAX package's (conv weights HWIO, FC
+weights (fan_in, units), activations NHWC). Parameters are registered as
+`nn.Parameter`s without gradients: this slice serves, and the gradient
+chain comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from veles_tpu_torch import prng
+
+
+class Forward(nn.Module):
+    """Base of all forward layers. Subclasses implement
+    `initialize(sample_shape, device) -> output sample shape` (filling
+    their parameters there) and `fused_apply(params, x, train=...)`."""
+
+    #: registry op this unit consults (None: a fixed lowering)
+    variant_op: Optional[str] = None
+    #: explicit per-layer lowering (wins over the registry selection)
+    variant_override: Optional[str] = None
+
+    def __init__(self, weights_filling: str = "uniform",
+                 weights_stddev: Optional[float] = None,
+                 bias_filling: str = "uniform",
+                 bias_stddev: Optional[float] = None,
+                 include_bias: bool = True,
+                 name: Optional[str] = None) -> None:
+        super().__init__()
+        self.name = name or type(self).__name__
+        self.weights_filling = weights_filling
+        self.weights_stddev = weights_stddev
+        self.bias_filling = bias_filling
+        self.bias_stddev = bias_stddev
+        self.include_bias = include_bias
+        self.weights: Optional[nn.Parameter] = None
+        self.bias: Optional[nn.Parameter] = None
+
+    # -- parameter init helpers ----------------------------------------------
+
+    def _fill(self, shape: Tuple[int, ...], filling: str,
+              stddev: float) -> np.ndarray:
+        gen = prng.get()
+        if filling == "uniform":
+            lim = stddev * np.sqrt(3.0)
+            return gen.fill_uniform(shape, -lim, lim, np.float32)
+        if filling == "gaussian":
+            return gen.fill_normal(shape, 0.0, stddev, np.float32)
+        raise ValueError(f"unknown filling {filling!r}")
+
+    def default_stddev(self, fan_in: int) -> float:
+        """LeCun-style 1/√fan_in when the config gave no stddev."""
+        return 1.0 / np.sqrt(max(fan_in, 1))
+
+    def init_params(self, w_shape: Tuple[int, ...], fan_in: int,
+                    device: torch.device) -> None:
+        if self.weights is None:
+            stddev = self.weights_stddev or self.default_stddev(fan_in)
+            self.weights = self._param(
+                self._fill(w_shape, self.weights_filling, stddev), device)
+        if self.bias is None:
+            if self.include_bias:
+                bstd = self.bias_stddev or self.weights_stddev \
+                    or self.default_stddev(fan_in)
+                b = self._fill((w_shape[-1],), self.bias_filling, bstd)
+            else:
+                b = np.zeros((w_shape[-1],), np.float32)
+            self.bias = self._param(b, device)
+
+    @staticmethod
+    def _param(a: np.ndarray, device: torch.device) -> nn.Parameter:
+        return nn.Parameter(torch.from_numpy(a).to(device),
+                            requires_grad=False)
+
+    # -- pytree view ----------------------------------------------------------
+
+    def param_arrays(self) -> Dict[str, torch.Tensor]:
+        """The unit's parameters by name — the keys the JAX package's
+        `param_arrays()` uses; `{}` for parameterless layers."""
+        if self.weights is None:
+            return {}
+        return {"weights": self.weights, "bias": self.bias}
+
+    def initialize(self, sample_shape: Tuple[int, ...],
+                   device: torch.device) -> Tuple[int, ...]:
+        raise NotImplementedError
+
+    def fused_apply(self, params: Dict[str, Any], x: torch.Tensor, *,
+                    train: bool = False) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fused_apply(self.param_arrays(), x, train=False)
+
