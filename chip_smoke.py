@@ -6,36 +6,68 @@
 1. Print the card's name and power limit (nvidia-smi); fail without CUDA.
 2. Build the port's CUDA kernels from veles_tpu_torch/csrc/ (nvcc, one
    process per source, all at once) and print the build seconds.
-3. For K2 (LRN forward) and K4 (fused LRN -> max pool forward), at both
-   AlexNet shapes at batch 64 in f32: hold the kernel against its plain
-   PyTorch version on the same inputs (|kernel - plain| <= 1e-6 +
-   1e-5*|plain|: the same f32 arithmetic in the same order, so only the
-   rsqrt approximation differs), and time the kernel, the plain version,
-   and for K2 the one PyTorch call computing the same function
-   (F.local_response_norm, checked first to agree), each launch with a
-   cold L2 cache, beside the least time the card could take.
-4. Serve the full-width AlexNet (227x227x3, fc 4096, 1000 classes, ring of
-   64) through the same function the CLI uses, under lrn_maxpool=fused
-   and again under composed, with one seed. POST 1, 8 and 64 rows over
-   loopback HTTP; check 200, shapes (rows, 1000), finite softmax rows
-   summing to 1, the same classes under both settings, and the served
-   outputs against the plain forward on the card (max abs 1e-5: only the
-   LRN's rsqrt rounding differs, carried linearly to probabilities of
-   ~1e-3). Launch counters are zeroed just before each setting's requests
-   and read just after: K4 must have launched under fused, K2 under
-   composed.
-5. Print one {"kernels": [...]} line, then the card line and the closing
+3. KERNEL lines. Each kernel is held against its plain PyTorch version on
+   the same inputs (|kernel - plain| <= 1e-6 + 1e-5*|plain|: the same f32
+   arithmetic in the same order, so at most the rsqrt approximation
+   differs) and timed beside its plain version and the least time the card
+   could take, each launch with a cold L2 cache (median of 25):
+   - K2 (LRN forward) and K4 (fused LRN -> max pool forward) at both
+     AlexNet LRN shapes at the serving ring's batch 64, K2 also beside the
+     one PyTorch call computing the same function (F.local_response_norm,
+     checked first to agree);
+   - K3 (LRN backward) and K5 (fused LRN -> max pool backward) at both
+     shapes at the training batch 128, on post-ReLU inputs (half zeros, so
+     pooling windows tie as they do in training), and K1 (the SGD update)
+     over all 16 AlexNet leaves (62,378,344 parameters), each leaf at its
+     own learning rate. No single PyTorch call computes K3, K5 or K1.
+4. SERVE: serve the full-width AlexNet (227x227x3, fc 4096, 1000 classes,
+   ring of 64) through the same function the CLI uses, under
+   lrn_maxpool=fused and again under composed, with one seed. POST 1, 8
+   and 64 rows over loopback HTTP; check 200, shapes (rows, 1000), finite
+   softmax rows summing to 1, the same classes under both settings, and
+   the served outputs against the plain forward on the card (max abs 1e-5:
+   only the LRN's rsqrt rounding differs, carried linearly to
+   probabilities of ~1e-3). Launch counters are zeroed just before each
+   setting's requests and read just after: K4 must have launched under
+   fused, K2 under composed. FORWARD lines time each step of one ring.
+5. TRAIN: train the full-width AlexNet one epoch (4 train steps of 128 and
+   one validation step) through the function the `--fused` CLI uses,
+   under fused and again under composed, from one seed; counters zeroed
+   just before each and read just after: K4, K5 and K1 must have launched
+   under fused, K2, K3 and K1 under composed, and the loss be finite. Each
+   step's device time comes from CUDA events around it.
+6. Held on the card (TF32 off, as the step runs):
+   (a) the first full-width train step through the kernels against the
+       same step with every kernel swapped for its plain version, from one
+       state and batch: the loss, and every leaf and velocity after the
+       update, within 1e-7 + 1e-4*|plain| (the LRN and update arithmetic
+       is the same; cuDNN's weight-gradient sums are not bit-stable);
+   (b) fused against composed on that step: the same n_err, the loss
+       within the same tolerance;
+   (c) the toy AlexNet (input 67, width 1/8, fc 64, 16 classes, batch 8,
+       dropout 0) for 3 steps on the card against the same 3 steps on the
+       CPU from one seed — the CPU path tier-1 holds against the JAX
+       package — under the same tolerance. Each batch is one whose CPU
+       forward has no max-pool window with its two largest values, and no
+       ReLU input, within 1e-5 of the layer's largest magnitude of each
+       other (or of zero): there two f32 implementations may route the
+       gradient differently, which is the max's and the ReLU's
+       discontinuity, not a fault.
+   A profiler pass over one more full-width step splits its device time
+   by kernel family (written to chiprun_out/train_profile.json).
+7. Print one {"kernels": [...]} line, then the card line and the closing
    {"ok": true, "device": {...}} line.
 
 The script leaves PyTorch's TF32 defaults as they are: the server's
-forward turns TF32 off for itself (the port serves f32), and the plain
-forward and the per-step times here run under the same
-`backends.full_f32`. Any failure raises before the last line, and the exit
-code is then not 0.
+forward and the train step turn TF32 off for themselves (the port
+computes in f32), and the plain forward and the per-step times here run
+under the same `backends.full_f32`. Any failure raises before the last
+line, and the exit code is then not 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -49,13 +81,30 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ALEXNET = os.path.join(REPO, "veles_tpu_torch", "samples", "alexnet.py")
-B = 64                  # the ring, and the kernels' batch
+B = 64                  # the ring, and the forward kernels' batch
+TB = 128                # the training minibatch, and K3/K5's batch
 HW, N_CLASSES = 227, 1000
-#: extra CLI arguments of the served model (none: the full-width AlexNet)
+#: (H, W, C) of AlexNet's two LRN inputs (each followed by a 3x3/2 pool)
+LRN_SHAPES = ((55, 55, 96), (27, 27, 256))
+#: AlexNet's 16 parameter leaves (HWIO conv weights, (fan_in, units) FC)
+LEAVES = ((11, 11, 3, 96), (96,), (5, 5, 96, 256), (256,),
+          (3, 3, 256, 384), (384,), (3, 3, 384, 384), (384,),
+          (3, 3, 384, 256), (256,), (9216, 4096), (4096,), (4096, 4096),
+          (4096,), (4096, 1000), (1000,))
+#: extra CLI arguments of the served and trained model (none: full width)
 SERVE_ARGS: list = []
+TRAIN_ARGS: list = []
+#: the toy AlexNet of the card-against-CPU check (c)
+TOY_ARGS = dict(input_hw=67, width_mult=0.125, fc_width=64, n_classes=16,
+                minibatch_size=8, n_train=8, n_validation=8, init="scaled")
 K, ALPHA, BETA, N = 2.0, 1e-4, 0.75, 5
+LR, MOMENTUM, DECAY = 0.01, 0.9, 5e-4
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 SERVE_ATOL = 1e-5
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-7
+TIE_TAU = 1e-5
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                   "chiprun_out")
 #: (name substring, HBM bytes/s, f32 non-tensor FLOP/s) — data-sheet peaks
 CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
          ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
@@ -121,7 +170,8 @@ def kernel_phase(kernels, dev, bw, flops):
     timer = ColdTimer(dev)
     rs = np.random.RandomState(0)
     rows = {"lrn_forward": [], "lrn_maxpool_forward": []}
-    for layer, shape in (("L1", (B, 55, 55, 96)), ("L2", (B, 27, 27, 256))):
+    for layer, hwc in zip(("L1", "L2"), LRN_SHAPES):
+        shape = (B,) + hwc
         # post-ReLU activations: half the inputs are zeros, so pooling
         # windows tie as they do on the served path
         x = torch.from_numpy(np.maximum(rs.randn(*shape), 0)
@@ -346,6 +396,476 @@ def serve_phase(launcher, kernels, dev):
     return launches
 
 
+def lrn_grad_ops(numel: int) -> int:
+    """f32 operations of one LRN gradient element: s and d as in the
+    forward (n + 6), t = g*x*d/s (3), the window sum of t (n - 1) and
+    dx = g*d - c2*x*tsum (4): 2n + 12."""
+    return numel * (2 * N + 12)
+
+
+def leaf_lr(shape) -> float:
+    """AlexNet's per-leaf learning rate: biases (1-D) at twice the lr."""
+    return LR * (2.0 if len(shape) == 1 else 1.0)
+
+
+def backward_kernel_phase(kernels, dev, bw, flops):
+    """Hold K3, K5 and K1 against their plain versions at the training
+    path's shapes and time them."""
+    timer = ColdTimer(dev)
+    rs = np.random.RandomState(2)
+    rows = {"lrn_backward": [], "lrn_maxpool_backward": [],
+            "sgd_update": []}
+    for layer, hwc in zip(("L1", "L2"), LRN_SHAPES):
+        shape = (TB,) + hwc
+        x = torch.from_numpy(np.maximum(rs.randn(*shape), 0)
+                             .astype(np.float32)).to(dev)
+        g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
+        nbytes = x.numel() * 4
+        # -- K3 ---------------------------------------------------------------
+        dk = kernels.lrn_backward(x, g, K, ALPHA, BETA, N)
+        dp = kernels.lrn_backward_plain(x, g, K, ALPHA, BETA, N)
+        torch.cuda.synchronize()
+        err = check_close(f"lrn_backward {layer}", dk, dp, KERNEL_RTOL,
+                          KERNEL_ATOL)
+        t_bytes, t_ops = 3 * nbytes / bw, lrn_grad_ops(x.numel()) / flops
+        rows["lrn_backward"].append({
+            "shape": list(shape), "max_abs_err": err,
+            "ms": timer(lambda: kernels.lrn_backward(x, g, K, ALPHA, BETA,
+                                                     N)),
+            "plain_ms": timer(lambda: kernels.lrn_backward_plain(
+                x, g, K, ALPHA, BETA, N)),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        del dk, dp, g
+        # -- K5 ---------------------------------------------------------------
+        oh = -(-(hwc[0] - 3) // 2) + 1
+        ow = -(-(hwc[1] - 3) // 2) + 1
+        gp = torch.from_numpy(rs.randn(TB, oh, ow, hwc[2])
+                              .astype(np.float32)).to(dev)
+        dk = kernels.lrn_maxpool_backward(x, gp, K, ALPHA, BETA, N)
+        dp = kernels.lrn_maxpool_backward_plain(x, gp, K, ALPHA, BETA, N)
+        torch.cuda.synchronize()
+        err = check_close(f"lrn_maxpool_backward {layer}", dk, dp,
+                          KERNEL_RTOL, KERNEL_ATOL)
+        t_bytes = (2 * nbytes + gp.numel() * 4) / bw
+        # the LRN values (2n + 6), the window maxima (8 compares per
+        # pooled output), the routed sums (at most 4) and the gradient
+        t_ops = ((2 * N + 6 + 4) * x.numel() + lrn_grad_ops(x.numel())
+                 + 8 * gp.numel()) / flops
+        rows["lrn_maxpool_backward"].append({
+            "shape": list(shape), "g_shape": list(gp.shape),
+            "max_abs_err": err,
+            "ms": timer(lambda: kernels.lrn_maxpool_backward(
+                x, gp, K, ALPHA, BETA, N)),
+            "plain_ms": timer(lambda: kernels.lrn_maxpool_backward_plain(
+                x, gp, K, ALPHA, BETA, N)),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        for name in ("lrn_backward", "lrn_maxpool_backward"):
+            print_kernel_line(name, layer, rows[name][-1])
+        del x, gp, dk, dp
+    # -- K1: one update of every AlexNet leaf ---------------------------------
+    def leaf(shape, scale):
+        return torch.from_numpy((scale * rs.randn(*shape))
+                                .astype(np.float32)).to(dev)
+    ps = [leaf(sh, 0.01) for sh in LEAVES]
+    gs = [leaf(sh, 1e-3) for sh in LEAVES]
+    vs = [leaf(sh, 1e-3) for sh in LEAVES]
+    pk, vk = [p.clone() for p in ps], [v.clone() for v in vs]
+
+    def update(fn, p_list, v_list):
+        for sh, p, g, v in zip(LEAVES, p_list, gs, v_list):
+            fn(p, g, v, leaf_lr(sh), MOMENTUM, DECAY)
+
+    update(kernels.sgd_update, pk, vk)
+    update(kernels.sgd_update_plain, ps, vs)
+    torch.cuda.synchronize()
+    err = max(max(check_close(f"sgd_update p {sh}", a, b, KERNEL_RTOL,
+                              KERNEL_ATOL),
+                  check_close(f"sgd_update v {sh}", c, d, KERNEL_RTOL,
+                              KERNEL_ATOL))
+              for sh, a, b, c, d in zip(LEAVES, pk, ps, vk, vs))
+    n = sum(p.numel() for p in ps)
+    t_bytes, t_ops = 5 * 4 * n / bw, 6 * n / flops
+    rows["sgd_update"].append({
+        "shape": f"{len(LEAVES)} AlexNet leaves", "elements": n,
+        "max_abs_err": err,
+        "ms": timer(lambda: update(kernels.sgd_update, pk, vk)),
+        "plain_ms": timer(lambda: update(kernels.sgd_update_plain, ps, vs)),
+        "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    print_kernel_line("sgd_update", "all", rows["sgd_update"][-1])
+    del ps, gs, vs, pk, vk
+    torch.cuda.empty_cache()
+    return rows
+
+
+def print_kernel_line(name, layer, r):
+    print(f"KERNEL {name} {layer} {r['shape']}: ms {r['ms']:.4f} plain_ms "
+          f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
+          f"{r['max_abs_err']:.3e}", flush=True)
+
+
+def train_phase(launcher, kernels, dev):
+    """Train the full-width AlexNet one epoch under both lrn_maxpool
+    settings through `launcher.train`, the `--fused` CLI's function."""
+    from veles_tpu_torch.parallel.fused import FusedTrainStep
+
+    events = []
+    inner = {"train": FusedTrainStep.train,
+             "evaluate": FusedTrainStep.evaluate}
+
+    def timed(kind):
+        def call(self, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner[kind](self, *args, **kwargs)
+            end.record()
+            events.append((kind, start, end))
+            return out
+        return call
+
+    launches = {}
+    want = {"fused": ("lrn_maxpool_forward", "lrn_maxpool_backward",
+                      "sgd_update"),
+            "composed": ("lrn_forward", "lrn_backward", "sgd_update")}
+    tf32_default = tf32_flags()
+    FusedTrainStep.train = timed("train")
+    FusedTrainStep.evaluate = timed("evaluate")
+    try:
+        for setting in ("fused", "composed"):
+            events.clear()
+            t0 = time.perf_counter()
+            # -- the main path: counts zeroed just before, read just after
+            kernels.reset_launch_counts()
+            wf = launcher.train([ALEXNET, "--fused", "-r", "1234",
+                                 "--lrn-maxpool", setting,
+                                 "root.alexnet.decision.max_epochs=1",
+                                 *TRAIN_ARGS])
+            counts = kernels.launch_counts()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches[setting] = counts
+            steps = [(kind, s.elapsed_time(e)) for kind, s, e in events]
+            loss = wf.evaluator.loss
+            print(f"TRAIN {setting}: {wf.decision.epoch_number} epoch in "
+                  f"{wall:.2f} s of host time (data, init and steps) on "
+                  f"{wf.device}; step device ms (CUDA events) "
+                  + ", ".join(f"{k} {ms:.3f}" for k, ms in steps),
+                  flush=True)
+            print(f"TRAIN {setting}: train-pass loss {loss}; history "
+                  f"{wf.decision.history}; launches {counts}", flush=True)
+            if wf.device != dev:
+                raise AssertionError(f"trained on {wf.device}, not {dev}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"non-finite loss {loss}")
+            if tf32_flags() != tf32_default:
+                raise AssertionError("training changed the process's TF32 "
+                                     "flags")
+            for name, c in counts.items():
+                if name in want[setting] and c <= 0:
+                    raise AssertionError(f"{name} never launched under "
+                                         f"lrn_maxpool={setting}")
+                if name not in want[setting] and c != 0:
+                    raise AssertionError(f"{name} launched {c} times under "
+                                         f"lrn_maxpool={setting}")
+            del wf
+            torch.cuda.empty_cache()
+    finally:
+        FusedTrainStep.train = inner["train"]
+        FusedTrainStep.evaluate = inner["evaluate"]
+    return launches
+
+
+@contextlib.contextmanager
+def plain_kernels(kernels):
+    """Every kernel wrapper swapped for its plain version: the autograd
+    functions and the update variant call the wrappers by module name."""
+    names = ("sgd_update", "lrn_forward", "lrn_backward",
+             "lrn_maxpool_forward", "lrn_maxpool_backward")
+    saved = {n: getattr(kernels, n) for n in names}
+    for n in names:
+        setattr(kernels, n, getattr(kernels, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(kernels, n, f)
+
+
+def clone_state(state):
+    return {"params": tuple({k: t.detach().clone().requires_grad_(True)
+                             for k, t in layer.items()}
+                            for layer in state["params"]),
+            "vel": tuple({k: t.clone() for k, t in layer.items()}
+                         for layer in state["vel"]),
+            "lr_scale": state["lr_scale"]}
+
+
+def compare_states(what, got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+    """Max abs error over every leaf and velocity; raises beyond
+    atol + rtol*|want|."""
+    err = 0.0
+    for slot in ("params", "vel"):
+        for i, (a, b) in enumerate(zip(got[slot], want[slot])):
+            for k in a:
+                err = max(err, check_close(
+                    f"{what}: {slot} unit {i} {k}", a[k].detach().cpu(),
+                    b[k].detach().cpu(), rtol, atol))
+    return err
+
+
+def check_loss(what, got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+    if not abs(got - want) <= atol + rtol * abs(want):
+        raise AssertionError(f"{what}: loss {got} != {want}")
+
+
+def step_split_ms(step, state, x, y, w):
+    """Device ms of the forward (with the loss), the backward and the
+    update of one train step, by CUDA events between the three parts of
+    FusedTrainStep.train's body (repeated here to place the events)."""
+    from veles_tpu_torch.backends import full_f32
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    xb, yb, wb = step._batch(x, y, w)
+    leaves = [t for layer in state["params"] for t in layer.values()]
+    ev[0].record()
+    with torch.enable_grad(), full_f32(step.device):
+        out = step.fwd._forward(state["params"], xb, train=True,
+                                gen=step.gen)
+        loss, _ = step._loss_metrics(out, yb, wb)
+        ev[1].record()
+        grads = iter(torch.autograd.grad(loss, leaves))
+        ev[2].record()
+    with torch.no_grad():
+        for p, v, cfg in zip(state["params"], state["vel"], step.cfgs):
+            if p:
+                step._sgd.apply(p, {k: next(grads) for k in p}, v, cfg,
+                                lr_scale=state["lr_scale"])
+    ev[3].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def kernel_family(name: str) -> str:
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    if "lrn" in low or "max_pool" in low or "maxpool" in low:
+        return "lrn/pool"
+    if "sgd_update" in low:
+        return "update"
+    # cuDNN's FFT convolutions run complex (cf32) GEMMs and flip filters
+    if any(t in low for t in ("conv", "cudnn", "wgrad", "dgrad", "fprop",
+                              "implicit", "cf32", "flip_filter")):
+        return "conv"
+    if any(t in low for t in ("gemm", "gemv", "cublas", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def profile_step(step, state, x, y, w):
+    """Device time of one train step by kernel family, from
+    torch.profiler's CUDA activity; the kernels' table goes to
+    chiprun_out/train_profile.json."""
+    from torch.profiler import ProfilerActivity, profile
+    step.train(state, x, y, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step.train(state, x, y, w)
+        torch.cuda.synchronize()
+    kernels_us = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        if us is None:
+            us = e.cuda_time
+        kernels_us[e.name] = kernels_us.get(e.name, 0.0) + float(us)
+    families = {}
+    for name, us in kernels_us.items():
+        fam = kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + us / 1e3
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "train_profile.json"), "w") as f:
+        json.dump({"ms_by_family": families,
+                   "us_by_kernel": dict(sorted(kernels_us.items(),
+                                               key=lambda kv: -kv[1]))},
+                  f, indent=1)
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]
+    print("PROFILE one fused train step, device ms by family "
+          f"{ {k: round(v, 4) for k, v in families.items()} }; top "
+          "kernels (us): " + "; ".join(f"{n[:60]} {us:.1f}"
+                                        for n, us in top), flush=True)
+    return families
+
+
+def step_checks(kernels, variants, dev):
+    """(a) kernels against plain versions and (b) fused against composed,
+    on the first full-width train step from one state and batch; then
+    the step's split by CUDA events and by profiler."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow()
+    wf.initialize(dev)
+    steps = {}
+    for setting in ("fused", "composed"):
+        variants.select("lrn_maxpool", setting)
+        steps[setting] = wf.build_fused_step()
+    variants.clear_selection("lrn_maxpool")
+    s0 = steps["fused"].init_state()
+    rs = np.random.RandomState(3)
+    mb, shape = wf.loader.minibatch_size, wf.loader.sample_shape
+    x = rs.randn(mb, *shape).astype(np.float32)
+    y = rs.randint(0, wf.n_classes, mb)
+    w = np.ones(mb, np.float32)
+
+    def run(setting, plain=False):
+        st = clone_state(s0)
+        # every run draws the same dropout masks
+        steps[setting].gen = prng.get().torch_generator(dev)
+        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+            st, (loss, n_err) = steps[setting].train(st, x, y, w)
+        torch.cuda.synchronize()
+        return st, float(loss), int(n_err)
+
+    kst, kloss, kerr = run("fused")
+    pst, ploss, perr = run("fused", plain=True)
+    check_loss("(a) kernel vs plain step", kloss, ploss)
+    if kerr != perr:
+        raise AssertionError(f"(a) n_err {kerr} != {perr}")
+    err_a = compare_states("(a) kernel vs plain step", kst, pst)
+    print(f"CHECK (a) first full-width train step, kernels vs plain "
+          f"versions: loss {kloss} vs {ploss}, n_err {kerr} vs {perr}, "
+          f"max abs err over every leaf and velocity {err_a:.3e} "
+          f"(tolerance {TRAIN_ATOL} + {TRAIN_RTOL}*|plain|)", flush=True)
+    cst, closs, cerr = run("composed")
+    check_loss("(b) fused vs composed step", kloss, closs)
+    if kerr != cerr:
+        raise AssertionError(f"(b) n_err {kerr} != {cerr}")
+    diff = max(float((a[k] - b[k]).detach().abs().max())
+               for slot in ("params", "vel")
+               for a, b in zip(kst[slot], cst[slot]) for k in a)
+    print(f"CHECK (b) fused vs composed: loss {kloss} vs {closs}, n_err "
+          f"{kerr} vs {cerr}; max abs leaf difference {diff:.3e}",
+          flush=True)
+    del kst, pst, cst
+    split = {}
+    for setting in ("fused", "composed"):
+        st = clone_state(s0)
+        step_split_ms(steps[setting], st, x, y, w)       # warm
+        split[setting] = [step_split_ms(steps[setting], st, x, y, w)
+                          for _ in range(3)]
+        print(f"SPLIT {setting}: forward+loss, backward, update device ms "
+              f"(3 steps, CUDA events) {split[setting]}", flush=True)
+    families = profile_step(steps["fused"], clone_state(s0), x, y, w)
+    del wf, steps, s0
+    torch.cuda.empty_cache()
+    return {"a_max_abs_err": err_a, "split": split,
+            "profile_ms": families}
+
+
+def near_ties(step, state, x, tau=TIE_TAU) -> bool:
+    """True when the CPU forward of `x` holds a max-pool window whose two
+    largest values, a ReLU input, or a row's two largest logits lie within
+    tau of the layer's largest magnitude of each other (or of zero): two
+    f32 implementations may decide such a max or sign differently."""
+    from veles_tpu_torch.ops import functional as fn
+
+    def pool_tie(y, ksize, stride):
+        ky, kx = ksize
+        sy, sx = stride
+        _, h, wd, _ = y.shape
+        oh, ow = fn.pool_out_hw(h, wd, ky, kx, sy, sx)
+        yp = torch.nn.functional.pad(
+            y, (0, 0, 0, (ow - 1) * sx + kx - wd, 0, (oh - 1) * sy + ky - h),
+            value=float("-inf"))
+        taps = torch.stack([yp[:, dy:dy + (oh - 1) * sy + 1:sy,
+                               dx:dx + (ow - 1) * sx + 1:sx]
+                            for dy in range(ky) for dx in range(kx)])
+        top = taps.topk(2, dim=0).values
+        gap = top[0] - top[1]
+        return bool(((gap > 0) & (gap <= tau * y.abs().max())).any())
+
+    h = torch.from_numpy(x)
+    fwd = step.fwd
+    with torch.inference_mode():
+        for i, (kind, j, v) in enumerate(fwd._plan):
+            u, p = fwd.forwards[i], state["params"][i]
+            if kind == "skip":
+                continue
+            if kind == "pair":
+                nxt = fwd.forwards[j]
+                y = fn.lrn_forward(h, u.k, u.alpha, u.beta, u.n)
+                if pool_tie(y, nxt.ksize, nxt.stride):
+                    return True
+                h = fn.maxpool_forward(y, nxt.ksize, nxt.stride)
+                continue
+            if getattr(u, "variant_op", None) == "maxpool" \
+                    and pool_tie(h, u.ksize, u.stride):
+                return True
+            if getattr(u, "activation", None) == "strictrelu":
+                if hasattr(u, "padding"):
+                    pre = fn.conv2d_forward(h, p["weights"], p["bias"],
+                                            u.stride, u.padding)
+                else:
+                    pre = fn.all2all_forward(h, p["weights"], p["bias"])
+                if bool((pre.abs() <= tau * pre.abs().max()).any()):
+                    return True
+            kw = {"variant": v} if v is not None else {}
+            h = u.fused_apply(p, h, train=False, **kw)
+        top = h.topk(2, dim=-1).values
+        return bool(((top[:, 0] - top[:, 1])
+                     <= tau * h.abs().max()).any())
+
+
+def toy_card_vs_cpu(dev):
+    """(c) 3 train steps of the toy AlexNet on the card against the same
+    steps on the CPU, from one seed, on batches without near ties."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    steps, states = {}, {}
+    for d in ("cpu", dev):
+        prng.seed_all(1234)
+        wf = alexnet.create_workflow(**TOY_ARGS)
+        for u in wf.forwards:
+            if hasattr(u, "dropout_ratio"):
+                u.dropout_ratio = 0.0
+        wf.initialize(d)
+        steps[d] = wf.build_fused_step()
+        states[d] = steps[d].init_state()
+    compare_states("(c) initial state", states[dev], states["cpu"], 0.0, 0.0)
+    rs = np.random.RandomState(4)
+    shape = (TOY_ARGS["minibatch_size"], TOY_ARGS["input_hw"],
+             TOY_ARGS["input_hw"], 3)
+    for i in range(3):
+        for draw in range(100):
+            x = rs.randn(*shape).astype(np.float32)
+            y = rs.randint(0, TOY_ARGS["n_classes"], shape[0])
+            w = np.ones(shape[0], np.float32)
+            if not near_ties(steps["cpu"], states["cpu"], x):
+                break
+        else:
+            raise AssertionError("(c): 100 batches in a row with near ties")
+        out = {}
+        for d in ("cpu", dev):
+            states[d], (loss, n_err) = steps[d].train(states[d], x, y, w)
+            out[d] = (float(loss), int(n_err))
+        check_loss(f"(c) step {i} card vs cpu", out[dev][0], out["cpu"][0])
+        if out[dev][1] != out["cpu"][1]:
+            raise AssertionError(f"(c) step {i}: n_err {out[dev][1]} != "
+                                 f"{out['cpu'][1]}")
+        err = compare_states(f"(c) step {i} card vs cpu", states[dev],
+                             states["cpu"])
+        print(f"CHECK (c) toy step {i} (batch draw {draw}) card vs cpu: "
+              f"loss {out[dev][0]} vs {out['cpu'][0]}, n_err {out[dev][1]} "
+              f"vs {out['cpu'][1]}, max abs err over every leaf and "
+              f"velocity {err:.3e}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -372,22 +892,40 @@ def main() -> int:
     print(f"BUILD {len(libs)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     rows = kernel_phase(kernels, dev, bw, flops)
-    launches = serve_phase(launcher, kernels, dev)
+    rows.update(backward_kernel_phase(kernels, dev, bw, flops))
+    by_path = {"serve": serve_phase(launcher, kernels, dev)}
+    for setting, counts in train_phase(launcher, kernels, dev).items():
+        by_path[f"train_{setting}"] = counts
+    from veles_tpu_torch.ops import variants
+    checks = step_checks(kernels, variants, dev)
+    toy_card_vs_cpu(dev)
 
-    meta = {"lrn_forward": ("veles_tpu_torch/csrc/lrn_forward.cu",
-                            "veles_tpu/ops/pallas_kernels.py:164"),
-            "lrn_maxpool_forward": (
-                "veles_tpu_torch/csrc/lrn_maxpool_forward.cu",
-                "veles_tpu/ops/pallas_kernels.py:349")}
+    meta = {
+        "sgd_update": ("veles_tpu_torch/csrc/sgd_update.cu",
+                       "veles_tpu/ops/pallas_kernels.py:97"),
+        "lrn_forward": ("veles_tpu_torch/csrc/lrn_forward.cu",
+                        "veles_tpu/ops/pallas_kernels.py:164"),
+        "lrn_backward": ("veles_tpu_torch/csrc/lrn_backward.cu",
+                         "veles_tpu/ops/pallas_kernels.py:171"),
+        "lrn_maxpool_forward": (
+            "veles_tpu_torch/csrc/lrn_maxpool_forward.cu",
+            "veles_tpu/ops/pallas_kernels.py:349"),
+        "lrn_maxpool_backward": (
+            "veles_tpu_torch/csrc/lrn_maxpool_backward.cu",
+            "veles_tpu/ops/pallas_kernels.py:362")}
     entries = []
     for name, per_shape in rows.items():
         lib = [r["library_ms"] for r in per_shape]
         entries.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "replaces": meta[name][1],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {path: c[name]
+                                 for path, c in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-            # one served batch runs each kernel once per AlexNet shape:
-            # the times below are the sums over the two shapes
+            # a served or trained batch runs each LRN kernel once per
+            # AlexNet shape, and K1 once per leaf: the times below are the
+            # sums over the shapes (K2, K4 at batch 64; K3, K5 at 128)
             "ms": sum(r["ms"] for r in per_shape),
             "plain_ms": sum(r["plain_ms"] for r in per_shape),
             "bound_ms": sum(r["bound_ms"] for r in per_shape),
@@ -396,6 +934,10 @@ def main() -> int:
                          else "operations"),
             "library_ms": None if None in lib else sum(lib),
             "shapes": per_shape})
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "kernels": entries, "launches": by_path,
+                   "checks": checks}, f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ differences stay near f32 rounding, and the classes must be equal.
 
 import http.client
 import json
+import socket
 import urllib.error
 import urllib.request
 
@@ -223,6 +224,31 @@ def test_http_round_trip_on_loopback():
     finally:
         srv.stop()
     assert srv._batcher is None
+
+
+def test_refused_request_is_answered_after_its_body():
+    """A request refused for its token is answered only once its body is
+    in: answering while the client still sends, then closing with the
+    body unread, resets the connection, and the client sees a broken pipe
+    in place of the 403."""
+    srv = InferenceServer(_port_wf(67), ring_slots=4, device="cpu",
+                          token="s3cret", max_body=1 << 20).start()
+    try:
+        body = b"x" * 4096
+        with socket.create_connection(("127.0.0.1", srv.port),
+                                      timeout=30) as s:
+            s.sendall(b"POST /predict HTTP/1.1\r\nHost: t\r\n"
+                      b"Content-Length: %d\r\n\r\n" % len(body)
+                      + body[:1024])
+            s.settimeout(0.5)
+            with pytest.raises(socket.timeout):
+                s.recv(1)
+            s.settimeout(30)
+            s.sendall(body[1024:])
+            reply = s.makefile("rb").readline()
+        assert reply.split()[1] == b"403", reply
+    finally:
+        srv.stop()
 
 
 def test_overload_sheds_with_503():

@@ -1,6 +1,7 @@
-"""`python -m veles_tpu_torch <alexnet.py> --serve 0 --device cpu`: the
-port's command line serves a toy AlexNet, answers a request over
-loopback, and exits cleanly on SIGINT."""
+"""The port's command line: `python -m veles_tpu_torch <alexnet.py> --serve
+0 --device cpu` serves a toy AlexNet, answers a request over loopback, and
+exits cleanly on SIGINT; `--fused` trains it; one of the two is
+required."""
 
 import json
 import os
@@ -12,6 +13,7 @@ import urllib.request
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -60,3 +62,35 @@ def test_cli_serves_and_stops_on_sigint():
             proc.wait(timeout=30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+TOY = ["root.alexnet.loader.input_hw=67", "root.alexnet.width_mult=0.125",
+       "root.alexnet.fc_width=64", "root.alexnet.n_classes=16",
+       "root.alexnet.loader.n_train=8", "root.alexnet.loader.n_validation=4",
+       "root.alexnet.loader.minibatch_size=4"]
+
+
+def test_cli_trains_with_fused():
+    cmd = [sys.executable, "-m", "veles_tpu_torch",
+           "veles_tpu_torch/samples/alexnet.py", "--fused", "--device", "cpu",
+           "-r", "1", "--lrn-maxpool", "composed", *TOY,
+           "root.alexnet.decision.max_epochs=1"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    line = r.stdout.strip().splitlines()[-1]
+    assert line.startswith("TRAINED 1 epochs: loss "), line
+    assert "'epoch': 1" in line and "'train_err'" in line
+
+
+@pytest.mark.parametrize("mode", [["--fused", "--serve", "0"], []])
+def test_cli_needs_exactly_one_of_fused_and_serve(mode):
+    cmd = [sys.executable, "-m", "veles_tpu_torch",
+           "veles_tpu_torch/samples/alexnet.py", "--device", "cpu", *mode,
+           *TOY]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 2, (r.returncode, r.stderr[-2000:])
+    assert ("give one of them" if mode else "later slice") in r.stderr

@@ -2,6 +2,7 @@
 its entry points ask for the card unless told otherwise."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -73,6 +74,48 @@ def test_every_module_imports_with_jax_blocked():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert int(r.stdout.strip()) >= 15
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(REPO).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+MODULES = sorted(_module_name(p) for p in PKG.rglob("*.py"))
+
+
+@pytest.fixture(scope="module")
+def imports_with_jax_blocked():
+    """{module: None or the error} of importing every module of the port
+    in one fresh interpreter where `jax` and `veles_tpu` cannot be
+    imported, plus whether either got loaded anyway."""
+    code = (
+        "import importlib, json, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['veles_tpu'] = None\n"
+        f"names = {MODULES!r}\n"
+        "out = {}\n"
+        "for n in names:\n"
+        "    try:\n"
+        "        importlib.import_module(n)\n"
+        "        out[n] = None\n"
+        "    except Exception as e:\n"
+        "        out[n] = repr(e)\n"
+        "out['<jax loaded>'] = any(k == 'jax' or k.startswith(('jax.', "
+        "'veles_tpu.')) for k, v in sys.modules.items() if v is not None)\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_with_jax_blocked(module, imports_with_jax_blocked):
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+    assert imports_with_jax_blocked["<jax loaded>"] is False
 
 
 def test_entry_points_ask_for_the_card(monkeypatch):

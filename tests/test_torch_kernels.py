@@ -45,8 +45,6 @@ def test_lrn_forward_plain_matches_pallas_and_golden():
     for got in (kernels.lrn_forward(_t(x), K, ALPHA, BETA, N),
                 kernels.lrn_forward_plain(_t(x), K, ALPHA, BETA, N),
                 variants.get("lrn", "kernel").apply(
-                    _t(x), k=K, alpha=ALPHA, beta=BETA, n=N),
-                variants.get("lrn", "plain").apply(
                     _t(x), k=K, alpha=ALPHA, beta=BETA, n=N)):
         np.testing.assert_allclose(got.numpy(), want_pallas, rtol=RTOL,
                                    atol=ATOL)
@@ -89,8 +87,7 @@ def test_lrn_maxpool_plain_matches_fused_pallas_and_golden(hw):
               stride=(2, 2))
     for got in (kernels.lrn_maxpool_forward(_t(x), K, ALPHA, BETA, N),
                 kernels.lrn_maxpool_forward_plain(_t(x), K, ALPHA, BETA, N),
-                variants.get("lrn_maxpool", "fused").apply(_t(x), **kw),
-                variants.get("lrn_maxpool", "composed").apply(_t(x), **kw)):
+                variants.get("lrn_maxpool", "fused").apply(_t(x), **kw)):
         assert tuple(got.shape) == want_gold.shape
         np.testing.assert_allclose(got.numpy(), want_pallas, rtol=RTOL,
                                    atol=ATOL)
@@ -136,32 +133,52 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     x = torch.randn(1, 9, 9, 8)
     kernels.lrn_forward(x)
     kernels.lrn_maxpool_forward(x)
-    assert kernels.launch_counts() == {"lrn_forward": 0,
-                                       "lrn_maxpool_forward": 0}
+    kernels.lrn_backward(x, torch.randn(1, 9, 9, 8))
+    kernels.lrn_maxpool_backward(x, torch.randn(1, 4, 4, 8))
+    p, v = torch.randn(5), torch.zeros(5)
+    kernels.sgd_update(p, torch.randn(5), v, 0.1, 0.9, 1e-3)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert set(kernels.KERNELS) == {"sgd_update", "lrn_forward",
+                                    "lrn_backward", "lrn_maxpool_forward",
+                                    "lrn_maxpool_backward"}
     meta = torch.empty(1, 9, 9, 8, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        kernels.lrn_forward(meta)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        kernels.lrn_maxpool_forward(meta)
+    for call in (lambda: kernels.lrn_forward(meta),
+                 lambda: kernels.lrn_maxpool_forward(meta),
+                 lambda: kernels.lrn_backward(meta, meta),
+                 lambda: kernels.lrn_maxpool_backward(meta, meta),
+                 lambda: kernels.sgd_update(meta, meta, meta, 0.1)):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
 
 
 def test_registry_resolution_and_device_gating():
-    prev = {op: variants.selected(op) for op in ("lrn", "lrn_maxpool")}
+    """Every registry entry selects a path that runs; no entry depends on
+    the device (a wrapper takes its plain version on a CPU tensor by
+    itself), and `lrn_maxpool/composed` is a marker with no `apply`."""
+    assert {op: sorted(spec.variants) for op, spec in variants._OPS.items()} \
+        == {"lrn": ["kernel"], "lrn_maxpool": ["composed", "fused"],
+            "sgd_update": ["kernel", "tree"]}
+    with pytest.raises(KeyError):
+        variants.get("lrn", "plain")
+    composed = variants.get("lrn_maxpool", "composed")
+    assert composed.apply is None and not composed.fused
+    assert variants.get("lrn_maxpool", "fused").fused
+    prev = {op: variants.selected(op)
+            for op in ("lrn", "lrn_maxpool", "sgd_update")}
     try:
-        variants.select("lrn", "plain")
-        cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-        assert variants.resolve("lrn", device=cpu).name == "plain"
-        # on the card, lrn always resolves to its kernel
-        assert variants.resolve("lrn", device=cuda).name == "kernel"
+        variants.select("lrn_maxpool", "composed")
+        assert variants.resolve("lrn_maxpool").name == "composed"
 
         class Unit:
-            variant_override = "kernel"
-        assert variants.resolve("lrn", unit=Unit(), device=cpu).name \
-            == "kernel"
-        variants.select("lrn_maxpool", "composed")
-        assert not variants.resolve("lrn_maxpool", device=cuda).fused
+            variant_override = "tree"
+        assert variants.resolve("sgd_update").name == "kernel"
+        assert variants.resolve("sgd_update", unit=Unit()).name == "tree"
+        variants.select("sgd_update", "tree")
+        assert variants.resolve("sgd_update").name == "tree"
         with pytest.raises(KeyError):
             variants.select("lrn_maxpool", "pallas_one_pass")
+        with pytest.raises(KeyError):
+            variants.select("lrn", "plain")
     finally:
         for op, name in prev.items():
             if name is None:
@@ -169,6 +186,7 @@ def test_registry_resolution_and_device_gating():
             else:
                 variants.select(op, name)
     assert variants.resolve("lrn_maxpool").name == "fused"   # default
+    assert variants.resolve("sgd_update").name == "kernel"   # default
 
 
 def test_kernel_argument_checks():
@@ -180,6 +198,19 @@ def test_kernel_argument_checks():
                                 5, 4)
     with pytest.raises(ValueError, match="4-d"):
         kernels._check_lrn_args(torch.zeros(4, 4), 5, 4)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        kernels._check_lrn_args(torch.zeros(1, 2, 2, 4, requires_grad=True),
-                                5, 4)
+    with pytest.raises(ValueError, match="odd"):
+        kernels._check_lrn_args(torch.zeros(1, 2, 2, 4), 4, 4)
+    # a tensor that requires grad is taken: the kernels' gradients come
+    # through LRNFunction / LRNMaxPoolFunction
+    kernels._check_lrn_args(torch.zeros(1, 2, 2, 4, requires_grad=True), 5,
+                            4)
+    x = torch.zeros(1, 2, 2, 4)
+    with pytest.raises(TypeError, match="float32"):
+        kernels._check_like("g", x.double(), x.shape, x)
+    with pytest.raises(ValueError, match="shape"):
+        kernels._check_like("g", x[:, :1], x.shape, x)
+    g = kernels._check_like("g", torch.zeros(1, 4, 2, 2).permute(0, 2, 3, 1),
+                            x.shape, x)
+    assert g.is_contiguous()
+    with pytest.raises(ValueError, match="geometry"):
+        kernels._pool_geometry((3, 0), (2, 2))

@@ -1,5 +1,5 @@
-"""`python -m veles_tpu_torch workflow.py --serve PORT ...` (see
-launcher.py)."""
+"""`python -m veles_tpu_torch workflow.py (--fused | --serve PORT) ...`
+(see launcher.py)."""
 
 import sys
 

@@ -1,9 +1,9 @@
 """Device choice for the port: the card by default, the CPU on request.
 
-The port's counterpart of `veles_tpu/backends.py`, reduced to the serving
-slice: a `torch.device`. Asking for the card where CUDA is absent raises;
+The port's counterpart of `veles_tpu/backends.py`, reduced to a
+`torch.device`. Asking for the card where CUDA is absent raises;
 nothing falls back to the CPU on its own. (The `Array` of `memory.py` and
-the granular per-unit backend dispatch wait for the training slice.)
+the granular per-unit backend dispatch come with a later slice.)
 """
 
 from __future__ import annotations

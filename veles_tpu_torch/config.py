@@ -127,5 +127,5 @@ def parse_override(arg: str) -> Tuple[str, Any]:
 root = Config()
 
 # Common defaults (parity: reference `veles/config.py` root.common.*).
-#: the serving slice computes in float32 only (serving.py checks it)
+#: the port computes in float32 only (serving.py checks it)
 root.common.precision_type = "float32"

@@ -9,11 +9,17 @@ FC weights (fan_in, units)), so the conversion is the identity on the
 values and only checks them. Given a built workflow, it checks every
 unit's names and shapes against the workflow's and loads the values into
 it; any mismatch raises.
+
+`state_from_jax(state, device, step=None)` carries a JAX fused-step state
+(`FusedTrainStep.init_state()` there: `params`, `vel`, `lr_scale`, and a
+PRNG key the port has no use for) across as the port step's state, with
+the same checks against `step`'s units; `state_to_numpy(state)` turns
+the port's state into host arrays for comparisons.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +43,10 @@ def params_from_jax(params: Sequence[Dict[str, np.ndarray]],
             if not np.issubdtype(arr.dtype, np.floating):
                 raise TypeError(f"unit {i} {name!r}: {arr.dtype} is not a "
                                 f"float parameter")
-            conv[name] = torch.from_numpy(
-                np.ascontiguousarray(arr, np.float32)).to(dev)
+            # a copy: the JAX package's host arrays are read-only, and the
+            # port's step updates its tensors in place
+            conv[name] = torch.tensor(np.asarray(arr, np.float32),
+                                      device=dev)
         out.append(conv)
     out = tuple(out)
     if workflow is not None:
@@ -46,8 +54,39 @@ def params_from_jax(params: Sequence[Dict[str, np.ndarray]],
     return out
 
 
-def _load_into(workflow, params: Tuple[Dict[str, torch.Tensor], ...]):
-    units = list(workflow.forwards)
+def state_from_jax(state: Dict[str, Any], device: DeviceLike = None,
+                   step=None) -> Dict[str, Any]:
+    """The port step's state from a JAX fused state: `params` as trainable
+    leaves and `vel` as tensors on `device`, `lr_scale` as a float.
+    Given `step`, the names and shapes of both must be its units'."""
+    params = params_from_jax(state["params"], device)
+    vel = params_from_jax(state["vel"], device)
+    for name, layers in (("params", params), ("vel", vel)):
+        try:
+            if step is not None:
+                _check_against(step.forwards, layers)
+        except ValueError as e:
+            raise ValueError(f"state[{name!r}]: {e}") from None
+    for layer in params:
+        for t in layer.values():
+            t.requires_grad_(True)
+    return {"params": params, "vel": vel,
+            "lr_scale": float(np.asarray(state["lr_scale"]))}
+
+
+def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """`params` and `vel` as tuples of {name: ndarray}, `lr_scale` as a
+    float."""
+    def host(layers):
+        return tuple({k: t.detach().cpu().numpy() for k, t in layer.items()}
+                     for layer in layers)
+    return {"params": host(state["params"]), "vel": host(state["vel"]),
+            "lr_scale": float(state["lr_scale"])}
+
+
+def _check_against(units, params: Tuple[Dict[str, torch.Tensor], ...]):
+    """Raise unless `params` has the names and shapes of `units`'s."""
+    units = list(units)
     if len(params) != len(units):
         raise ValueError(f"{len(params)} parameter sets for "
                          f"{len(units)} forward units")
@@ -62,6 +101,11 @@ def _load_into(workflow, params: Tuple[Dict[str, torch.Tensor], ...]):
                 raise ValueError(
                     f"unit {i} ({type(u).__name__}) {name!r}: shape "
                     f"{tuple(layer[name].shape)} != {tuple(t.shape)}")
+
+
+def _load_into(workflow, params: Tuple[Dict[str, torch.Tensor], ...]):
+    units = list(workflow.forwards)
+    _check_against(units, params)
     with torch.no_grad():
         for u, layer in zip(units, params):
             for name, t in u.param_arrays().items():

@@ -1,4 +1,4 @@
-// Across-channel LRN value shared by the two LRN kernels of this directory.
+// Across-channel LRN arithmetic shared by the LRN kernels of this directory.
 //
 // y = x * (k + alpha * sum_{|d| <= half} x[c+d]^2)^(-beta), zero outside
 // [0, C). The window sum adds the taps in the order the plain PyTorch
@@ -8,10 +8,15 @@
 // when 4*beta is an integer q in [1, 16] (AlexNet: beta = 0.75, q = 3),
 // else powf.
 //
+// The gradient (lrn_grad) is the closed form of the JAX package's
+// `_lrn_bwd_kernel`: dx = g*d - c2*x*W(t), t = g*x*d/s, d = s^(-beta),
+// c2 = 2*alpha*beta, with W the same window sum.
+//
 // Every multiply and add is spelled with the round-to-nearest intrinsics
 // so that nvcc contracts none of them into an FMA: the LRN value is then
 // bit-identical in every kernel that includes this header, and the fused
-// LRN->max-pool kernel pools exactly the values the LRN kernel writes.
+// LRN->max-pool kernels pool and route exactly the values the LRN kernel
+// writes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,10 +37,10 @@ __device__ __forceinline__ float lrn_pow_neg(float s, int q, float beta) {
   return out;
 }
 
-// LRN of the element at channel c of the C-wide channel row `row`.
-__device__ __forceinline__ float lrn_value(const float* __restrict__ row,
+// s = k + alpha * W(x^2) at channel c of the C-wide channel row `row`.
+__device__ __forceinline__ float lrn_scale(const float* __restrict__ row,
                                            int c, int C, int half, float k,
-                                           float alpha, int q, float beta) {
+                                           float alpha) {
   const float xc = __ldg(row + c);
   float acc = __fmul_rn(xc, xc);
   for (int d = 1; d <= half; ++d) {
@@ -43,6 +48,46 @@ __device__ __forceinline__ float lrn_value(const float* __restrict__ row,
     const float lo = (c - d >= 0) ? __ldg(row + c - d) : 0.0f;
     acc = __fadd_rn(__fadd_rn(acc, __fmul_rn(hi, hi)), __fmul_rn(lo, lo));
   }
-  const float s = __fadd_rn(k, __fmul_rn(alpha, acc));
-  return __fmul_rn(xc, lrn_pow_neg(s, q, beta));
+  return __fadd_rn(k, __fmul_rn(alpha, acc));
+}
+
+// LRN of the element at channel c of the C-wide channel row `row`.
+__device__ __forceinline__ float lrn_value(const float* __restrict__ row,
+                                           int c, int C, int half, float k,
+                                           float alpha, int q, float beta) {
+  const float s = lrn_scale(row, c, C, half, k, alpha);
+  return __fmul_rn(__ldg(row + c), lrn_pow_neg(s, q, beta));
+}
+
+// t = ((g*x)*d)/s at channel c; also hands back d = s^(-beta).
+__device__ __forceinline__ float lrn_grad_term(const float* __restrict__ x,
+                                               const float* __restrict__ g,
+                                               int c, int C, int half,
+                                               float k, float alpha, int q,
+                                               float beta, float* d_out) {
+  const float s = lrn_scale(x, c, C, half, k, alpha);
+  const float d = lrn_pow_neg(s, q, beta);
+  *d_out = d;
+  return __fdiv_rn(__fmul_rn(__fmul_rn(__ldg(g + c), __ldg(x + c)), d), s);
+}
+
+// dx at channel c of the channel rows x and g (the incoming gradient).
+__device__ __forceinline__ float lrn_grad(const float* __restrict__ x,
+                                          const float* __restrict__ g, int c,
+                                          int C, int half, float k,
+                                          float alpha, int q, float beta,
+                                          float c2) {
+  float d_c, unused;
+  float tsum = lrn_grad_term(x, g, c, C, half, k, alpha, q, beta, &d_c);
+  for (int dd = 1; dd <= half; ++dd) {
+    const float hi = (c + dd < C) ? lrn_grad_term(x, g, c + dd, C, half, k,
+                                                  alpha, q, beta, &unused)
+                                  : 0.0f;
+    const float lo = (c - dd >= 0) ? lrn_grad_term(x, g, c - dd, C, half, k,
+                                                   alpha, q, beta, &unused)
+                                   : 0.0f;
+    tsum = __fadd_rn(__fadd_rn(tsum, hi), lo);
+  }
+  return __fsub_rn(__fmul_rn(__ldg(g + c), d_c),
+                   __fmul_rn(__fmul_rn(c2, __ldg(x + c)), tsum));
 }

@@ -1,13 +1,17 @@
-"""Command line of the port: build a sample workflow and serve it.
+"""Command line of the port: build a sample workflow, then train or serve
+it.
 
-`python -m veles_tpu_torch WORKFLOW.py --serve PORT [--device cpu]
-[-r SEED] [--lrn-maxpool fused|composed] [--serve-ring N]
-[root.x=y ...]` — the port's counterpart of `veles_tpu/__main__.py` and
-the `--serve` branch of `veles_tpu/launcher.py`, reduced to the serving
-slice. The workflow module keeps the reference's `run(load, main)`
-convention: it registers its `root` defaults when imported, the trailing
-overrides win over them, `load(create_workflow)` builds the workflow and
-`main()` initializes it on the device and starts the server.
+`python -m veles_tpu_torch WORKFLOW.py (--fused | --serve PORT)
+[--device cpu] [-r SEED] [--lrn-maxpool fused|composed] [--serve-ring N]
+[root.x=y ...]` — the port's counterpart of `veles_tpu/__main__.py` and of
+the `--fused` and `--serve` branches of `veles_tpu/launcher.py`
+(launcher.py:898-907 there). The workflow module keeps the reference's
+`run(load, main)` convention: it registers its `root` defaults when
+imported, the trailing overrides win over them, `load(create_workflow)`
+builds the workflow and `main()` initializes it on the device and trains
+it through the fused step (`--fused`) or starts the server (`--serve`).
+The granular Unit/Workflow graph, the JAX package's mode without either
+flag, comes with a later slice.
 """
 
 from __future__ import annotations
@@ -29,14 +33,18 @@ from veles_tpu_torch.ops import variants
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="veles_tpu_torch",
-        description="Serve a workflow: veles_tpu_torch workflow.py "
-                    "--serve PORT [root.path.key=value ...]",
+        description="Train or serve a workflow: veles_tpu_torch "
+                    "workflow.py (--fused | --serve PORT) "
+                    "[root.path.key=value ...]",
         allow_abbrev=False)
     p.add_argument("workflow", help="workflow module (.py) with "
                                     "run(load, main)")
     p.add_argument("overrides", nargs="*", default=[],
                    help="trailing root.a.b=value overrides")
-    p.add_argument("--serve", type=int, required=True, metavar="PORT",
+    p.add_argument("--fused", action="store_true",
+                   help="train through the fused step until the workflow's "
+                        "decision completes")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve the workflow's forward over HTTP on PORT "
                         "(0 picks a free port)")
     p.add_argument("--device", default=None,
@@ -61,6 +69,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """Parse `argv`; exactly one of --fused and --serve (exit 2 else)."""
+    p = build_parser()
+    args = p.parse_intermixed_args(argv)
+    if args.fused and args.serve is not None:
+        p.error("--fused trains and --serve serves: give one of them")
+    if not args.fused and args.serve is None:
+        p.error("give --fused (train) or --serve PORT (serve); the "
+                "granular Unit/Workflow graph, which runs without either, "
+                "comes with a later slice of the port")
+    return args
+
+
 def _import_file(path: str, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or spec.loader is None:
@@ -71,14 +92,9 @@ def _import_file(path: str, name: str):
     return mod
 
 
-def serve(argv: Optional[List[str]] = None):
-    """Parse `argv`, build the workflow through its module's
-    `run(load, main)` and start its InferenceServer. Returns the started
-    server; the caller stops it. The CLI and chip_smoke.py both come
-    through here."""
-    from veles_tpu_torch.serving import InferenceServer
-
-    args = build_parser().parse_intermixed_args(argv)
+def _run(args: argparse.Namespace, main_fn) -> None:
+    """Seed, select, import the workflow module, apply the overrides, and
+    run its `run(load, main)` with `main_fn(workflow)` as `main`."""
     set_verbosity(args.verbose)
     if args.random_seed is not None:
         prng.seed_all(args.random_seed)
@@ -98,19 +114,62 @@ def serve(argv: Optional[List[str]] = None):
         return built["workflow"], False
 
     def main(**kwargs):
-        wf = built["workflow"]
-        built["server"] = InferenceServer(
-            wf, port=args.serve, ring_slots=args.serve_ring,
-            token=args.serve_token,
-            max_body=args.serve_max_body, device=args.device).start()
+        main_fn(built["workflow"])
+        built["ran"] = True
 
     module.run(load, main)
-    if "server" not in built:
+    if "ran" not in built:
         raise SystemExit(f"{args.workflow}'s run() never called main()")
-    return built["server"]
+
+
+def train(argv: Optional[List[str]] = None):
+    """Parse `argv` (which must hold --fused), build the workflow through
+    its module's `run(load, main)` and train it with `run_fused` until its
+    decision completes. Returns the trained workflow. The CLI and
+    chip_smoke.py both come through here."""
+    args = parse_args(argv)
+    if not args.fused:
+        raise SystemExit("train() runs --fused")
+    done = {}
+
+    def main_fn(wf):
+        wf.run_fused(device=args.device)
+        done["workflow"] = wf
+
+    _run(args, main_fn)
+    return done["workflow"]
+
+
+def serve(argv: Optional[List[str]] = None):
+    """Parse `argv` (which must hold --serve PORT), build the workflow
+    through its module's `run(load, main)` and start its InferenceServer.
+    Returns the started server; the caller stops it. The CLI and
+    chip_smoke.py both come through here."""
+    from veles_tpu_torch.serving import InferenceServer
+
+    args = parse_args(argv)
+    if args.serve is None:
+        raise SystemExit("serve() runs --serve PORT")
+    done = {}
+
+    def main_fn(wf):
+        done["server"] = InferenceServer(
+            wf, port=args.serve, ring_slots=args.serve_ring,
+            token=args.serve_token, max_body=args.serve_max_body,
+            device=args.device).start()
+
+    _run(args, main_fn)
+    return done["server"]
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    if parse_args(argv).fused:
+        wf = train(argv)
+        dec = wf.decision
+        print(f"TRAINED {dec.epoch_number} epochs: loss {wf.evaluator.loss} "
+              f"best_err {dec.best_validation_err} history {dec.history}",
+              flush=True)
+        return 0
     srv = serve(argv)
     print(f"SERVING http://127.0.0.1:{srv.port}", flush=True)
     stop = threading.Event()

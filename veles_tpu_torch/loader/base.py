@@ -1,5 +1,5 @@
-"""Loader base: the minibatch engine, reduced to what the serving slice
-needs.
+"""Loader base: the minibatch engine, reduced to what serving and the
+fused training loop need.
 
 The port's counterpart of `veles_tpu/loader/base.py`: the three sample
 classes (TEST=0, VALIDATION=1, TRAIN=2), the seeded per-epoch shuffle of
@@ -7,8 +7,9 @@ the train set, and static-size minibatches whose final one per class wraps
 around with a `minibatch_valid` pad mask. The index math and every draw
 from `prng.get()` happen in the JAX package's order, so the same seed
 gives the same minibatch sequence — and leaves the default generator in
-the same state for the weight fills that follow. Class-balanced
-sampling, prefetching and device pushes wait for the training slice.
+the same state for the weight fills that follow. `minibatch_class`,
+`last_minibatch` and `class_lengths` drive the Decision. Class-balanced
+sampling, prefetching and the device feed come with a later slice.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
-"""Plain PyTorch versions of the serving slice's ops (NHWC activations).
+"""Plain PyTorch versions of the port's ops (NHWC activations): the
+forwards, the closed-form LRN and LRN→max-pool backwards of the JAX
+package's Pallas kernels, the fused step's cross-entropy and dropout mask.
 
-The port's counterpart of `veles_tpu/ops/xla.py`. Layouts at the function
+The port's counterpart of `veles_tpu/ops/xla.py` and, for the backwards,
+of the math in `veles_tpu/ops/pallas_kernels.py`. Layouts at the function
 boundaries are the JAX package's: activations NHWC, conv weights HWIO
 (ky, kx, cin, cout), FC weights (fan_in, units). Inside, a convolution
 views its NHWC input as a channels-last NCHW tensor — no copy — for
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 
 
 def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
-    """The serving slice's activations: "linear" and "strictrelu" =
+    """The port's activations so far: "linear" and "strictrelu" =
     max(x, 0) (NaN propagates, as in jnp.maximum). The reference's scaled
     tanh, softplus "relu", sigmoid and log come with a later slice."""
     if name == "linear":
@@ -155,3 +158,85 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
         raise ValueError(f"LRN window n must be odd, got {n}")
     s = k + alpha * lrn_window_sum(x * x, n)
     return x * pow_neg_quarters(s, beta)
+
+
+def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
+                 alpha: float = 1e-4, beta: float = 0.75,
+                 n: int = 5) -> torch.Tensor:
+    """Closed-form LRN gradient, the math of the JAX package's Pallas
+    `_lrn_bwd_kernel`: dx = g·d − 2αβ·x·W(g·x·d/s), s = k + α·W(x²),
+    d = s^(−β), in that kernel's order of operations."""
+    if n % 2 == 0:
+        raise ValueError(f"LRN window n must be odd, got {n}")
+    s = k + alpha * lrn_window_sum(x * x, n)
+    d = pow_neg_quarters(s, beta)
+    tsum = lrn_window_sum(g * x * d / s, n)
+    return g * d - (2.0 * alpha * beta) * x * tsum
+
+
+def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
+                         alpha: float = 1e-4, beta: float = 0.75, n: int = 5,
+                         ksize: Tuple[int, int] = (3, 3),
+                         stride: Tuple[int, int] = (2, 2)) -> torch.Tensor:
+    """Gradient of LRN followed by the ceil-mode max pool, given the
+    pooled gradient `g` — the JAX package's `_lrn_pool_bwd_kernel`:
+    recompute the LRN output, route each window's gradient to its FIRST
+    maximum in scan order (dy, then dx; post-ReLU zeros tie constantly),
+    sum the routed gradients in that tap order, then the closed-form LRN
+    backward. A NaN in a window makes its maximum NaN, which equals no
+    tap: that window's gradient goes nowhere."""
+    ky, kx = ksize
+    sy, sx = stride
+    nb, h, w, c = x.shape
+    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
+    hp, wp = (oh - 1) * sy + ky, (ow - 1) * sx + kx
+    y = F.pad(lrn_forward(x, k, alpha, beta, n), (0, 0, 0, wp - w, 0, hp - h),
+              value=float("-inf"))
+    views = [(dy, dx, (slice(None), slice(dy, dy + (oh - 1) * sy + 1, sy),
+                       slice(dx, dx + (ow - 1) * sx + 1, sx)))
+             for dy in range(ky) for dx in range(kx)]
+    m = y[views[0][2]]
+    for _, _, v in views[1:]:
+        m = torch.maximum(m, y[v])
+    win = torch.full(m.shape, len(views), dtype=torch.int64, device=x.device)
+    for lin in reversed(range(len(views))):
+        win = torch.where(y[views[lin][2]] == m, lin, win)
+    g_lrn = torch.zeros((nb, hp, wp, c), dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    for lin, (_, _, v) in enumerate(views):
+        g_lrn[v] += torch.where(win == lin, g, zero)
+    return lrn_backward(x, g_lrn[:, :h, :w, :], k, alpha, beta, n)
+
+
+# ---------------------------------------------------------------------------
+# loss and dropout of the fused train step
+# ---------------------------------------------------------------------------
+
+
+def ce_loss_from_logits(logits: torch.Tensor, labels: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scalar cross-entropy from logits through log-softmax (xla.py
+    ce_loss_from_logits): −Σ w·log p[label] / max(denom, 1e-9), denom
+    defaulting to Σ w, so the Loader's pad-mask rows drop out; the plain
+    mean without weights."""
+    logits = logits.reshape(-1, logits.shape[-1])
+    flat = labels.reshape(-1)
+    picked = torch.log_softmax(logits, dim=-1).gather(1, flat[:, None])[:, 0]
+    if weights is None:
+        return -picked.mean()
+    w = weights.broadcast_to(labels.shape).reshape(-1).to(picked.dtype)
+    d = w.sum() if denom is None else denom
+    return -(picked * w).sum() / torch.clamp(d, min=1e-9)
+
+
+def dropout_mask(shape, drop_prob: float, generator: torch.Generator,
+                 device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Pre-scaled dropout mask, values 0 or 1/keep: (u < keep) / keep with
+    u uniform in [0, 1) from `generator` (xla.py make_dropout_mask; the
+    bits cannot match jax's, so tests hand both packages the same
+    masks)."""
+    keep = 1.0 - drop_prob
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u < keep).to(dtype) / keep

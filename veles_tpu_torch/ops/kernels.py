@@ -1,11 +1,19 @@
-"""The serving slice's hand-written Hopper kernels, their wrappers, their
-plain PyTorch versions and their launch counters.
+"""The port's hand-written Hopper kernels, their wrappers, their plain
+PyTorch versions, their launch counters, and the two autograd functions
+that pair the LRN kernels into forward and backward.
 
 The port's counterpart of `veles_tpu/ops/pallas_kernels.py`:
 
+- K1 `sgd_update` replaces `_sgd_kernel` (via `sgd_update_pallas`);
 - K2 `lrn_forward` replaces `_lrn_fwd_kernel` (via `lrn_forward_pallas`);
+- K3 `lrn_backward` replaces `_lrn_bwd_kernel` (via `lrn_backward_pallas`);
 - K4 `lrn_maxpool_forward` replaces `_lrn_pool_fwd_kernel` (via
-  `lrn_maxpool_pallas`).
+  `lrn_maxpool_pallas`);
+- K5 `lrn_maxpool_backward` replaces `_lrn_pool_bwd_kernel` (via
+  `_lrn_pool_bwd_rule`);
+- `LRNFunction` (K2 forward, K3 backward) and `LRNMaxPoolFunction` (K4
+  forward, K5 backward) are the counterparts of the custom VJPs
+  `lrn_pallas` and `lrn_maxpool_pallas`.
 
 The kernels are CUDA C++ for `sm_90a` under `veles_tpu_torch/csrc/`,
 each source compiled by `nvcc` into its own shared library with a plain C
@@ -15,8 +23,10 @@ keyed by the hash of the sources, all `nvcc` processes at once.
 
 A wrapper launches its kernel for a CUDA tensor — or raises; it never
 falls back — and takes the plain version only because its tensor lies on
-the CPU. Each launch adds one to the kernel's counter in `LAUNCHES`, and
-nothing else does.
+the CPU. Each call that launches adds one to the kernel's counter in
+`LAUNCHES` (K5's call is three launches and counts once), and nothing
+else does. On the CPU the autograd functions run the plain closed forms
+both ways — never autograd of the plain forward.
 """
 
 from __future__ import annotations
@@ -43,9 +53,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> its source under csrc/ and its C entry point
 KERNELS: Dict[str, Tuple[str, str]] = {
+    "sgd_update": ("sgd_update.cu", "sgd_update_f32"),
     "lrn_forward": ("lrn_forward.cu", "lrn_forward_f32"),
+    "lrn_backward": ("lrn_backward.cu", "lrn_backward_f32"),
     "lrn_maxpool_forward": ("lrn_maxpool_forward.cu",
                             "lrn_maxpool_forward_f32"),
+    "lrn_maxpool_backward": ("lrn_maxpool_backward.cu",
+                             "lrn_maxpool_backward_f32"),
 }
 
 #: kernel name -> launches since the last reset_launch_counts()
@@ -146,12 +160,21 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _ARGTYPES = {
+    # p, g, v, n, lr, momentum, weight_decay, stream
+    "sgd_update_f32": [_P, _P, _P, _L, _F, _F, _F, _P],
     # x, y, rows, C, half, k, alpha, q, beta, stream
     "lrn_forward_f32": [_P, _P, _L, _I, _I, _F, _F, _I, _F, _P],
+    # x, g, dx, rows, C, half, k, alpha, q, beta, c2, stream
+    "lrn_backward_f32": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _F, _F, _P],
     # x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q, beta,
     # stream
     "lrn_maxpool_forward_f32": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _F, _I, _F, _P],
+    # x, g, dx, win, g_lrn, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k,
+    # alpha, q, beta, c2, stream
+    "lrn_maxpool_backward_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _F, _F, _I, _F,
+                                 _F, _P],
 }
 
 
@@ -172,6 +195,16 @@ def _entry(name: str):
 # ---------------------------------------------------------------------------
 
 
+def _on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the wrapper takes the plain version), True
+    for a CUDA one; any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return True
+
+
 def _check_lrn_args(x: torch.Tensor, n: int, ndim: int) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"kernel takes float32, got {x.dtype}")
@@ -182,9 +215,27 @@ def _check_lrn_args(x: torch.Tensor, n: int, ndim: int) -> None:
         raise ValueError("kernel takes a contiguous (NHWC) tensor")
     if n % 2 == 0 or n < 1:
         raise ValueError(f"LRN window n must be odd, got {n}")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("the LRN kernels are forward-only in this "
-                           "slice: call them under torch.inference_mode()")
+
+
+def _check_like(name: str, t: torch.Tensor, shape, ref: torch.Tensor):
+    """`t` on `ref`'s device in float32 with `shape`; returns it
+    contiguous (an incoming gradient may be a permuted view)."""
+    if t.device != ref.device or t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32 on {ref.device}, got "
+                        f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                         f"{tuple(shape)}")
+    return t.contiguous()
+
+
+def _pool_geometry(ksize, stride) -> Tuple[int, int, int, int]:
+    ky, kx = (int(v) for v in ksize)
+    sy, sx = (int(v) for v in stride)
+    if min(ky, kx, sy, sx) < 1:
+        raise ValueError(f"bad pooling geometry ksize={ksize} "
+                         f"stride={stride}")
+    return ky, kx, sy, sx
 
 
 def _check_status(name: str, status: int) -> None:
@@ -195,6 +246,50 @@ def _check_status(name: str, status: int) -> None:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: SGD + momentum + L2 update of one leaf, in place
+# ---------------------------------------------------------------------------
+
+
+def sgd_update_plain(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                     lr: float, momentum: float = 0.0,
+                     weight_decay: float = 0.0) -> None:
+    """Plain PyTorch version of K1, in place: g' = g + wd·p;
+    v ← μ·v − lr·g'; p ← p + v (each product and sum its own op)."""
+    reg = g + weight_decay * p
+    v.copy_(momentum * v - lr * reg)
+    p.add_(v)
+
+
+def sgd_update(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+               lr: float, momentum: float = 0.0,
+               weight_decay: float = 0.0) -> None:
+    """Update the leaf `p` and its velocity `v` in place from its
+    gradient `g`: K1 for CUDA tensors, the plain version for CPU ones.
+    `lr` is the leaf's own (optim.sgd_leaf_lr)."""
+    if not _on_card("sgd_update", p):
+        sgd_update_plain(p, g, v, lr, momentum, weight_decay)
+        return
+    if p.dtype != torch.float32 or not p.is_contiguous():
+        raise TypeError("sgd_update takes a contiguous float32 leaf")
+    g = _check_like("sgd_update gradient", g, p.shape, p)
+    if v.device != p.device or v.dtype != torch.float32 \
+            or tuple(v.shape) != tuple(p.shape) or not v.is_contiguous():
+        raise ValueError("sgd_update: the velocity must be a contiguous "
+                         "float32 tensor shaped and placed like the leaf")
+    with torch.cuda.device(p.device):
+        status = _entry("sgd_update")(
+            p.data_ptr(), g.data_ptr(), v.data_ptr(), p.numel(), lr,
+            momentum, weight_decay, _stream(p))
+    _check_status("sgd_update", status)
+    _count("sgd_update")
+    # the kernel wrote through raw pointers: bump the version counters,
+    # as an in-place PyTorch op would, so that whatever is keyed on them
+    # (the conv units' cached weight layouts) sees the change
+    torch.autograd.graph.increment_version(p)
+    torch.autograd.graph.increment_version(v)
 
 
 # ---------------------------------------------------------------------------
@@ -212,10 +307,8 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
                 beta: float = 0.75, n: int = 5) -> torch.Tensor:
     """Across-channel LRN of an NHWC tensor: K2 for a CUDA tensor, the
     plain version for a CPU one."""
-    if x.device.type == "cpu":
+    if not _on_card("lrn_forward", x):
         return lrn_forward_plain(x, k, alpha, beta, n)
-    if x.device.type != "cuda":
-        raise ValueError(f"lrn_forward runs on cuda or cpu, not {x.device}")
     _check_lrn_args(x, n, 4)
     c = x.shape[-1]
     rows = x.numel() // c if c else 0
@@ -227,6 +320,40 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     _check_status("lrn_forward", status)
     _count("lrn_forward")
     return y
+
+
+# ---------------------------------------------------------------------------
+# K3: LRN backward
+# ---------------------------------------------------------------------------
+
+
+def lrn_backward_plain(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
+                       alpha: float = 1e-4, beta: float = 0.75,
+                       n: int = 5) -> torch.Tensor:
+    """Plain PyTorch version of K3: the closed-form gradient."""
+    return fn.lrn_backward(x, g, k, alpha, beta, n)
+
+
+def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
+                 alpha: float = 1e-4, beta: float = 0.75,
+                 n: int = 5) -> torch.Tensor:
+    """Gradient of the LRN of NHWC `x` given the output gradient `g`: K3
+    for CUDA tensors, the plain version for CPU ones."""
+    if not _on_card("lrn_backward", x):
+        return lrn_backward_plain(x, g, k, alpha, beta, n)
+    _check_lrn_args(x, n, 4)
+    g = _check_like("lrn_backward gradient", g, x.shape, x)
+    c = x.shape[-1]
+    rows = x.numel() // c if c else 0
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = _entry("lrn_backward")(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, n // 2, k,
+            alpha, fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
+            _stream(x))
+    _check_status("lrn_backward", status)
+    _count("lrn_backward")
+    return dx
 
 
 # ---------------------------------------------------------------------------
@@ -249,17 +376,10 @@ def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     """LRN then ceil-mode max pool of an NHWC tensor, writing only the
     pooled output: K4 for a CUDA tensor, the plain version for a CPU
     one."""
-    if x.device.type == "cpu":
+    if not _on_card("lrn_maxpool_forward", x):
         return lrn_maxpool_forward_plain(x, k, alpha, beta, n, ksize, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"lrn_maxpool_forward runs on cuda or cpu, not "
-                         f"{x.device}")
     _check_lrn_args(x, n, 4)
-    ky, kx = (int(v) for v in ksize)
-    sy, sx = (int(v) for v in stride)
-    if min(ky, kx, sy, sx) < 1:
-        raise ValueError(f"bad pooling geometry ksize={ksize} "
-                         f"stride={stride}")
+    ky, kx, sy, sx = _pool_geometry(ksize, stride)
     nb, h, w, c = x.shape
     oh, ow = fn.pool_out_hw(h, w, ky, kx, sy, sx)
     y = torch.empty((nb, oh, ow, c), dtype=x.dtype, device=x.device)
@@ -270,3 +390,84 @@ def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     _check_status("lrn_maxpool_forward", status)
     _count("lrn_maxpool_forward")
     return y
+
+
+# ---------------------------------------------------------------------------
+# K5: fused LRN -> ceil-mode max pool backward
+# ---------------------------------------------------------------------------
+
+
+def lrn_maxpool_backward_plain(x: torch.Tensor, g: torch.Tensor,
+                               k: float = 2.0, alpha: float = 1e-4,
+                               beta: float = 0.75, n: int = 5, ksize=(3, 3),
+                               stride=(2, 2)) -> torch.Tensor:
+    """Plain PyTorch version of K5: first-max routing, then the
+    closed-form LRN gradient."""
+    return fn.lrn_maxpool_backward(x, g, k, alpha, beta, n, tuple(ksize),
+                                   tuple(stride))
+
+
+def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
+                         alpha: float = 1e-4, beta: float = 0.75, n: int = 5,
+                         ksize=(3, 3), stride=(2, 2)) -> torch.Tensor:
+    """Gradient of LRN→max pool of NHWC `x` given the pooled gradient
+    `g`: K5 for CUDA tensors, the plain version for CPU ones."""
+    if not _on_card("lrn_maxpool_backward", x):
+        return lrn_maxpool_backward_plain(x, g, k, alpha, beta, n, ksize,
+                                          stride)
+    _check_lrn_args(x, n, 4)
+    ky, kx, sy, sx = _pool_geometry(ksize, stride)
+    if ky * kx > 254:
+        raise ValueError(f"a {ky}x{kx} window has more taps than K5's "
+                         f"one-byte tap record holds")
+    nb, h, w, c = x.shape
+    oh, ow = fn.pool_out_hw(h, w, ky, kx, sy, sx)
+    g = _check_like("lrn_maxpool_backward gradient", g, (nb, oh, ow, c), x)
+    dx = torch.empty_like(x)
+    win = torch.empty((nb, oh, ow, c), dtype=torch.uint8, device=x.device)
+    g_lrn = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = _entry("lrn_maxpool_backward")(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), win.data_ptr(),
+            g_lrn.data_ptr(), nb, h, w, c, oh, ow, ky, kx, sy, sx, n // 2, k,
+            alpha, fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
+            _stream(x))
+    _check_status("lrn_maxpool_backward", status)
+    _count("lrn_maxpool_backward")
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# the custom VJPs: forward kernel, backward kernel, x saved
+# ---------------------------------------------------------------------------
+
+
+class LRNFunction(torch.autograd.Function):
+    """LRN with K2 forward and K3 backward (`lrn_pallas`'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, k, alpha, beta, n):
+        ctx.save_for_backward(x)
+        ctx.hyper = (k, alpha, beta, n)
+        return lrn_forward(x, k, alpha, beta, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (lrn_backward(x, g, *ctx.hyper),) + (None,) * 4
+
+
+class LRNMaxPoolFunction(torch.autograd.Function):
+    """LRN then ceil-mode max pool with K4 forward and K5 backward
+    (`lrn_maxpool_pallas`'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, k, alpha, beta, n, ksize, stride):
+        ctx.save_for_backward(x)
+        ctx.hyper = (k, alpha, beta, n, tuple(ksize), tuple(stride))
+        return lrn_maxpool_forward(x, k, alpha, beta, n, ksize, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (lrn_maxpool_backward(x, g, *ctx.hyper),) + (None,) * 6

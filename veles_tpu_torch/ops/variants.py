@@ -1,19 +1,23 @@
-"""Lowering-variant registry of the serving slice: the ops `lrn` and
-`lrn_maxpool` and their candidate lowerings.
+"""Lowering-variant registry of the port: the ops `lrn`, `lrn_maxpool` and
+`sgd_update` and their candidate lowerings.
 
 The port's counterpart of `veles_tpu/ops/variants.py`, with the same
 `select` / `resolve` precedence (variants.py:152-232 there): a unit's
 per-instance `variant_override`, then the global selection, then the op's
-default. What the TPU registry gates on Pallas availability the port gates
-on the device: a variant marked `cpu_only` serves CPU tensors only, and on
-the card an op resolves to its kernel variant instead.
+default. Every entry selects a path that runs; a kernel wrapper takes its
+plain version on a CPU tensor by itself, so no entry is device-gated.
 
-- `lrn`: `kernel` (K2, the counterpart of `pallas_one_pass`; on a CPU
-  tensor its wrapper takes the plain version) and `plain` (CPU only).
-- `lrn_maxpool`: `composed` (the member ops run separately: the `lrn` op,
-  then the plain ceil-mode pool) and `fused` (K4, the counterpart of
-  `fused[rt=2,io=native,fuse=1]`). A `fused` selection lets an LRN unit
-  claim the max pooling that follows it (parallel/fused.py).
+- `lrn`: `kernel` (K2 forward, K3 backward through `LRNFunction`; the
+  counterpart of `pallas_one_pass`).
+- `lrn_maxpool`: `composed` (a marker: no pair is claimed, the member ops
+  run separately — the `lrn` op, then the plain ceil-mode pool) and
+  `fused` (K4 forward, K5 backward through `LRNMaxPoolFunction`; the
+  counterpart of `fused[rt=2,io=native,fuse=1]`). A `fused` selection lets
+  an LRN unit claim the max pooling that follows it (parallel/fused.py).
+- `sgd_update`: `kernel` (K1 per leaf; the counterpart of
+  `pallas_rows[rt=8]`, and like that template it takes the tree rule when
+  `l1_decay` is not 0: the kernel has no L1 term) and `tree` (the per-leaf
+  tensor rule of ops/optim.py, the counterpart of `xla_tree`).
 """
 
 from __future__ import annotations
@@ -22,21 +26,18 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
-import torch
-
-from veles_tpu_torch.ops import functional as fn
-from veles_tpu_torch.ops import kernels
+from veles_tpu_torch.ops import kernels, optim
 
 
 @dataclass(frozen=True)
 class Variant:
-    """One candidate lowering for a tunable op. `cpu_only` variants never
-    run on the card; `fused` marks a cross-op fusion point."""
+    """One candidate lowering for a tunable op. `fused` marks a cross-op
+    fusion point; a variant without `apply` is a marker that the caller
+    reads and does not run."""
 
     op: str
     name: str
-    apply: Callable[..., Any]
-    cpu_only: bool = False
+    apply: Optional[Callable[..., Any]] = None
     fused: bool = False
     doc: str = ""
 
@@ -45,7 +46,6 @@ class Variant:
 class _OpSpec:
     op: str
     default: str
-    on_cuda: str            # what a cpu_only resolution becomes on the card
     doc: str = ""
     variants: Dict[str, Variant] = field(default_factory=dict)
 
@@ -56,10 +56,8 @@ _selection: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
-def register_op(op: str, default: str, on_cuda: Optional[str] = None,
-                doc: str = "") -> None:
-    _OPS[op] = _OpSpec(op=op, default=default, on_cuda=on_cuda or default,
-                       doc=doc)
+def register_op(op: str, default: str, doc: str = "") -> None:
+    _OPS[op] = _OpSpec(op=op, default=default, doc=doc)
 
 
 def register(variant: Variant) -> Variant:
@@ -110,65 +108,73 @@ def clear_selection(op: Optional[str] = None) -> None:
             _selection.pop(op, None)
 
 
-def resolve(op: str, unit: Any = None,
-            device: Optional[torch.device] = None) -> Variant:
-    """The variant to run NOW on `device`. Precedence: the unit's
-    `variant_override`, the global selection, the op's default. On the
-    card a `cpu_only` variant gives way to the op's kernel lowering."""
+def resolve(op: str, unit: Any = None) -> Variant:
+    """The variant to run NOW. Precedence: the unit's `variant_override`,
+    the global selection, the op's default."""
     spec = _spec(op)
     name = getattr(unit, "variant_override", None) if unit is not None \
         else None
     if name is None:
         name = _selection.get(op, spec.default)
-    v = get(op, name)
-    if v.cpu_only and device is not None and device.type == "cuda":
-        v = get(op, spec.on_cuda)
-    return v
+    return get(op, name)
 
 
 # ===========================================================================
 # Registered ops
 # ===========================================================================
 
-# -- LRN forward: apply(x, *, k, alpha, beta, n) -> y ------------------------
+# -- LRN: apply(x, *, k, alpha, beta, n) -> y, differentiable ---------------
 
 
 def _lrn_kernel(x, *, k, alpha, beta, n):
-    return kernels.lrn_forward(x, k, alpha, beta, n)
+    return kernels.LRNFunction.apply(x, k, alpha, beta, n)
 
 
-def _lrn_plain(x, *, k, alpha, beta, n):
-    return kernels.lrn_forward_plain(x, k, alpha, beta, n)
-
-
-register_op(
-    "lrn", default="kernel", on_cuda="kernel",
-    doc="AlexNet across-channel LRN forward")
+register_op("lrn", default="kernel",
+            doc="AlexNet across-channel LRN, forward and backward")
 register(Variant("lrn", "kernel", _lrn_kernel,
-                 doc="K2: one-pass CUDA kernel (csrc/lrn_forward.cu)"))
-register(Variant("lrn", "plain", _lrn_plain, cpu_only=True,
-                 doc="plain PyTorch shifted-add window (CPU tensors)"))
+                 doc="K2 forward (csrc/lrn_forward.cu), K3 backward "
+                     "(csrc/lrn_backward.cu)"))
 
 
 # -- lrn_maxpool: apply(x, *, k, alpha, beta, n, ksize, stride) -> pooled ---
 
 
-def _lrn_maxpool_composed(x, *, k, alpha, beta, n, ksize, stride):
-    y = resolve("lrn", device=x.device).apply(x, k=k, alpha=alpha,
-                                              beta=beta, n=n)
-    return fn.maxpool_forward(y, tuple(ksize), tuple(stride))
-
-
 def _lrn_maxpool_fused(x, *, k, alpha, beta, n, ksize, stride):
-    return kernels.lrn_maxpool_forward(x, k, alpha, beta, n, ksize, stride)
+    return kernels.LRNMaxPoolFunction.apply(x, k, alpha, beta, n,
+                                            tuple(ksize), tuple(stride))
 
 
 register_op(
     "lrn_maxpool", default="fused",
     doc="cross-op fusion of an adjacent (lrn, max pooling) unit pair")
-register(Variant("lrn_maxpool", "composed", _lrn_maxpool_composed,
-                 doc="the member ops run separately: the LRN writes its "
+register(Variant("lrn_maxpool", "composed",
+                 doc="marker: no pair is claimed; the LRN writes its "
                      "output, the pool reads it back"))
 register(Variant("lrn_maxpool", "fused", _lrn_maxpool_fused, fused=True,
-                 doc="K4: LRN and pool in one pass, only the pooled "
-                     "output written (csrc/lrn_maxpool_forward.cu)"))
+                 doc="K4 forward (csrc/lrn_maxpool_forward.cu), K5 "
+                     "backward (csrc/lrn_maxpool_backward.cu): only the "
+                     "pooled output written"))
+
+
+# -- sgd_update: apply(params, grads, vel, cfg, lr_scale) in place ----------
+
+
+def _sgd_kernel(params, grads, vel, cfg, lr_scale=1.0):
+    if cfg.l1_decay:
+        # the kernel has no L1 term: the exact rule wins over the lowering
+        # (templates.py:648-652 in the JAX package)
+        optim.sgd_update(params, grads, vel, cfg, lr_scale)
+        return
+    for key, p in params.items():
+        kernels.sgd_update(p, grads[key], vel[key],
+                           optim.sgd_leaf_lr(cfg, p.ndim, lr_scale),
+                           cfg.momentum, cfg.weight_decay)
+
+
+register_op("sgd_update", default="kernel",
+            doc="SGD + momentum + weight decay update of one layer's leaves")
+register(Variant("sgd_update", "kernel", _sgd_kernel,
+                 doc="K1 per leaf (csrc/sgd_update.cu)"))
+register(Variant("sgd_update", "tree", optim.sgd_update,
+                 doc="per-leaf tensor rule (ops/optim.py)"))

@@ -1,24 +1,40 @@
-"""The fused forward of a StandardWorkflow: the whole forward chain as one
-call, with the cross-op fusion of adjacent (LRN, max pooling) pairs.
+"""The fused step of a StandardWorkflow: the whole forward chain as one
+call, with the cross-op fusion of adjacent (LRN, max pooling) pairs, and
+the training step built on it.
 
-The port's counterpart of the forward half of `FusedTrainStep` in
-`veles_tpu/parallel/fused.py` (`_forward` with train=False in f32 on one
-device, `_pair_fusion`, `fusion_pairs`, `_apply_fused_pair`,
-`variant_table`). The JAX package resolves lowerings when it traces;
-PyTorch runs eagerly, so `FusedForward` resolves them once, when it is
-built, into a fixed plan — a server keeps serving what it was built with
-whatever the registry selects later. The rule that a claimed pool is a
-pass-through is the JAX package's.
+The port's counterpart of `FusedTrainStep` in
+`veles_tpu/parallel/fused.py` in local mode, one device, f32:
+`FusedForward` is its forward half (`_forward`, `_pair_fusion`,
+`fusion_pairs`, `_apply_fused_pair`), which the server serves from;
+`FusedTrainStep` adds the loss, the backward and the update (`init_state`,
+`train`, `evaluate`, `write_back`, `variant_table`). The JAX package
+resolves lowerings when it traces; PyTorch runs eagerly, so both resolve
+them once, when built, into a fixed plan — a server keeps serving, and a
+step keeps training, what it was built with whatever the registry selects
+later. The rule that a claimed pool is a pass-through is the JAX
+package's.
+
+Differences from the JAX step: the step updates its state in place (the
+JAX step returns a new one); its dropout masks come from a
+`torch.Generator` the step owns instead of the state's key; the backward
+is `torch.autograd.grad` over the parameter leaves, through the kernels'
+autograd functions (ops/kernels.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from veles_tpu_torch import prng
 from veles_tpu_torch.backends import full_f32
-from veles_tpu_torch.ops import variants
+from veles_tpu_torch.ops import functional as fn
+from veles_tpu_torch.ops import optim, variants
+
+#: parameter name -> the gradient unit's velocity attribute
+VEL_ATTRS = {"weights": "vel_w", "bias": "vel_b"}
 
 
 class FusedForward:
@@ -45,7 +61,7 @@ class FusedForward:
                 self._plan.append(("pair",) + fused[i])
             elif variants.has_op(getattr(u, "variant_op", None) or ""):
                 self._plan.append(("unit", None, variants.resolve(
-                    u.variant_op, unit=u, device=self.device)))
+                    u.variant_op, unit=u)))
             else:
                 self._plan.append(("unit", None, None))
 
@@ -62,7 +78,7 @@ class FusedForward:
             return None
         if getattr(u, "variant_op", None) == "lrn" \
                 and getattr(nxt, "variant_op", None) == "maxpool":
-            v = variants.resolve("lrn_maxpool", device=self.device)
+            v = variants.resolve("lrn_maxpool")
             return v if v.fused else None
         return None
 
@@ -95,26 +111,29 @@ class FusedForward:
         """The units' parameters, one `{name: tensor}` per forward unit."""
         return tuple(u.param_arrays() for u in self.forwards)
 
-    @torch.inference_mode()
-    def _forward(self, params, x: torch.Tensor,
-                 train: bool = False) -> torch.Tensor:
+    def _forward(self, params, x: torch.Tensor, train: bool = False,
+                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward `x` (NHWC, on this forward's device) through the plan,
         in full f32 (no TF32) on the card; returns the last unit's output
-        (logits for a softmax head)."""
-        if train:
-            raise NotImplementedError("the training forward comes with the "
-                                      "training slice")
-        with full_f32(self.device):
+        (logits for a softmax head). `train=False` runs under
+        `torch.inference_mode()`; `train=True` records the autograd graph
+        in the caller's grad mode and hands `gen` to the units that draw
+        random numbers (dropout)."""
+        mode = contextlib.nullcontext() if train else torch.inference_mode()
+        with mode, full_f32(self.device):
             for i, (kind, j, v) in enumerate(self._plan):
                 u = self.forwards[i]
                 if kind == "skip":
                     continue
                 if kind == "pair":
                     x = self._apply_fused_pair(v, u, self.forwards[j], x)
-                elif v is not None:
-                    x = u.fused_apply(params[i], x, train=False, variant=v)
-                else:
-                    x = u.fused_apply(params[i], x, train=False)
+                    continue
+                kw: Dict[str, Any] = {"train": train}
+                if v is not None:
+                    kw["variant"] = v
+                if u.fused_needs_gen:
+                    kw["gen"] = gen
+                x = u.fused_apply(params[i], x, **kw)
         return x
 
     def variant_table(self) -> Dict[str, str]:
@@ -128,4 +147,127 @@ class FusedForward:
         for _, _, v in self.pairs:
             table["lrn_maxpool"] = v.name
             table.setdefault("lrn", f"lrn_maxpool/{v.name}")
+        return table
+
+
+def pair_gd_configs(workflow):
+    """(gd_units, SGD configs) aligned with workflow.forwards — each forward
+    keeps its gradient twin's hyperparameters (`workflow.gds` is built in
+    reverse order)."""
+    gds = list(workflow.gds)
+    n = len(list(workflow.forwards))
+    gd_units = [gds[n - 1 - i] for i in range(n)]
+    cfgs = [optim.SGDConfig(lr=g.learning_rate, momentum=g.gradient_moment,
+                            weight_decay=g.weights_decay,
+                            l1_decay=g.l1_decay,
+                            lr_bias_mult=g.learning_rate_bias)
+            for g in gd_units]
+    return gd_units, cfgs
+
+
+class FusedTrainStep:
+    """One training step of a StandardWorkflow: forward, softmax
+    cross-entropy, backward, SGD update, on the workflow's device.
+
+    state = {"params": tuple of {name: leaf} (one per forward unit),
+             "vel":    the matching velocities,
+             "lr_scale": the schedule's lr multiplier (a float)}
+    """
+
+    def __init__(self, workflow) -> None:
+        if workflow.loss != "softmax":
+            raise NotImplementedError(
+                f"the fused step trains a softmax head; loss "
+                f"{workflow.loss!r} comes with a later slice")
+        self.fwd = FusedForward(workflow)
+        self.forwards = self.fwd.forwards
+        self.device = self.fwd.device
+        self.gd_units, self.cfgs = pair_gd_configs(workflow)
+        #: the update's lowering, fixed at build like the forward's
+        self._sgd = variants.resolve("sgd_update")
+        #: the dropout masks' source (the JAX step folds its state key)
+        self.gen = prng.get().torch_generator(self.device)
+
+    def fusion_pairs(self):
+        return self.fwd.fusion_pairs()
+
+    # -- state <-> units ------------------------------------------------------
+
+    def init_state(self) -> Dict[str, Any]:
+        """A copy of the units' parameters as trainable leaves, and the
+        velocities the gradient twins hold (zeros where they hold
+        none)."""
+        params = tuple(
+            {k: t.detach().clone().requires_grad_(True)
+             for k, t in u.param_arrays().items()}
+            for u in self.forwards)
+        vel = []
+        for g, p in zip(self.gd_units, params):
+            layer = {}
+            for k, t in p.items():
+                seed = getattr(g, VEL_ATTRS[k], None)
+                layer[k] = (seed.detach().to(self.device, copy=True)
+                            if seed is not None
+                            else torch.zeros_like(t, requires_grad=False))
+            vel.append(layer)
+        return {"params": params, "vel": tuple(vel), "lr_scale": 1.0}
+
+    @torch.no_grad()
+    def write_back(self, state: Dict[str, Any]) -> None:
+        """Copy the state's parameters into the units and its velocities
+        into the gradient twins."""
+        for u, g, p, v in zip(self.forwards, self.gd_units, state["params"],
+                              state["vel"]):
+            for k, t in u.param_arrays().items():
+                t.copy_(p[k])
+                setattr(g, VEL_ATTRS[k], v[k].clone())
+
+    # -- steps ----------------------------------------------------------------
+
+    def _batch(self, x, y, w):
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        y = torch.as_tensor(y, device=self.device).long()
+        w = (torch.ones(x.shape[0], device=self.device) if w is None else
+             torch.as_tensor(w, dtype=torch.float32, device=self.device))
+        return x, y, w
+
+    @staticmethod
+    def _loss_metrics(out, y, w):
+        """(weighted mean cross-entropy, misclassified valid rows): the pad
+        mask's zero rows drop out of both, and of the gradient."""
+        loss = fn.ce_loss_from_logits(out, y, weights=w, denom=w.sum())
+        n_err = ((out.argmax(dim=-1) != y) & (w > 0)).sum()
+        return loss, n_err
+
+    def train(self, state, x, y, w=None):
+        """One training step on a minibatch (host arrays or tensors; `w`
+        is the Loader's (N,) pad mask, None == all ones). Updates `state`
+        in place and returns `(state, (loss, n_err))`, the metrics as 0-d
+        tensors on the device (no host sync)."""
+        x, y, w = self._batch(x, y, w)
+        leaves = [t for layer in state["params"] for t in layer.values()]
+        with torch.enable_grad(), full_f32(self.device):
+            out = self.fwd._forward(state["params"], x, train=True,
+                                    gen=self.gen)
+            loss, n_err = self._loss_metrics(out, y, w)
+            grads = iter(torch.autograd.grad(loss, leaves))
+        with torch.no_grad():
+            for p, v, cfg in zip(state["params"], state["vel"], self.cfgs):
+                if p:
+                    g = {k: next(grads) for k in p}
+                    self._sgd.apply(p, g, v, cfg, lr_scale=state["lr_scale"])
+        return state, (loss.detach(), n_err)
+
+    def evaluate(self, state, x, y, w=None):
+        """Forward-only `(loss, n_err)` of a validation/test minibatch."""
+        x, y, w = self._batch(x, y, w)
+        with torch.inference_mode():
+            out = self.fwd._forward(state["params"], x)
+            return self._loss_metrics(out, y, w)
+
+    def variant_table(self) -> Dict[str, str]:
+        """{op: variant-name} this step runs: the forward's, and the
+        update's."""
+        table = self.fwd.variant_table()
+        table["sgd_update"] = self._sgd.name
         return table

@@ -5,8 +5,8 @@ The port's counterpart of `veles_tpu/prng.py`. The host half is the same
 numpy `RandomState` stream under the same `get` / `seed_all` rules, so
 weight fills and shuffles under one seed come out bit-identical to the
 JAX package's. Device randomness cannot match jax keys; it comes from a
-`torch.Generator` seeded from the same seed (the training slice uses it
-for dropout masks).
+`torch.Generator` seeded from the same seed (the fused train step draws
+its dropout masks from one).
 """
 
 from __future__ import annotations

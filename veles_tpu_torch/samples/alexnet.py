@@ -8,8 +8,11 @@ synthetic ImageNet-shaped dataset. `root.alexnet.width_mult` and
 `root.alexnet.fc_width` (defaults 1.0 and 4096, the JAX package's
 argument defaults) let a command line cut the widths for a toy run.
 
-Serve it: `python -m veles_tpu_torch veles_tpu_torch/samples/alexnet.py
---serve PORT [--device cpu] [-r SEED] [root.x=y ...]`.
+Train it: `python -m veles_tpu_torch veles_tpu_torch/samples/alexnet.py
+--fused [--device cpu] [-r SEED] [root.x=y ...]`; serve it: the same with
+`--serve PORT` in place of `--fused`. The decision and gradient defaults
+are the JAX package's: 10 epochs at most, 10 without improvement, SGD at
+lr 0.01 with momentum 0.9 and weight decay 5e-4.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ root.alexnet.loader.n_train = 512
 root.alexnet.loader.input_hw = 227
 root.alexnet.loader.data_path = ""
 root.alexnet.n_classes = 1000
+root.alexnet.decision.max_epochs = 10
+root.alexnet.decision.fail_iterations = 10
+root.alexnet.gd.learning_rate = 0.01
+root.alexnet.gd.gradient_moment = 0.9
+root.alexnet.gd.weights_decay = 0.0005
 root.alexnet.width_mult = 1.0
 root.alexnet.fc_width = 4096
 
@@ -114,6 +122,8 @@ def create_workflow(minibatch_size: Optional[int] = None,
             nc, width_mult if width_mult is not None else cfg.width_mult,
             fc_width if fc_width is not None else cfg.fc_width, init=init),
         loader=loader, loss="softmax", n_classes=nc,
+        decision_config=cfg.decision.to_dict(),
+        gd_config=cfg.gd.to_dict(),
         name="AlexNetWorkflow")
 
 

@@ -409,21 +409,29 @@ class InferenceServer(Logger):
                 if not self.path.startswith("/predict"):
                     self._send(404, {"error": "unknown endpoint"})
                     return
+                try:
+                    n: Optional[int] = int(
+                        self.headers.get("Content-Length", "0"))
+                except ValueError:
+                    n = None
+                body = None
+                if n is not None and 0 <= n <= srv.max_body:
+                    # read an admissible body before any answer: closing
+                    # with it unread resets the connection, and a client
+                    # still sending sees a broken pipe, not the answer
+                    body = self.rfile.read(n)
                 if not check_shared_token(self, token):
                     return
-                try:
-                    n = int(self.headers.get("Content-Length", "0"))
-                except ValueError:
+                if n is None:
                     self._send(400, {"error": "bad Content-Length"})
                     return
-                if not 0 <= n <= srv.max_body:
+                if body is None:
                     self._send(413 if n > srv.max_body else 400,
                                {"error": f"body must be 0..{srv.max_body}"
                                          " bytes"})
                     return
                 self.close_connection = negotiated
                 try:
-                    body = self.rfile.read(n)
                     srv.shed_check()   # shed at header cost, before JSON
                     resp = srv.predict(json.loads(body)["inputs"])
                 except (ValueError, KeyError, TypeError) as e:

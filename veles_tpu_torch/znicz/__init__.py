@@ -1,1 +1,2 @@
-"""Znicz units of the port (forward layers of the serving slice)."""
+"""Znicz units of the port: forward layers, their gradient twins, the
+evaluator and the decision."""

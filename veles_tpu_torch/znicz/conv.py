@@ -4,7 +4,9 @@ The port's counterpart of `veles_tpu/znicz/conv.py`: y = act(conv2d(x, W)
 + b) with x NHWC and W HWIO (ky, kx, cin, n_kernels), symmetric padding
 and the bias before the activation. The convolution runs through
 `F.conv2d` on a channels-last view; the OIHW copy of the weights it needs
-is made once per weight tensor and cached. (The JAX package's
+is made once per weight tensor and cached where no gradient is recorded
+(serving, evaluation) — a training forward permutes afresh, so that the
+copy is part of its autograd graph. (The JAX package's
 space-to-depth stem is an exact rewrite of the same convolution and has
 no counterpart here.)
 """
@@ -63,9 +65,10 @@ class Conv(Forward):
 
     def fused_apply(self, params, x, *, train=False):
         w = params["weights"]
-        return fn.conv2d_forward(x, w, params["bias"], self.stride,
-                                 self.padding, self.activation,
-                                 w_oihw=self._weights_oihw(w))
+        return fn.conv2d_forward(
+            x, w, params["bias"], self.stride, self.padding,
+            self.activation,
+            w_oihw=None if torch.is_grad_enabled() else self._weights_oihw(w))
 
 
 class ConvStrictRELU(Conv):

@@ -1,0 +1,83 @@
+"""Decision: the training loop's epoch bookkeeping and stop rule.
+
+The port's counterpart of `DecisionGD` in `veles_tpu/znicz/decision.py`
+(decision.py:91-149 there): per minibatch it adds the evaluator's `n_err`
+to its class's running total; at the end of a class pass it records the
+pass's total, tracks the best validation error (the train error when
+there is no validation set) with `improved`, and at the end of a train
+pass closes the epoch: one `history` record, then `complete` once
+`max_epochs` is reached or the error has not improved for
+`fail_iterations` epochs. It reads the loader's `minibatch_class`,
+`last_minibatch` and `class_lengths` and the evaluator's `n_err`.
+`complete` and `improved` are plain bools here (the JAX package's are
+gate objects of its Unit graph); the epoch hooks and the non-finite guard
+come with the resilience slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from veles_tpu_torch.loader.base import TEST, TRAIN, VALIDATION
+from veles_tpu_torch.logger import Logger
+
+
+class DecisionGD(Logger):
+
+    def __init__(self, loader, evaluator, max_epochs: Optional[int] = None,
+                 fail_iterations: int = 100,
+                 name: Optional[str] = None) -> None:
+        self.name = name or type(self).__name__
+        self.loader = loader
+        self.evaluator = evaluator
+        self.max_epochs = max_epochs
+        self.fail_iterations = fail_iterations
+        self.complete = False
+        self.improved = False
+        self.epoch_number = 0
+        self.epoch_n_err = [0.0, 0.0, 0.0]       # per class (test/valid/train)
+        self.best_validation_err: Optional[float] = None
+        #: one record per completed train pass
+        self.history: list = []
+        self._accum = [0.0, 0.0, 0.0]
+        self._epochs_since_improvement = 0
+
+    def run(self) -> None:
+        cls = int(self.loader.minibatch_class)
+        self._accum[cls] += float(self.evaluator.n_err)
+        self.improved = False
+        if not self.loader.last_minibatch:
+            return
+        # end of this class's pass
+        self.epoch_n_err[cls] = self._accum[cls]
+        self._accum[cls] = 0.0
+        if cls == VALIDATION or (cls == TRAIN and
+                                 self.loader.class_lengths[VALIDATION] == 0):
+            err = self.epoch_n_err[cls]
+            if (self.best_validation_err is None
+                    or err < self.best_validation_err):
+                self.best_validation_err = err
+                self.improved = True
+                self._epochs_since_improvement = 0
+            else:
+                self._epochs_since_improvement += 1
+        if cls == TRAIN:
+            self.epoch_number += 1
+            self.history.append({
+                "epoch": self.epoch_number,
+                "train_err": float(self.epoch_n_err[TRAIN]),
+                "valid_err": float(self.epoch_n_err[VALIDATION]),
+                "test_err": float(self.epoch_n_err[TEST]),
+                "best_err": (None if self.best_validation_err is None
+                             else float(self.best_validation_err)),
+            })
+            self.info(
+                "epoch %d: train_err=%g valid_err=%g test_err=%g best=%s",
+                self.epoch_number, self.epoch_n_err[TRAIN],
+                self.epoch_n_err[VALIDATION], self.epoch_n_err[TEST],
+                self.best_validation_err)
+            if ((self.max_epochs is not None
+                 and self.epoch_number >= self.max_epochs)
+                    or self._epochs_since_improvement
+                    >= self.fail_iterations):
+                self.complete = True

@@ -1,19 +1,29 @@
-"""Dropout unit: identity when not training.
+"""Dropout unit: y = x·mask while training, the identity otherwise.
 
 The port's counterpart of `DropoutForward` in
-`veles_tpu/znicz/dropout.py`. Serving runs with train=False, where dropout
-is the identity (dropout.py:74-76 there). Masks drawn from a
-`torch.Generator` come with the training slice.
+`veles_tpu/znicz/dropout.py` (dropout.py:74-78 there): the mask is
+pre-scaled, (u < keep) / keep. The JAX package draws u from the step's
+key folded with the unit's index; the port draws it from the step's
+explicit `torch.Generator`, which the fused forward hands to this unit.
+The two streams cannot agree, so the parity tests replace `make_mask`,
+the one function every mask comes from, with the JAX package's masks.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.znicz.nn_units import Forward
+
+#: where every training mask comes from: (shape, drop_prob, generator,
+#: device) -> pre-scaled mask
+make_mask = fn.dropout_mask
 
 
 class DropoutForward(Forward):
+
+    fused_needs_gen = True
 
     def __init__(self, dropout_ratio: float = 0.5, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -22,9 +32,10 @@ class DropoutForward(Forward):
     def initialize(self, sample_shape, device):
         return tuple(sample_shape)
 
-    def fused_apply(self, params, x, *, train=False):
-        if train:
-            raise NotImplementedError(
-                "dropout masks come with the training slice; the serving "
-                "slice runs train=False")
-        return x
+    def fused_apply(self, params, x, *, train=False, gen=None):
+        if not train:
+            return x
+        if gen is None:
+            raise ValueError("a training dropout needs the step's "
+                             "torch.Generator (gen=)")
+        return x * make_mask(x.shape, self.dropout_ratio, gen, x.device)

@@ -8,9 +8,16 @@ falls back to the weights' stddev. The draws come from `prng.get()` in the
 JAX package's order, so one seed gives bit-identical parameters.
 
 Layouts at the boundary are the JAX package's (conv weights HWIO, FC
-weights (fan_in, units), activations NHWC). Parameters are registered as
-`nn.Parameter`s without gradients: this slice serves, and the gradient
-chain comes with the training slice.
+weights (fan_in, units), activations NHWC). Parameters are trainable
+`nn.Parameter`s; serving runs them under `torch.inference_mode()`.
+
+`GradientDescentBase` is the counterpart of the JAX package's gradient
+unit as the fused train step reads it: the holder of one layer's update
+hyperparameters (same names and defaults) and of its momentum velocities
+`vel_w` / `vel_b`, which the step seeds itself from and writes back to.
+`register_gd` / `gd_for` pair each forward class with its gradient unit.
+The granular per-unit backward (`gd.py`, `gd_conv.py`, `gd_pooling.py`
+there) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +31,29 @@ from torch import nn
 from veles_tpu_torch import prng
 
 
+#: forward unit class -> its gradient unit class
+MATCHED_GD: Dict[type, type] = {}
+
+
+def register_gd(forward_cls: type):
+    """Class decorator pairing a gradient unit with its forward unit."""
+
+    def deco(gd_cls: type) -> type:
+        MATCHED_GD[forward_cls] = gd_cls
+        return gd_cls
+
+    return deco
+
+
+def gd_for(forward_cls: type) -> type:
+    """The gradient unit class of a forward unit class, walking the MRO so
+    subclasses inherit their base's pairing."""
+    for cls in forward_cls.__mro__:
+        if cls in MATCHED_GD:
+            return MATCHED_GD[cls]
+    raise KeyError(f"no GD unit registered for {forward_cls.__name__}")
+
+
 class Forward(nn.Module):
     """Base of all forward layers. Subclasses implement
     `initialize(sample_shape, device) -> output sample shape` (filling
@@ -33,6 +63,8 @@ class Forward(nn.Module):
     variant_op: Optional[str] = None
     #: explicit per-layer lowering (wins over the registry selection)
     variant_override: Optional[str] = None
+    #: the fused step hands this unit its torch.Generator (`gen=`)
+    fused_needs_gen = False
 
     def __init__(self, weights_filling: str = "uniform",
                  weights_stddev: Optional[float] = None,
@@ -83,8 +115,7 @@ class Forward(nn.Module):
 
     @staticmethod
     def _param(a: np.ndarray, device: torch.device) -> nn.Parameter:
-        return nn.Parameter(torch.from_numpy(a).to(device),
-                            requires_grad=False)
+        return nn.Parameter(torch.from_numpy(a).to(device))
 
     # -- pytree view ----------------------------------------------------------
 
@@ -106,3 +137,26 @@ class Forward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fused_apply(self.param_arrays(), x, train=False)
 
+
+@register_gd(Forward)
+class GradientDescentBase:
+    """One layer's SGD hyperparameters, as the JAX package names them
+    (nn_units.py:148-180 there): `learning_rate`, `gradient_moment`
+    (momentum), `weights_decay` (L2), `l1_decay`, `learning_rate_bias`
+    (the bias lr multiplier, 2 by default, the reference's convention),
+    plus the momentum velocities `vel_w` / `vel_b` (None until a fused run
+    writes them back)."""
+
+    def __init__(self, learning_rate: float = 0.01,
+                 gradient_moment: float = 0.0,
+                 weights_decay: float = 0.0, l1_decay: float = 0.0,
+                 learning_rate_bias: float = 2.0,
+                 name: Optional[str] = None) -> None:
+        self.name = name or type(self).__name__
+        self.learning_rate = learning_rate
+        self.gradient_moment = gradient_moment
+        self.weights_decay = weights_decay
+        self.l1_decay = l1_decay
+        self.learning_rate_bias = learning_rate_bias
+        self.vel_w: Optional[torch.Tensor] = None
+        self.vel_b: Optional[torch.Tensor] = None

@@ -3,9 +3,10 @@
 The port's counterpart of `LRNormalizerForward` in
 `veles_tpu/znicz/normalization.py`: y = x·(k + α·Σ_window x²)^(−β) over a
 window of n channels (odd n only). Its forward resolves the registry op
-`lrn` (ops/variants.py) — K2 on the card. When the `lrn_maxpool` selection
-is a fused point and a max pooling follows, the fused forward lets this
-unit claim the pooling's work (parallel/fused.py).
+`lrn` (ops/variants.py) — K2 forward and K3 backward on the card. When
+the `lrn_maxpool` selection is a fused point and a max pooling follows,
+the fused forward lets this unit claim the pooling's work
+(parallel/fused.py).
 """
 
 from __future__ import annotations
@@ -37,6 +38,6 @@ class LRNormalizerForward(Forward):
     def fused_apply(self, params, x, *, train=False, variant=None):
         """`variant`: the lowering a fused forward resolved for this unit
         at build time; None resolves it now."""
-        v = variant or variants.resolve("lrn", unit=self, device=x.device)
+        v = variant or variants.resolve("lrn", unit=self)
         return v.apply(x, k=self.k, alpha=self.alpha, beta=self.beta,
                        n=self.n)
