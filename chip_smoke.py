@@ -7,10 +7,8 @@
 2. Build the port's CUDA kernels from veles_tpu_torch/csrc/ (nvcc, one
    process per source, all at once) and print the build seconds.
 3. KERNEL lines. Each kernel is held against its plain PyTorch version on
-   the same inputs (|kernel - plain| <= 1e-6 + 1e-5*|plain|: the same f32
-   arithmetic in the same order, so at most the rsqrt approximation
-   differs) and timed beside its plain version and the least time the card
-   could take, each launch with a cold L2 cache (median of 25):
+   the same inputs and timed beside its plain version and the least time
+   the card could take, each launch with a cold L2 cache (median of 25):
    - K2 (LRN forward) and K4 (fused LRN -> max pool forward) at both
      AlexNet LRN shapes at the serving ring's batch 64, K2 also beside the
      one PyTorch call computing the same function (F.local_response_norm,
@@ -20,6 +18,23 @@
      pooling windows tie as they do in training), and K1 (the SGD update)
      over all 16 AlexNet leaves (62,378,344 parameters), each leaf at its
      own learning rate. No single PyTorch call computes K3, K5 or K1.
+   K1-K5 within 1e-6 + 1e-5*|plain| (the same f32 arithmetic in the same
+   order, so at most the rsqrt approximation differs).
+   - K6 (flash attention forward: O and the row logsumexp) and K7 (its
+     backward: dQ, dK, dV) at the char-transformer's shape, q, k, v of
+     (32, 4096, 4, 16), causal, within 4e-6 + 4e-5*|plain| (forward) and
+     1e-5 + 1e-4*|plain| (backward): a fifth of the JAX package's own
+     kernel-vs-golden tolerances (the online softmax sums in another order
+     than the plain version's materialised one; the backward's sums run
+     in the plain version's order). Beside each, the one PyTorch call
+     computing the same function: F.scaled_dot_product_attention(...,
+     is_causal=True) in f32 for K6, autograd of that call for K7 (each
+     checked first to agree with the plain version within the JAX
+     package's tolerances, 2e-5 + 2e-4*|plain| and 5e-5 + 5e-4*|plain|;
+     the backend PyTorch dispatches it to is printed). Before that, K6 and
+     K7 at every head width they are compiled for (8, 16) on a
+     ragged S = 200, causal or not, KV forward or reversed, with and
+     without a dropout mask (FLASH lines).
 4. SERVE: serve the full-width AlexNet (227x227x3, fc 4096, 1000 classes,
    ring of 64) through the same function the CLI uses, under
    lrn_maxpool=fused and again under composed, with one seed. POST 1, 8
@@ -36,12 +51,20 @@
    just before each and read just after: K4, K5 and K1 must have launched
    under fused, K2, K3 and K1 under composed, and the loss be finite. Each
    step's device time comes from CUDA events around it.
+   TRAIN transformer: train the char-transformer at its own widths (embed
+   64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
+   4096 for 2 epochs through the same function (1 validation window, so
+   an epoch is one train and one validation minibatch); counters zeroed
+   just before and read just after: K6 once per train and validation
+   step, K7 and K1 x 13 leaves once per train step, exactly, nothing
+   else, and the loss finite.
 6. Held on the card (TF32 off, as the step runs):
-   (a) the first full-width train step through the kernels against the
-       same step with every kernel swapped for its plain version, from one
-       state and batch: the loss, and every leaf and velocity after the
-       update, within 1e-7 + 1e-4*|plain| (the LRN and update arithmetic
-       is the same; cuDNN's weight-gradient sums are not bit-stable);
+   (a) the first full-width AlexNet train step through the kernels against
+       the same step with every kernel swapped for its plain version, from
+       one state and batch: the loss, and every leaf and velocity after
+       the update, within 1e-7 + 1e-4*|plain| (the LRN and update
+       arithmetic is the same; cuDNN's weight-gradient sums are not
+       bit-stable);
    (b) fused against composed on that step: the same n_err, the loss
        within the same tolerance;
    (c) the toy AlexNet (input 67, width 1/8, fc 64, 16 classes, batch 8,
@@ -52,9 +75,21 @@
        ReLU input, within 1e-5 of the layer's largest magnitude of each
        other (or of zero): there two f32 implementations may route the
        gradient differently, which is the max's and the ReLU's
-       discontinuity, not a fault.
-   A profiler pass over one more full-width step splits its device time
-   by kernel family (written to chiprun_out/train_profile.json).
+       discontinuity, not a fault;
+   (d) one full-width char-transformer train step at seq_len 4096 (32
+       distinct windows of a longer synthetic text) through the kernels
+       against the same step through the plain versions, from one state:
+       the loss and every leaf and velocity within the tolerance of (a),
+       n_err equal but for tokens whose two largest logits tie within
+       1e-5 of the largest logit magnitude;
+   (e) the toy transformer (embed 16, 2 heads of 8, ffn 24, seq_len 256,
+       minibatch 4, the flash gate forced on) for 3 steps on the card
+       against the same 3 steps on the CPU from one seed, on batches
+       without such logit ties, within the same tolerance.
+   A profiler pass over one more full-width step of each model splits its
+   device time by kernel family (chiprun_out/train_profile.json and
+   transformer_profile.json), and SPLIT lines time the forward+loss,
+   backward and update of each by CUDA events.
 7. Print one {"kernels": [...]} line, then the card line and the closing
    {"ok": true, "device": {...}} line.
 
@@ -81,6 +116,8 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ALEXNET = os.path.join(REPO, "veles_tpu_torch", "samples", "alexnet.py")
+CHAR_TRANSFORMER = os.path.join(REPO, "veles_tpu_torch", "samples",
+                                "char_transformer.py")
 B = 64                  # the ring, and the forward kernels' batch
 TB = 128                # the training minibatch, and K3/K5's batch
 HW, N_CLASSES = 227, 1000
@@ -97,11 +134,30 @@ TRAIN_ARGS: list = []
 #: the toy AlexNet of the card-against-CPU check (c)
 TOY_ARGS = dict(input_hw=67, width_mult=0.125, fc_width=64, n_classes=16,
                 minibatch_size=8, n_train=8, n_validation=8, init="scaled")
+#: the char-transformer's train run: seq_len 4096 (the flash gate's
+#: smallest S), one validation window, two epochs
+CT_SEQ = 4096
+CT_TRAIN_ARGS = [f"root.char_transformer.loader.seq_len={CT_SEQ}",
+                 "root.char_transformer.loader.n_validation=1",
+                 "root.char_transformer.decision.max_epochs=2"]
+#: q, k, v of the transformer's attention: (B, S, H, D)
+ATT_SHAPE = (32, CT_SEQ, 4, 16)
+#: the toy transformer of the card-against-CPU check (e)
+CT_TOY = {"embed": 16, "n_heads": 2, "ffn": 24, "loader.seq_len": 256,
+          "loader.minibatch_size": 4, "loader.n_validation": 4}
 K, ALPHA, BETA, N = 2.0, 1e-4, 0.75, 5
 LR, MOMENTUM, DECAY = 0.01, 0.9, 5e-4
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 SERVE_ATOL = 1e-5
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-7
+#: K6/K7 against their plain versions: a fifth of the JAX package's
+#: kernel-vs-golden tolerances (SDPA_* below), which runs on an H100
+#: allowed (max abs err 1.9e-6 forward, 7.2e-7 backward)
+FLASH_FWD_RTOL, FLASH_FWD_ATOL = 4e-5, 4e-6
+FLASH_BWD_RTOL, FLASH_BWD_ATOL = 1e-4, 1e-5
+#: SDPA against the plain versions: the JAX package's tolerances
+SDPA_FWD_RTOL, SDPA_FWD_ATOL = 2e-4, 2e-5
+SDPA_BWD_RTOL, SDPA_BWD_ATOL = 5e-4, 5e-5
 TIE_TAU = 1e-5
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "chiprun_out")
@@ -507,9 +563,158 @@ def print_kernel_line(name, layer, r):
           f"{r['max_abs_err']:.3e}", flush=True)
 
 
-def train_phase(launcher, kernels, dev):
-    """Train the full-width AlexNet one epoch under both lrn_maxpool
-    settings through `launcher.train`, the `--fused` CLI's function."""
+def heads_first(x: torch.Tensor) -> torch.Tensor:
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+
+def attention_pairs(s: int, causal: bool) -> int:
+    """(query, key) pairs one head computes: the causal mask keeps
+    S(S+1)/2 of the S^2."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend F.scaled_dot_product_attention dispatches these causal
+    inputs to (flash, memory-efficient, cuDNN or math), as PyTorch's own
+    dispatcher chooses it. (Not read from a profiler trace: a profiler
+    session this early loses the later profiles' memcpy records.)"""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+
+
+def flash_small_checks(kernels, dev):
+    """K6 and K7 at every head width they are compiled for, on a ragged
+    S, causal or not, KV forward or reversed, with and without a dropout
+    mask, against their plain versions."""
+    rs = np.random.RandomState(5)
+    worst = [0.0, 0.0]
+    s, bh = 200, 6
+    for d in kernels.FLASH_HEAD_DIMS:
+        q, k, v, g = (torch.from_numpy(rs.randn(bh, s, d).astype(np.float32))
+                      .to(dev) for _ in range(4))
+        mask = torch.from_numpy(((rs.rand(bh, s, d) < 0.8) / 0.8)
+                                .astype(np.float32)).to(dev)
+        for causal, order, m in ((False, "fwd", None), (True, "fwd", None),
+                                 (True, "rev", None), (False, "rev", None),
+                                 (True, "fwd", mask)):
+            what = f"d {d} causal {causal} kv {order} mask {m is not None}"
+            o, lse = kernels.flash_attention_forward(q, k, v, causal, None,
+                                                     order, m)
+            op, lp = kernels.flash_attention_forward_plain(q, k, v, causal,
+                                                           None, order, m)
+            worst[0] = max(worst[0], check_close(
+                f"flash forward {what}", o, op, FLASH_FWD_RTOL,
+                FLASH_FWD_ATOL), check_close(
+                f"flash lse {what}", lse, lp, FLASH_FWD_RTOL,
+                FLASH_FWD_ATOL))
+            di = (g * o).sum(-1, keepdim=True)
+            do = g if m is None else g * m
+            got = kernels.flash_attention_backward(q, k, v, do, lse, di,
+                                                   causal)
+            want = kernels.flash_attention_backward_plain(q, k, v, do, lse,
+                                                          di, causal)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                worst[1] = max(worst[1], check_close(
+                    f"flash backward {name} {what}", a, b, FLASH_BWD_RTOL,
+                    FLASH_BWD_ATOL))
+    torch.cuda.synchronize()
+    print(f"FLASH K6/K7 at head widths {kernels.FLASH_HEAD_DIMS}, S={s}, "
+          f"B*H={bh}, causal/not, kv fwd/rev, with/without mask: max abs "
+          f"err forward {worst[0]:.3e}, backward {worst[1]:.3e}", flush=True)
+
+
+def flash_kernel_phase(kernels, dev, bw, flops):
+    """Hold K6 and K7 against their plain versions at the transformer's
+    shape, beside SDPA, and time them."""
+    flash_small_checks(kernels, dev)
+    timer = ColdTimer(dev)
+    rs = np.random.RandomState(6)
+    b, s, h, d = ATT_SHAPE
+    q, k, v, g = (heads_first(torch.from_numpy(
+        rs.randn(*ATT_SHAPE).astype(np.float32)).to(dev)) for _ in range(4))
+    pairs = b * h * attention_pairs(s, True)
+    row_bytes = b * h * s * d * 4
+    # -- K6 ---------------------------------------------------------------
+    ok, lk = kernels.flash_attention_forward(q, k, v, True)
+    op, lp = kernels.flash_attention_forward_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    err = max(check_close("flash_attention_forward O", ok, op,
+                          FLASH_FWD_RTOL, FLASH_FWD_ATOL),
+              check_close("flash_attention_forward lse", lk, lp,
+                          FLASH_FWD_RTOL, FLASH_FWD_ATOL))
+    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_err = check_close("F.scaled_dot_product_attention",
+                          lib_fwd().reshape(b * h, s, d), op, SDPA_FWD_RTOL,
+                          SDPA_FWD_ATOL)
+    backend = sdpa_backend(q4, k4, v4)
+    t_bytes = (4 * row_bytes + b * h * s * 4) / bw
+    t_ops = 4 * d * pairs / flops
+    rows = {"flash_attention_forward": [{
+        "shape": list(ATT_SHAPE), "causal": True, "max_abs_err": err,
+        "ms": timer(lambda: kernels.flash_attention_forward(q, k, v, True)),
+        "plain_ms": timer(lambda: kernels.flash_attention_forward_plain(
+            q, k, v, True)),
+        "library_ms": timer(lib_fwd), "library": f"sdpa {backend}",
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}]}
+    print_kernel_line("flash_attention_forward", "causal",
+                      rows["flash_attention_forward"][0])
+    print(f"KERNEL flash_attention_forward: library = "
+          f"F.scaled_dot_product_attention(is_causal=True) f32, backend "
+          f"{backend}, max abs err against the plain version {lib_err:.3e}",
+          flush=True)
+    del op, lp
+    # -- K7 ---------------------------------------------------------------
+    di = (g * ok).sum(-1, keepdim=True)
+    got = kernels.flash_attention_backward(q, k, v, g, lk, di, True)
+    want = kernels.flash_attention_backward_plain(q, k, v, g, lk, di, True)
+    torch.cuda.synchronize()
+    err = max(check_close(f"flash_attention_backward {n}", a, w,
+                          FLASH_BWD_RTOL, FLASH_BWD_ATOL)
+              for n, a, w in zip(("dq", "dk", "dv"), got, want))
+    leaves = [t.view(b, h, s, d).clone().requires_grad_(True)
+              for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    g4 = g.view(b, h, s, d)
+
+    def lib_bwd():
+        return torch.autograd.grad(out, leaves, g4, retain_graph=True)
+    lib_err = max(check_close(f"autograd of SDPA {n}", a.reshape(b * h, s, d),
+                              w, SDPA_BWD_RTOL, SDPA_BWD_ATOL)
+                  for n, a, w in zip(("dq", "dk", "dv"), lib_bwd(), want))
+    backend = sdpa_backend(*leaves)
+    t_bytes = (7 * row_bytes + 2 * b * h * s * 4) / bw
+    # the function's five products per kept pair (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO,
+    # dS·K, dSᵀ·Q); K7 executes seven, recomputing two in each kernel
+    t_ops = 10 * d * pairs / flops
+    rows["flash_attention_backward"] = [{
+        "shape": list(ATT_SHAPE), "causal": True, "max_abs_err": err,
+        "ms": timer(lambda: kernels.flash_attention_backward(
+            q, k, v, g, lk, di, True)),
+        "plain_ms": timer(lambda: kernels.flash_attention_backward_plain(
+            q, k, v, g, lk, di, True)),
+        "library_ms": timer(lib_bwd), "library": f"sdpa backward {backend}",
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}]
+    print_kernel_line("flash_attention_backward", "causal",
+                      rows["flash_attention_backward"][0])
+    print(f"KERNEL flash_attention_backward: library = autograd of "
+          f"F.scaled_dot_product_attention(is_causal=True) f32, backend "
+          f"{backend}, max abs err against the plain version {lib_err:.3e}",
+          flush=True)
+    del q, k, v, g, ok, lk, di, got, want, leaves, out, q4, k4, v4, g4
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Record CUDA events around every FusedTrainStep.train and .evaluate
+    call in the block; yields the list of (kind, start, end)."""
     from veles_tpu_torch.parallel.fused import FusedTrainStep
 
     events = []
@@ -527,56 +732,103 @@ def train_phase(launcher, kernels, dev):
             return out
         return call
 
+    FusedTrainStep.train = timed("train")
+    FusedTrainStep.evaluate = timed("evaluate")
+    try:
+        yield events
+    finally:
+        FusedTrainStep.train = inner["train"]
+        FusedTrainStep.evaluate = inner["evaluate"]
+
+
+def train_run(launcher, kernels, dev, label, argv):
+    """One `launcher.train(argv)` run with the launch counters zeroed just
+    before it and read just after, and CUDA events around every step;
+    prints the TRAIN lines and returns (workflow, counts)."""
+    tf32_default = tf32_flags()
+    with timed_steps() as events:
+        t0 = time.perf_counter()
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        wf = launcher.train(argv)
+        counts = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    steps = [(kind, s.elapsed_time(e)) for kind, s, e in events]
+    loss = wf.evaluator.loss
+    print(f"TRAIN {label}: {wf.decision.epoch_number} epoch(s) in "
+          f"{wall:.2f} s of host time (data, init and steps) on "
+          f"{wf.device}; step device ms (CUDA events) "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in steps), flush=True)
+    print(f"TRAIN {label}: train-pass loss {loss}; history "
+          f"{wf.decision.history}; launches {counts}", flush=True)
+    if wf.device != dev:
+        raise AssertionError(f"trained on {wf.device}, not {dev}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    if tf32_flags() != tf32_default:
+        raise AssertionError("training changed the process's TF32 flags")
+    return wf, counts
+
+
+def train_phase(launcher, kernels, dev):
+    """Train the full-width AlexNet one epoch under both lrn_maxpool
+    settings through `launcher.train`, the `--fused` CLI's function."""
     launches = {}
     want = {"fused": ("lrn_maxpool_forward", "lrn_maxpool_backward",
                       "sgd_update"),
             "composed": ("lrn_forward", "lrn_backward", "sgd_update")}
-    tf32_default = tf32_flags()
-    FusedTrainStep.train = timed("train")
-    FusedTrainStep.evaluate = timed("evaluate")
-    try:
-        for setting in ("fused", "composed"):
-            events.clear()
-            t0 = time.perf_counter()
-            # -- the main path: counts zeroed just before, read just after
-            kernels.reset_launch_counts()
-            wf = launcher.train([ALEXNET, "--fused", "-r", "1234",
-                                 "--lrn-maxpool", setting,
-                                 "root.alexnet.decision.max_epochs=1",
-                                 *TRAIN_ARGS])
-            counts = kernels.launch_counts()
-            wall = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            launches[setting] = counts
-            steps = [(kind, s.elapsed_time(e)) for kind, s, e in events]
-            loss = wf.evaluator.loss
-            print(f"TRAIN {setting}: {wf.decision.epoch_number} epoch in "
-                  f"{wall:.2f} s of host time (data, init and steps) on "
-                  f"{wf.device}; step device ms (CUDA events) "
-                  + ", ".join(f"{k} {ms:.3f}" for k, ms in steps),
-                  flush=True)
-            print(f"TRAIN {setting}: train-pass loss {loss}; history "
-                  f"{wf.decision.history}; launches {counts}", flush=True)
-            if wf.device != dev:
-                raise AssertionError(f"trained on {wf.device}, not {dev}")
-            if not np.isfinite(loss):
-                raise AssertionError(f"non-finite loss {loss}")
-            if tf32_flags() != tf32_default:
-                raise AssertionError("training changed the process's TF32 "
-                                     "flags")
-            for name, c in counts.items():
-                if name in want[setting] and c <= 0:
-                    raise AssertionError(f"{name} never launched under "
-                                         f"lrn_maxpool={setting}")
-                if name not in want[setting] and c != 0:
-                    raise AssertionError(f"{name} launched {c} times under "
-                                         f"lrn_maxpool={setting}")
-            del wf
-            torch.cuda.empty_cache()
-    finally:
-        FusedTrainStep.train = inner["train"]
-        FusedTrainStep.evaluate = inner["evaluate"]
+    for setting in ("fused", "composed"):
+        wf, counts = train_run(
+            launcher, kernels, dev, setting,
+            [ALEXNET, "--fused", "-r", "1234", "--lrn-maxpool", setting,
+             "root.alexnet.decision.max_epochs=1", *TRAIN_ARGS])
+        launches[setting] = counts
+        for name, c in counts.items():
+            if name in want[setting] and c <= 0:
+                raise AssertionError(f"{name} never launched under "
+                                     f"lrn_maxpool={setting}")
+            if name not in want[setting] and c != 0:
+                raise AssertionError(f"{name} launched {c} times under "
+                                     f"lrn_maxpool={setting}")
+        del wf
+        torch.cuda.empty_cache()
     return launches
+
+
+def transformer_train_phase(launcher, kernels, dev):
+    """Train the char-transformer at seq_len 4096 for two epochs through
+    `launcher.train`; every launch count is exact."""
+    wf, counts = train_run(
+        launcher, kernels, dev, "transformer",
+        [CHAR_TRANSFORMER, "--fused", "-r", "1234", *CT_TRAIN_ARGS])
+    loader = wf.loader
+    if loader.seq_len != CT_SEQ or tuple(loader.sample_shape) != (CT_SEQ,
+                                                                  18):
+        raise AssertionError(f"trained seq_len {loader.seq_len}, samples "
+                             f"{loader.sample_shape}")
+    mb = loader.minibatch_size
+    train_steps = -(-loader.class_lengths[2] // mb)
+    valid_steps = -(-loader.class_lengths[1] // mb)
+    epochs = wf.decision.epoch_number
+    leaves = sum(len(u.param_arrays()) for u in wf.forwards)
+    n_params = sum(t.numel() for u in wf.forwards
+                   for t in u.param_arrays().values())
+    want = {name: 0 for name in counts}
+    want.update({
+        "flash_attention_forward": epochs * (train_steps + valid_steps),
+        "flash_attention_backward": epochs * train_steps,
+        "sgd_update": epochs * train_steps * leaves})
+    print(f"TRAIN transformer: {epochs} epochs of {train_steps} train and "
+          f"{valid_steps} validation minibatch(es) of {mb} x {CT_SEQ}, "
+          f"{leaves} leaves ({n_params} parameters): launches expected "
+          f"{want}", flush=True)
+    if epochs != 2 or counts != want:
+        raise AssertionError(f"transformer launches {counts} != {want} "
+                             f"(epochs {epochs})")
+    del wf
+    torch.cuda.empty_cache()
+    return counts
 
 
 @contextlib.contextmanager
@@ -584,7 +836,8 @@ def plain_kernels(kernels):
     """Every kernel wrapper swapped for its plain version: the autograd
     functions and the update variant call the wrappers by module name."""
     names = ("sgd_update", "lrn_forward", "lrn_backward",
-             "lrn_maxpool_forward", "lrn_maxpool_backward")
+             "lrn_maxpool_forward", "lrn_maxpool_backward",
+             "flash_attention_forward", "flash_attention_backward")
     saved = {n: getattr(kernels, n) for n in names}
     for n in names:
         setattr(kernels, n, getattr(kernels, n + "_plain"))
@@ -652,6 +905,8 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     if "memcpy" in low or "memset" in low:
         return "copy"
+    if "flash" in low:
+        return "flash"
     if "lrn" in low or "max_pool" in low or "maxpool" in low:
         return "lrn/pool"
     if "sgd_update" in low:
@@ -665,10 +920,10 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_step(step, state, x, y, w):
+def profile_step(step, state, x, y, w, out_name="train_profile.json"):
     """Device time of one train step by kernel family, from
     torch.profiler's CUDA activity; the kernels' table goes to
-    chiprun_out/train_profile.json."""
+    chiprun_out/`out_name`."""
     from torch.profiler import ProfilerActivity, profile
     step.train(state, x, y, w)
     torch.cuda.synchronize()
@@ -689,13 +944,13 @@ def profile_step(step, state, x, y, w):
         fam = kernel_family(name)
         families[fam] = families.get(fam, 0.0) + us / 1e3
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "train_profile.json"), "w") as f:
+    with open(os.path.join(OUT, out_name), "w") as f:
         json.dump({"ms_by_family": families,
                    "us_by_kernel": dict(sorted(kernels_us.items(),
                                                key=lambda kv: -kv[1]))},
                   f, indent=1)
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]
-    print("PROFILE one fused train step, device ms by family "
+    print(f"PROFILE one fused train step ({out_name}), device ms by family "
           f"{ {k: round(v, 4) for k, v in families.items()} }; top "
           "kernels (us): " + "; ".join(f"{n[:60]} {us:.1f}"
                                         for n, us in top), flush=True)
@@ -866,6 +1121,158 @@ def toy_card_vs_cpu(dev):
               f"velocity {err:.3e}", flush=True)
 
 
+@contextlib.contextmanager
+def ct_config(overrides):
+    """`root.char_transformer` overrides for a block, restored after it."""
+    from veles_tpu_torch.config import root
+    node = root.char_transformer
+    saved = node.to_dict()
+    for dotted, value in overrides.items():
+        node.override(dotted, value)
+    try:
+        yield
+    finally:
+        node.update(saved)
+
+
+def logit_ties(step, state, x, tau=TIE_TAU) -> int:
+    """Tokens of `x` whose two largest logits lie within tau of the
+    largest logit magnitude of each other: there two f32 implementations
+    may pick different classes."""
+    with torch.inference_mode():
+        out = step.fwd._forward(state["params"],
+                                torch.as_tensor(x, device=step.device))
+        top = out.reshape(-1, out.shape[-1]).topk(2, dim=-1).values
+        return int(((top[:, 0] - top[:, 1]) <= tau * out.abs().max()).sum())
+
+
+def transformer_step_checks(kernels, dev):
+    """(d) one full-width char-transformer train step at seq_len 4096
+    through the kernels against the same step through the plain versions,
+    from one state and one batch of 32 distinct windows; then the step's
+    split by CUDA events and by profiler."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.loader.text import synthetic_text
+    from veles_tpu_torch.samples import char_transformer
+    prng.seed_all(1234)
+    mb = ATT_SHAPE[0]
+    with ct_config({"loader.seq_len": CT_SEQ, "loader.n_validation": 1,
+                    "loader.minibatch_size": mb}):
+        wf = char_transformer.create_workflow(
+            text=synthetic_text((mb + 1) * CT_SEQ + 1))
+    wf.initialize(dev)
+    loader = wf.loader
+    if loader.class_lengths != [0, 1, mb]:
+        raise AssertionError(f"(d) windows {loader.class_lengths}")
+    step = wf.build_fused_step()
+    table = step.variant_table()
+    if table != {"flash_attn": "kernel", "sgd_update": "kernel"}:
+        raise AssertionError(f"(d) variants {table}")
+    s0 = step.init_state()
+    loader.run()
+    while loader.minibatch_class != TRAIN:
+        loader.run()
+    x, y, w = (loader.minibatch_data, loader.minibatch_labels,
+               loader.minibatch_valid)
+    if len(set(loader.minibatch_indices.tolist())) != mb or not w.all():
+        raise AssertionError("(d) the batch is not 32 distinct windows")
+
+    def run(plain):
+        st = clone_state(s0)
+        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+            st, (loss, n_err) = step.train(st, x, y, w)
+        torch.cuda.synchronize()
+        return st, float(loss), int(n_err)
+
+    kernels.reset_launch_counts()
+    kst, kloss, kerr = run(False)
+    counts = kernels.launch_counts()
+    if counts["flash_attention_forward"] != 1 \
+            or counts["flash_attention_backward"] != 1:
+        raise AssertionError(f"(d) the kernel step launched {counts}")
+    pst, ploss, perr = run(True)
+    with plain_kernels(kernels):
+        ties = logit_ties(step, s0, x)
+    check_loss("(d) kernel vs plain transformer step", kloss, ploss)
+    if abs(kerr - perr) > ties:
+        raise AssertionError(f"(d) n_err {kerr} != {perr} beyond the "
+                             f"{ties} tied tokens")
+    err_d = compare_states("(d) kernel vs plain transformer step", kst,
+                           pst)
+    print(f"CHECK (d) full-width transformer step at S={CT_SEQ}, kernels "
+          f"vs plain versions: loss {kloss} vs {ploss}, n_err {kerr} vs "
+          f"{perr} ({ties} tokens with tied logits), max abs err over "
+          f"every leaf and velocity {err_d:.3e} (tolerance "
+          f"{TRAIN_ATOL} + {TRAIN_RTOL}*|plain|)", flush=True)
+    del kst, pst
+    st = clone_state(s0)
+    step_split_ms(step, st, x, y, w)       # warm
+    split = [step_split_ms(step, st, x, y, w) for _ in range(3)]
+    print(f"SPLIT transformer: forward+loss, backward, update device ms "
+          f"(3 steps, CUDA events) {split}", flush=True)
+    families = profile_step(step, clone_state(s0), x, y, w,
+                            "transformer_profile.json")
+    del wf, step, s0, st
+    torch.cuda.empty_cache()
+    return {"d_max_abs_err": err_d, "d_loss": [kloss, ploss],
+            "d_n_err": [kerr, perr], "d_tied_tokens": ties,
+            "split": split, "profile_ms": families}
+
+
+def toy_transformer_card_vs_cpu(kernels, dev):
+    """(e) 3 train steps of the toy transformer, its flash gate forced
+    on, on the card against the same steps on the CPU, from one seed, on
+    batches of distinct train windows without tied logits."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import char_transformer
+    steps, states, wfs = {}, {}, {}
+    for d in ("cpu", dev):
+        prng.seed_all(1234)
+        with ct_config(CT_TOY):
+            wf = char_transformer.create_workflow()
+        wf.forwards[1].use_flash = "on"
+        wf.initialize(d)
+        steps[d] = wf.build_fused_step()
+        states[d] = steps[d].init_state()
+        wfs[d] = wf
+    compare_states("(e) initial state", states[dev], states["cpu"], 0.0, 0.0)
+    loader = wfs["cpu"].loader
+    n_valid, mb = loader.class_lengths[1], loader.minibatch_size
+    rs = np.random.RandomState(7)
+    kernels.reset_launch_counts()
+    for i in range(3):
+        for draw in range(100):
+            idx = n_valid + rs.choice(len(loader.data) - n_valid, mb,
+                                      replace=False)
+            x = loader.data[idx]
+            y = loader.labels[idx].reshape(-1)
+            w = np.ones(mb, np.float32)
+            if logit_ties(steps["cpu"], states["cpu"], x) == 0:
+                break
+        else:
+            raise AssertionError("(e): 100 batches in a row with tied "
+                                 "logits")
+        out = {}
+        for d in ("cpu", dev):
+            states[d], (loss, n_err) = steps[d].train(states[d], x, y, w)
+            out[d] = (float(loss), int(n_err))
+        check_loss(f"(e) step {i} card vs cpu", out[dev][0], out["cpu"][0])
+        if out[dev][1] != out["cpu"][1]:
+            raise AssertionError(f"(e) step {i}: n_err {out[dev][1]} != "
+                                 f"{out['cpu'][1]}")
+        err = compare_states(f"(e) step {i} card vs cpu", states[dev],
+                             states["cpu"])
+        print(f"CHECK (e) toy transformer step {i} (batch draw {draw}) card "
+              f"vs cpu: loss {out[dev][0]} vs {out['cpu'][0]}, n_err "
+              f"{out[dev][1]} vs {out['cpu'][1]}, max abs err over every "
+              f"leaf and velocity {err:.3e}", flush=True)
+    counts = kernels.launch_counts()
+    if counts["flash_attention_forward"] != 3 \
+            or counts["flash_attention_backward"] != 3:
+        raise AssertionError(f"(e) the card steps launched {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -893,26 +1300,37 @@ def main() -> int:
           flush=True)
     rows = kernel_phase(kernels, dev, bw, flops)
     rows.update(backward_kernel_phase(kernels, dev, bw, flops))
+    rows.update(flash_kernel_phase(kernels, dev, bw, flops))
     by_path = {"serve": serve_phase(launcher, kernels, dev)}
     for setting, counts in train_phase(launcher, kernels, dev).items():
         by_path[f"train_{setting}"] = counts
+    by_path["train_transformer"] = transformer_train_phase(launcher,
+                                                           kernels, dev)
     from veles_tpu_torch.ops import variants
     checks = step_checks(kernels, variants, dev)
     toy_card_vs_cpu(dev)
+    checks["transformer"] = transformer_step_checks(kernels, dev)
+    toy_transformer_card_vs_cpu(kernels, dev)
 
+    pallas = "veles_tpu/ops/pallas_kernels.py"
     meta = {
         "sgd_update": ("veles_tpu_torch/csrc/sgd_update.cu",
-                       "veles_tpu/ops/pallas_kernels.py:97"),
+                       f"{pallas}:97"),
         "lrn_forward": ("veles_tpu_torch/csrc/lrn_forward.cu",
-                        "veles_tpu/ops/pallas_kernels.py:164"),
+                        f"{pallas}:164"),
         "lrn_backward": ("veles_tpu_torch/csrc/lrn_backward.cu",
-                         "veles_tpu/ops/pallas_kernels.py:171"),
+                         f"{pallas}:171"),
         "lrn_maxpool_forward": (
-            "veles_tpu_torch/csrc/lrn_maxpool_forward.cu",
-            "veles_tpu/ops/pallas_kernels.py:349"),
+            "veles_tpu_torch/csrc/lrn_maxpool_forward.cu", f"{pallas}:349"),
         "lrn_maxpool_backward": (
             "veles_tpu_torch/csrc/lrn_maxpool_backward.cu",
-            "veles_tpu/ops/pallas_kernels.py:362")}
+            f"{pallas}:362"),
+        "flash_attention_forward": (
+            "veles_tpu_torch/csrc/flash_attention_forward.cu",
+            f"{pallas}:479"),
+        "flash_attention_backward": (
+            "veles_tpu_torch/csrc/flash_attention_backward.cu",
+            f"{pallas}:553, :595")}
     entries = []
     for name, per_shape in rows.items():
         lib = [r["library_ms"] for r in per_shape]
@@ -925,7 +1343,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in per_shape),
             # a served or trained batch runs each LRN kernel once per
             # AlexNet shape, and K1 once per leaf: the times below are the
-            # sums over the shapes (K2, K4 at batch 64; K3, K5 at 128)
+            # sums over the shapes (K2, K4 at batch 64; K3, K5 at 128; K6,
+            # K7 at the transformer's one shape)
             "ms": sum(r["ms"] for r in per_shape),
             "plain_ms": sum(r["plain_ms"] for r in per_shape),
             "bound_ms": sum(r["bound_ms"] for r in per_shape),

@@ -137,10 +137,15 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     kernels.lrn_maxpool_backward(x, torch.randn(1, 4, 4, 8))
     p, v = torch.randn(5), torch.zeros(5)
     kernels.sgd_update(p, torch.randn(5), v, 0.1, 0.9, 1e-3)
+    q = torch.randn(2, 8, 8)
+    _, lse = kernels.flash_attention_forward(q, q, q, causal=True)
+    kernels.flash_attention_backward(q, q, q, q, lse, lse, causal=True)
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     assert set(kernels.KERNELS) == {"sgd_update", "lrn_forward",
                                     "lrn_backward", "lrn_maxpool_forward",
-                                    "lrn_maxpool_backward"}
+                                    "lrn_maxpool_backward",
+                                    "flash_attention_forward",
+                                    "flash_attention_backward"}
     meta = torch.empty(1, 9, 9, 8, device="meta")
     for call in (lambda: kernels.lrn_forward(meta),
                  lambda: kernels.lrn_maxpool_forward(meta),
@@ -157,7 +162,8 @@ def test_registry_resolution_and_device_gating():
     itself), and `lrn_maxpool/composed` is a marker with no `apply`."""
     assert {op: sorted(spec.variants) for op, spec in variants._OPS.items()} \
         == {"lrn": ["kernel"], "lrn_maxpool": ["composed", "fused"],
-            "sgd_update": ["kernel", "tree"]}
+            "sgd_update": ["kernel", "tree"],
+            "flash_attn": ["kernel", "mha"]}
     with pytest.raises(KeyError):
         variants.get("lrn", "plain")
     composed = variants.get("lrn_maxpool", "composed")

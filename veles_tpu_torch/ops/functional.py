@@ -23,12 +23,20 @@ import torch
 import torch.nn.functional as F
 
 
+#: the reference's scaled tanh, A·tanh(B·x) (xla.py TANH_A, TANH_B)
+TANH_A = 1.7159
+TANH_B = 0.6666
+
+
 def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
-    """The port's activations so far: "linear" and "strictrelu" =
-    max(x, 0) (NaN propagates, as in jnp.maximum). The reference's scaled
-    tanh, softplus "relu", sigmoid and log come with a later slice."""
+    """The port's activations so far: "linear", "tanh" = the reference's
+    scaled 1.7159·tanh(0.6666·x), and "strictrelu" = max(x, 0) (NaN
+    propagates, as in jnp.maximum). The softplus "relu", sigmoid and log
+    come with a later slice."""
     if name == "linear":
         return x
+    if name == "tanh":
+        return TANH_A * torch.tanh(TANH_B * x)
     if name == "strictrelu":
         return torch.relu(x)
     raise ValueError(f"unknown activation {name!r}")

@@ -1,6 +1,6 @@
 """The port's hand-written Hopper kernels, their wrappers, their plain
-PyTorch versions, their launch counters, and the two autograd functions
-that pair the LRN kernels into forward and backward.
+PyTorch versions, their launch counters, and the three autograd
+functions that pair them into forward and backward.
 
 The port's counterpart of `veles_tpu/ops/pallas_kernels.py`:
 
@@ -11,9 +11,14 @@ The port's counterpart of `veles_tpu/ops/pallas_kernels.py`:
   `lrn_maxpool_pallas`);
 - K5 `lrn_maxpool_backward` replaces `_lrn_pool_bwd_kernel` (via
   `_lrn_pool_bwd_rule`);
-- `LRNFunction` (K2 forward, K3 backward) and `LRNMaxPoolFunction` (K4
-  forward, K5 backward) are the counterparts of the custom VJPs
-  `lrn_pallas` and `lrn_maxpool_pallas`.
+- K6 `flash_attention_forward` replaces `_flash_kernel` (via
+  `_flash_fwd_core` / `flash_attention_pallas`);
+- K7 `flash_attention_backward` replaces `_flash_dq_kernel` and
+  `_flash_dkv_kernel` (via `_flash_bwd_pallas`);
+- `LRNFunction` (K2 forward, K3 backward), `LRNMaxPoolFunction` (K4
+  forward, K5 backward) and `FlashAttentionFunction` (K6 forward, K7
+  backward) are the counterparts of the custom VJPs `lrn_pallas`,
+  `lrn_maxpool_pallas` and `_flash_attn` / `_flash_attn_drop`.
 
 The kernels are CUDA C++ for `sm_90a` under `veles_tpu_torch/csrc/`,
 each source compiled by `nvcc` into its own shared library with a plain C
@@ -24,9 +29,9 @@ keyed by the hash of the sources, all `nvcc` processes at once.
 A wrapper launches its kernel for a CUDA tensor — or raises; it never
 falls back — and takes the plain version only because its tensor lies on
 the CPU. Each call that launches adds one to the kernel's counter in
-`LAUNCHES` (K5's call is three launches and counts once), and nothing
-else does. On the CPU the autograd functions run the plain closed forms
-both ways — never autograd of the plain forward.
+`LAUNCHES` (K5's call is three launches and K7's two, and each counts
+once), and nothing else does. On the CPU the autograd functions run the
+plain closed forms both ways — never autograd of the plain forward.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -44,6 +50,7 @@ from typing import Dict, Tuple
 import torch
 
 from veles_tpu_torch.ops import functional as fn
+from veles_tpu_torch.ops.attention import NEG_INF
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,6 +67,10 @@ KERNELS: Dict[str, Tuple[str, str]] = {
                             "lrn_maxpool_forward_f32"),
     "lrn_maxpool_backward": ("lrn_maxpool_backward.cu",
                              "lrn_maxpool_backward_f32"),
+    "flash_attention_forward": ("flash_attention_forward.cu",
+                                "flash_attention_forward_f32"),
+    "flash_attention_backward": ("flash_attention_backward.cu",
+                                 "flash_attention_backward_f32"),
 }
 
 #: kernel name -> launches since the last reset_launch_counts()
@@ -175,6 +186,12 @@ _ARGTYPES = {
     "lrn_maxpool_backward_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _F, _F, _I, _F,
                                  _F, _P],
+    # q, k, v, mask, o, lse, bh, s, d, scale, causal, reverse_kv, stream
+    "flash_attention_forward_f32": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _F,
+                                    _I, _I, _P],
+    # q, k, v, dout, lse, di, dq, dk, dv, bh, s, d, scale, causal, stream
+    "flash_attention_backward_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                                     _L, _I, _F, _I, _P],
 }
 
 
@@ -438,7 +455,175 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
 
 
 # ---------------------------------------------------------------------------
-# the custom VJPs: forward kernel, backward kernel, x saved
+# K6 / K7: flash attention forward and backward, heads-first (B·H, S, D)
+# ---------------------------------------------------------------------------
+
+#: head widths K6 and K7 are compiled for: those the port's workflows run
+#: (the char-transformer's 16, the toy transformer's 8); a configuration
+#: with another width adds its instance to both .cu switches
+FLASH_HEAD_DIMS = (8, 16)
+KV_ORDERS = ("fwd", "rev")
+#: score elements the plain versions hold at once (2^26 f32 = 256 MB): at
+#: S = 4096 four heads, never the whole (B·H, S, S) tensor
+_PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+
+def _flash_scale(d: int, scale) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def _plain_chunks(bh: int, s: int):
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // max(s * s, 1))
+    return [(lo, min(lo + step, bh)) for lo in range(0, bh, step)]
+
+
+def _masked_scores(qc, kc, scale: float, causal: bool):
+    """(q·kᵀ)·scale of one chunk of rows, −1e30 above the diagonal under
+    causal masking (the JAX kernels' NEG_INF)."""
+    sc = torch.matmul(qc, kc.transpose(1, 2)) * scale
+    if causal:
+        s = sc.shape[-1]
+        keep = torch.ones(s, s, dtype=torch.bool, device=sc.device).tril()
+        sc = torch.where(keep, sc, torch.full((), NEG_INF, dtype=sc.dtype,
+                                              device=sc.device))
+    return sc
+
+
+def flash_attention_forward_plain(qf: torch.Tensor, kf: torch.Tensor,
+                                  vf: torch.Tensor, causal: bool = False,
+                                  scale=None, kv_order: str = "fwd",
+                                  mask=None):
+    """Plain PyTorch version of K6 on heads-first (B·H, S, D) tensors:
+    (O, lse (B·H, S, 1)) from the materialised masked softmax, a chunk of
+    rows at a time. O = softmax(s)·V (times the pre-scaled `mask` when
+    given), lse = logsumexp(s). `kv_order` changes only the kernel's
+    summation order, so it does not enter here."""
+    if kv_order not in KV_ORDERS:
+        raise ValueError(f"kv_order must be one of {KV_ORDERS}, got "
+                         f"{kv_order!r}")
+    bh, s, d = qf.shape
+    scale = _flash_scale(d, scale)
+    out = torch.empty_like(qf)
+    lse = torch.empty((bh, s, 1), dtype=qf.dtype, device=qf.device)
+    for lo, hi in _plain_chunks(bh, s):
+        sc = _masked_scores(qf[lo:hi], kf[lo:hi], scale, causal)
+        lse[lo:hi] = torch.logsumexp(sc, dim=-1, keepdim=True)
+        o = torch.matmul(torch.exp(sc - lse[lo:hi]), vf[lo:hi])
+        out[lo:hi] = o if mask is None else o * mask[lo:hi]
+    return out, lse
+
+
+def flash_attention_backward_plain(qf: torch.Tensor, kf: torch.Tensor,
+                                   vf: torch.Tensor, do: torch.Tensor,
+                                   lse: torch.Tensor, di: torch.Tensor,
+                                   causal: bool = False, scale=None):
+    """Plain PyTorch version of K7 on heads-first tensors: (dQ, dK, dV)
+    from P = exp(s − lse), dS = P ⊙ (dO·Vᵀ − D)·scale, dQ = dS·K,
+    dV = Pᵀ·dO, dK = dSᵀ·Q (`_flash_bwd_pallas`'s formulas), a chunk of
+    rows at a time. `lse` and `di` are (B·H, S, 1)."""
+    bh, s, d = qf.shape
+    scale = _flash_scale(d, scale)
+    dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+    for lo, hi in _plain_chunks(bh, s):
+        qc, kc, vc, doc = qf[lo:hi], kf[lo:hi], vf[lo:hi], do[lo:hi]
+        p = torch.exp(_masked_scores(qc, kc, scale, causal) - lse[lo:hi])
+        dv[lo:hi] = torch.matmul(p.transpose(1, 2), doc)
+        dp = torch.matmul(doc, vc.transpose(1, 2))
+        ds = p * (dp - di[lo:hi]) * scale
+        dq[lo:hi] = torch.matmul(ds, kc)
+        dk[lo:hi] = torch.matmul(ds.transpose(1, 2), qc)
+    return dq, dk, dv
+
+
+def _check_flash(name: str, ref: torch.Tensor, **tensors) -> None:
+    if ref.dtype != torch.float32 or ref.dim() != 3:
+        raise TypeError(f"{name} takes (B·H, S, D) float32 tensors, got "
+                        f"{ref.dtype} {tuple(ref.shape)}")
+    if ref.shape[-1] not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name} is compiled for head widths "
+                         f"{FLASH_HEAD_DIMS}, got {ref.shape[-1]}")
+    for what, t in tensors.items():
+        if t.device != ref.device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32 on "
+                            f"{ref.device}, got {t.dtype} on {t.device}")
+
+
+def _kernel_operand(name: str, t: torch.Tensor, shape) -> torch.Tensor:
+    """`t` contiguous with `shape`, its data 16-byte aligned (the kernels
+    move rows as float4)."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                         f"{tuple(shape)}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_forward(qf: torch.Tensor, kf: torch.Tensor,
+                            vf: torch.Tensor, causal: bool = False,
+                            scale=None, kv_order: str = "fwd", mask=None):
+    """Blocked attention of heads-first (B·H, S, D) f32 tensors: K6 for
+    CUDA tensors, the plain version for CPU ones. Returns (O, lse) with
+    lse (B·H, S, 1), as `_flash_fwd_core` does. `mask` (B·H, S, D),
+    pre-scaled 0 or 1/keep, multiplies O in the kernel's final write."""
+    if not _on_card("flash_attention_forward", qf):
+        return flash_attention_forward_plain(qf, kf, vf, causal, scale,
+                                             kv_order, mask)
+    if kv_order not in KV_ORDERS:
+        raise ValueError(f"kv_order must be one of {KV_ORDERS}, got "
+                         f"{kv_order!r}")
+    extra = {"k": kf, "v": vf}
+    if mask is not None:
+        extra["mask"] = mask
+    _check_flash("flash_attention_forward", qf, **extra)
+    bh, s, d = qf.shape
+    q, k, v = (_kernel_operand(n, t, qf.shape)
+               for n, t in (("q", qf), ("k", kf), ("v", vf)))
+    m = None if mask is None else _kernel_operand("mask", mask, qf.shape)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, s, 1), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        status = _entry("flash_attention_forward")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if m is None else m.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), bh, s, d, _flash_scale(d, scale), int(causal),
+            int(kv_order == "rev"), _stream(q))
+    _check_status("flash_attention_forward", status)
+    _count("flash_attention_forward")
+    return out, lse
+
+
+def flash_attention_backward(qf: torch.Tensor, kf: torch.Tensor,
+                             vf: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, di: torch.Tensor,
+                             causal: bool = False, scale=None):
+    """(dQ, dK, dV) of blocked attention from the forward's inputs, the
+    output gradient `do`, the saved `lse` and D = rowsum(dO⊙O) `di` (both
+    (B·H, S, 1)): K7 (a dQ launch, then a dK/dV launch) for CUDA tensors,
+    the plain version for CPU ones."""
+    if not _on_card("flash_attention_backward", qf):
+        return flash_attention_backward_plain(qf, kf, vf, do, lse, di,
+                                              causal, scale)
+    _check_flash("flash_attention_backward", qf, k=kf, v=vf, do=do, lse=lse,
+                 di=di)
+    bh, s, d = qf.shape
+    q, k, v, g = (_kernel_operand(n, t, qf.shape)
+                  for n, t in (("q", qf), ("k", kf), ("v", vf), ("do", do)))
+    lse = _kernel_operand("lse", lse, (bh, s, 1))
+    di = _kernel_operand("di", di, (bh, s, 1))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    with torch.cuda.device(q.device):
+        status = _entry("flash_attention_backward")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, s, d, _flash_scale(d, scale), int(causal),
+            _stream(q))
+    _check_status("flash_attention_backward", status)
+    _count("flash_attention_backward")
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the custom VJPs: forward kernel, backward kernel, inputs saved
 # ---------------------------------------------------------------------------
 
 
@@ -471,3 +656,51 @@ class LRNMaxPoolFunction(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         return (lrn_maxpool_backward(x, g, *ctx.hyper),) + (None,) * 6
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> a contiguous heads-first (B·H, S, D) copy."""
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def _heads_last(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """(B·H, S, D) -> a (B, S, H, D) view."""
+    _, s, d = x.shape
+    return x.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Blocked attention of (B, S, H, D) q, k, v -> (B, S, H, D) with K6
+    forward and K7 backward: `flash_attention_pallas`'s counterpart (the
+    custom VJPs `_flash_attn` and, with a dropout `mask` of (B, S, H, D),
+    pre-scaled 0 or 1/keep, `_flash_attn_drop`). Arguments after v:
+    causal, scale (None: 1/√D), kv_order, mask. The forward saves the
+    heads-first inputs, O and the row logsumexp; the backward takes
+    D = rowsum(dO⊙O) here with torch, as the JAX package leaves it to XLA.
+    With a mask the saved O is the masked output, dO = g⊙mask, and
+    D = rowsum(g⊙O) equals the unmasked rowsum(dO⊙O_unmasked)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None, kv_order="fwd",
+                mask=None):
+        b, _, h, _ = q.shape
+        qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
+        mf = None if mask is None else _heads_first(mask)
+        out, lse = flash_attention_forward(qf, kf, vf, causal, scale,
+                                           kv_order, mf)
+        ctx.save_for_backward(qf, kf, vf, out, lse, mf)
+        ctx.hyper = (b, h, causal, scale)
+        return _heads_last(out, b, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        qf, kf, vf, out, lse, mf = ctx.saved_tensors
+        b, h, causal, scale = ctx.hyper
+        gf = _heads_first(g)
+        di = torch.sum(gf * out, dim=-1, keepdim=True)
+        do = gf if mf is None else gf * mf
+        dq, dk, dv = flash_attention_backward(qf, kf, vf, do, lse, di, causal,
+                                              scale)
+        return (_heads_last(dq, b, h), _heads_last(dk, b, h),
+                _heads_last(dv, b, h), None, None, None, None)

@@ -1,5 +1,5 @@
-"""Lowering-variant registry of the port: the ops `lrn`, `lrn_maxpool` and
-`sgd_update` and their candidate lowerings.
+"""Lowering-variant registry of the port: the ops `lrn`, `lrn_maxpool`,
+`sgd_update` and `flash_attn` and their candidate lowerings.
 
 The port's counterpart of `veles_tpu/ops/variants.py`, with the same
 `select` / `resolve` precedence (variants.py:152-232 there): a unit's
@@ -18,6 +18,11 @@ plain version on a CPU tensor by itself, so no entry is device-gated.
   `pallas_rows[rt=8]`, and like that template it takes the tree rule when
   `l1_decay` is not 0: the kernel has no L1 term) and `tree` (the per-leaf
   tensor rule of ops/optim.py, the counterpart of `xla_tree`).
+- `flash_attn`: `kernel` (K6 forward, K7 backward through
+  `FlashAttentionFunction`; the counterpart of `pallas`) and `mha` (the
+  einsum golden of ops/attention.py, the counterpart of `xla_mha`). The
+  attention unit consults it only where its gate sends a sequence to the
+  blocked kernel (znicz/attention.py).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
-from veles_tpu_torch.ops import kernels, optim
+from veles_tpu_torch.ops import attention, kernels, optim
 
 
 @dataclass(frozen=True)
@@ -178,3 +183,22 @@ register(Variant("sgd_update", "kernel", _sgd_kernel,
                  doc="K1 per leaf (csrc/sgd_update.cu)"))
 register(Variant("sgd_update", "tree", optim.sgd_update,
                  doc="per-leaf tensor rule (ops/optim.py)"))
+
+
+# -- flash_attn: apply(q, k, v, scale=None, causal=False) -> (B, S, H, D) ---
+
+
+def _flash_kernel(q, k, v, scale=None, causal=False):
+    return kernels.FlashAttentionFunction.apply(q, k, v, causal, scale)
+
+
+register_op("flash_attn", default="kernel",
+            doc="local multi-head attention of long sequences, forward "
+                "and backward")
+register(Variant("flash_attn", "kernel", _flash_kernel,
+                 doc="K6 forward (csrc/flash_attention_forward.cu), K7 "
+                     "backward (csrc/flash_attention_backward.cu): the "
+                     "(S, S) scores never reach device memory"))
+register(Variant("flash_attn", "mha", attention.mha_forward,
+                 doc="the einsum golden (ops/attention.py mha_forward): "
+                     "an (S, S) score tensor per head"))

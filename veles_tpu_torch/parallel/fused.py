@@ -11,14 +11,20 @@ The port's counterpart of `FusedTrainStep` in
 resolves lowerings when it traces; PyTorch runs eagerly, so both resolve
 them once, when built, into a fixed plan — a server keeps serving, and a
 step keeps training, what it was built with whatever the registry selects
-later. The rule that a claimed pool is a pass-through is the JAX
-package's.
+later. Inside the plan, a unit whose lowering depends on its input's
+shape still decides per call, as the JAX unit does per trace: the
+attention unit runs the plan's `flash_attn` variant where its gate
+admits the sequence length and the einsum golden elsewhere, and
+`variant_table` reports what it runs (`variant_effective`). The rule
+that a claimed pool is a pass-through is the JAX package's.
 
 Differences from the JAX step: the step updates its state in place (the
 JAX step returns a new one); its dropout masks come from a
 `torch.Generator` the step owns instead of the state's key; the backward
 is `torch.autograd.grad` over the parameter leaves, through the kernels'
-autograd functions (ops/kernels.py).
+autograd functions (ops/kernels.py). Velocities follow the JAX package's
+names (`vel_w` / `vel_b` for weights / bias, `vel_<name>` otherwise;
+`GradientDescentBase.vel_attr`).
 """
 
 from __future__ import annotations
@@ -32,9 +38,6 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.backends import full_f32
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import optim, variants
-
-#: parameter name -> the gradient unit's velocity attribute
-VEL_ATTRS = {"weights": "vel_w", "bias": "vel_b"}
 
 
 class FusedForward:
@@ -139,11 +142,15 @@ class FusedForward:
     def variant_table(self) -> Dict[str, str]:
         """{op: variant-name} this forward runs. A claimed pair reports the
         fused variant for `lrn_maxpool`, and `lrn_maxpool/<name>` for the
-        `lrn` op unless an unclaimed LRN unit runs its own lowering."""
+        `lrn` op unless an unclaimed LRN unit runs its own lowering; a unit
+        with `variant_effective` reports what a call at its initialized
+        shape runs."""
         table: Dict[str, str] = {}
         for u, (kind, _, v) in zip(self.forwards, self._plan):
             if kind == "unit" and v is not None:
-                table[u.variant_op] = v.name
+                effective = getattr(u, "variant_effective", None)
+                table[u.variant_op] = (effective(v) if effective is not None
+                                       else v.name)
         for _, _, v in self.pairs:
             table["lrn_maxpool"] = v.name
             table.setdefault("lrn", f"lrn_maxpool/{v.name}")
@@ -179,6 +186,10 @@ class FusedTrainStep:
             raise NotImplementedError(
                 f"the fused step trains a softmax head; loss "
                 f"{workflow.loss!r} comes with a later slice")
+        if not getattr(workflow.forwards[-1], "fused_emits_logits", False):
+            raise ValueError(
+                "fused softmax loss needs a final layer that emits logits "
+                "(All2AllSoftmax, SeqSoftmax) for log-softmax CE")
         self.fwd = FusedForward(workflow)
         self.forwards = self.fwd.forwards
         self.device = self.fwd.device
@@ -205,7 +216,7 @@ class FusedTrainStep:
         for g, p in zip(self.gd_units, params):
             layer = {}
             for k, t in p.items():
-                seed = getattr(g, VEL_ATTRS[k], None)
+                seed = g.velocity(k)
                 layer[k] = (seed.detach().to(self.device, copy=True)
                             if seed is not None
                             else torch.zeros_like(t, requires_grad=False))
@@ -220,7 +231,7 @@ class FusedTrainStep:
                               state["vel"]):
             for k, t in u.param_arrays().items():
                 t.copy_(p[k])
-                setattr(g, VEL_ATTRS[k], v[k].clone())
+                setattr(g, g.vel_attr(k), v[k].clone())
 
     # -- steps ----------------------------------------------------------------
 
@@ -233,15 +244,31 @@ class FusedTrainStep:
 
     @staticmethod
     def _loss_metrics(out, y, w):
-        """(weighted mean cross-entropy, misclassified valid rows): the pad
-        mask's zero rows drop out of both, and of the gradient."""
-        loss = fn.ce_loss_from_logits(out, y, weights=w, denom=w.sum())
-        n_err = ((out.argmax(dim=-1) != y) & (w > 0)).sum()
+        """(weighted mean cross-entropy, misclassified valid labels): the
+        pad mask's zero rows drop out of both, and of the gradient. The
+        JAX step's rule (fused.py:781-801 there): the (N,) sample weights
+        cover (N,) classifier labels, (N, S) per-token labels, or flat
+        (N·S,) labels, each sample's weight repeated over its S
+        consecutive tokens, and the denominator is the weight sum times
+        the tokens per sample."""
+        if y.dim() == w.dim() and y.shape[0] != w.shape[0] \
+                and y.shape[0] % w.shape[0] == 0:
+            wt = w.repeat_interleave(y.shape[0] // w.shape[0])
+        else:
+            wt = w.reshape(w.shape + (1,) * (y.dim() - w.dim())) \
+                .broadcast_to(y.shape)
+        tokens = wt.numel() // w.numel()
+        loss = fn.ce_loss_from_logits(out, y, weights=wt,
+                                      denom=w.sum() * tokens)
+        wrong = (out.reshape(-1, out.shape[-1]).argmax(dim=-1)
+                 != y.reshape(-1))
+        n_err = (wrong & (wt.reshape(-1) > 0)).sum()
         return loss, n_err
 
     def train(self, state, x, y, w=None):
-        """One training step on a minibatch (host arrays or tensors; `w`
-        is the Loader's (N,) pad mask, None == all ones). Updates `state`
+        """One training step on a minibatch (host arrays or tensors; `y`
+        holds (N,) labels or flat (N·S,) per-token ones; `w` is the
+        Loader's (N,) pad mask, None == all ones). Updates `state`
         in place and returns `(state, (loss, n_err))`, the metrics as 0-d
         tensors on the device (no host sync)."""
         x, y, w = self._batch(x, y, w)

@@ -1,0 +1,79 @@
+"""Character-transformer language model.
+
+The port's counterpart of `veles_tpu/samples/char_transformer.py`, with
+the same `root.char_transformer` defaults and layer list: one-hot chars
+-> SeqLinear embed (+ learned positions) -> causal MultiHeadAttention
+(residual) -> SeqFFN (residual, scaled tanh) -> per-token SeqSoftmax(V),
+embed 64, 4 heads, ffn 128, minibatch 32, SGD lr 0.2 with momentum 0.9.
+
+Train it: `python -m veles_tpu_torch
+veles_tpu_torch/samples/char_transformer.py --fused [--device cpu]
+[-r SEED] [root.char_transformer.loader.seq_len=4096 ...]`. At the
+default seq_len 32 the attention runs the einsum `mha` path; at
+seq_len 4096 (S >= 4096, S % 128 == 0, the attention unit's flash gate)
+it runs K6 forward and K7 backward. The sequence-parallel modes
+(`parallel_mode` "ring" / "ulysses") and the mixture-of-experts FFN
+(`moe_experts` > 0) come with the many-GPU slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.loader.text import CharSequenceLoader
+from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+
+root.char_transformer.loader.minibatch_size = 32
+root.char_transformer.loader.seq_len = 32
+root.char_transformer.loader.n_validation = 40
+root.char_transformer.embed = 64
+root.char_transformer.n_heads = 4
+root.char_transformer.ffn = 128
+root.char_transformer.parallel_mode = "local"  # | "ring" | "ulysses"
+#: 0 = dense SeqFFN; N = an N-expert token-routed MoE (many-GPU slice)
+root.char_transformer.moe_experts = 0
+root.char_transformer.moe_capacity_factor = 2.0
+root.char_transformer.decision.max_epochs = 5
+root.char_transformer.decision.fail_iterations = 20
+root.char_transformer.gd.learning_rate = 0.2
+root.char_transformer.gd.gradient_moment = 0.9
+
+
+class CharTransformerWorkflow(StandardWorkflow):
+    """embed → causal attention → FFN → per-token softmax(V)."""
+
+
+def create_workflow(text: Optional[str] = None) -> CharTransformerWorkflow:
+    cfg = root.char_transformer
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "moe_experts > 0 replaces the FFN with a token-routed mixture "
+            "of experts: ops/moe.py and znicz/moe.py come with the "
+            "many-GPU slice (ROADMAP Slice 3, item 17)")
+    loader = CharSequenceLoader(
+        text=text, seq_len=cfg.loader.seq_len,
+        n_validation=cfg.loader.n_validation,
+        minibatch_size=cfg.loader.minibatch_size)
+    e = cfg.embed
+    return CharTransformerWorkflow(
+        layers=[
+            {"type": "seq_linear", "output_features": e,
+             "pos_embed": True, "weights_stddev": 0.05},
+            {"type": "attention", "n_heads": cfg.n_heads, "causal": True,
+             "residual": True, "parallel_mode": cfg.parallel_mode,
+             "weights_stddev": 0.05},
+            {"type": "seq_ffn", "hidden": cfg.ffn, "activation": "tanh",
+             "weights_stddev": 0.05},
+            {"type": "seq_softmax", "output_features": loader.n_vocab,
+             "weights_stddev": 0.05},
+        ],
+        loader=loader, loss="softmax", n_classes=loader.n_vocab,
+        decision_config=cfg.decision.to_dict(),
+        gd_config=cfg.gd.to_dict(),
+        name="CharTransformerWorkflow")
+
+
+def run(load, main):
+    load(create_workflow)
+    main()

@@ -51,5 +51,7 @@ class All2AllSoftmax(All2All):
     """Linear layer whose softmax is applied by the consumer: the forward
     emits logits (all2all.py:125-130 in the JAX package)."""
 
+    fused_emits_logits = True
+
     def fused_apply(self, params, x, *, train=False):
         return fn.all2all_forward(x, params["weights"], params["bias"])

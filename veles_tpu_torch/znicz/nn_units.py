@@ -13,11 +13,15 @@ weights (fan_in, units), activations NHWC). Parameters are trainable
 
 `GradientDescentBase` is the counterpart of the JAX package's gradient
 unit as the fused train step reads it: the holder of one layer's update
-hyperparameters (same names and defaults) and of its momentum velocities
-`vel_w` / `vel_b`, which the step seeds itself from and writes back to.
+hyperparameters (same names and defaults) and of its momentum
+velocities, which the step seeds itself from and writes back to. They
+are named as the JAX package names them: `vel_w` / `vel_b` for the leaves
+`weights` / `bias`, `vel_<name>` for every other leaf (`vel_wq`,
+`vel_pos`, `vel_w2`, ...; `_vel_attr` in veles_tpu/parallel/fused.py).
 `register_gd` / `gd_for` pair each forward class with its gradient unit.
 The granular per-unit backward (`gd.py`, `gd_conv.py`, `gd_pooling.py`
-there) comes with a later slice.
+there, and the `jax.vjp` twins of the attention and sequence units)
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -138,14 +142,18 @@ class Forward(nn.Module):
         return self.fused_apply(self.param_arrays(), x, train=False)
 
 
+#: the leaves whose velocities keep the reference's short names
+_VEL_ALIASES = {"weights": "vel_w", "bias": "vel_b"}
+
+
 @register_gd(Forward)
 class GradientDescentBase:
     """One layer's SGD hyperparameters, as the JAX package names them
     (nn_units.py:148-180 there): `learning_rate`, `gradient_moment`
     (momentum), `weights_decay` (L2), `l1_decay`, `learning_rate_bias`
     (the bias lr multiplier, 2 by default, the reference's convention),
-    plus the momentum velocities `vel_w` / `vel_b` (None until a fused run
-    writes them back)."""
+    plus one momentum velocity per parameter leaf, under `vel_attr(name)`
+    (None until a fused run writes it back)."""
 
     def __init__(self, learning_rate: float = 0.01,
                  gradient_moment: float = 0.0,
@@ -160,3 +168,13 @@ class GradientDescentBase:
         self.learning_rate_bias = learning_rate_bias
         self.vel_w: Optional[torch.Tensor] = None
         self.vel_b: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def vel_attr(name: str) -> str:
+        """The attribute holding the velocity of parameter leaf `name`."""
+        return _VEL_ALIASES.get(name, f"vel_{name}")
+
+    def velocity(self, name: str) -> Optional[torch.Tensor]:
+        """The velocity of leaf `name`, or None before a fused run wrote
+        it back."""
+        return getattr(self, self.vel_attr(name), None)

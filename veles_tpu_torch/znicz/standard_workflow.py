@@ -31,15 +31,15 @@ from torch import nn
 
 from veles_tpu_torch.backends import DeviceLike, make_device
 from veles_tpu_torch.loader.base import TRAIN, Loader
-from veles_tpu_torch.znicz import all2all, conv, dropout, normalization, \
-    pooling
+from veles_tpu_torch.znicz import all2all, attention, conv, dropout, \
+    normalization, pooling, transformer
 from veles_tpu_torch.znicz.decision import DecisionGD
 from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.znicz.nn_units import Forward, gd_for
 
 #: layer-type name -> forward unit class
-#: (AlexNet's types; the JAX package's other activation
-#: flavors come with a later slice)
+#: (AlexNet's and the char-transformer's types; the JAX package's other
+#: activation flavors come with a later slice)
 LAYER_TYPES: Dict[str, type] = {
     "all2all": all2all.All2All,
     "all2all_strictrelu": all2all.All2AllStrictRELU,
@@ -50,6 +50,10 @@ LAYER_TYPES: Dict[str, type] = {
     "lrn": normalization.LRNormalizerForward,
     "max_pooling": pooling.MaxPooling,
     "dropout": dropout.DropoutForward,
+    "attention": attention.MultiHeadAttention,
+    "seq_linear": transformer.SeqLinear,
+    "seq_ffn": transformer.SeqFFN,
+    "seq_softmax": transformer.SeqSoftmax,
 }
 
 
