@@ -25,13 +25,18 @@
      (32, 4096, 4, 16), causal, within 4e-6 + 4e-5*|plain| (forward) and
      1e-5 + 1e-4*|plain| (backward): a fifth of the JAX package's own
      kernel-vs-golden tolerances (the online softmax sums in another order
-     than the plain version's materialised one; the backward's sums run
-     in the plain version's order). Beside each, the one PyTorch call
-     computing the same function: F.scaled_dot_product_attention(...,
-     is_causal=True) in f32 for K6, autograd of that call for K7 (each
-     checked first to agree with the plain version within the JAX
-     package's tolerances, 2e-5 + 2e-4*|plain| and 5e-5 + 5e-4*|plain|;
-     the backend PyTorch dispatches it to is printed). Before that, K6 and
+     than the plain version's materialised one; the backward's products
+     run on the tensor cores as 3xTF32, f32-accurate but summed in
+     another order). K7 must also give the same bits on a second call
+     (it uses no atomics). K7's bound is its operations at the card's
+     dense TF32 rate, three TF32 products per f32 product, with the f32
+     CUDA-core bound beside it (bound_f32_ms). Beside each, the one
+     PyTorch call computing the same function:
+     F.scaled_dot_product_attention(..., is_causal=True) in f32 for K6,
+     autograd of that call for K7 (each checked first to agree with the
+     plain version within the JAX package's tolerances, 2e-5 +
+     2e-4*|plain| and 5e-5 + 5e-4*|plain|; the backend PyTorch dispatches
+     it to is printed). Before that, K6 and
      K7 at every head width they are compiled for (8, 16) on a
      ragged S = 200, causal or not, KV forward or reversed, with and
      without a dropout mask (FLASH lines).
@@ -105,6 +110,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -161,18 +168,43 @@ SDPA_BWD_RTOL, SDPA_BWD_ATOL = 5e-4, 5e-5
 TIE_TAU = 1e-5
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "chiprun_out")
-#: (name substring, HBM bytes/s, f32 non-tensor FLOP/s) — data-sheet peaks
-CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+#: (name substring, HBM bytes/s, f32 non-tensor FLOP/s, dense TF32
+#: tensor-core FLOP/s) — NVIDIA's data-sheet peaks (TF32 without sparsity:
+#: half the sheets' sparse figures)
+CARDS = (("H100 PCIe", 2.0e12, 51e12, 378e12),
+         ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+         ("H200", 4.8e12, 67e12, 495e12),
+         ("H100", 3.35e12, 67e12, 495e12))
 
 
 def card_peaks(name: str):
-    for key, bw, flops in CARDS:
+    """(bytes/s, f32 FLOP/s, TF32 FLOP/s, the table's name) of a card."""
+    for key, bw, flops, tf32 in CARDS:
         if key in name:
-            return bw, flops, key
+            return bw, flops, tf32, key
     print(f"chip_smoke: no peak table for {name!r}; bounds use the H100 "
           f"SXM's", flush=True)
-    return 3.35e12, 67e12, "H100 (assumed)"
+    return 3.35e12, 67e12, 495e12, "H100 (assumed)"
+
+
+def print_resource_usage(libs):
+    """One BUILD line per compiled kernel function: its registers, stack
+    and local memory (spills land there) and static shared memory, as
+    cuobjdump reads them from the built library."""
+    tool = (shutil.which("cuobjdump")
+            or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "cuobjdump"))
+    for name, path in libs.items():
+        try:
+            out = subprocess.run([tool, "-res-usage", str(path)],
+                                 capture_output=True, text=True, timeout=60,
+                                 check=True).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"BUILD resource usage not read: {e}", flush=True)
+            return
+        for func, usage in re.findall(r"Function (\S+?):\s+(REG:[^\n]*)",
+                                      out):
+            print(f"BUILD {name} {func}: {usage.strip()}", flush=True)
 
 
 class ColdTimer:
@@ -557,9 +589,12 @@ def backward_kernel_phase(kernels, dev, bw, flops):
 
 
 def print_kernel_line(name, layer, r):
+    rate = f", {r['bound_rate']}" if "bound_rate" in r else ""
+    f32 = (f" bound_f32_ms {r['bound_f32_ms']:.4f}" if "bound_f32_ms" in r
+           else "")
     print(f"KERNEL {name} {layer} {r['shape']}: ms {r['ms']:.4f} plain_ms "
           f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
-          f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}{rate}){f32} max_abs_err "
           f"{r['max_abs_err']:.3e}", flush=True)
 
 
@@ -624,9 +659,9 @@ def flash_small_checks(kernels, dev):
           f"err forward {worst[0]:.3e}, backward {worst[1]:.3e}", flush=True)
 
 
-def flash_kernel_phase(kernels, dev, bw, flops):
+def flash_kernel_phase(kernels, dev, bw, flops, tf32):
     """Hold K6 and K7 against their plain versions at the transformer's
-    shape, beside SDPA, and time them."""
+    shape, beside SDPA, and time them; K7 must also repeat bit for bit."""
     flash_small_checks(kernels, dev)
     timer = ColdTimer(dev)
     rs = np.random.RandomState(6)
@@ -676,6 +711,15 @@ def flash_kernel_phase(kernels, dev, bw, flops):
     err = max(check_close(f"flash_attention_backward {n}", a, w,
                           FLASH_BWD_RTOL, FLASH_BWD_ATOL)
               for n, a, w in zip(("dq", "dk", "dv"), got, want))
+    # no atomics: a second call on the same inputs gives the same bits
+    again = kernels.flash_attention_backward(q, k, v, g, lk, di, True)
+    for n, first, second in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(first, second):
+            raise AssertionError(f"flash_attention_backward {n}: two calls "
+                                 f"on the same inputs differ")
+    print("KERNEL flash_attention_backward: two calls bit-identical",
+          flush=True)
+    del again
     leaves = [t.view(b, h, s, d).clone().requires_grad_(True)
               for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True)
@@ -689,8 +733,11 @@ def flash_kernel_phase(kernels, dev, bw, flops):
     backend = sdpa_backend(*leaves)
     t_bytes = (7 * row_bytes + 2 * b * h * s * 4) / bw
     # the function's five products per kept pair (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO,
-    # dS·K, dSᵀ·Q); K7 executes seven, recomputing two in each kernel
-    t_ops = 10 * d * pairs / flops
+    # dS·K, dSᵀ·Q), each three TF32 products on the tensor cores for f32
+    # accuracy (3xTF32); K7 executes seven, recomputing two in each
+    # launch. Beside it, the same work in f32 on the CUDA cores.
+    t_ops = 3 * 10 * d * pairs / tf32
+    t_f32 = 10 * d * pairs / flops
     rows["flash_attention_backward"] = [{
         "shape": list(ATT_SHAPE), "causal": True, "max_abs_err": err,
         "ms": timer(lambda: kernels.flash_attention_backward(
@@ -699,7 +746,9 @@ def flash_kernel_phase(kernels, dev, bw, flops):
             q, k, v, g, lk, di, True)),
         "library_ms": timer(lib_bwd), "library": f"sdpa backward {backend}",
         "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}]
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_rate": "3xTF32, tensor cores",
+        "bound_f32_ms": max(t_bytes, t_f32) * 1e3}]
     print_kernel_line("flash_attention_backward", "causal",
                       rows["flash_attention_backward"][0])
     print(f"KERNEL flash_attention_backward: library = autograd of "
@@ -1289,18 +1338,19 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    bw, flops, table = card_peaks(torch.cuda.get_device_name(0))
-    print(f"peaks ({table}): {bw / 1e12} TB/s, {flops / 1e12} f32 TFLOP/s; "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}",
-          flush=True)
+    bw, flops, tf32, table = card_peaks(torch.cuda.get_device_name(0))
+    print(f"peaks ({table}): {bw / 1e12} TB/s, {flops / 1e12} f32 TFLOP/s, "
+          f"{tf32 / 1e12} TF32 TFLOP/s; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     libs = kernels.build()
     print(f"BUILD {len(libs)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    print_resource_usage(libs)
     rows = kernel_phase(kernels, dev, bw, flops)
     rows.update(backward_kernel_phase(kernels, dev, bw, flops))
-    rows.update(flash_kernel_phase(kernels, dev, bw, flops))
+    rows.update(flash_kernel_phase(kernels, dev, bw, flops, tf32))
     by_path = {"serve": serve_phase(launcher, kernels, dev)}
     for setting, counts in train_phase(launcher, kernels, dev).items():
         by_path[f"train_{setting}"] = counts
@@ -1353,6 +1403,12 @@ def main() -> int:
                          else "operations"),
             "library_ms": None if None in lib else sum(lib),
             "shapes": per_shape})
+        if "bound_f32_ms" in per_shape[0]:
+            # K7's bound at the tensor cores' TF32 rate, and beside it in
+            # f32 on the CUDA cores
+            entries[-1]["bound_rate"] = per_shape[0]["bound_rate"]
+            entries[-1]["bound_f32_ms"] = sum(r["bound_f32_ms"]
+                                              for r in per_shape)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": entries, "launches": by_path,

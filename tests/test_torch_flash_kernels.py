@@ -249,3 +249,108 @@ def test_wrappers_check_their_arguments():
     before = kernels.launch_counts()
     kernels.flash_attention_forward(x, x, x)
     assert kernels.launch_counts() == before    # the CPU path never counts
+
+
+# -- K7's 3xTF32 arithmetic ---------------------------------------------------
+#
+# K7 runs all five of its products on the tensor cores as 3xTF32. These
+# tests hold that arithmetic, emulated in numpy, against the plain
+# version under chip_smoke.py's K7 gate; they do not run the kernel (a
+# CUDA kernel runs only on the card, where chip_smoke.py holds it).
+
+#: chip_smoke.py's FLASH_BWD_RTOL / FLASH_BWD_ATOL: K7 against its plain
+#: version on the card
+K7_RTOL, K7_ATOL = 1e-4, 1e-5
+TF32_S, TF32_BH = 256, 2
+
+
+def _tf32(x):
+    """`cvt.rna.tf32.f32`: round an f32 to 10 explicit mantissa bits, to
+    nearest, ties away from zero (the bits below stay zero)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tf32_truncated(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b (batched) as K7's tensor cores take it, in f32: one TF32
+    product (passes=1), or three (a_lo·b_hi + a_hi·b_lo, then + a_hi·b_hi,
+    x_hi = tf32(x) and x_lo = x − x_hi, truncated to TF32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return np.matmul(a_hi, b_hi)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return np.matmul(a_lo, b_hi) + np.matmul(a_hi, b_lo) + np.matmul(a_hi,
+                                                                     b_hi)
+
+
+def _tf32_backward(q, k, v, do, lse, di, causal, passes):
+    """K7's arithmetic on heads-first f32 arrays: every product through
+    `_tf32_product` (P and dS split too), p = exp2(s·scale·log2e −
+    lse·log2e), p = 0 by index above the diagonal."""
+    d = q.shape[-1]
+    scale = np.float32(1.0 / np.sqrt(d))
+    log2e = np.float32(np.log2(np.e))
+    s = _tf32_product(q, k.transpose(0, 2, 1), passes)
+    p = np.exp2(s * (scale * log2e) - lse * log2e).astype(np.float32)
+    if causal:
+        p = np.where(np.tri(q.shape[1], dtype=bool), p, np.float32(0))
+    dp = _tf32_product(do, v.transpose(0, 2, 1), passes)
+    ds = p * (dp - di) * scale
+    return (_tf32_product(ds, k, passes),
+            _tf32_product(ds.transpose(0, 2, 1), q, passes),
+            _tf32_product(p.transpose(0, 2, 1), do, passes))
+
+
+def _k7_case(d, causal, seed=12):
+    """Inputs and the plain version's (dQ, dK, dV) at S = 256, B·H = 2."""
+    rs = np.random.RandomState(seed)
+    q, k, v, g = (rs.randn(TF32_BH, TF32_S, d).astype(np.float32)
+                  for _ in range(4))
+    tq, tk, tv, tg = (_t(a) for a in (q, k, v, g))
+    o, lse = kernels.flash_attention_forward_plain(tq, tk, tv, causal)
+    di = (tg * o).sum(-1, keepdim=True)
+    want = kernels.flash_attention_backward_plain(tq, tk, tv, tg, lse, di,
+                                                  causal)
+    return (q, k, v, g, lse.numpy(), di.numpy()), [_host(w) for w in want]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 16])
+def test_3xtf32_products_meet_the_k7_gate(d, causal):
+    """K7's arithmetic, not the kernel (chip_smoke.py holds the kernel on
+    the card): all five products as 3xTF32, P and dS split too, in f32,
+    within the K7 gate of the plain version."""
+    args, want = _k7_case(d, causal)
+    got = _tf32_backward(*args, causal, passes=3)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, b, K7_RTOL, K7_ATOL, name)
+
+
+def test_one_tf32_product_misses_the_k7_gate():
+    """Why K7 pays for three products: one TF32 product (~3 decimal
+    digits) puts dQ, dK and dV outside the gate."""
+    args, want = _k7_case(16, True)
+    got = _tf32_backward(*args, True, passes=1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        with pytest.raises(AssertionError):
+            _close(a, b, K7_RTOL, K7_ATOL, name)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)     # TF32's spacing at 1
+    x = np.array([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 * 0.99,
+                  one + ulp * 1.5, np.float32(3.1415927)], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                            np.float32(3.140625)], np.float32))
+    assert (_tf32(x).view(np.uint32) & 0x1FFF == 0).all()
+    np.testing.assert_array_equal(
+        _tf32_truncated(x), np.array([one, -one, one, one + ulp,
+                                      np.float32(3.140625)], np.float32))

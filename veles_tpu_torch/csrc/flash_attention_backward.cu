@@ -1,100 +1,413 @@
-// K7: blocked (flash) attention backward, f32, heads-first (B*H, S, D).
+// K7: blocked (flash) attention backward, f32, heads-first (B*H, S, D),
+// every product on the tensor cores as 3xTF32 `mma.sync`.
 //
 // Replaces: veles_tpu/ops/pallas_kernels.py `_flash_bwd_pallas`, its two
-// TPU kernels `_flash_dq_kernel` (dQ on the forward's grid, KV streamed)
-// and `_flash_dkv_kernel` (dK and dV on the transposed grid, the KV tile
-// resident while Q and dO tiles stream), the backward half of the custom
-// VJP `_flash_attn`. Both recompute the probabilities from the forward's
-// saved logsumexp instead of storing them:
+// TPU kernels `_flash_dq_kernel` (:553; dQ on the forward's grid, KV
+// streamed) and `_flash_dkv_kernel` (:595; dK and dV on the transposed
+// grid, the KV tile resident while Q and dO tiles stream), the backward
+// half of the custom VJP `_flash_attn`. Both recompute the probabilities
+// from the forward's saved logsumexp instead of storing them:
 //
 //   p = exp(s*scale - lse) (0 where the causal mask or S cuts the pair);
 //   dS = p * (dO.V^T - D) * scale with D = rowsum(dO*O), computed by the
 //   caller; dQ = dS.K; dV = P^T.dO; dK = dS^T.Q.
 //
-// Bound on the H100: operations. The function needs five products of 2*D
-// per (query, key) pair the causal mask keeps (Q.K^T, dO.V^T, P^T.dO,
+// Bound on the H100 SXM: operations. The function needs five products of
+// 2*D per (query, key) pair the causal mask keeps (Q.K^T, dO.V^T, P^T.dO,
 // dS.K, dS^T.Q), 10*D*S(S+1)/2 per head: 171.8 GFLOP at B*H = 128,
-// S = 4096, D = 16 against 239 MB of inputs and outputs. This design
-// executes seven (14*D per pair, 240.5 GFLOP): s and dO.v are recomputed
-// in both kernels, the price of having no atomics.
+// S = 4096, D = 16 against 239 MB of inputs and outputs. At f32 accuracy
+// on the tensor cores each product costs three TF32 products (below):
+// 3 * 171.8 GFLOP at 495 TF32 TFLOP/s = 1.0415 ms (2.5648 ms at 67 f32
+// TFLOP/s, the bound of f32 FMA on the CUDA cores). This design
+// executes seven products per pair (14*D): Q.K^T and dO.V^T are
+// recomputed in both launches, the price of having no atomics. Its pace
+// is set by the rate of TF32 mma.sync (PERF.md has the times).
 //
-// Design: two launches, no atomics, so the result does not depend on the
-// order in which blocks run (the TPU grid's sequential VMEM carry has no
-// counterpart across CUDA blocks):
-// 1. dQ: one block of 128 threads per (head, tile of 128 query rows), one
-//    query row per thread with q, dO, lse, D and the dQ accumulator in
-//    registers; K and V stream through shared memory in chunks of 4096/D
-//    rows (broadcast float4 loads). A thread stops at its diagonal; the
-//    heaviest (last) query tiles launch first.
-// 2. dK/dV: one block of 128 threads per (head, tile of 128 key rows), one
-//    key row per thread with k, v and both accumulators in registers; Q,
-//    dO, lse and D stream through shared memory from the tile's first key
-//    on (earlier queries cannot see it under causal masking); a thread
-//    starts at its diagonal. The first key tiles, the heaviest, launch
-//    first.
-// Any S (ragged last tiles masked by index); D in {8, 16}, the head widths
-// the port's workflows run.
+// Numerics (3xTF32, flash_common.cuh): each operand x = hi + lo, hi =
+// tf32(x) rounded to nearest, lo = x - hi, which the tensor cores read
+// truncated to TF32; a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the two
+// cross terms first, into the same accumulator. P and dS are split in
+// registers before their products. p = 2^(s*scale*log2e - lse*log2e) by
+// the SFU's ex2; dS is carried without its factor `scale`, applied to dQ
+// and dK as they are stored. The second products sum each 64-row
+// streamed tile into a fresh accumulator, added to the row's running sum
+// by an f32 add (round to nearest), so the tensor cores' accumulation
+// chain is at most 24 mma long. Within tolerance of the plain version,
+// not bit-equal to it; the result does not depend on the order in which
+// blocks run (no atomics), so two calls agree bit for bit.
+//
+// Design: two launches, 4 warps (128 threads) per block, each warp owns
+// 16 rows, a block 64:
+// 1. dQ: one block per (head, tile of 64 query rows); the heaviest (last)
+//    query tiles launch first. 64-key tiles of K and V stream from key 0
+//    to the block's diagonal.
+// 2. dK/dV: one block per (head, tile of 64 key rows); key tile 0, the
+//    heaviest, launches first. 64-query tiles of Q, dO, lse and D stream
+//    from the block's first key on (earlier queries cannot see it under
+//    causal masking).
+// - Resident rows (Q and dO, or K and V) are loaded once into registers
+//   as m16n8k8 A fragments, split once into hi and lo. The row's
+//   accumulators stay in C fragments for the whole sweep.
+// - Streamed tiles are copied by cp.async (16-byte chunks; lse and D by
+//   4-byte copies), two stages deep, rows beyond S zero-filled. Each
+//   landed tile is split once per block into hi and lo planes whose rows
+//   are padded to D + 4 floats: the two read patterns, (row g, col t) for
+//   Q.K^T and (row 2t or 2t+1, col g) for the second products, then hit
+//   32 distinct banks at D = 8 and D = 16.
+// - Per 8 streamed rows j (one n-tile), a warp computes s and dP for its
+//   16 rows (D/8 k-steps x 3 mma each), p = exp2(s*scale*log2e -
+//   lse*log2e), dS, and then takes the second products over those same 8
+//   rows at once, so no score tile is held.
+// - The fragment permutation: the C fragment of P (or dS) for n-tile j is
+//   the A fragment of the second product's k-step j when logical k = t is
+//   read as streamed row 8j + 2t and k = t + 4 as row 8j + 2t + 1:
+//   a0..a3 = c0, c2, c1, c3; B is read with the same permutation
+//   (b0 = row 8j + 2t, b1 = row 8j + 2t + 1, col g). The sum over k does
+//   not depend on the order of its terms.
+// - Masking by index, never by value: an n-tile whose 8 streamed rows all
+//   lie above a warp's diagonal is skipped; on tiles that straddle the
+//   diagonal and on ragged tiles p = 0 (hence dS = 0) where key > query,
+//   key >= S or query >= S. (Zero-filled rows do not make p zero: q = 0
+//   and lse = 0 give p = 1.) A warp's other tiles run a copy of the loop
+//   with no test at all (dq_tile / dkv_tile<false>).
+// Any S; D in {8, 16}, the head widths the port's workflows run.
 #include "flash_common.cuh"
 
 namespace {
 
-using flash::kChunkFloats;
-using flash::kThreads;
+using flash::mma_3xtf32;
+using flash::split_tf32;
+
+constexpr int kWarps = 4;
+constexpr int kBlockThreads = 32 * kWarps;
+constexpr int kWarpRows = 16;                   // an m16 tile
+constexpr int kBlockRows = kWarps * kWarpRows;  // 64
+constexpr int kTile = 64;                       // streamed rows per stage
+constexpr int kUnits = kTile / 8;               // n-tiles of 8 per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block's two streamed arrays (K and V, or Q and dO):
+// two raw stages that cp.async fills, and the landed tile's TF32 hi and lo
+// planes, rows padded to D + 4 (20 KB at D = 8, 36 KB at D = 16).
+template <int D>
+struct Tiles {
+  static constexpr int kPitch = D + 4;
+  float raw[2][2][kTile * D];
+  uint32_t hi[2][kTile * kPitch];
+  uint32_t lo[2][kTile * kPitch];
+};
+
+// Start copying rows [r0, r0 + kTile) of u and w into `stage`, rows at or
+// beyond `live_rows` zero-filled.
+template <int D>
+__device__ __forceinline__ void issue_tile(Tiles<D>& sm, int stage,
+                                           const float* __restrict__ u,
+                                           const float* __restrict__ w,
+                                           int r0, int live_rows) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kBlockThreads) {
+    const int r = r0 + i / kChunks;
+    const bool live = r < live_rows;
+    const int64_t off =
+        live ? static_cast<int64_t>(r) * D + 4 * (i % kChunks) : 0;
+    flash::cp_async16(&sm.raw[stage][0][4 * i], u + off, live);
+    flash::cp_async16(&sm.raw[stage][1][4 * i], w + off, live);
+  }
+}
+
+// Start copying lse and D of rows [r0, r0 + kTile) into dst[0] and dst[1]
+// (one 4-byte copy per thread), rows at or beyond S zero-filled.
+__device__ __forceinline__ void issue_scalars(float (&dst)[2][kTile],
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ di,
+                                              int r0, int s_len) {
+  static_assert(kBlockThreads == 2 * kTile, "one copy per thread");
+  const int i = threadIdx.x % kTile;
+  const int a = threadIdx.x / kTile;  // 0: lse, 1: D
+  const bool live = r0 + i < s_len;
+  flash::cp_async4(&dst[a][i], (a == 0 ? lse : di) + (live ? r0 + i : 0),
+                   live);
+}
+
+// Split the landed `stage` into the hi and lo planes.
+template <int D>
+__device__ __forceinline__ void split_tile(Tiles<D>& sm, int stage) {
+  constexpr int kChunks = D / 4;
+  constexpr int kPitch = Tiles<D>::kPitch;
+  for (int i = threadIdx.x; i < 2 * kTile * kChunks; i += kBlockThreads) {
+    const int a = i / (kTile * kChunks);
+    const int j = i % (kTile * kChunks);
+    const float4 x = reinterpret_cast<const float4*>(sm.raw[stage][a])[j];
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    const int at = (j / kChunks) * kPitch + 4 * (j % kChunks);
+    *reinterpret_cast<uint4*>(&sm.hi[a][at]) = h;
+    *reinterpret_cast<uint4*>(&sm.lo[a][at]) = l;
+  }
+}
+
+// One warp's 16 resident rows as m16n8k8 A fragments, hi and lo, one per
+// 8-wide k slab.
+template <int D>
+struct Resident {
+  uint32_t hi[D / 8][4];
+  uint32_t lo[D / 8][4];
+};
+
+// The 16 rows from r0 of a (rows, D) array; rows at or beyond S read as 0.
+template <int D>
+__device__ __forceinline__ void load_a(Resident<D>& a,
+                                       const float* __restrict__ x, int r0,
+                                       int s_len, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e & 1);
+      const int col = 8 * kk + t + 4 * (e >> 1);
+      const float v =
+          row < s_len ? __ldg(x + static_cast<int64_t>(row) * D + col) : 0.f;
+      split_tf32(v, a.hi[kk][e], a.lo[kk][e]);
+    }
+  }
+}
+
+// s = X . U^T and dp = Y . W^T for the warp's 16 rows against streamed rows
+// 8j .. 8j+7 of the planes (U = plane 0, W = plane 1); element e pairs
+// row g + 8*(e >> 1) with streamed row 8j + 2t + (e & 1). The two chains
+// of mma are interleaved.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[4], float (&dp)[4],
+                                       const Resident<D>& x,
+                                       const Resident<D>& y,
+                                       const Tiles<D>& sm, int j, int g,
+                                       int t) {
+  constexpr int kPitch = Tiles<D>::kPitch;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] = dp[e] = 0.f;
+  const int at = (8 * j + g) * kPitch + t;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int b0 = at + 8 * kk, b1 = b0 + 4;
+    mma_3xtf32(s, x.hi[kk], x.lo[kk], sm.hi[0][b0], sm.hi[0][b1],
+               sm.lo[0][b0], sm.lo[0][b1]);
+    mma_3xtf32(dp, y.hi[kk], y.lo[kk], sm.hi[1][b0], sm.hi[1][b1],
+               sm.lo[1][b0], sm.lo[1][b1]);
+  }
+}
+
+// acc += X . B over streamed rows 8j .. 8j+7 of plane `a`, X a C fragment
+// of scores() (P or dS) read as an A fragment through the permutation.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[4],
+                                           const Tiles<D>& sm, int a, int j,
+                                           int g, int t) {
+  constexpr int kPitch = Tiles<D>::kPitch;
+  uint32_t a_hi[4], a_lo[4];
+  split_tf32(x[0], a_hi[0], a_lo[0]);
+  split_tf32(x[2], a_hi[1], a_lo[1]);
+  split_tf32(x[1], a_hi[2], a_lo[2]);
+  split_tf32(x[3], a_hi[3], a_lo[3]);
+  const int at = (8 * j + 2 * t) * kPitch + g;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int b0 = at + 8 * nt, b1 = b0 + kPitch;
+    mma_3xtf32(acc[nt], a_hi, a_lo, sm.hi[a][b0], sm.hi[a][b1],
+               sm.lo[a][b0], sm.lo[a][b1]);
+  }
+}
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void add_to(float (&sum)[D / 8][4],
+                                       const float (&part)[D / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[nt][e] += part[nt][e];
+  }
+}
+
+// Write the C-fragment accumulator of the 16 rows from r0, times `scale`
+// (rows < S only).
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
+                                           const float (&acc)[D / 8][4],
+                                           float scale, int r0, int s_len,
+                                           int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= s_len) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * D +
+                                 8 * nt + 2 * t) =
+          make_float2(acc[nt][2 * half] * scale,
+                      acc[nt][2 * half + 1] * scale);
+    }
+  }
+}
+
+// One warp's work on one landed K/V tile of the dQ launch: part += dS.K
+// (dS without its factor `scale`) over the tile's keys from k0. kEdge: the
+// tile straddles the diagonal or runs past S, so keys above the diagonal
+// are skipped by n-tile and p is masked by index; otherwise no test runs.
+template <bool kEdge, int D>
+__device__ __forceinline__ void dq_tile(float (&part)[D / 8][4],
+                                        const Resident<D>& qa,
+                                        const Resident<D>& oa,
+                                        const Tiles<D>& sm,
+                                        const float (&l2)[2],
+                                        const float (&dd)[2], float sl2,
+                                        int r0, int k0, int s_len,
+                                        bool causal, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    // 8 keys wholly above the warp's diagonal: p = 0 for all of them
+    if (kEdge && causal && k0 + 8 * j > r0 + kWarpRows - 1) break;
+    float s[4], dp[4];
+    scores<D>(s, dp, qa, oa, sm, j, g, t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p = flash::exp2_approx(fmaf(s[e], sl2, -l2[h]));
+      if (kEdge) {
+        const int row = r0 + g + 8 * h;
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        if ((causal && key > row) || key >= s_len || row >= s_len) p = 0.f;
+      }
+      s[e] = p * (dp[e] - dd[h]);
+    }
+    accumulate<D>(part, s, sm, 0, j, g, t);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads)
     flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq,
                     int bh_count, int s_len, float scale, bool causal) {
-  constexpr int CK = kChunkFloats / D;
-  __shared__ __align__(16) float ks[kChunkFloats];
-  __shared__ __align__(16) float vs[kChunkFloats];
-
-  const int nq = (s_len + kThreads - 1) / kThreads;
+  __shared__ __align__(16) Tiles<D> sm;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int nq = (s_len + kBlockRows - 1) / kBlockRows;
   const int bh = blockIdx.x % bh_count;
   const int tile = blockIdx.x / bh_count;
   const int qt = causal ? nq - 1 - tile : tile;
-  const int q0 = qt * kThreads;
-  const int row = q0 + threadIdx.x;
-  const bool live = row < s_len;
+  const int q0 = qt * kBlockRows;
+  const int r0 = q0 + warp * kWarpRows;  // the warp's first query
   const int64_t base = static_cast<int64_t>(bh) * s_len;
+  const float* kb = k + base * D;
+  const float* vb = v + base * D;
 
-  float qr[D], dor[D], acc[D];
-  flash::load_row<D>(qr, q + (base + row) * D, live);
-  flash::load_row<D>(dor, dout + (base + row) * D, live);
+  // keys the block sees: up to its last query under causal masking
+  const int kend = causal ? min(s_len, q0 + kBlockRows) : s_len;
+  const int ntiles = (kend + kTile - 1) / kTile;
+  issue_tile<D>(sm, 0, kb, vb, 0, kend);
+  flash::cp_async_commit();
+  if (ntiles > 1) issue_tile<D>(sm, 1, kb, vb, kTile, kend);
+  flash::cp_async_commit();
+
+  Resident<D> qa, oa;
+  load_a<D>(qa, q + base * D, r0, s_len, g, t);
+  load_a<D>(oa, dout + base * D, r0, s_len, g, t);
+  // per C-fragment row (g, g + 8): lse * log2(e) and D
+  float l2[2], dd[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  const float lr = live ? lse[base + row] : 0.f;
-  const float dr = live ? di[base + row] : 0.f;
-
-  const int kend = causal ? min(s_len, q0 + kThreads) : s_len;
-  // keys this thread sees: up to its own row under causal masking
-  const int kmine = causal ? min(kend, row + 1) : kend;
-  for (int c0 = 0; c0 < kend; c0 += CK) {
-    const int rows = min(CK, kend - c0);
-    __syncthreads();
-    flash::load_chunk<D>(ks, k + (base + c0) * D, rows);
-    flash::load_chunk<D>(vs, v + (base + c0) * D, rows);
-    __syncthreads();
-    const int jn = min(rows, kmine - c0);
-#pragma unroll 2
-    for (int j = 0; j < jn; ++j) {
-      const float* kj = ks + j * D;
-      const float s = flash::dot_row<D>(qr, kj) * scale;
-      const float p = expf(s - lr);
-      const float dp = flash::dot_row<D>(dor, vs + j * D);
-      const float ds = p * (dp - dr) * scale;
-      flash::axpy_row<D>(acc, ds, kj);
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    l2[h] = row < s_len ? lse[base + row] * kLog2e : 0.f;
+    dd[h] = row < s_len ? di[base + row] : 0.f;
   }
-  if (live) flash::store_row<D>(dq + (base + row) * D, acc);
+  const float sl2 = scale * kLog2e;
+  const bool warp_live = r0 < s_len;
+  float acc[D / 8][4];
+  zero<D>(acc);
+
+  for (int it = 0; it < ntiles; ++it) {
+    flash::cp_async_wait<1>();
+    __syncthreads();
+    split_tile<D>(sm, it & 1);
+    __syncthreads();
+    if (it + 2 < ntiles) {
+      issue_tile<D>(sm, it & 1, kb, vb, (it + 2) * kTile, kend);
+    }
+    flash::cp_async_commit();
+    if (!warp_live) continue;
+    const int k0 = it * kTile;
+    float part[D / 8][4];
+    zero<D>(part);
+    if ((causal && k0 + kTile - 1 > r0) || k0 + kTile > s_len ||
+        r0 + kWarpRows > s_len) {
+      dq_tile<true, D>(part, qa, oa, sm, l2, dd, sl2, r0, k0, s_len, causal,
+                       g, t);
+    } else {
+      dq_tile<false, D>(part, qa, oa, sm, l2, dd, sl2, r0, k0, s_len, causal,
+                        g, t);
+    }
+    add_to<D>(acc, part);
+  }
+  if (warp_live) store_rows<D>(dq + base * D, acc, scale, r0, s_len, g, t);
+}
+
+// One warp's work on one landed Q/dO tile of the dK/dV launch:
+// dv_part += P^T.dO and dk_part += dS^T.Q (dS without its factor `scale`)
+// over the tile's queries from c0; kEdge as in dq_tile.
+template <bool kEdge, int D>
+__device__ __forceinline__ void dkv_tile(float (&dk_part)[D / 8][4],
+                                         float (&dv_part)[D / 8][4],
+                                         const Resident<D>& ka,
+                                         const Resident<D>& va,
+                                         const Tiles<D>& sm,
+                                         const float* l2s, const float* dds,
+                                         float sl2, int r0, int c0, int s_len,
+                                         bool causal, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    // 8 queries wholly before the warp's first key: p = 0 for them all
+    if (kEdge && causal && c0 + 8 * j + 7 < r0) continue;
+    float s[4], dp[4];
+    scores<D>(s, dp, ka, va, sm, j, g, t);
+    const int ql = 8 * j + 2 * t;  // tile-local query of elements 0 and 2
+    const float2 l2 = *reinterpret_cast<const float2*>(&l2s[ql]);
+    const float2 dd = *reinterpret_cast<const float2*>(&dds[ql]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = flash::exp2_approx(
+          fmaf(s[e], sl2, -((e & 1) ? l2.y : l2.x)));
+      if (kEdge) {
+        const int key = r0 + g + 8 * (e >> 1);
+        const int query = c0 + ql + (e & 1);
+        if ((causal && key > query) || query >= s_len || key >= s_len) {
+          p = 0.f;
+        }
+      }
+      s[e] = p;
+      dp[e] = p * (dp[e] - ((e & 1) ? dd.y : dd.x));
+    }
+    accumulate<D>(dv_part, s, sm, 1, j, g, t);   // P^T.dO
+    accumulate<D>(dk_part, dp, sm, 0, j, g, t);  // dS^T.Q
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockThreads)
     flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
@@ -102,70 +415,91 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int bh_count, int s_len,
                      float scale, bool causal) {
-  constexpr int CQ = kChunkFloats / D;
-  __shared__ __align__(16) float qs[kChunkFloats];
-  __shared__ __align__(16) float dos[kChunkFloats];
-  __shared__ float ls[CQ];
-  __shared__ float dis[CQ];
-
+  __shared__ __align__(16) Tiles<D> sm;
+  __shared__ __align__(16) float sraw[2][2][kTile];  // stages x {lse, D}
+  __shared__ __align__(16) float l2s[kTile];         // lse * log2(e)
+  __shared__ __align__(16) float dds[kTile];         // D
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
   const int bh = blockIdx.x % bh_count;
-  const int kt = blockIdx.x / bh_count;
-  const int k0 = kt * kThreads;
-  const int krow = k0 + threadIdx.x;
-  const bool live = krow < s_len;
+  const int k0 = (blockIdx.x / bh_count) * kBlockRows;
+  const int r0 = k0 + warp * kWarpRows;  // the warp's first key
   const int64_t base = static_cast<int64_t>(bh) * s_len;
-
-  float kr[D], vr[D], dka[D], dva[D];
-  flash::load_row<D>(kr, k + (base + krow) * D, live);
-  flash::load_row<D>(vr, v + (base + krow) * D, live);
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dka[d] = 0.f;
-    dva[d] = 0.f;
-  }
+  const float* qb = q + base * D;
+  const float* ob = dout + base * D;
 
   // queries that can see this key tile: from its first key on (causal)
   const int qbeg = causal ? k0 : 0;
-  for (int c0 = qbeg; c0 < s_len; c0 += CQ) {
-    const int rows = min(CQ, s_len - c0);
-    __syncthreads();
-    flash::load_chunk<D>(qs, q + (base + c0) * D, rows);
-    flash::load_chunk<D>(dos, dout + (base + c0) * D, rows);
-    for (int i = threadIdx.x; i < CQ; i += blockDim.x) {
-      ls[i] = i < rows ? lse[base + c0 + i] : 0.f;
-      dis[i] = i < rows ? di[base + c0 + i] : 0.f;
-    }
-    __syncthreads();
-    // under causal masking this thread's key sees queries >= krow only
-    const int ib = causal ? max(0, min(rows, krow - c0)) : 0;
-#pragma unroll 2
-    for (int i = ib; i < rows; ++i) {
-      const float* qi = qs + i * D;
-      const float* doi = dos + i * D;
-      const float s = flash::dot_row<D>(kr, qi) * scale;
-      const float p = expf(s - ls[i]);
-      flash::axpy_row<D>(dva, p, doi);
-      const float dp = flash::dot_row<D>(vr, doi);
-      const float ds = p * (dp - dis[i]) * scale;
-      flash::axpy_row<D>(dka, ds, qi);
-    }
+  const int ntiles = (s_len - qbeg + kTile - 1) / kTile;
+  issue_tile<D>(sm, 0, qb, ob, qbeg, s_len);
+  issue_scalars(sraw[0], lse + base, di + base, qbeg, s_len);
+  flash::cp_async_commit();
+  if (ntiles > 1) {
+    issue_tile<D>(sm, 1, qb, ob, qbeg + kTile, s_len);
+    issue_scalars(sraw[1], lse + base, di + base, qbeg + kTile, s_len);
   }
-  if (!live) return;
-  flash::store_row<D>(dk + (base + krow) * D, dka);
-  flash::store_row<D>(dv + (base + krow) * D, dva);
+  flash::cp_async_commit();
+
+  Resident<D> ka, va;
+  load_a<D>(ka, k + base * D, r0, s_len, g, t);
+  load_a<D>(va, v + base * D, r0, s_len, g, t);
+  const float sl2 = scale * kLog2e;
+  const bool warp_live = r0 < s_len;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    flash::cp_async_wait<1>();
+    __syncthreads();
+    split_tile<D>(sm, st);
+    if (threadIdx.x < kTile) {
+      l2s[threadIdx.x] = sraw[st][0][threadIdx.x] * kLog2e;
+      dds[threadIdx.x] = sraw[st][1][threadIdx.x];
+    }
+    __syncthreads();
+    const int c0 = qbeg + it * kTile;  // the tile's first query
+    if (it + 2 < ntiles) {
+      issue_tile<D>(sm, st, qb, ob, c0 + 2 * kTile, s_len);
+      issue_scalars(sraw[st], lse + base, di + base, c0 + 2 * kTile, s_len);
+    }
+    flash::cp_async_commit();
+    if (!warp_live) continue;
+    float dk_part[D / 8][4], dv_part[D / 8][4];
+    zero<D>(dk_part);
+    zero<D>(dv_part);
+    if ((causal && c0 < r0 + kWarpRows - 1) || c0 + kTile > s_len ||
+        r0 + kWarpRows > s_len) {
+      dkv_tile<true, D>(dk_part, dv_part, ka, va, sm, l2s, dds, sl2, r0, c0,
+                        s_len, causal, g, t);
+    } else {
+      dkv_tile<false, D>(dk_part, dv_part, ka, va, sm, l2s, dds, sl2, r0, c0,
+                         s_len, causal, g, t);
+    }
+    add_to<D>(dk_acc, dk_part);
+    add_to<D>(dv_acc, dv_part);
+  }
+  if (!warp_live) return;
+  store_rows<D>(dk + base * D, dk_acc, scale, r0, s_len, g, t);
+  store_rows<D>(dv + base * D, dv_acc, 1.f, r0, s_len, g, t);
+}
+
+inline int64_t row_blocks(int64_t s) {
+  return (s + kBlockRows - 1) / kBlockRows;
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* di, float* dq, float* dk, float* dv,
            int64_t bh, int64_t s, float scale, int causal, cudaStream_t st) {
-  const unsigned blocks = static_cast<unsigned>(bh * flash::blocks_for(s));
-  flash_dq_kernel<D><<<blocks, kThreads, 0, st>>>(
+  const unsigned blocks = static_cast<unsigned>(bh * row_blocks(s));
+  flash_dq_kernel<D><<<blocks, kBlockThreads, 0, st>>>(
       q, k, v, dout, lse, di, dq, static_cast<int>(bh), static_cast<int>(s),
       scale, causal != 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dkv_kernel<D><<<blocks, kThreads, 0, st>>>(
+  flash_dkv_kernel<D><<<blocks, kBlockThreads, 0, st>>>(
       q, k, v, dout, lse, di, dk, dv, static_cast<int>(bh),
       static_cast<int>(s), scale, causal != 0);
   return static_cast<int>(cudaGetLastError());
@@ -181,7 +515,7 @@ extern "C" int flash_attention_backward_f32(
     const float* lse, const float* di, float* dq, float* dk, float* dv,
     int64_t bh, int64_t s, int d, float scale, int causal, void* stream) {
   if (bh <= 0 || s <= 0) return 0;
-  if (s > (int64_t{1} << 30) || bh * flash::blocks_for(s) > 0x7fffffff) {
+  if (s > (int64_t{1} << 30) || bh * row_blocks(s) > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
