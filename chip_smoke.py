@@ -13,17 +13,30 @@
      AlexNet LRN shapes at the serving ring's batch 64, K2 also beside the
      one PyTorch call computing the same function (F.local_response_norm,
      checked first to agree);
-   - K3 (LRN backward) and K5 (fused LRN -> max pool backward) at both
-     shapes at the training batch 128, on post-ReLU inputs (half zeros, so
-     pooling windows tie as they do in training), and K1 (the SGD update)
+   - K3 (LRN backward) and K5 (fused LRN -> max pool backward: a route
+     launch, then a gather and LRN-backward launch) at both shapes at the
+     training batch 128, on post-ReLU inputs (half zeros, so pooling
+     windows tie as they do in training), and K1 (the SGD update)
      over all 16 AlexNet leaves (62,378,344 parameters), each leaf at its
      own learning rate. No single PyTorch call computes K3, K5 or K1.
    K1-K5 within 1e-6 + 1e-5*|plain| (the same f32 arithmetic in the same
-   order, so at most the rsqrt approximation differs).
+   order, so at most the rsqrt approximation differs). Before the AlexNet
+   shapes, K5 small checks (K5 lines) at shapes the AlexNet ones miss:
+   ceil-mode windows clipped on both axes, C = 3 and C = 40 and 70 (below
+   and between its 32-channel tiles), an all-zero input (every window
+   ties), windows holding a NaN (which route nowhere), and 3x3 stride 1
+   and 2x2 stride 2; each within the same gate, NaN where the plain
+   version has NaN, and reported bit-equal or not. K5 runs AlexNet's
+   geometry as an instance with it compiled in: at both shapes it is
+   also timed through the run-time (generic) instance, which must give
+   the same bits, and the generic instance is timed at AlexNet's layer-2
+   input under 3x3 stride 1 windows (KERNEL lrn_maxpool_backward L2
+   3x3/1; in chip_smoke.json, not in the {"kernels"} line).
    - K6 (flash attention forward: O and the row logsumexp) and K7 (its
-     backward: dQ, dK, dV) at the char-transformer's shape, q, k, v of
-     (32, 4096, 4, 16), causal, within 4e-6 + 4e-5*|plain| (forward) and
-     1e-5 + 1e-4*|plain| (backward): a fifth of the JAX package's own
+     backward: dQ, dK, dV) at the char-transformer's shapes, q, k, v of
+     (32, 4096, 4, 16) and, at 2 heads, (32, 4096, 2, 32), causal,
+     within 4e-6 + 4e-5*|plain| (forward) and 1e-5 + 1e-4*|plain|
+     (backward): a fifth of the JAX package's own
      kernel-vs-golden tolerances (the online softmax sums in another order
      than the plain version's materialised one; the backward's products
      run on the tensor cores as 3xTF32, f32-accurate but summed in
@@ -37,7 +50,7 @@
      plain version within the JAX package's tolerances, 2e-5 +
      2e-4*|plain| and 5e-5 + 5e-4*|plain|; the backend PyTorch dispatches
      it to is printed). Before that, K6 and
-     K7 at every head width they are compiled for (8, 16) on a
+     K7 at every head width they are compiled for (8, 16, 32) on a
      ragged S = 200, causal or not, KV forward or reversed, with and
      without a dropout mask (FLASH lines).
 4. SERVE: serve the full-width AlexNet (227x227x3, fc 4096, 1000 classes,
@@ -63,6 +76,11 @@
    just before and read just after: K6 once per train and validation
    step, K7 and K1 x 13 leaves once per train step, exactly, nothing
    else, and the loss finite.
+   TRAIN transformer n_heads=2: one epoch of the same at 2 heads of 32,
+   with the same exact counts (K6 and K7 at head width 32; the unit's
+   variant printed); then an attention unit at 1 head of 64, a width
+   K6/K7 are not compiled for, must be refused on the card under "auto"
+   (ValueError), with no fallback to the einsum.
 6. Held on the card (TF32 off, as the step runs):
    (a) the first full-width AlexNet train step through the kernels against
        the same step with every kernel swapped for its plain version, from
@@ -94,7 +112,8 @@
    A profiler pass over one more full-width step of each model splits its
    device time by kernel family (chiprun_out/train_profile.json and
    transformer_profile.json), and SPLIT lines time the forward+loss,
-   backward and update of each by CUDA events.
+   backward and update of each by CUDA events, with AlexNet's backward
+   under fused less that under composed on a line of its own.
 7. Print one {"kernels": [...]} line, then the card line and the closing
    {"ok": true, "device": {...}} line.
 
@@ -141,14 +160,14 @@ TRAIN_ARGS: list = []
 #: the toy AlexNet of the card-against-CPU check (c)
 TOY_ARGS = dict(input_hw=67, width_mult=0.125, fc_width=64, n_classes=16,
                 minibatch_size=8, n_train=8, n_validation=8, init="scaled")
-#: the char-transformer's train run: seq_len 4096 (the flash gate's
-#: smallest S), one validation window, two epochs
+#: the char-transformer's train runs: seq_len 4096 (the flash gate's
+#: smallest S), one validation window
 CT_SEQ = 4096
 CT_TRAIN_ARGS = [f"root.char_transformer.loader.seq_len={CT_SEQ}",
-                 "root.char_transformer.loader.n_validation=1",
-                 "root.char_transformer.decision.max_epochs=2"]
-#: q, k, v of the transformer's attention: (B, S, H, D)
-ATT_SHAPE = (32, CT_SEQ, 4, 16)
+                 "root.char_transformer.loader.n_validation=1"]
+#: q, k, v of the transformer's attention, (B, S, H, D): the sample's 4
+#: heads of 16, and 2 heads of 32 (TRAIN transformer n_heads=2)
+ATT_SHAPES = ((32, CT_SEQ, 4, 16), (32, CT_SEQ, 2, 32))
 #: the toy transformer of the card-against-CPU check (e)
 CT_TOY = {"embed": 16, "n_heads": 2, "ffn": 24, "loader.seq_len": 256,
           "loader.minibatch_size": 4, "loader.n_validation": 4}
@@ -496,9 +515,54 @@ def leaf_lr(shape) -> float:
     return LR * (2.0 if len(shape) == 1 else 1.0)
 
 
+#: K5 small checks: (what, x shape, window, stride, input); the AlexNet
+#: shapes pool exactly and their C divides by K5's 32-channel tiles
+K5_SMALL = (("clipped both axes, C 40", (2, 14, 16, 40), (3, 3), (2, 2),
+             "relu"),
+            ("C 3", (2, 14, 16, 3), (3, 3), (2, 2), "relu"),
+            ("C 70", (2, 9, 11, 70), (3, 3), (2, 2), "relu"),
+            ("all zero", (2, 14, 16, 40), (3, 3), (2, 2), "zero"),
+            ("NaN windows", (2, 14, 16, 40), (3, 3), (2, 2), "nan"),
+            ("3x3 stride 1", (2, 13, 15, 40), (3, 3), (1, 1), "relu"),
+            ("2x2 stride 2", (2, 13, 15, 40), (2, 2), (2, 2), "relu"))
+
+
+def k5_small_checks(kernels, dev):
+    """K5 against its plain version at K5_SMALL's shapes: within the
+    kernel gate, NaN exactly where the plain version has NaN."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+    rs = np.random.RandomState(8)
+    for what, shape, ksize, stride, kind in K5_SMALL:
+        x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+        if kind == "zero":
+            x[:] = 0.0
+        elif kind == "nan":
+            x[0, 2, 2, 3] = x[1, 13, 15, 39] = x[1, 6, 0, 0] = np.nan
+        oh, ow = pool_out_hw(shape[1], shape[2], *ksize, *stride)
+        g = rs.randn(shape[0], oh, ow, shape[3]).astype(np.float32)
+        xt, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        got = kernels.lrn_maxpool_backward(xt, gt, K, ALPHA, BETA, N, ksize,
+                                           stride)
+        want = kernels.lrn_maxpool_backward_plain(xt, gt, K, ALPHA, BETA, N,
+                                                  ksize, stride)
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        if not torch.equal(got.isnan(), nan):
+            raise AssertionError(f"lrn_maxpool_backward {what}: NaN at "
+                                 f"other places than the plain version's")
+        got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
+        err = check_close(f"lrn_maxpool_backward {what}", got, want,
+                          KERNEL_RTOL, KERNEL_ATOL)
+        print(f"K5 {what} x {list(shape)} {ksize[0]}x{ksize[1]}/"
+              f"{stride[0]}x{stride[1]}: max abs err {err:.3e}, "
+              f"{int(nan.sum())} NaN, bit-equal {torch.equal(got, want)}",
+              flush=True)
+
+
 def backward_kernel_phase(kernels, dev, bw, flops):
     """Hold K3, K5 and K1 against their plain versions at the training
     path's shapes and time them."""
+    k5_small_checks(kernels, dev)
     timer = ColdTimer(dev)
     rs = np.random.RandomState(2)
     rows = {"lrn_backward": [], "lrn_maxpool_backward": [],
@@ -540,18 +604,33 @@ def backward_kernel_phase(kernels, dev, bw, flops):
         # pooled output), the routed sums (at most 4) and the gradient
         t_ops = ((2 * N + 6 + 4) * x.numel() + lrn_grad_ops(x.numel())
                  + 8 * gp.numel()) / flops
+        # the same geometry through the run-time instance: the same bits,
+        # and what AlexNet's compile-time constants buy
+        dg = kernels.lrn_maxpool_backward(x, gp, K, ALPHA, BETA, N,
+                                          generic=True)
+        torch.cuda.synchronize()
+        if not torch.equal(dg, dk):
+            raise AssertionError(f"lrn_maxpool_backward {layer}: the "
+                                 f"generic instance gives other bits")
         rows["lrn_maxpool_backward"].append({
             "shape": list(shape), "g_shape": list(gp.shape),
             "max_abs_err": err,
             "ms": timer(lambda: kernels.lrn_maxpool_backward(
                 x, gp, K, ALPHA, BETA, N)),
+            "generic_ms": timer(lambda: kernels.lrn_maxpool_backward(
+                x, gp, K, ALPHA, BETA, N, generic=True)),
             "plain_ms": timer(lambda: kernels.lrn_maxpool_backward_plain(
                 x, gp, K, ALPHA, BETA, N)),
             "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
         for name in ("lrn_backward", "lrn_maxpool_backward"):
             print_kernel_line(name, layer, rows[name][-1])
-        del x, gp, dk, dp
+        r = rows["lrn_maxpool_backward"][-1]
+        print(f"KERNEL lrn_maxpool_backward {layer} generic instance: ms "
+              f"{r['generic_ms']:.4f} (compile-time instance "
+              f"{r['ms']:.4f}), bit-equal", flush=True)
+        del x, gp, dk, dp, dg
+    other = k5_other_geometry(kernels, dev, bw, flops, timer)
     # -- K1: one update of every AlexNet leaf ---------------------------------
     def leaf(shape, scale):
         return torch.from_numpy((scale * rs.randn(*shape))
@@ -585,7 +664,44 @@ def backward_kernel_phase(kernels, dev, bw, flops):
     print_kernel_line("sgd_update", "all", rows["sgd_update"][-1])
     del ps, gs, vs, pk, vk
     torch.cuda.empty_cache()
-    return rows
+    return rows, other
+
+
+def k5_other_geometry(kernels, dev, bw, flops, timer):
+    """K5 at a pool geometry other than AlexNet's, at the training size:
+    AlexNet's layer-2 input (128, 27, 27, 256) under 3x3 stride 1
+    windows, through the generic instance (up to 9 windows cover an input
+    pixel, against AlexNet's 4)."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+    ksize, stride = (3, 3), (1, 1)
+    rs = np.random.RandomState(9)
+    shape = (TB,) + LRN_SHAPES[1]
+    x = torch.from_numpy(np.maximum(rs.randn(*shape), 0)
+                         .astype(np.float32)).to(dev)
+    oh, ow = pool_out_hw(shape[1], shape[2], *ksize, *stride)
+    gp = torch.from_numpy(rs.randn(TB, oh, ow, shape[3])
+                          .astype(np.float32)).to(dev)
+    dk = kernels.lrn_maxpool_backward(x, gp, K, ALPHA, BETA, N, ksize,
+                                      stride)
+    dp = kernels.lrn_maxpool_backward_plain(x, gp, K, ALPHA, BETA, N, ksize,
+                                            stride)
+    torch.cuda.synchronize()
+    err = check_close("lrn_maxpool_backward 3x3/1", dk, dp, KERNEL_RTOL,
+                      KERNEL_ATOL)
+    t_bytes = (2 * x.numel() + gp.numel()) * 4 / bw
+    t_ops = ((2 * N + 6 + 9) * x.numel() + lrn_grad_ops(x.numel())
+             + 8 * gp.numel()) / flops
+    row = {"shape": list(shape), "g_shape": list(gp.shape),
+           "window": "3x3/1", "max_abs_err": err,
+           "ms": timer(lambda: kernels.lrn_maxpool_backward(
+               x, gp, K, ALPHA, BETA, N, ksize, stride)),
+           "plain_ms": timer(lambda: kernels.lrn_maxpool_backward_plain(
+               x, gp, K, ALPHA, BETA, N, ksize, stride)),
+           "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print_kernel_line("lrn_maxpool_backward", "L2 3x3/1", row)
+    del x, gp, dk, dp
+    return row
 
 
 def print_kernel_line(name, layer, r):
@@ -661,102 +777,111 @@ def flash_small_checks(kernels, dev):
 
 def flash_kernel_phase(kernels, dev, bw, flops, tf32):
     """Hold K6 and K7 against their plain versions at the transformer's
-    shape, beside SDPA, and time them; K7 must also repeat bit for bit."""
+    shapes (4 heads of 16, 2 of 32), beside SDPA, and time them; K7 must
+    also repeat bit for bit."""
     flash_small_checks(kernels, dev)
     timer = ColdTimer(dev)
     rs = np.random.RandomState(6)
-    b, s, h, d = ATT_SHAPE
-    q, k, v, g = (heads_first(torch.from_numpy(
-        rs.randn(*ATT_SHAPE).astype(np.float32)).to(dev)) for _ in range(4))
-    pairs = b * h * attention_pairs(s, True)
-    row_bytes = b * h * s * d * 4
-    # -- K6 ---------------------------------------------------------------
-    ok, lk = kernels.flash_attention_forward(q, k, v, True)
-    op, lp = kernels.flash_attention_forward_plain(q, k, v, True)
-    torch.cuda.synchronize()
-    err = max(check_close("flash_attention_forward O", ok, op,
-                          FLASH_FWD_RTOL, FLASH_FWD_ATOL),
-              check_close("flash_attention_forward lse", lk, lp,
-                          FLASH_FWD_RTOL, FLASH_FWD_ATOL))
-    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+    rows = {"flash_attention_forward": [], "flash_attention_backward": []}
+    for shape in ATT_SHAPES:
+        b, s, h, d = shape
+        q, k, v, g = (heads_first(torch.from_numpy(
+            rs.randn(*shape).astype(np.float32)).to(dev)) for _ in range(4))
+        pairs = b * h * attention_pairs(s, True)
+        row_bytes = b * h * s * d * 4
+        # -- K6 -----------------------------------------------------------
+        ok, lk = kernels.flash_attention_forward(q, k, v, True)
+        op, lp = kernels.flash_attention_forward_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        err = max(check_close("flash_attention_forward O", ok, op,
+                              FLASH_FWD_RTOL, FLASH_FWD_ATOL),
+                  check_close("flash_attention_forward lse", lk, lp,
+                              FLASH_FWD_RTOL, FLASH_FWD_ATOL))
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
 
-    def lib_fwd():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    lib_err = check_close("F.scaled_dot_product_attention",
-                          lib_fwd().reshape(b * h, s, d), op, SDPA_FWD_RTOL,
-                          SDPA_FWD_ATOL)
-    backend = sdpa_backend(q4, k4, v4)
-    t_bytes = (4 * row_bytes + b * h * s * 4) / bw
-    t_ops = 4 * d * pairs / flops
-    rows = {"flash_attention_forward": [{
-        "shape": list(ATT_SHAPE), "causal": True, "max_abs_err": err,
-        "ms": timer(lambda: kernels.flash_attention_forward(q, k, v, True)),
-        "plain_ms": timer(lambda: kernels.flash_attention_forward_plain(
-            q, k, v, True)),
-        "library_ms": timer(lib_fwd), "library": f"sdpa {backend}",
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}]}
-    print_kernel_line("flash_attention_forward", "causal",
-                      rows["flash_attention_forward"][0])
-    print(f"KERNEL flash_attention_forward: library = "
-          f"F.scaled_dot_product_attention(is_causal=True) f32, backend "
-          f"{backend}, max abs err against the plain version {lib_err:.3e}",
-          flush=True)
-    del op, lp
-    # -- K7 ---------------------------------------------------------------
-    di = (g * ok).sum(-1, keepdim=True)
-    got = kernels.flash_attention_backward(q, k, v, g, lk, di, True)
-    want = kernels.flash_attention_backward_plain(q, k, v, g, lk, di, True)
-    torch.cuda.synchronize()
-    err = max(check_close(f"flash_attention_backward {n}", a, w,
-                          FLASH_BWD_RTOL, FLASH_BWD_ATOL)
-              for n, a, w in zip(("dq", "dk", "dv"), got, want))
-    # no atomics: a second call on the same inputs gives the same bits
-    again = kernels.flash_attention_backward(q, k, v, g, lk, di, True)
-    for n, first, second in zip(("dq", "dk", "dv"), got, again):
-        if not torch.equal(first, second):
-            raise AssertionError(f"flash_attention_backward {n}: two calls "
-                                 f"on the same inputs differ")
-    print("KERNEL flash_attention_backward: two calls bit-identical",
-          flush=True)
-    del again
-    leaves = [t.view(b, h, s, d).clone().requires_grad_(True)
-              for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    g4 = g.view(b, h, s, d)
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=True)
+        lib_err = check_close("F.scaled_dot_product_attention",
+                              lib_fwd().reshape(b * h, s, d), op,
+                              SDPA_FWD_RTOL, SDPA_FWD_ATOL)
+        backend = sdpa_backend(q4, k4, v4)
+        t_bytes = (4 * row_bytes + b * h * s * 4) / bw
+        t_ops = 4 * d * pairs / flops
+        rows["flash_attention_forward"].append({
+            "shape": list(shape), "causal": True, "max_abs_err": err,
+            "ms": timer(lambda: kernels.flash_attention_forward(q, k, v,
+                                                                True)),
+            "plain_ms": timer(lambda: kernels.flash_attention_forward_plain(
+                q, k, v, True)),
+            "library_ms": timer(lib_fwd), "library": f"sdpa {backend}",
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        print_kernel_line("flash_attention_forward", "causal",
+                          rows["flash_attention_forward"][-1])
+        print(f"KERNEL flash_attention_forward: library = "
+              f"F.scaled_dot_product_attention(is_causal=True) f32, "
+              f"backend {backend}, max abs err against the plain version "
+              f"{lib_err:.3e}", flush=True)
+        del op, lp
+        # -- K7 -----------------------------------------------------------
+        di = (g * ok).sum(-1, keepdim=True)
+        got = kernels.flash_attention_backward(q, k, v, g, lk, di, True)
+        want = kernels.flash_attention_backward_plain(q, k, v, g, lk, di,
+                                                      True)
+        torch.cuda.synchronize()
+        err = max(check_close(f"flash_attention_backward {n}", a, w,
+                              FLASH_BWD_RTOL, FLASH_BWD_ATOL)
+                  for n, a, w in zip(("dq", "dk", "dv"), got, want))
+        # no atomics: a second call on the same inputs gives the same bits
+        again = kernels.flash_attention_backward(q, k, v, g, lk, di, True)
+        for n, first, second in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(first, second):
+                raise AssertionError(f"flash_attention_backward {n}: two "
+                                     f"calls on the same inputs differ")
+        print("KERNEL flash_attention_backward: two calls bit-identical",
+              flush=True)
+        del again
+        leaves = [t.view(b, h, s, d).clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        g4 = g.view(b, h, s, d)
 
-    def lib_bwd():
-        return torch.autograd.grad(out, leaves, g4, retain_graph=True)
-    lib_err = max(check_close(f"autograd of SDPA {n}", a.reshape(b * h, s, d),
-                              w, SDPA_BWD_RTOL, SDPA_BWD_ATOL)
-                  for n, a, w in zip(("dq", "dk", "dv"), lib_bwd(), want))
-    backend = sdpa_backend(*leaves)
-    t_bytes = (7 * row_bytes + 2 * b * h * s * 4) / bw
-    # the function's five products per kept pair (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO,
-    # dS·K, dSᵀ·Q), each three TF32 products on the tensor cores for f32
-    # accuracy (3xTF32); K7 executes seven, recomputing two in each
-    # launch. Beside it, the same work in f32 on the CUDA cores.
-    t_ops = 3 * 10 * d * pairs / tf32
-    t_f32 = 10 * d * pairs / flops
-    rows["flash_attention_backward"] = [{
-        "shape": list(ATT_SHAPE), "causal": True, "max_abs_err": err,
-        "ms": timer(lambda: kernels.flash_attention_backward(
-            q, k, v, g, lk, di, True)),
-        "plain_ms": timer(lambda: kernels.flash_attention_backward_plain(
-            q, k, v, g, lk, di, True)),
-        "library_ms": timer(lib_bwd), "library": f"sdpa backward {backend}",
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_rate": "3xTF32, tensor cores",
-        "bound_f32_ms": max(t_bytes, t_f32) * 1e3}]
-    print_kernel_line("flash_attention_backward", "causal",
-                      rows["flash_attention_backward"][0])
-    print(f"KERNEL flash_attention_backward: library = autograd of "
-          f"F.scaled_dot_product_attention(is_causal=True) f32, backend "
-          f"{backend}, max abs err against the plain version {lib_err:.3e}",
-          flush=True)
-    del q, k, v, g, ok, lk, di, got, want, leaves, out, q4, k4, v4, g4
-    torch.cuda.empty_cache()
+        def lib_bwd():
+            return torch.autograd.grad(out, leaves, g4, retain_graph=True)
+        lib_err = max(check_close(f"autograd of SDPA {n}",
+                                  a.reshape(b * h, s, d), w, SDPA_BWD_RTOL,
+                                  SDPA_BWD_ATOL)
+                      for n, a, w in zip(("dq", "dk", "dv"), lib_bwd(),
+                                         want))
+        backend = sdpa_backend(*leaves)
+        t_bytes = (7 * row_bytes + 2 * b * h * s * 4) / bw
+        # the function's five products per kept pair (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO,
+        # dS·K, dSᵀ·Q), each three TF32 products on the tensor cores for
+        # f32 accuracy (3xTF32); K7 executes seven, recomputing two in
+        # each launch. Beside it, the same work in f32 on the CUDA cores.
+        t_ops = 3 * 10 * d * pairs / tf32
+        t_f32 = 10 * d * pairs / flops
+        rows["flash_attention_backward"].append({
+            "shape": list(shape), "causal": True, "max_abs_err": err,
+            "ms": timer(lambda: kernels.flash_attention_backward(
+                q, k, v, g, lk, di, True)),
+            "plain_ms": timer(lambda: kernels.flash_attention_backward_plain(
+                q, k, v, g, lk, di, True)),
+            "library_ms": timer(lib_bwd),
+            "library": f"sdpa backward {backend}",
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": "3xTF32, tensor cores",
+            "bound_f32_ms": max(t_bytes, t_f32) * 1e3})
+        print_kernel_line("flash_attention_backward", "causal",
+                          rows["flash_attention_backward"][-1])
+        print(f"KERNEL flash_attention_backward: library = autograd of "
+              f"F.scaled_dot_product_attention(is_causal=True) f32, "
+              f"backend {backend}, max abs err against the plain version "
+              f"{lib_err:.3e}", flush=True)
+        del q, k, v, g, ok, lk, di, got, want, leaves, out, q4, k4, v4, g4
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -845,38 +970,73 @@ def train_phase(launcher, kernels, dev):
     return launches
 
 
-def transformer_train_phase(launcher, kernels, dev):
-    """Train the char-transformer at seq_len 4096 for two epochs through
-    `launcher.train`; every launch count is exact."""
+def transformer_run(launcher, kernels, dev, label, argv, epochs):
+    """`epochs` epochs of the char-transformer at seq_len 4096 through
+    `launcher.train`; every launch count is exact: K6 once per train and
+    validation step, K7 and K1 x leaves once per train step, nothing
+    else."""
     wf, counts = train_run(
-        launcher, kernels, dev, "transformer",
-        [CHAR_TRANSFORMER, "--fused", "-r", "1234", *CT_TRAIN_ARGS])
+        launcher, kernels, dev, label,
+        [CHAR_TRANSFORMER, "--fused", "-r", "1234", *CT_TRAIN_ARGS, *argv,
+         f"root.char_transformer.decision.max_epochs={epochs}"])
     loader = wf.loader
     if loader.seq_len != CT_SEQ or tuple(loader.sample_shape) != (CT_SEQ,
                                                                   18):
         raise AssertionError(f"trained seq_len {loader.seq_len}, samples "
                              f"{loader.sample_shape}")
+    unit = wf.forwards[1]
+    variant = unit.variant_effective()
     mb = loader.minibatch_size
     train_steps = -(-loader.class_lengths[2] // mb)
     valid_steps = -(-loader.class_lengths[1] // mb)
-    epochs = wf.decision.epoch_number
+    done = wf.decision.epoch_number
     leaves = sum(len(u.param_arrays()) for u in wf.forwards)
     n_params = sum(t.numel() for u in wf.forwards
                    for t in u.param_arrays().values())
     want = {name: 0 for name in counts}
     want.update({
-        "flash_attention_forward": epochs * (train_steps + valid_steps),
-        "flash_attention_backward": epochs * train_steps,
-        "sgd_update": epochs * train_steps * leaves})
-    print(f"TRAIN transformer: {epochs} epochs of {train_steps} train and "
+        "flash_attention_forward": done * (train_steps + valid_steps),
+        "flash_attention_backward": done * train_steps,
+        "sgd_update": done * train_steps * leaves})
+    print(f"TRAIN {label}: {done} epoch(s) of {train_steps} train and "
           f"{valid_steps} validation minibatch(es) of {mb} x {CT_SEQ}, "
-          f"{leaves} leaves ({n_params} parameters): launches expected "
-          f"{want}", flush=True)
-    if epochs != 2 or counts != want:
-        raise AssertionError(f"transformer launches {counts} != {want} "
-                             f"(epochs {epochs})")
+          f"{unit.n_heads} heads of {unit.head_dim}, attention variant "
+          f"{variant}, {leaves} leaves ({n_params} parameters): launches "
+          f"expected {want}", flush=True)
+    if done != epochs or variant != "kernel" or counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want} "
+                             f"(epochs {done}, variant {variant})")
     del wf
     torch.cuda.empty_cache()
+    return counts
+
+
+def transformer_train_phase(launcher, kernels, dev):
+    """Train the char-transformer (4 heads of 16) at seq_len 4096 for two
+    epochs through `launcher.train`."""
+    return transformer_run(launcher, kernels, dev, "transformer", [], 2)
+
+
+def transformer_wide_head_phase(launcher, kernels, dev):
+    """One epoch of the char-transformer at seq_len 4096 with 2 heads of
+    32 through `launcher.train`: K6 and K7 at head width 32. Then the unit
+    at 1 head of 64, a width they are not compiled for, must be refused on
+    the card under "auto" (no fallback to the einsum)."""
+    from veles_tpu_torch.znicz.attention import MultiHeadAttention
+    counts = transformer_run(launcher, kernels, dev, "transformer n_heads=2",
+                             ["root.char_transformer.n_heads=2"], 1)
+    wide = MultiHeadAttention(n_heads=1, use_flash="auto")
+    wide.initialize((CT_SEQ, 64), dev)
+    x = torch.randn(1, CT_SEQ, 64, device=dev)
+    try:
+        wide.fused_apply(wide.param_arrays(), x)
+    except ValueError as e:
+        print(f"TRAIN transformer n_heads=2: 1 head of {wide.head_dim} at "
+              f"S={CT_SEQ}, variant {wide.variant_effective()}, refused on "
+              f"the card: {e}", flush=True)
+    else:
+        raise AssertionError(f"attention at head width {wide.head_dim} ran "
+                             f"on the card")
     return counts
 
 
@@ -1065,6 +1225,8 @@ def step_checks(kernels, variants, dev):
                           for _ in range(3)]
         print(f"SPLIT {setting}: forward+loss, backward, update device ms "
               f"(3 steps, CUDA events) {split[setting]}", flush=True)
+    gap = [f[1] - c[1] for f, c in zip(split["fused"], split["composed"])]
+    print(f"SPLIT backward fused - composed ms (3 steps): {gap}", flush=True)
     families = profile_step(steps["fused"], clone_state(s0), x, y, w)
     del wf, steps, s0
     torch.cuda.empty_cache()
@@ -1205,7 +1367,7 @@ def transformer_step_checks(kernels, dev):
     from veles_tpu_torch.loader.text import synthetic_text
     from veles_tpu_torch.samples import char_transformer
     prng.seed_all(1234)
-    mb = ATT_SHAPE[0]
+    mb = ATT_SHAPES[0][0]
     with ct_config({"loader.seq_len": CT_SEQ, "loader.n_validation": 1,
                     "loader.minibatch_size": mb}):
         wf = char_transformer.create_workflow(
@@ -1349,13 +1511,16 @@ def main() -> int:
           flush=True)
     print_resource_usage(libs)
     rows = kernel_phase(kernels, dev, bw, flops)
-    rows.update(backward_kernel_phase(kernels, dev, bw, flops))
+    backward_rows, k5_other = backward_kernel_phase(kernels, dev, bw, flops)
+    rows.update(backward_rows)
     rows.update(flash_kernel_phase(kernels, dev, bw, flops, tf32))
     by_path = {"serve": serve_phase(launcher, kernels, dev)}
     for setting, counts in train_phase(launcher, kernels, dev).items():
         by_path[f"train_{setting}"] = counts
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
+    by_path["train_transformer_d32"] = transformer_wide_head_phase(
+        launcher, kernels, dev)
     from veles_tpu_torch.ops import variants
     checks = step_checks(kernels, variants, dev)
     toy_card_vs_cpu(dev)
@@ -1394,7 +1559,8 @@ def main() -> int:
             # a served or trained batch runs each LRN kernel once per
             # AlexNet shape, and K1 once per leaf: the times below are the
             # sums over the shapes (K2, K4 at batch 64; K3, K5 at 128; K6,
-            # K7 at the transformer's one shape)
+            # K7 once at each of the transformer's head widths, 16 and 32,
+            # one call per train step of each TRAIN transformer run)
             "ms": sum(r["ms"] for r in per_shape),
             "plain_ms": sum(r["plain_ms"] for r in per_shape),
             "bound_ms": sum(r["bound_ms"] for r in per_shape),
@@ -1412,7 +1578,8 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
-                   "checks": checks}, f, indent=1)
+                   "checks": checks, "k5_other_geometry": k5_other}, f,
+                  indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

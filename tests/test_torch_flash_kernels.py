@@ -321,7 +321,7 @@ def _k7_case(d, causal, seed=12):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("d", kernels.FLASH_HEAD_DIMS)
 def test_3xtf32_products_meet_the_k7_gate(d, causal):
     """K7's arithmetic, not the kernel (chip_smoke.py holds the kernel on
     the card): all five products as 3xTF32, P and dS split too, in f32,

@@ -1,0 +1,312 @@
+"""K5's CUDA source (`veles_tpu_torch/csrc/lrn_maxpool_backward.cu`) run
+on the CPU, held bit for bit against the plain version
+`ops/functional.py:lrn_maxpool_backward` (which
+`test_torch_backward_kernels.py` holds against the JAX package's VJP).
+
+The .cu file itself is compiled by g++ (skipped where there is none),
+with a small prelude in place of the CUDA runtime:
+
+- a launch `k<<<grid, threads, smem, stream>>>(...)` runs each block in
+  turn on `threads` std::threads, one per CUDA thread, with its own
+  dynamic shared memory (filled with 0x7f bytes, so that a read of
+  anything not staged shows) and a std::barrier for `__syncthreads`;
+- `stage` (a 4-byte cp.async) becomes a 4-byte copy, zeros where the
+  source is out of range, and `stage_wait` nothing, one valid schedule of
+  the asynchronous copies;
+- the round-to-nearest intrinsics are plain float operations (compiled
+  with -ffp-contract=off, so none becomes an FMA), `__ldg` a load, and
+  `rsqrtf` 1/sqrtf, which is what torch.rsqrt computes on the CPU.
+
+The plain version runs with torch.sqrt rounded correctly (through
+float64), as sqrtf is on the card and in g++: on the CPU, torch.sqrt of
+float32 may take MKL's vector sqrt, which can be 1 ulp off.
+
+Everything else is the kernel's own code: its tile sizing (`fit`), its
+table of covering windows, its byte or word staging of the tap record
+and its sums. The wrapper `kernels.lrn_maxpool_backward` calls it, so the
+argument order of the C entry point is the wrapper's. Besides the build
+as written, a "narrow" build shrinks K5's shared-memory target to 3 KB
+and its grid to one sample, so that bands shrink to one row, tiles to
+part of the width and channel tiles below 32, and blocks loop over the
+samples. Shapes: chip_smoke.py's K5 small checks (clipped windows on
+both axes, C = 3, 40 and 70, an all-zero input, NaN windows, 3x3/1 and
+2x2/2), AlexNet's two LRN widths at batch 1, LRN n = 3, and AlexNet's
+geometry through the generic instance. It cannot see nvcc errors,
+register pressure or speed: chip_smoke.py holds the kernel on the card.
+"""
+
+import contextlib
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from veles_tpu_torch.ops import functional as fn
+from veles_tpu_torch.ops import kernels
+
+K, ALPHA, BETA = 2.0, 1e-4, 0.75
+SOURCE = kernels.CSRC / "lrn_maxpool_backward.cu"
+
+PRELUDE = r"""
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct alignas(16) float4 { float x, y, z, w; };
+
+namespace emu {
+inline thread_local dim3 thread_idx, block_idx;
+inline dim3 block_dim, grid_dim;
+inline std::barrier<>* bar = nullptr;
+inline float4* smem = nullptr;
+
+// Every block in turn on `threads` threads; a barrier between blocks,
+// and the shared memory refilled with 0x7f bytes before each.
+template <class F, class... A>
+void launch(dim3 grid, int threads, size_t bytes, void*, F kernel,
+            A... args) {
+  std::vector<float4> buf(bytes / sizeof(float4) + 1);
+  std::barrier<> b(threads);
+  bar = &b;
+  smem = buf.data();
+  block_dim = dim3(threads);
+  grid_dim = grid;
+  auto fill = [&] { std::memset(buf.data(), 0x7f, buf.size() * 16); };
+  fill();
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      thread_idx = dim3(t, 0, 0);
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = 0; y < grid.y; ++y)
+          for (unsigned x = 0; x < grid.x; ++x) {
+            block_idx = dim3(x, y, z);
+            kernel(args...);
+            b.arrive_and_wait();  // the block is done
+            if (t == 0) fill();
+            b.arrive_and_wait();
+          }
+    });
+  for (auto& th : pool) th.join();
+}
+}  // namespace emu
+
+#define threadIdx emu::thread_idx
+#define blockIdx emu::block_idx
+#define blockDim emu::block_dim
+#define gridDim emu::grid_dim
+#define __syncthreads() emu::bar->arrive_and_wait()
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(n)
+#define CUDART_INF_F INFINITY
+using std::isnan;
+using std::max;
+using std::min;
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+template <class T> inline T __ldg(const T* p) { return *p; }
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr {
+  cudaDevAttrMaxSharedMemoryPerBlockOptin,
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+// the H100's: 227 KB a block (opt-in), 228 KB an SM
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMaxSharedMemoryPerBlockOptin ? 232448 : 233472;
+  return 0;
+}
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+"""
+
+STAGE = r"""
+__device__ __forceinline__ void stage(void* dst, const void* src, bool in) {
+  if (in) std::memcpy(dst, src, 4); else std::memset(dst, 0, 4);
+}
+
+__device__ __forceinline__ void stage_wait() {}
+"""
+
+#: build -> substitutions in the kernel's constants
+BUILDS = {"as written": {},
+          "narrow": {"kSmemTarget = 100 * 1024": "kSmemTarget = 3 * 1024",
+                     "kMaxGridZ = 65535": "kMaxGridZ = 1"}}
+
+
+def _sub(text, old, new, count=1):
+    """`text` with `old` replaced; the kernel source must hold it."""
+    assert text.count(old) == count, f"K5's source no longer holds {old!r}"
+    return text.replace(old, new)
+
+
+def _emulated_source(consts):
+    header = (kernels.CSRC / "lrn_common.cuh").read_text()
+    header = _sub(header, "#include <cuda_runtime.h>", "")
+    src = SOURCE.read_text()
+    src = _sub(src, '#include <math_constants.h>', "")
+    src = _sub(src, '#include "lrn_common.cuh"', header)
+    src, n = re.subn(
+        r"__device__ __forceinline__ void stage\(.*?\n}\n\n"
+        r"__device__ __forceinline__ void stage_wait\(\) {.*?\n}\n",
+        lambda m: STAGE, src, flags=re.S)
+    assert n == 1, "K5's stage/stage_wait are not where the emulation looks"
+    src = _sub(src, "extern __shared__ float4 smem4[];",
+               "float4* const smem4 = emu::smem;", 2)
+    src, n = re.subn(r"(\w+)<<<(.*?)>>>\(", r"emu::launch(\2, \1, ", src,
+                     flags=re.S)
+    assert n == 2, "K5 is no longer two launches"
+    for old, new in consts.items():
+        src = _sub(src, old, new)
+    return PRELUDE + src
+
+
+def _gxx():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: K5's source cannot be emulated")
+    return gxx
+
+
+def _compile(gxx, src, out):
+    """Start g++ on `src`, the library at `out`; (out, process)."""
+    cpp = out.with_suffix(".cpp")
+    cpp.write_text(src)
+    return out, subprocess.Popen(
+        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
+         "-shared", "-fPIC", "-w", "-o", str(out), str(cpp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _load(out, proc):
+    """K5's C entry point from a finished `_compile`."""
+    log = proc.communicate()[0]
+    assert proc.returncode == 0, f"g++:\n{log}"
+    symbol = kernels.KERNELS["lrn_maxpool_backward"][1]
+    entry = getattr(ctypes.CDLL(str(out)), symbol)
+    entry.argtypes = kernels._ARGTYPES[symbol]
+    entry.restype = ctypes.c_int
+    return entry
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """build name -> the C entry point of K5's source compiled by g++,
+    all builds compiled at once."""
+    gxx = _gxx()
+    out = tmp_path_factory.mktemp("k5_emulation")
+    started = {name: _compile(gxx, _emulated_source(consts),
+                              out / f"{name.replace(' ', '_')}.so")
+               for name, consts in BUILDS.items()}
+    return {name: _load(*job) for name, job in started.items()}
+
+
+@contextlib.contextmanager
+def _wrapper_on(entry, monkeypatch):
+    """`kernels.lrn_maxpool_backward` launching `entry` on CPU tensors."""
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "_on_card", lambda name, x: True)
+        m.setattr(kernels, "_entry", lambda name: entry)
+        m.setattr(kernels, "_stream", lambda x: None)
+        m.setattr(torch.cuda, "device",
+                  lambda device: contextlib.nullcontext())
+        yield
+
+
+#: (what, x shape, window, stride, LRN n, input): chip_smoke.py's K5
+#: small checks, AlexNet's two LRN widths, and LRN n = 3
+SHAPES = (("clipped both axes, C 40", (2, 14, 16, 40), (3, 3), (2, 2), 5,
+           "relu"),
+          ("C 3", (2, 14, 16, 3), (3, 3), (2, 2), 5, "relu"),
+          ("C 70", (2, 9, 11, 70), (3, 3), (2, 2), 5, "relu"),
+          ("all zero", (2, 14, 16, 40), (3, 3), (2, 2), 5, "zero"),
+          ("NaN windows", (2, 14, 16, 40), (3, 3), (2, 2), 5, "nan"),
+          ("3x3 stride 1", (2, 13, 15, 40), (3, 3), (1, 1), 5, "relu"),
+          ("2x2 stride 2", (2, 13, 15, 40), (2, 2), (2, 2), 5, "relu"),
+          ("LRN n 3", (2, 14, 16, 40), (3, 3), (2, 2), 3, "relu"),
+          ("AlexNet L1", (1, 55, 55, 96), (3, 3), (2, 2), 5, "relu"),
+          ("AlexNet L2", (1, 27, 27, 256), (3, 3), (2, 2), 5, "relu"))
+
+
+def _inputs(shape, ksize, stride, kind, seed=8):
+    rs = np.random.RandomState(seed)
+    x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    if kind == "zero":
+        x[:] = 0.0
+    elif kind == "nan":
+        x[0, 2, 2, 3] = x[1, 13, 15, 39] = x[1, 6, 0, 0] = np.nan
+    oh, ow = fn.pool_out_hw(shape[1], shape[2], *ksize, *stride)
+    g = rs.randn(shape[0], oh, ow, shape[3]).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(g)
+
+
+def _case(emulated, monkeypatch, build, shape, ksize, stride, n, kind,
+          generic=False):
+    x, g = _inputs(shape, ksize, stride, kind)
+    sqrt = torch.sqrt
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
+        want = fn.lrn_maxpool_backward(x, g, K, ALPHA, BETA, n, ksize,
+                                       stride)
+    with _wrapper_on(emulated[build], monkeypatch):
+        got = kernels.lrn_maxpool_backward(x, g, K, ALPHA, BETA, n, ksize,
+                                           stride, generic=generic)
+    assert torch.equal(got.isnan(), want.isnan())
+    nan = want.isnan()
+    assert torch.equal(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0))
+    return int(nan.sum())
+
+
+@pytest.mark.parametrize("build", list(BUILDS))
+@pytest.mark.parametrize("what,shape,ksize,stride,n,kind", SHAPES,
+                         ids=[s[0] for s in SHAPES])
+def test_k5_source_is_bit_equal_to_the_plain_version(emulated, monkeypatch,
+                                                     build, what, shape,
+                                                     ksize, stride, n, kind):
+    nans = _case(emulated, monkeypatch, build, shape, ksize, stride, n,
+                 kind)
+    assert (nans > 0) == (kind == "nan")
+
+
+@pytest.mark.parametrize("build", list(BUILDS))
+def test_k5_generic_instance_at_alexnets_geometry(emulated, monkeypatch,
+                                                  build):
+    """The run-time instance, asked for at AlexNet's geometry (which the
+    compile-time one takes otherwise), gives the plain version's bits."""
+    _case(emulated, monkeypatch, build, (2, 14, 16, 40), (3, 3), (2, 2), 5,
+          "relu", generic=True)
+
+
+def test_a_wrong_covering_window_fails(tmp_path, monkeypatch):
+    """The emulation sees the kernel's index logic: a build whose table of
+    covering windows drops the last window of each row and column is not
+    bit-equal."""
+    src = _sub(_emulated_source({}),
+               "min((kk - 1 - tap) / s + 1, o + 1)",
+               "min((kk - 1 - tap) / s, o + 1)")
+    entry = _load(*_compile(_gxx(), src, tmp_path / "wrong.so"))
+    with pytest.raises(AssertionError):
+        _case({"wrong": entry}, monkeypatch, "wrong", (2, 14, 16, 40),
+              (3, 3), (2, 2), 5, "relu")

@@ -5,7 +5,9 @@ port and in the JAX package, from one seed.
 - The units: bit-identical parameter fills; each unit's forward against
   the JAX unit's `_apply` on the same parameters (the attention with its
   flash gate forced on, the JAX kernel interpreted, and forced off); the
-  flash gate of both packages agreeing at S = 32, 4096 and 4160.
+  flash gate of both packages agreeing at S = 32, 4096 and 4160; at
+  S = 4096 every head width takes the kernel (none goes to `mha`), and
+  2 heads of 32 match the JAX unit there.
 - The fused step: 3 steps of the toy transformer (embed 16, 2 heads of
   8, ffn 24, seq_len 256, minibatch 4, `use_flash="on"` on both sides,
   the JAX Pallas kernels in interpret mode) against the JAX
@@ -45,7 +47,7 @@ from veles_tpu.samples import char_transformer as jct
 from veles_tpu_torch import convert, prng
 from veles_tpu_torch.config import root
 from veles_tpu_torch.loader import text
-from veles_tpu_torch.ops import variants
+from veles_tpu_torch.ops import kernels, variants
 from veles_tpu_torch.samples import char_transformer as ct
 from veles_tpu_torch.znicz.attention import MultiHeadAttention
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
@@ -193,6 +195,49 @@ def test_flash_gate_agrees_with_the_jax_unit(s, use_flash):
         assert pu._flash_ok(s) == ju._flash_ok(s)
     assert pu._flash_ok(s) == (use_flash == "on" or (
         use_flash == "auto" and s == 4096))
+
+
+@pytest.mark.parametrize("use_flash", ["auto", "on"])
+@pytest.mark.parametrize("n_heads", [1, 2, 4])
+def test_flash_gate_sends_head_widths_the_kernels_lack_to_mha(n_heads,
+                                                              use_flash):
+    """No head width goes to `mha` for want of a kernel: at S = 4096 the
+    gate takes the kernel at 4 heads of 16, 2 of 32 and 1 of 64 alike,
+    under "auto" and "on". K6/K7 are compiled for 16 and 32; on the card
+    their wrappers refuse 64 (no fallback). The gate reads the shape
+    only, so the CPU sees the card's routing."""
+    unit = MultiHeadAttention(n_heads=n_heads, use_flash=use_flash)
+    unit.initialize((4096, 64), "cpu")
+    assert unit._flash_ok(4096)
+    assert (unit.head_dim in kernels.FLASH_HEAD_DIMS) == (n_heads != 1)
+    assert unit.variant_effective() == "kernel"
+
+
+def test_attention_at_a_head_width_the_kernels_lack_matches_the_jax_unit(
+        monkeypatch):
+    """2 heads of 32 at S = 4096 under "auto" (the width the kernels
+    lacked before K6/K7 were compiled for it): the port's unit calls the
+    flash kernel's wrapper (its plain version on the CPU) and matches the
+    JAX unit, which runs its einsum off the TPU."""
+    jwf, pwf = _workflows({"n_heads": 2, "loader.seq_len": 4096,
+                           "loader.n_validation": 1})
+    ju, pu = jwf.forwards[1], pwf.forwards[1]
+    assert pu.head_dim == 32 and pu.variant_effective() == "kernel"
+    widths = []
+    inner = kernels.flash_attention_forward
+
+    def traced(q, *args, **kwargs):
+        widths.append(q.shape[-1])
+        return inner(q, *args, **kwargs)
+    monkeypatch.setattr(kernels, "flash_attention_forward", traced)
+    x = np.random.RandomState(2).randn(1, 4096, 64).astype(np.float32)
+    jp = {k: jnp.asarray(a.mem) for k, a in ju.param_arrays().items()}
+    want = np.asarray(ju._apply(jp, x))
+    got = pu.fused_apply(pu.param_arrays(), torch.tensor(x))
+    assert widths == [32]
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=FWD_RTOL,
+                               atol=FWD_ATOL)
+    jwf._stop_units()
 
 
 def _batch(wf, seed, pad=0):

@@ -53,7 +53,9 @@
 //   landed tile is split once per block into hi and lo planes whose rows
 //   are padded to D + 4 floats: the two read patterns, (row g, col t) for
 //   Q.K^T and (row 2t or 2t+1, col g) for the second products, then hit
-//   32 distinct banks at D = 8 and D = 16.
+//   32 distinct banks at D = 8, 16 and 32. The stages and planes are
+//   dynamic shared memory (68 KB at D = 32, past the 48 KB of a static
+//   array).
 // - Per 8 streamed rows j (one n-tile), a warp computes s and dP for its
 //   16 rows (D/8 k-steps x 3 mma each), p = exp2(s*scale*log2e -
 //   lse*log2e), dS, and then takes the second products over those same 8
@@ -70,7 +72,7 @@
 //   key >= S or query >= S. (Zero-filled rows do not make p zero: q = 0
 //   and lse = 0 give p = 1.) A warp's other tiles run a copy of the loop
 //   with no test at all (dq_tile / dkv_tile<false>).
-// Any S; D in {8, 16}, the head widths the port's workflows run.
+// Any S; D in {8, 16, 32}, the head widths the port's workflows run.
 #include "flash_common.cuh"
 
 namespace {
@@ -88,7 +90,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block's two streamed arrays (K and V, or Q and dO):
 // two raw stages that cp.async fills, and the landed tile's TF32 hi and lo
-// planes, rows padded to D + 4 (20 KB at D = 8, 36 KB at D = 16).
+// planes, rows padded to D + 4 (20 KB at D = 8, 36 KB at D = 16, 68 KB at
+// D = 32): the block's dynamic shared memory.
 template <int D>
 struct Tiles {
   static constexpr int kPitch = D + 4;
@@ -303,7 +306,8 @@ __global__ void __launch_bounds__(kBlockThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq,
                     int bh_count, int s_len, float scale, bool causal) {
-  __shared__ __align__(16) Tiles<D> sm;
+  extern __shared__ float4 flash_smem[];
+  Tiles<D>& sm = *reinterpret_cast<Tiles<D>*>(flash_smem);
   const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
             t = threadIdx.x & 3;
   const int nq = (s_len + kBlockRows - 1) / kBlockRows;
@@ -415,7 +419,8 @@ __global__ void __launch_bounds__(kBlockThreads)
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int bh_count, int s_len,
                      float scale, bool causal) {
-  __shared__ __align__(16) Tiles<D> sm;
+  extern __shared__ float4 flash_smem[];
+  Tiles<D>& sm = *reinterpret_cast<Tiles<D>*>(flash_smem);
   __shared__ __align__(16) float sraw[2][2][kTile];  // stages x {lse, D}
   __shared__ __align__(16) float l2s[kTile];         // lse * log2(e)
   __shared__ __align__(16) float dds[kTile];         // D
@@ -493,13 +498,24 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* di, float* dq, float* dk, float* dv,
            int64_t bh, int64_t s, float scale, int causal, cudaStream_t st) {
+  constexpr int kSmem = sizeof(Tiles<D>);
+  if (kSmem > 48 * 1024) {  // above the default a block may ask for
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_dkv_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const unsigned blocks = static_cast<unsigned>(bh * row_blocks(s));
-  flash_dq_kernel<D><<<blocks, kBlockThreads, 0, st>>>(
+  flash_dq_kernel<D><<<blocks, kBlockThreads, kSmem, st>>>(
       q, k, v, dout, lse, di, dq, static_cast<int>(bh), static_cast<int>(s),
       scale, causal != 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dkv_kernel<D><<<blocks, kBlockThreads, 0, st>>>(
+  flash_dkv_kernel<D><<<blocks, kBlockThreads, kSmem, st>>>(
       q, k, v, dout, lse, di, dk, dv, static_cast<int>(bh),
       static_cast<int>(s), scale, causal != 0);
   return static_cast<int>(cudaGetLastError());
@@ -525,6 +541,9 @@ extern "C" int flash_attention_backward_f32(
                        causal, st);
     case 16:
       return launch<16>(q, k, v, dout, lse, di, dq, dk, dv, bh, s, scale,
+                        causal, st);
+    case 32:
+      return launch<32>(q, k, v, dout, lse, di, dq, dk, dv, bh, s, scale,
                         causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

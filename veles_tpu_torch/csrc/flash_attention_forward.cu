@@ -36,9 +36,9 @@
 //   searched `kv_order` axis); the all-masked-row guard p = 0 where
 //   s <= -1e29 holds in both orders;
 // - any S: the last query tile and the last KV chunk are ragged, masked
-//   by index; D in {8, 16}, the head widths the port's workflows run (a
-//   wider D takes a smaller BK, so that the scores still fit in
-//   registers).
+//   by index; D in {8, 16, 32}, the head widths the port's workflows run
+//   (D = 32 takes BK = 32, so that q, the accumulator and the scores
+//   still fit in registers).
 #include "flash_common.cuh"
 
 namespace {
@@ -168,6 +168,9 @@ extern "C" int flash_attention_forward_f32(const float* q, const float* k,
                            reverse_kv, st);
     case 16:
       return launch<16, 64>(q, k, v, mask, o, lse, bh, s, scale, causal,
+                            reverse_kv, st);
+    case 32:
+      return launch<32, 32>(q, k, v, mask, o, lse, bh, s, scale, causal,
                             reverse_kv, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

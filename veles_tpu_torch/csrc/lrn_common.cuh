@@ -59,6 +59,30 @@ __device__ __forceinline__ float lrn_value(const float* __restrict__ row,
   return __fmul_rn(__ldg(row + c), lrn_pow_neg(s, q, beta));
 }
 
+// lrn_scale of a channel run staged in shared memory: `xs` points at the
+// centre channel and xs[-half..half] hold its window, zero outside
+// [0, C) (what lrn_scale adds there). The same operations in the same
+// order, so the result is the same bits.
+__device__ __forceinline__ float lrn_scale_staged(const float* xs, int half,
+                                                  float k, float alpha) {
+  const float xc = xs[0];
+  float acc = __fmul_rn(xc, xc);
+  for (int d = 1; d <= half; ++d) {
+    const float hi = xs[d];
+    const float lo = xs[-d];
+    acc = __fadd_rn(__fadd_rn(acc, __fmul_rn(hi, hi)), __fmul_rn(lo, lo));
+  }
+  return __fadd_rn(k, __fmul_rn(alpha, acc));
+}
+
+// lrn_value of a staged channel run (see lrn_scale_staged).
+__device__ __forceinline__ float lrn_value_staged(const float* xs, int half,
+                                                  float k, float alpha, int q,
+                                                  float beta) {
+  return __fmul_rn(xs[0],
+                   lrn_pow_neg(lrn_scale_staged(xs, half, k, alpha), q, beta));
+}
+
 // t = ((g*x)*d)/s at channel c; also hands back d = s^(-beta).
 __device__ __forceinline__ float lrn_grad_term(const float* __restrict__ x,
                                                const float* __restrict__ g,

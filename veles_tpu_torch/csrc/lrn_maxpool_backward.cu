@@ -9,25 +9,71 @@
 //
 // Bound on the H100: device-memory bytes. The function must read x and
 // the pooled gradient once and write dx once; the recomputed LRN values
-// and the routing cost far fewer operations than the card's f32 rate
-// allows for those bytes.
+// and the routing cost fewer operations than the card's f32 rate allows
+// for those bytes. (Measured, it runs at several times that bound, bound
+// by the issue of its per-element arithmetic: PERF.md.)
 //
-// Design: three launches, no atomics (blocks run in no order, so nothing
-// may carry a sum across them the way the TPU grid carries VMEM):
-//   1. route: one thread per pooled output (n, oh, ow, c) recomputes its
-//      window's LRN values with lrn_value (the arithmetic of the forward
-//      kernels, so it routes among exactly the values K4 pooled) and
-//      records the first tap, in scan order (dy, then dx), that holds the
-//      maximum. Ties keep the first: post-ReLU zeros tie constantly.
-//      A NaN makes the window's max NaN, which equals no tap, so that
-//      window's gradient goes nowhere, as in the JAX kernel. Taps past the
-//      edge are -inf there and never win (tap (0, 0) is always inside).
-//   2. gather: one thread per input element sums the gradients of the
-//      (at most ceil(ky/sy) x ceil(kx/sx)) windows that cover it and chose
-//      it, in the JAX kernel's tap order (dy, dx ascending), into an f32
-//      scratch g_lrn the size of x.
-//   3. the LRN backward (lrn_grad, K3's body) on (x, g_lrn).
-// The tap record is one byte per pooled output (255: no tap).
+// Design: two launches, each staging a block's band of x in shared
+// memory by cp.async, so that every LRN scale, power and division is
+// computed about once per launch; no atomics (blocks run in no order, so
+// nothing may carry a sum across them the way the TPU grid carries VMEM)
+// and no scratch of x's size.
+//   1. route (lrn_pool_route_kernel). A block is (band of RB pooled rows x
+//      CB pooled columns, tile of CT channels, sample). It stages x over
+//      the band's input rows [oh0*sy, (oh1-1)*sy + ky) and columns
+//      (clipped to the input) at channels [c0-half, c0+CT+half), zero
+//      outside [0, C); computes y = x*s^(-beta) once per staged element
+//      of the CT channels (lrn_value_staged: the forward kernels'
+//      arithmetic, so it routes among exactly the values K4 pooled); then
+//      each thread scans a pooled output's ky*kx taps in scan order (dy,
+//      then dx) and records the first that holds the maximum (strict >:
+//      post-ReLU zeros tie constantly). A NaN makes the window's max NaN,
+//      which equals no tap, so that window's gradient goes nowhere, as in
+//      the JAX kernel; taps past the edge never win. The record is one
+//      byte per pooled output (255: no tap), in (n, OH, OW, C) order.
+//   2. gather + LRN backward (lrn_pool_grad_kernel). A block is (tile of
+//      RI owned input rows x WI owned columns, CT channels, sample); the
+//      tiles partition the input, the last along each axis taking what is
+//      left. It stages x at channels [c0-2*half, c0+CT+2*half), and the
+//      pooled gradient g and the tap record of every pooled row and column
+//      whose window covers the tile at [c0-half, c0+CT+half) (the record
+//      as whole 4-byte words when C % 4 == 0). For each owned pixel and
+//      each channel of [c0-half, c0+CT+half) it computes, once: s, d =
+//      s^(-beta), g_lrn (the gradients of the covering windows that chose
+//      this tap, summed from 0 in tap order, dy then dx ascending, through
+//      a per-row and per-column table of covering windows) and t =
+//      ((g_lrn*x)*d)/s, 0 outside [0, C). Then dx = g_lrn*d - (c2*x)*W(t)
+//      at the CT channels, W in lrn_grad's order (centre, +d, -d), written
+//      straight to device memory.
+// Every operation is lrn_common.cuh's, in the same order, so the result
+// is bit-equal to the plain version, as the three-launch design before it
+// was.
+//
+// Shared memory, per block (floats unless said):
+//   launch 1: x [rows][cols][CT + 2*half], y [rows][cols][CT], with rows
+//     = (RB-1)*sy + ky and cols = (CB-1)*sx + kx at most;
+//   launch 2: x [RI][WI][CT + 4*half], t [RI][WI][CT + 2*half], g_lrn*d
+//     [RI][WI][CT], g [PR][PC][CT + 2*half], the tap record (bytes, up to
+//     8 more a pixel for whole words) likewise, and per owned row and
+//     column its first covering tap, that window and the count (ints);
+//     PR, PC the covering pooled rows and columns. s, d and g_lrn stay in
+//     registers.
+// Tiles: CT = 32 channels (a warp's lanes on 32 neighbouring channels of
+// one NHWC pixel), RB = 2 pooled rows and RI = 4 input rows across the
+// whole width, each shrunk (RB or RI first, then the width, then CT) until
+// a block needs at most kSmemTarget bytes; 512 threads a block where at
+// most two blocks fit an SM, else 256. At AlexNet's layer 1 (55x55x96)
+// launch 1 takes 74,800 bytes and launch 2 (3 rows) 87,204. Recomputation:
+// launch 1 computes y for ((RB-1)*sy + ky)/(RB*sy) of the rows (AlexNet:
+// 5/4), launch 2 s, d and t for (CT + 2*half)/CT of the channels (36/32).
+// The bands of one channel tile and sample are adjacent in launch order,
+// so the halo rows a neighbour reads again are still in L2. AlexNet's
+// (half 2, 4*beta 3, 3x3 windows, stride 2) runs an instance with those
+// as compile-time constants; any other geometry a generic one, which the
+// caller may also ask for at AlexNet's (`generic`), to time what the
+// constants buy.
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include <math_constants.h>
@@ -37,136 +83,426 @@
 namespace {
 
 constexpr uint8_t kNoTap = 255;
+constexpr int kThreads = 256;
+constexpr int kCT = 32;
+constexpr int kRB = 2;
+constexpr int kRI = 4;
+constexpr size_t kSmemTarget = 100 * 1024;
+constexpr int kMaxGridZ = 65535;  // samples beyond this loop
 
-__global__ void lrn_pool_route_kernel(const float* __restrict__ x,
-                                      uint8_t* __restrict__ win,
-                                      int64_t total, int H, int W, int C,
-                                      int OH, int OW, int ky, int kx, int sy,
-                                      int sx, int half, float k, float alpha,
-                                      int q, float beta) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    int64_t r = i;
-    const int c = static_cast<int>(r % C);
-    r /= C;
-    const int ow = static_cast<int>(r % OW);
-    r /= OW;
-    const int oh = static_cast<int>(r % OH);
-    const int64_t n = r / OH;
-    const float* sample = x + n * H * W * static_cast<int64_t>(C);
-    float m = -CUDART_INF_F;
-    int best = kNoTap;
-    bool nan = false;
-    for (int dy = 0; dy < ky; ++dy) {
-      const int ih = oh * sy + dy;
-      if (ih >= H) break;
-      for (int dx = 0; dx < kx; ++dx) {
-        const int iw = ow * sx + dx;
-        if (iw >= W) break;
-        const float v =
-            lrn_value(sample + (static_cast<int64_t>(ih) * W + iw) * C, c, C,
-                      half, k, alpha, q, beta);
-        if (isnan(v)) {
-          nan = true;
-        } else if (v > m) {  // strict: a tie keeps the earlier tap
-          m = v;
-          best = dy * kx + dx;
+struct Geom {
+  int H, W, C, OH, OW, ky, kx, sy, sx, half, q;
+};
+
+// The LRN window's half-width, 4*beta, the pool window and its stride as
+// compile-time constants for AlexNet's (2, 3, 3x3, 2x2), so that the
+// window sums, the power, the tap scans and the gathers unroll without
+// branches; -1 reads them from the Geom at run time. cy, cx: the most
+// windows that cover one input row, column (ceil(ky/sy), ceil(kx/sx)).
+template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+struct Shape {
+  const int half, q, ky, kx, sy, sx, cy, cx;
+  __device__ explicit Shape(const Geom& p)
+      : half(kHalf >= 0 ? kHalf : p.half),
+        q(kQ >= 0 ? kQ : p.q),
+        ky(kKY >= 0 ? kKY : p.ky),
+        kx(kKX >= 0 ? kKX : p.kx),
+        sy(kSY >= 0 ? kSY : p.sy),
+        sx(kSX >= 0 ? kSX : p.sx),
+        cy((ky + sy - 1) / sy),
+        cx((kx + sx - 1) / sx) {}
+};
+
+// A thread's share (tid, tid + T, ...) of a row-major (*, n1, n2) grid,
+// walked as index triples (i0, i1, i2) beside the flat index i, with no
+// division per step.
+struct Walk {
+  int i, i0, i1, i2, d, d0, d1, d2, n1, n2;
+  __device__ Walk(int tid, int T, int n1_, int n2_) : n1(n1_), n2(n2_) {
+    i = tid;
+    i2 = tid % n2;
+    i1 = (tid / n2) % n1;
+    i0 = tid / (n2 * n1);
+    d = T;
+    d2 = T % n2;
+    d1 = (T / n2) % n1;
+    d0 = T / (n2 * n1);
+  }
+  __device__ void next() {
+    i += d;
+    i2 += d2;
+    i1 += d1;
+    i0 += d0;
+    if (i2 >= n2) {
+      i2 -= n2;
+      ++i1;
+    }
+    if (i1 >= n1) {
+      i1 -= n1;
+      ++i0;
+    }
+  }
+};
+
+// Four bytes from device to shared memory by cp.async, zeros where `in`
+// is false (src-size 0: nothing is read): a thread issues all its copies
+// of a tile before any arrives.
+__device__ __forceinline__ void stage(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
+// Launch 1. Grid: (bands of rb pooled rows x cb pooled columns, channel
+// tiles of ct, samples); offsets inside a sample are 32-bit (the host
+// refuses a sample of 2^31 elements or more).
+template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+__global__ void __launch_bounds__(512) lrn_pool_route_kernel(
+    const float* __restrict__ x, uint8_t* __restrict__ win, Geom p, int n,
+    int rb, int cb, int ct, int n_cb, float k, float alpha, float beta) {
+  extern __shared__ float4 smem4[];
+  const Shape<kHalf, kQ, kKY, kKX, kSY, kSX> sh(p);
+  const int cte = ct + 2 * sh.half;
+  const int br = blockIdx.x / n_cb, bc = blockIdx.x - br * n_cb;
+  const int c0 = blockIdx.y * ct;
+  const int oh0 = br * rb, oh1 = min(oh0 + rb, p.OH);
+  const int ow0 = bc * cb, ow1 = min(ow0 + cb, p.OW);
+  const int ih0 = oh0 * sh.sy, iw0 = ow0 * sh.sx;
+  // staged input rows and columns (none where a ceil-mode window lies
+  // wholly past the edge)
+  const int nr = max(0, min((oh1 - 1) * sh.sy + sh.ky, p.H) - ih0);
+  const int nc = max(0, min((ow1 - 1) * sh.sx + sh.kx, p.W) - iw0);
+  float* const xs = reinterpret_cast<float*>(smem4);  // [nr][nc][cte]
+  float* const ys = xs + nr * nc * cte;                // [nr][nc][ct]
+  const int64_t sample = static_cast<int64_t>(p.H) * p.W * p.C;
+  const int64_t pooled = static_cast<int64_t>(p.OH) * p.OW * p.C;
+  for (int ni = blockIdx.z; ni < n; ni += gridDim.z) {
+    const float* xn = x + ni * sample;
+    uint8_t* wn = win + ni * pooled;
+    if (nr > 0 && nc > 0) {
+      for (Walk w(threadIdx.x, blockDim.x, nc, cte); w.i0 < nr; w.next()) {
+        const int c = c0 - sh.half + w.i2;
+        const bool in = c >= 0 && c < p.C;
+        stage(xs + w.i,
+              in ? xn + ((ih0 + w.i0) * p.W + iw0 + w.i1) * p.C + c : x,
+              in);
+      }
+      stage_wait();
+      __syncthreads();
+      // channels past C get values no one reads
+      for (Walk w(threadIdx.x, blockDim.x, nc, ct); w.i0 < nr; w.next())
+        ys[w.i] = lrn_value_staged(
+            xs + (w.i0 * nc + w.i1) * cte + sh.half + w.i2, sh.half, k,
+            alpha, sh.q, beta);
+      __syncthreads();
+    }
+    for (Walk w(threadIdx.x, blockDim.x, ow1 - ow0, ct); w.i0 < oh1 - oh0;
+         w.next()) {
+      const int c = c0 + w.i2;
+      if (c >= p.C) continue;
+      const int oh = oh0 + w.i0, ow = ow0 + w.i1;
+      float m = -CUDART_INF_F;
+      int best = kNoTap;
+      bool nan = false;
+#pragma unroll
+      for (int dy = 0; dy < sh.ky; ++dy) {
+        const int ih = oh * sh.sy + dy;
+        if (ih >= p.H) break;
+        const float* yrow = ys + (ih - ih0) * nc * ct + w.i2;
+#pragma unroll
+        for (int dx = 0; dx < sh.kx; ++dx) {
+          const int iw = ow * sh.sx + dx;
+          if (iw >= p.W) break;
+          const float v = yrow[(iw - iw0) * ct];
+          if (isnan(v)) {
+            nan = true;
+          } else if (v > m) {  // strict: a tie keeps the earlier tap
+            m = v;
+            best = dy * sh.kx + dx;
+          }
+        }
+      }
+      wn[(oh * p.OW + ow) * p.C + c] =
+          static_cast<uint8_t>(nan ? kNoTap : best);
+    }
+    __syncthreads();  // the next sample's staging overwrites xs and ys
+  }
+}
+
+// Launch 2. Grid: (tiles of ri owned input rows x wi columns, channel
+// tiles of ct, samples).
+template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+__global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
+    const float* __restrict__ x, const float* __restrict__ g,
+    const uint8_t* __restrict__ win, float* __restrict__ dx, Geom p, int n,
+    int ri, int wi, int ct, int pr, int pc, int n_wi, float k, float alpha,
+    float beta, float c2) {
+  extern __shared__ float4 smem4[];
+  const Shape<kHalf, kQ, kKY, kKX, kSY, kSX> sh(p);
+  const int h = sh.half;
+  const int ctx = ct + 4 * h, cte = ct + 2 * h;
+  float* const xs = reinterpret_cast<float*>(smem4);  // [ri][wi][ctx]
+  float* const ts = xs + ri * wi * ctx;                // [ri][wi][cte]
+  float* const gd = ts + ri * wi * cte;                // [ri][wi][ct]
+  float* const gs = gd + ri * wi * ct;                 // [pr][pc][cte]
+  // per owned row, then per owned column: the first covering tap (dy or
+  // dx), its pooled row or column less the first staged one, the count
+  int* const tab = reinterpret_cast<int*>(gs + pr * pc * cte);
+  // the tap record at channels [wlo, wlo + wst), covering those of gs:
+  // whole 4-byte words copied like the floats when C % 4 == 0 (every word
+  // then lies wholly inside or outside [0, C)), else bytes
+  uint8_t* const ws = reinterpret_cast<uint8_t*>(tab + 3 * (ri + wi));
+  const bool words = p.C % 4 == 0;
+  const int wlo = words ? (blockIdx.y * ct - h) & ~3 : blockIdx.y * ct - h;
+  const int wst =
+      words ? ((blockIdx.y * ct + ct + h + 3) & ~3) - wlo : cte;
+  const int woff = blockIdx.y * ct - h - wlo;
+  const int br = blockIdx.x / n_wi, bc = blockIdx.x - br * n_wi;
+  const int c0 = blockIdx.y * ct;
+  const int r0 = br * ri, nr = min(ri, p.H - r0);
+  const int q0 = bc * wi, nc = min(wi, p.W - q0);
+  // pooled rows whose window [oh*sy, oh*sy + ky) meets [r0, r0 + nr)
+  const int p0 = max(0, floor_div(r0 - sh.ky, sh.sy) + 1);
+  const int npr = max(0, min(p.OH, (r0 + nr - 1) / sh.sy + 1) - p0);
+  const int u0 = max(0, floor_div(q0 - sh.kx, sh.sx) + 1);
+  const int npc = max(0, min(p.OW, (q0 + nc - 1) / sh.sx + 1) - u0);
+  for (int i = threadIdx.x; i < nr + nc; i += blockDim.x) {
+    // the windows covering input row (or column) v, in ascending tap
+    // order: tap v % s of window v / s, then tap + s of window - 1, ...
+    const bool row = i < nr;
+    const int v = row ? r0 + i : q0 + i - nr;
+    const int s = row ? sh.sy : sh.sx, kk = row ? sh.ky : sh.kx;
+    const int lim = row ? p.OH : p.OW, base = row ? p0 : u0;
+    int tap = v % s, o = v / s;
+    if (o >= lim) {  // windows past the last: skip them
+      tap += (o - lim + 1) * s;
+      o = lim - 1;
+    }
+    const int cnt = tap < kk ? min((kk - 1 - tap) / s + 1, o + 1) : 0;
+    int* const t = tab + 3 * i;
+    t[0] = tap;
+    t[1] = o - base;
+    t[2] = cnt;
+  }
+  const int64_t sample = static_cast<int64_t>(p.H) * p.W * p.C;
+  const int64_t pooled = static_cast<int64_t>(p.OH) * p.OW * p.C;
+  for (int ni = blockIdx.z; ni < n; ni += gridDim.z) {
+    const float* xn = x + ni * sample;
+    for (Walk w(threadIdx.x, blockDim.x, nc, ctx); w.i0 < nr; w.next()) {
+      const int c = c0 - 2 * h + w.i2;
+      const bool in = c >= 0 && c < p.C;
+      stage(xs + w.i,
+            in ? xn + ((r0 + w.i0) * p.W + q0 + w.i1) * p.C + c : x, in);
+    }
+    if (npr > 0 && npc > 0) {
+      const float* gn = g + ni * pooled;
+      const uint8_t* wn = win + ni * pooled;
+      for (Walk w(threadIdx.x, blockDim.x, npc, cte); w.i0 < npr;
+           w.next()) {
+        const int c = c0 - h + w.i2;
+        const bool in = c >= 0 && c < p.C;
+        stage(gs + w.i,
+              in ? gn + ((p0 + w.i0) * p.OW + u0 + w.i1) * p.C + c : g, in);
+      }
+      if (words) {
+        for (Walk w(threadIdx.x, blockDim.x, npc, wst / 4); w.i0 < npr;
+             w.next()) {
+          const int c = wlo + 4 * w.i2;
+          const bool in = c >= 0 && c < p.C;
+          stage(ws + 4 * w.i,
+                in ? wn + ((p0 + w.i0) * p.OW + u0 + w.i1) * p.C + c : wn,
+                in);
+        }
+      } else {  // plain loads, while the copies are in flight
+        for (Walk w(threadIdx.x, blockDim.x, npc, wst); w.i0 < npr;
+             w.next()) {
+          const int c = wlo + w.i2;
+          ws[w.i] = (c >= 0 && c < p.C)
+                        ? wn[((p0 + w.i0) * p.OW + u0 + w.i1) * p.C + c]
+                        : kNoTap;
         }
       }
     }
-    win[i] = static_cast<uint8_t>(nan ? kNoTap : best);
-  }
-}
-
-__global__ void lrn_pool_gather_kernel(const float* __restrict__ g,
-                                       const uint8_t* __restrict__ win,
-                                       float* __restrict__ g_lrn,
-                                       int64_t total, int H, int W, int C,
-                                       int OH, int OW, int ky, int kx, int sy,
-                                       int sx) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    int64_t r = i;
-    const int c = static_cast<int>(r % C);
-    r /= C;
-    const int iw = static_cast<int>(r % W);
-    r /= W;
-    const int ih = static_cast<int>(r % H);
-    const int64_t n = r / H;
-    float acc = 0.0f;
-    for (int dy = 0; dy < ky; ++dy) {
-      const int th = ih - dy;
-      if (th < 0) break;
-      if (th % sy) continue;
-      const int oh = th / sy;
-      if (oh >= OH) continue;
-      for (int dx = 0; dx < kx; ++dx) {
-        const int tw = iw - dx;
-        if (tw < 0) break;
-        if (tw % sx) continue;
-        const int ow = tw / sx;
-        if (ow >= OW) continue;
-        const int64_t o = ((n * OH + oh) * OW + ow) * C + c;
-        if (win[o] == dy * kx + dx) acc = __fadd_rn(acc, __ldg(g + o));
+    stage_wait();
+    __syncthreads();
+    // Every index stays inside the staged tiles; a channel outside [0, C)
+    // gets t = 0, as lrn_grad adds there.
+    for (Walk w(threadIdx.x, blockDim.x, nc, cte); w.i0 < nr; w.next()) {
+      const float* xc = xs + (w.i0 * nc + w.i1) * ctx + h + w.i2;
+      const float s = lrn_scale_staged(xc, h, k, alpha);
+      const float d = lrn_pow_neg(s, sh.q, beta);
+      const int* rtab = tab + 3 * w.i0;
+      const int* ctab = tab + 3 * (nr + w.i1);
+      float acc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < sh.cy; ++a) {
+        if (a >= rtab[2]) break;
+        const int dy = rtab[0] + a * sh.sy;
+        const uint8_t* wrow = ws + (rtab[1] - a) * npc * wst + woff + w.i2;
+        const float* grow = gs + (rtab[1] - a) * npc * cte + w.i2;
+#pragma unroll
+        for (int b = 0; b < sh.cx; ++b) {
+          if (b >= ctab[2]) break;
+          const int col = ctab[1] - b;
+          if (wrow[col * wst] == dy * sh.kx + ctab[0] + b * sh.sx)
+            acc = __fadd_rn(acc, grow[col * cte]);
+        }
       }
+      const int c = c0 - h + w.i2;
+      ts[w.i] = c >= 0 && c < p.C
+                    ? __fdiv_rn(__fmul_rn(__fmul_rn(acc, xc[0]), d), s)
+                    : 0.0f;
+      if (w.i2 >= h && w.i2 < h + ct)
+        gd[(w.i0 * nc + w.i1) * ct + w.i2 - h] = __fmul_rn(acc, d);
     }
-    g_lrn[i] = acc;
+    __syncthreads();
+    float* dxn = dx + ni * sample;
+    for (Walk w(threadIdx.x, blockDim.x, nc, ct); w.i0 < nr; w.next()) {
+      const int c = c0 + w.i2;
+      if (c >= p.C) continue;
+      const int px = w.i0 * nc + w.i1;
+      const float* tc = ts + px * cte + h + w.i2;
+      float tsum = tc[0];
+      for (int dd = 1; dd <= h; ++dd)
+        tsum = __fadd_rn(__fadd_rn(tsum, tc[dd]), tc[-dd]);
+      const float xv = xs[px * ctx + 2 * h + w.i2];
+      dxn[((r0 + w.i0) * p.W + q0 + w.i1) * p.C + c] =
+          __fsub_rn(gd[w.i], __fmul_rn(__fmul_rn(c2, xv), tsum));
+    }
+    __syncthreads();  // the next sample's staging overwrites the tiles
   }
 }
 
-__global__ void lrn_pool_grad_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ g_lrn,
-                                     float* __restrict__ dx, int64_t total,
-                                     int C, int half, float k, float alpha,
-                                     int q, float beta, float c2) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const int64_t row = i / C;
-    const int c = static_cast<int>(i - row * C);
-    dx[i] = lrn_grad(x + row * C, g_lrn + row * C, c, C, half, k, alpha, q,
-                     beta, c2);
+size_t route_smem(const Geom& p, int rb, int cb, int ct) {
+  const size_t rows = std::min((rb - 1) * p.sy + p.ky, p.H);
+  const size_t cols = std::min((cb - 1) * p.sx + p.kx, p.W);
+  return rows * cols * (2 * ct + 2 * p.half) * sizeof(float);
+}
+
+// covering pooled rows (or columns) of `owned` input rows, at most
+int covering(int owned, int kk, int s, int lim) {
+  return std::min((owned + kk - 2) / s + 1, lim);
+}
+
+size_t grad_smem(const Geom& p, int ri, int wi, int ct) {
+  const size_t px = static_cast<size_t>(ri) * wi;
+  const size_t pooled = static_cast<size_t>(covering(ri, p.ky, p.sy, p.OH)) *
+                        covering(wi, p.kx, p.sx, p.OW);
+  const size_t cte = ct + 2 * p.half;
+  return (px * (3 * ct + 6 * p.half) + pooled * cte) * sizeof(float) +
+         3 * (ri + wi) * sizeof(int) + pooled * (cte + 8);
+}
+
+// Shrink (band, width, channels) until a block needs at most
+// kSmemTarget bytes, or nothing is left to shrink.
+template <typename F>
+void fit(int* band, int* width, int* ct, F smem) {
+  while (smem(*band, *width, *ct) > kSmemTarget) {
+    if (*band > 1)
+      --*band;
+    else if (*width > 1)
+      *width = (*width + 1) / 2;
+    else if (*ct > 1)
+      *ct = (*ct + 1) / 2;
+    else
+      return;
   }
 }
 
-unsigned grid_for(int64_t total, int threads) {
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
-  return static_cast<unsigned>(blocks);
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// 512 threads where at most two blocks of `smem` bytes fit an SM, else
+// 256: about 32 warps on an SM either way.
+int threads_for(size_t smem, int sm_smem) {
+  return sm_smem / static_cast<int>(smem + 1024) <= 2 ? 512 : kThreads;
+}
+
+template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+cudaError_t launch(const float* x, const float* g, float* dx, uint8_t* win,
+                   int n, const Geom& p, float k, float alpha, float beta,
+                   float c2, cudaStream_t st) {
+  auto* route = lrn_pool_route_kernel<kHalf, kQ, kKY, kKX, kSY, kSX>;
+  auto* grad = lrn_pool_grad_kernel<kHalf, kQ, kKY, kKX, kSY, kSX>;
+  int dev = 0, optin = 0, sm_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  // both kernels may take up to the card's opt-in shared memory per
+  // block: once per device and process
+  static bool allowed[64] = {};
+  if (err == cudaSuccess && !(dev < 64 && allowed[dev])) {
+    err = cudaFuncSetAttribute(
+        route, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          grad, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess && dev < 64) allowed[dev] = true;
+  }
+  if (err != cudaSuccess) return err;
+
+  int rb = std::min(kRB, p.OH), cb = p.OW, ct1 = std::min(kCT, p.C);
+  fit(&rb, &cb, &ct1,
+      [&](int a, int b, int c) { return route_smem(p, a, b, c); });
+  int ri = std::min(kRI, p.H), wi = p.W, ct2 = std::min(kCT, p.C);
+  fit(&ri, &wi, &ct2,
+      [&](int a, int b, int c) { return grad_smem(p, a, b, c); });
+  const size_t smem1 = route_smem(p, rb, cb, ct1);
+  const size_t smem2 = grad_smem(p, ri, wi, ct2);
+  if (smem1 > static_cast<size_t>(optin) ||
+      smem2 > static_cast<size_t>(optin) || ceil_div(p.C, ct1) > 65535 ||
+      ceil_div(p.C, ct2) > 65535)
+    return cudaErrorInvalidValue;
+  const int n_cb = ceil_div(p.OW, cb), n_wi = ceil_div(p.W, wi);
+  const unsigned z = static_cast<unsigned>(std::min(n, kMaxGridZ));
+  const dim3 grid1(ceil_div(p.OH, rb) * n_cb, ceil_div(p.C, ct1), z);
+  route<<<grid1, threads_for(smem1, sm_smem), smem1, st>>>(
+      x, win, p, n, rb, cb, ct1, n_cb, k, alpha, beta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid2(ceil_div(p.H, ri) * n_wi, ceil_div(p.C, ct2), z);
+  grad<<<grid2, threads_for(smem2, sm_smem), smem2, st>>>(
+      x, g, win, dx, p, n, ri, wi, ct2, covering(ri, p.ky, p.sy, p.OH),
+      covering(wi, p.kx, p.sx, p.OW), n_wi, k, alpha, beta, c2);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// `win` (n*OH*OW*C bytes) and `g_lrn` (n*H*W*C floats) are scratch the
-// caller allocates.
+// `win` (n*OH*OW*C bytes) is scratch the caller allocates; `generic`
+// nonzero takes the generic instance at any geometry. A sample of
+// 2^31 elements or more, more than 65535 channel tiles, or a geometry
+// whose smallest tiles still exceed the card's shared memory per block
+// returns cudaErrorInvalidValue.
 extern "C" int lrn_maxpool_backward_f32(
-    const float* x, const float* g, float* dx, uint8_t* win, float* g_lrn,
-    int64_t n, int H, int W, int C, int OH, int OW, int ky, int kx, int sy,
-    int sx, int half, float k, float alpha, int q, float beta, float c2,
-    void* stream) {
-  const int threads = 256;
+    const float* x, const float* g, float* dx, uint8_t* win, int64_t n,
+    int H, int W, int C, int OH, int OW, int ky, int kx, int sy, int sx,
+    int half, float k, float alpha, int q, float beta, float c2,
+    int generic, void* stream) {
+  if (n * H * W * static_cast<int64_t>(C) == 0) return cudaSuccess;
+  if (static_cast<int64_t>(H) * W * C > INT_MAX || n > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom p{H, W, C, OH, OW, ky, kx, sy, sx, half, q};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t pooled = n * OH * OW * static_cast<int64_t>(C);
-  const int64_t full = n * H * W * static_cast<int64_t>(C);
-  if (pooled > 0) {
-    lrn_pool_route_kernel<<<grid_for(pooled, threads), threads, 0, st>>>(
-        x, win, pooled, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q,
-        beta);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (full > 0) {
-    lrn_pool_gather_kernel<<<grid_for(full, threads), threads, 0, st>>>(
-        g, win, g_lrn, full, H, W, C, OH, OW, ky, kx, sy, sx);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    lrn_pool_grad_kernel<<<grid_for(full, threads), threads, 0, st>>>(
-        x, g_lrn, dx, full, C, half, k, alpha, q, beta, c2);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int nn = static_cast<int>(n);
+  const cudaError_t err =
+      !generic && half == 2 && q == 3 && ky == 3 && kx == 3 && sy == 2 &&
+              sx == 2
+          ? launch<2, 3, 3, 3, 2, 2>(x, g, dx, win, nn, p, k, alpha, beta,
+                                     c2, st)
+          : launch<-1, -1, -1, -1, -1, -1>(x, g, dx, win, nn, p, k, alpha,
+                                           beta, c2, st);
+  return static_cast<int>(err);
 }

@@ -29,7 +29,7 @@ keyed by the hash of the sources, all `nvcc` processes at once.
 A wrapper launches its kernel for a CUDA tensor — or raises; it never
 falls back — and takes the plain version only because its tensor lies on
 the CPU. Each call that launches adds one to the kernel's counter in
-`LAUNCHES` (K5's call is three launches and K7's two, and each counts
+`LAUNCHES` (K5's and K7's calls are two launches each, and each counts
 once), and nothing else does. On the CPU the autograd functions run the
 plain closed forms both ways — never autograd of the plain forward.
 """
@@ -181,11 +181,11 @@ _ARGTYPES = {
     # stream
     "lrn_maxpool_forward_f32": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _F, _I, _F, _P],
-    # x, g, dx, win, g_lrn, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k,
-    # alpha, q, beta, c2, stream
-    "lrn_maxpool_backward_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _F, _F, _I, _F,
-                                 _F, _P],
+    # x, g, dx, win, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha,
+    # q, beta, c2, generic, stream
+    "lrn_maxpool_backward_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _F, _F, _I, _F, _F,
+                                 _I, _P],
     # q, k, v, mask, o, lse, bh, s, d, scale, causal, reverse_kv, stream
     "flash_attention_forward_f32": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _F,
                                     _I, _I, _P],
@@ -426,9 +426,14 @@ def lrn_maxpool_backward_plain(x: torch.Tensor, g: torch.Tensor,
 
 def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
                          alpha: float = 1e-4, beta: float = 0.75, n: int = 5,
-                         ksize=(3, 3), stride=(2, 2)) -> torch.Tensor:
+                         ksize=(3, 3), stride=(2, 2), *,
+                         generic: bool = False) -> torch.Tensor:
     """Gradient of LRN→max pool of NHWC `x` given the pooled gradient
-    `g`: K5 for CUDA tensors, the plain version for CPU ones."""
+    `g`: K5 (a route launch, then a gather and LRN-backward launch) for
+    CUDA tensors, the plain version for CPU ones. K5 runs AlexNet's
+    geometry (n 5, beta 0.75, 3x3/2) as an instance with it compiled in,
+    unless `generic`, which takes the run-time instance every other
+    geometry takes (the same bits; it times what the constants buy)."""
     if not _on_card("lrn_maxpool_backward", x):
         return lrn_maxpool_backward_plain(x, g, k, alpha, beta, n, ksize,
                                           stride)
@@ -442,13 +447,12 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     g = _check_like("lrn_maxpool_backward gradient", g, (nb, oh, ow, c), x)
     dx = torch.empty_like(x)
     win = torch.empty((nb, oh, ow, c), dtype=torch.uint8, device=x.device)
-    g_lrn = torch.empty_like(x)
     with torch.cuda.device(x.device):
         status = _entry("lrn_maxpool_backward")(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), win.data_ptr(),
-            g_lrn.data_ptr(), nb, h, w, c, oh, ow, ky, kx, sy, sx, n // 2, k,
-            alpha, fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
-            _stream(x))
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), win.data_ptr(), nb, h,
+            w, c, oh, ow, ky, kx, sy, sx, n // 2, k, alpha,
+            fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
+            int(generic), _stream(x))
     _check_status("lrn_maxpool_backward", status)
     _count("lrn_maxpool_backward")
     return dx
@@ -459,9 +463,10 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
 # ---------------------------------------------------------------------------
 
 #: head widths K6 and K7 are compiled for: those the port's workflows run
-#: (the char-transformer's 16, the toy transformer's 8); a configuration
-#: with another width adds its instance to both .cu switches
-FLASH_HEAD_DIMS = (8, 16)
+#: (the char-transformer's 16, or 32 at 2 heads; the toy transformer's 8);
+#: the wrappers refuse any other on the card, and a configuration with
+#: another width adds its instance to both .cu switches
+FLASH_HEAD_DIMS = (8, 16, 32)
 KV_ORDERS = ("fwd", "rev")
 #: score elements the plain versions hold at once (2^26 f32 = 256 MB): at
 #: S = 4096 four heads, never the whole (B·H, S, S) tensor
