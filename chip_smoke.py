@@ -5,7 +5,10 @@
 
 1. Print the card's name and power limit (nvidia-smi); fail without CUDA.
 2. Build the port's CUDA kernels from veles_tpu_torch/csrc/ (nvcc, one
-   process per source, all at once) and print the build seconds.
+   process per source, all at once) and print the build seconds, then
+   BUILD lines: each compiled kernel function's registers, stack, local
+   memory (spills land there) and static shared memory, and the dynamic
+   shared memory K6 takes per block at each head width.
 3. KERNEL lines. Each kernel is held against its plain PyTorch version on
    the same inputs and timed beside its plain version and the least time
    the card could take, each launch with a cold L2 cache (median of 25):
@@ -40,10 +43,11 @@
      kernel-vs-golden tolerances (the online softmax sums in another order
      than the plain version's materialised one; the backward's products
      run on the tensor cores as 3xTF32, f32-accurate but summed in
-     another order). K7 must also give the same bits on a second call
-     (it uses no atomics). K7's bound is its operations at the card's
-     dense TF32 rate, three TF32 products per f32 product, with the f32
-     CUDA-core bound beside it (bound_f32_ms). Beside each, the one
+     another order: both kernels run their products on the tensor cores
+     as 3xTF32). K6 and K7 must also give the same bits on a second call
+     (they use no atomics). Their bounds are their operations at the
+     card's dense TF32 rate, three TF32 products per f32 product, with
+     the f32 CUDA-core bound beside them (bound_f32_ms). Beside each, the one
      PyTorch call computing the same function:
      F.scaled_dot_product_attention(..., is_causal=True) in f32 for K6,
      autograd of that call for K7 (each checked first to agree with the
@@ -127,6 +131,7 @@ line, and the exit code is then not 0.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -224,6 +229,19 @@ def print_resource_usage(libs):
         for func, usage in re.findall(r"Function (\S+?):\s+(REG:[^\n]*)",
                                       out):
             print(f"BUILD {name} {func}: {usage.strip()}", flush=True)
+
+
+def print_flash_smem(libs, kernels):
+    """BUILD line: the dynamic shared memory one K6 block takes at each
+    compiled head width, as the kernel's own source computes it
+    (cuobjdump reads only the static size)."""
+    lib = ctypes.CDLL(str(libs["flash_attention_forward"]))
+    smem = lib.flash_attention_forward_smem_bytes
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_int
+    sizes = ", ".join(f"D {d}: {smem(d)} B" for d in kernels.FLASH_HEAD_DIMS)
+    print(f"BUILD flash_attention_forward dynamic shared memory per block: "
+          f"{sizes}", flush=True)
 
 
 class ColdTimer:
@@ -777,8 +795,8 @@ def flash_small_checks(kernels, dev):
 
 def flash_kernel_phase(kernels, dev, bw, flops, tf32):
     """Hold K6 and K7 against their plain versions at the transformer's
-    shapes (4 heads of 16, 2 of 32), beside SDPA, and time them; K7 must
-    also repeat bit for bit."""
+    shapes (4 heads of 16, 2 of 32), beside SDPA, and time them; both
+    must also repeat bit for bit."""
     flash_small_checks(kernels, dev)
     timer = ColdTimer(dev)
     rs = np.random.RandomState(6)
@@ -797,6 +815,15 @@ def flash_kernel_phase(kernels, dev, bw, flops, tf32):
                               FLASH_FWD_RTOL, FLASH_FWD_ATOL),
                   check_close("flash_attention_forward lse", lk, lp,
                               FLASH_FWD_RTOL, FLASH_FWD_ATOL))
+        # no atomics: a second call on the same inputs gives the same bits
+        again = kernels.flash_attention_forward(q, k, v, True)
+        for n, first, second in zip(("O", "lse"), (ok, lk), again):
+            if not torch.equal(first, second):
+                raise AssertionError(f"flash_attention_forward {n}: two "
+                                     f"calls on the same inputs differ")
+        print("KERNEL flash_attention_forward: two calls bit-identical",
+              flush=True)
+        del again
         q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
 
         def lib_fwd():
@@ -807,7 +834,12 @@ def flash_kernel_phase(kernels, dev, bw, flops, tf32):
                               SDPA_FWD_RTOL, SDPA_FWD_ATOL)
         backend = sdpa_backend(q4, k4, v4)
         t_bytes = (4 * row_bytes + b * h * s * 4) / bw
-        t_ops = 4 * d * pairs / flops
+        # the function's two products per kept pair (Q·Kᵀ, P·V), each
+        # three TF32 products on the tensor cores for f32 accuracy
+        # (3xTF32), as K6 executes them. Beside it, the same work in f32
+        # on the CUDA cores.
+        t_ops = 3 * 4 * d * pairs / tf32
+        t_f32 = 4 * d * pairs / flops
         rows["flash_attention_forward"].append({
             "shape": list(shape), "causal": True, "max_abs_err": err,
             "ms": timer(lambda: kernels.flash_attention_forward(q, k, v,
@@ -816,7 +848,9 @@ def flash_kernel_phase(kernels, dev, bw, flops, tf32):
                 q, k, v, True)),
             "library_ms": timer(lib_fwd), "library": f"sdpa {backend}",
             "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": "3xTF32, tensor cores",
+            "bound_f32_ms": max(t_bytes, t_f32) * 1e3})
         print_kernel_line("flash_attention_forward", "causal",
                           rows["flash_attention_forward"][-1])
         print(f"KERNEL flash_attention_forward: library = "
@@ -1510,6 +1544,7 @@ def main() -> int:
     print(f"BUILD {len(libs)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     print_resource_usage(libs)
+    print_flash_smem(libs, kernels)
     rows = kernel_phase(kernels, dev, bw, flops)
     backward_rows, k5_other = backward_kernel_phase(kernels, dev, bw, flops)
     rows.update(backward_rows)
@@ -1570,8 +1605,8 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "shapes": per_shape})
         if "bound_f32_ms" in per_shape[0]:
-            # K7's bound at the tensor cores' TF32 rate, and beside it in
-            # f32 on the CUDA cores
+            # K6's and K7's bounds at the tensor cores' TF32 rate, and
+            # beside them in f32 on the CUDA cores
             entries[-1]["bound_rate"] = per_shape[0]["bound_rate"]
             entries[-1]["bound_f32_ms"] = sum(r["bound_f32_ms"]
                                               for r in per_shape)

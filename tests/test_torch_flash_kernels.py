@@ -342,6 +342,90 @@ def test_one_tf32_product_misses_the_k7_gate():
             _close(a, b, K7_RTOL, K7_ATOL, name)
 
 
+# -- K6's 3xTF32 arithmetic ---------------------------------------------------
+#
+# K6 runs Q·Kᵀ and P·V on the tensor cores as 3xTF32, in 64-key tiles with
+# the online rescale. These tests hold that arithmetic, emulated in numpy,
+# against the plain version under chip_smoke.py's K6 gate; as for K7, they
+# do not run the kernel.
+
+#: chip_smoke.py's FLASH_FWD_RTOL / FLASH_FWD_ATOL: K6 against its plain
+#: version on the card, for O and lse
+K6_RTOL, K6_ATOL = 4e-5, 4e-6
+#: a ragged S (3 whole 64-key tiles and one of 8 keys), as chip_smoke's
+#: K6 small checks
+K6_S, K6_TILE = 200, 64
+
+
+def _tf32_forward(q, k, v, causal, kv_order, passes):
+    """K6's arithmetic on heads-first f32 arrays: Q times scale·log2e
+    before its split, x = Q·Kᵀ through `_tf32_product` per 64-key tile,
+    visited first to last or (`rev`) last to first; masked keys (key >
+    query, key ≥ S) set to −inf by index; m starts at −1e30; p =
+    exp2(x − m'), l = l·2^(m − m') + Σp, acc = acc·2^(m − m') + P·V (P
+    split too, a fresh sum per tile); O = acc / l, lse = m·ln2 + log l.
+    Tiles wholly above the diagonal, which the kernel skips, leave m, l
+    and acc as they were here too (a factor 2^0 = 1, p = 0)."""
+    f32 = np.float32
+    bh, s, d = q.shape
+    sl2 = f32(1.0 / np.sqrt(d)) * f32(np.log2(np.e))
+    qs = (q * sl2).astype(f32)
+    rows = np.arange(s)[:, None]
+    m = np.full((bh, s, 1), f32(-1e30), f32)
+    l = np.zeros((bh, s, 1), f32)
+    acc = np.zeros_like(q)
+    starts = list(range(0, s, K6_TILE))
+    for k0 in (starts[::-1] if kv_order == "rev" else starts):
+        keys = np.arange(k0, min(k0 + K6_TILE, s))[None, :]
+        x = _tf32_product(qs, k[:, k0:k0 + K6_TILE].transpose(0, 2, 1),
+                          passes).astype(f32)
+        if causal:
+            x = np.where(keys > rows, f32(-np.inf), x)
+        mn = np.maximum(m, x.max(-1, keepdims=True))
+        alpha = np.exp2(m - mn).astype(f32)
+        p = np.exp2(x - mn).astype(f32)
+        l = (l * alpha + p.sum(-1, keepdims=True, dtype=f32)).astype(f32)
+        part = _tf32_product(p, v[:, k0:k0 + K6_TILE], passes)
+        acc = (acc * alpha + part).astype(f32)
+        m = mn
+    return ((acc / l).astype(f32),
+            (m * f32(np.log(2.0)) + np.log(l)).astype(f32))
+
+
+def _k6_case(d, causal, seed=13):
+    """Inputs and the plain version's (O, lse) at S = 200, B·H = 2."""
+    rs = np.random.RandomState(seed)
+    q, k, v = (rs.randn(TF32_BH, K6_S, d).astype(np.float32)
+               for _ in range(3))
+    want = kernels.flash_attention_forward_plain(_t(q), _t(k), _t(v),
+                                                 causal)
+    return (q, k, v), [_host(w) for w in want]
+
+
+@pytest.mark.parametrize("kv_order", kernels.KV_ORDERS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", kernels.FLASH_HEAD_DIMS)
+def test_3xtf32_products_meet_the_k6_gate(d, causal, kv_order):
+    """K6's arithmetic, not the kernel (chip_smoke.py holds the kernel on
+    the card): Q·Kᵀ and P·V as 3xTF32 in 64-key tiles with the online
+    rescale, in either KV order, within the K6 gate of the plain version
+    on O and lse."""
+    args, (want_o, want_lse) = _k6_case(d, causal)
+    o, lse = _tf32_forward(*args, causal, kv_order, passes=3)
+    assert np.isfinite(o).all() and np.isfinite(lse).all()
+    _close(o, want_o, K6_RTOL, K6_ATOL, "O")
+    _close(lse, want_lse, K6_RTOL, K6_ATOL, "lse")
+
+
+def test_one_tf32_product_misses_the_k6_gate():
+    """Why K6 pays for three products: with one TF32 product for each of
+    Q·Kᵀ and P·V, O falls outside the gate."""
+    args, (want_o, _) = _k6_case(16, True)
+    o, _ = _tf32_forward(*args, True, "fwd", passes=1)
+    with pytest.raises(AssertionError):
+        _close(o, want_o, K6_RTOL, K6_ATOL, "O")
+
+
 def test_tf32_rounds_to_nearest_ties_away():
     one = np.float32(1.0)
     ulp = np.float32(2.0 ** -10)     # TF32's spacing at 1

@@ -55,7 +55,8 @@
 //   Q.K^T and (row 2t or 2t+1, col g) for the second products, then hit
 //   32 distinct banks at D = 8, 16 and 32. The stages and planes are
 //   dynamic shared memory (68 KB at D = 32, past the 48 KB of a static
-//   array).
+//   array). The tiles, their staging and split, the resident fragments
+//   and the permutation below are flash_common.cuh's, shared with K6.
 // - Per 8 streamed rows j (one n-tile), a warp computes s and dP for its
 //   16 rows (D/8 k-steps x 3 mma each), p = exp2(s*scale*log2e -
 //   lse*log2e), dS, and then takes the second products over those same 8
@@ -77,46 +78,22 @@
 
 namespace {
 
+using flash::accumulate;
+using flash::add_to;
+using flash::issue_tile;
+using flash::kBlockRows;
+using flash::kBlockThreads;
+using flash::kLog2e;
+using flash::kTile;
+using flash::kUnits;
+using flash::kWarpRows;
+using flash::load_a;
 using flash::mma_3xtf32;
-using flash::split_tf32;
-
-constexpr int kWarps = 4;
-constexpr int kBlockThreads = 32 * kWarps;
-constexpr int kWarpRows = 16;                   // an m16 tile
-constexpr int kBlockRows = kWarps * kWarpRows;  // 64
-constexpr int kTile = 64;                       // streamed rows per stage
-constexpr int kUnits = kTile / 8;               // n-tiles of 8 per tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared memory of one block's two streamed arrays (K and V, or Q and dO):
-// two raw stages that cp.async fills, and the landed tile's TF32 hi and lo
-// planes, rows padded to D + 4 (20 KB at D = 8, 36 KB at D = 16, 68 KB at
-// D = 32): the block's dynamic shared memory.
-template <int D>
-struct Tiles {
-  static constexpr int kPitch = D + 4;
-  float raw[2][2][kTile * D];
-  uint32_t hi[2][kTile * kPitch];
-  uint32_t lo[2][kTile * kPitch];
-};
-
-// Start copying rows [r0, r0 + kTile) of u and w into `stage`, rows at or
-// beyond `live_rows` zero-filled.
-template <int D>
-__device__ __forceinline__ void issue_tile(Tiles<D>& sm, int stage,
-                                           const float* __restrict__ u,
-                                           const float* __restrict__ w,
-                                           int r0, int live_rows) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kBlockThreads) {
-    const int r = r0 + i / kChunks;
-    const bool live = r < live_rows;
-    const int64_t off =
-        live ? static_cast<int64_t>(r) * D + 4 * (i % kChunks) : 0;
-    flash::cp_async16(&sm.raw[stage][0][4 * i], u + off, live);
-    flash::cp_async16(&sm.raw[stage][1][4 * i], w + off, live);
-  }
-}
+using flash::Resident;
+using flash::row_blocks;
+using flash::split_tile;
+using flash::Tiles;
+using flash::zero;
 
 // Start copying lse and D of rows [r0, r0 + kTile) into dst[0] and dst[1]
 // (one 4-byte copy per thread), rows at or beyond S zero-filled.
@@ -130,52 +107,6 @@ __device__ __forceinline__ void issue_scalars(float (&dst)[2][kTile],
   const bool live = r0 + i < s_len;
   flash::cp_async4(&dst[a][i], (a == 0 ? lse : di) + (live ? r0 + i : 0),
                    live);
-}
-
-// Split the landed `stage` into the hi and lo planes.
-template <int D>
-__device__ __forceinline__ void split_tile(Tiles<D>& sm, int stage) {
-  constexpr int kChunks = D / 4;
-  constexpr int kPitch = Tiles<D>::kPitch;
-  for (int i = threadIdx.x; i < 2 * kTile * kChunks; i += kBlockThreads) {
-    const int a = i / (kTile * kChunks);
-    const int j = i % (kTile * kChunks);
-    const float4 x = reinterpret_cast<const float4*>(sm.raw[stage][a])[j];
-    uint4 h, l;
-    split_tf32(x.x, h.x, l.x);
-    split_tf32(x.y, h.y, l.y);
-    split_tf32(x.z, h.z, l.z);
-    split_tf32(x.w, h.w, l.w);
-    const int at = (j / kChunks) * kPitch + 4 * (j % kChunks);
-    *reinterpret_cast<uint4*>(&sm.hi[a][at]) = h;
-    *reinterpret_cast<uint4*>(&sm.lo[a][at]) = l;
-  }
-}
-
-// One warp's 16 resident rows as m16n8k8 A fragments, hi and lo, one per
-// 8-wide k slab.
-template <int D>
-struct Resident {
-  uint32_t hi[D / 8][4];
-  uint32_t lo[D / 8][4];
-};
-
-// The 16 rows from r0 of a (rows, D) array; rows at or beyond S read as 0.
-template <int D>
-__device__ __forceinline__ void load_a(Resident<D>& a,
-                                       const float* __restrict__ x, int r0,
-                                       int s_len, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + g + 8 * (e & 1);
-      const int col = 8 * kk + t + 4 * (e >> 1);
-      const float v =
-          row < s_len ? __ldg(x + static_cast<int64_t>(row) * D + col) : 0.f;
-      split_tf32(v, a.hi[kk][e], a.lo[kk][e]);
-    }
-  }
 }
 
 // s = X . U^T and dp = Y . W^T for the warp's 16 rows against streamed rows
@@ -199,47 +130,6 @@ __device__ __forceinline__ void scores(float (&s)[4], float (&dp)[4],
                sm.lo[0][b0], sm.lo[0][b1]);
     mma_3xtf32(dp, y.hi[kk], y.lo[kk], sm.hi[1][b0], sm.hi[1][b1],
                sm.lo[1][b0], sm.lo[1][b1]);
-  }
-}
-
-// acc += X . B over streamed rows 8j .. 8j+7 of plane `a`, X a C fragment
-// of scores() (P or dS) read as an A fragment through the permutation.
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&x)[4],
-                                           const Tiles<D>& sm, int a, int j,
-                                           int g, int t) {
-  constexpr int kPitch = Tiles<D>::kPitch;
-  uint32_t a_hi[4], a_lo[4];
-  split_tf32(x[0], a_hi[0], a_lo[0]);
-  split_tf32(x[2], a_hi[1], a_lo[1]);
-  split_tf32(x[1], a_hi[2], a_lo[2]);
-  split_tf32(x[3], a_hi[3], a_lo[3]);
-  const int at = (8 * j + 2 * t) * kPitch + g;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int b0 = at + 8 * nt, b1 = b0 + kPitch;
-    mma_3xtf32(acc[nt], a_hi, a_lo, sm.hi[a][b0], sm.hi[a][b1],
-               sm.lo[a][b0], sm.lo[a][b1]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void add_to(float (&sum)[D / 8][4],
-                                       const float (&part)[D / 8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum[nt][e] += part[nt][e];
   }
 }
 
@@ -488,10 +378,6 @@ __global__ void __launch_bounds__(kBlockThreads)
   if (!warp_live) return;
   store_rows<D>(dk + base * D, dk_acc, scale, r0, s_len, g, t);
   store_rows<D>(dv + base * D, dv_acc, 1.f, r0, s_len, g, t);
-}
-
-inline int64_t row_blocks(int64_t s) {
-  return (s + kBlockRows - 1) / kBlockRows;
 }
 
 template <int D>

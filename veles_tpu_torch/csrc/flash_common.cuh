@@ -1,12 +1,15 @@
 // Shared pieces of K6 (flash attention forward) and K7 (its backward):
-// the masking constants of the JAX kernels, the tiling, the head widths
-// the kernels are compiled for, the row and dot-product helpers (K6), and
-// the tensor-core pieces: 3xTF32 mma.sync and cp.async (K7).
+// the masking constant of the JAX kernels, the warp tiling, 3xTF32
+// `mma.sync` on the tensor cores, the `cp.async` staging of streamed
+// tiles with their split into TF32 hi and lo planes, the resident A
+// fragments and the C-to-A permutation, and the PTX wrappers either
+// kernel needs (`ldmatrix` is K6's, 4-byte `cp.async` K7's).
 //
 // Layout: every tensor is heads-first and contiguous, (B*H, S, D) f32 for
 // Q, K, V, O, dO, dQ, dK, dV and (B*H, S) for the row logsumexp and
 // D = rowsum(dO*O). A row of D floats is 16-byte aligned whenever D is a
-// multiple of 4 (every D the kernels take), so rows move as float4.
+// multiple of 4 (every D the kernels take), so rows move as 16-byte
+// copies.
 #pragma once
 
 #include <cstdint>
@@ -15,100 +18,27 @@
 
 namespace flash {
 
-// the JAX kernels mask with -1e30 (ops/attention.py NEG_INF) and treat a
-// score at or below -1e29 as masked (the all-masked-row guard)
+// the JAX kernels mask with -1e30 (ops/attention.py NEG_INF) and start
+// the running row max there; K6 starts it there too, masking by index
 constexpr float kNegInf = -1e30f;
-constexpr float kMaskedAtOrBelow = -1e29f;
 
-// rows of the "resident" side per block: one row per thread
-constexpr int kThreads = 128;
-// floats of one streamed array held in shared memory per chunk (16 KB):
-// kChunkFloats / D rows of K and of V (K6), 32 KB of static shared memory
-// per block in all
-constexpr int kChunkFloats = 4096;
+// 4 warps (128 threads) per block, each warp owning 16 resident rows (an
+// m16 tile), a block 64; streamed rows arrive in tiles of 64, 8 n-tiles of
+// 8 rows each
+constexpr int kWarps = 4;
+constexpr int kBlockThreads = 32 * kWarps;
+constexpr int kWarpRows = 16;
+constexpr int kBlockRows = kWarps * kWarpRows;  // 64
+constexpr int kTile = 64;
+constexpr int kUnits = kTile / 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Copy `rows` rows of D floats starting at `src` into `dst` (a chunk of
-// kChunkFloats), zero-filling the rest of the chunk: a partly filled
-// tile then reads zeros, never stale values (p = 0 times a stale NaN
-// would be NaN).
-template <int D>
-__device__ __forceinline__ void load_chunk(float* __restrict__ dst,
-                                           const float* __restrict__ src,
-                                           int rows) {
-  const int n4 = rows * (D / 4);
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < kChunkFloats / 4; i += blockDim.x) {
-    d4[i] = i < n4 ? __ldg(s4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// one row of D floats from device memory into registers (zeros if !live)
-template <int D>
-__device__ __forceinline__ void load_row(float (&r)[D],
-                                         const float* __restrict__ src,
-                                         bool live) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 x = live ? __ldg(s4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[4 * c] = x.x;
-    r[4 * c + 1] = x.y;
-    r[4 * c + 2] = x.z;
-    r[4 * c + 3] = x.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* __restrict__ dst,
-                                          const float (&r)[D]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    d4[c] = make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
-  }
-}
-
-// a . b over D, a in registers, b a row in shared memory (every thread
-// of a warp reads the same row: a broadcast), summed in order of d
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&a)[D],
-                                         const float* __restrict__ b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 x = b4[c];
-    acc = fmaf(a[4 * c], x.x, acc);
-    acc = fmaf(a[4 * c + 1], x.y, acc);
-    acc = fmaf(a[4 * c + 2], x.z, acc);
-    acc = fmaf(a[4 * c + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// acc += w * b, b a row in shared memory
-template <int D>
-__device__ __forceinline__ void axpy_row(float (&acc)[D], float w,
-                                         const float* __restrict__ b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 x = b4[c];
-    acc[4 * c] = fmaf(w, x.x, acc[4 * c]);
-    acc[4 * c + 1] = fmaf(w, x.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(w, x.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(w, x.w, acc[4 * c + 3]);
-  }
-}
-
-inline int blocks_for(int64_t s_len) {
-  return static_cast<int>((s_len + kThreads - 1) / kThreads);
+inline int64_t row_blocks(int64_t s) {
+  return (s + kBlockRows - 1) / kBlockRows;
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core pieces: 3xTF32 `mma.sync` m16n8k8 and `cp.async` staging
-// (used by K7; K6 does not use them yet).
+// Tensor-core pieces: 3xTF32 `mma.sync` m16n8k8 and `cp.async` staging.
 //
 // Fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, lane
 // = 4*g + t (g = lane >> 2, t = lane & 3):
@@ -116,6 +46,7 @@ inline int blocks_for(int64_t s_len) {
 //   B (8 x 8, k x cols):  b0 (t, g), b1 (t+4, g)
 //   C (16 x 8):           c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
 //                         c3 (g+8, 2t+1)
+// so lanes 4g .. 4g+3 (a quad) hold rows g and g + 8 of a C fragment.
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32): x = hi + lo, hi = tf32(x)
 // rounded to nearest, ties away from zero (cvt.rna's rounding), lo = x - hi
 // exactly, of which the tensor cores read the top 19 bits (TF32 operands'
@@ -154,11 +85,25 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 }
 
 // 2^x by the SFU (`ex2.approx.ftz`: ~2 ulp, results below 2^-126 flushed
-// to 0)
+// to 0; 2^-inf = 0)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Four 8x8 matrices of 16-bit values (here: 8 rows of four 32-bit words
+// each) from shared memory, lanes 8i .. 8i+7 giving the row addresses of
+// matrix i (16-byte aligned); lane 4g + t receives word t of row g of
+// matrix i in r[i]: one instruction for the four B-fragment registers
+// (hi b0, b1, lo b0, b1) of a k-step that would take four 32-bit loads.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            unsigned smem_addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr)
+      : "memory");
 }
 
 // Asynchronous copies into shared memory; a copy that is not `live` reads
@@ -187,6 +132,137 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Streamed tiles and resident fragments
+// ---------------------------------------------------------------------------
+
+// Shared memory of one block's two streamed arrays (K and V, or Q and dO):
+// two raw stages that cp.async fills, and the landed tile's TF32 hi and lo
+// planes, rows padded to D + 4 (20 KB at D = 8, 36 KB at D = 16, 68 KB at
+// D = 32): the block's dynamic shared memory. The padding makes the two
+// read patterns, (row g, col t) for Q.K^T-like products and (row 2t or
+// 2t+1, col g) for the products that take a C fragment as A, hit 32
+// distinct banks at D = 8, 16 and 32.
+template <int D>
+struct Tiles {
+  static constexpr int kPitch = D + 4;
+  float raw[2][2][kTile * D];
+  uint32_t hi[2][kTile * kPitch];
+  uint32_t lo[2][kTile * kPitch];
+};
+
+// Start copying rows [r0, r0 + kTile) of u and w into `stage`, rows at or
+// beyond `live_rows` zero-filled.
+template <int D>
+__device__ __forceinline__ void issue_tile(Tiles<D>& sm, int stage,
+                                           const float* __restrict__ u,
+                                           const float* __restrict__ w,
+                                           int r0, int live_rows) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kBlockThreads) {
+    const int r = r0 + i / kChunks;
+    const bool live = r < live_rows;
+    const int64_t off =
+        live ? static_cast<int64_t>(r) * D + 4 * (i % kChunks) : 0;
+    cp_async16(&sm.raw[stage][0][4 * i], u + off, live);
+    cp_async16(&sm.raw[stage][1][4 * i], w + off, live);
+  }
+}
+
+// Split the landed `stage` into the hi and lo planes.
+template <int D>
+__device__ __forceinline__ void split_tile(Tiles<D>& sm, int stage) {
+  constexpr int kChunks = D / 4;
+  constexpr int kPitch = Tiles<D>::kPitch;
+  for (int i = threadIdx.x; i < 2 * kTile * kChunks; i += kBlockThreads) {
+    const int a = i / (kTile * kChunks);
+    const int j = i % (kTile * kChunks);
+    const float4 x = reinterpret_cast<const float4*>(sm.raw[stage][a])[j];
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    const int at = (j / kChunks) * kPitch + 4 * (j % kChunks);
+    *reinterpret_cast<uint4*>(&sm.hi[a][at]) = h;
+    *reinterpret_cast<uint4*>(&sm.lo[a][at]) = l;
+  }
+}
+
+// One warp's 16 resident rows as m16n8k8 A fragments, hi and lo, one per
+// 8-wide k slab.
+template <int D>
+struct Resident {
+  uint32_t hi[D / 8][4];
+  uint32_t lo[D / 8][4];
+};
+
+// The 16 rows from r0 of a (rows, D) array, each element times `mult`
+// before its split; rows at or beyond S read as 0.
+template <int D>
+__device__ __forceinline__ void load_a(Resident<D>& a,
+                                       const float* __restrict__ x, int r0,
+                                       int s_len, int g, int t,
+                                       float mult = 1.f) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e & 1);
+      const int col = 8 * kk + t + 4 * (e >> 1);
+      const float v =
+          row < s_len ? __ldg(x + static_cast<int64_t>(row) * D + col) : 0.f;
+      split_tf32(v * mult, a.hi[kk][e], a.lo[kk][e]);
+    }
+  }
+}
+
+// acc += X . B over streamed rows 8j .. 8j+7 of plane `a`, X the C
+// fragment of a product against those rows (P or dS) read as an A
+// fragment: the C fragment for n-tile j is the A fragment of k-step j when
+// logical k = t is read as streamed row 8j + 2t and k = t + 4 as row
+// 8j + 2t + 1, so a0..a3 = c0, c2, c1, c3, and B is read with the same
+// permutation (b0 = row 8j + 2t, b1 = row 8j + 2t + 1, col g). The sum
+// over k does not depend on the order of its terms.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[4],
+                                           const Tiles<D>& sm, int a, int j,
+                                           int g, int t) {
+  constexpr int kPitch = Tiles<D>::kPitch;
+  uint32_t a_hi[4], a_lo[4];
+  split_tf32(x[0], a_hi[0], a_lo[0]);
+  split_tf32(x[2], a_hi[1], a_lo[1]);
+  split_tf32(x[1], a_hi[2], a_lo[2]);
+  split_tf32(x[3], a_hi[3], a_lo[3]);
+  const int at = (8 * j + 2 * t) * kPitch + g;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int b0 = at + 8 * nt, b1 = b0 + kPitch;
+    mma_3xtf32(acc[nt], a_hi, a_lo, sm.hi[a][b0], sm.hi[a][b1],
+               sm.lo[a][b0], sm.lo[a][b1]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void add_to(float (&sum)[D / 8][4],
+                                       const float (&part)[D / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[nt][e] += part[nt][e];
+  }
 }
 
 }  // namespace flash
