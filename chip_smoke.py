@@ -8,7 +8,8 @@
    process per source, all at once) and print the build seconds, then
    BUILD lines: each compiled kernel function's registers, stack, local
    memory (spills land there) and static shared memory, and the dynamic
-   shared memory K6 takes per block at each head width.
+   shared memory K6 takes per block at each head width and K3 at
+   AlexNet's two LRN widths.
 3. KERNEL lines. Each kernel is held against its plain PyTorch version on
    the same inputs and timed beside its plain version and the least time
    the card could take, each launch with a cold L2 cache (median of 25):
@@ -21,10 +22,20 @@
      training batch 128, on post-ReLU inputs (half zeros, so pooling
      windows tie as they do in training), and K1 (the SGD update)
      over all 16 AlexNet leaves (62,378,344 parameters), each leaf at its
-     own learning rate. No single PyTorch call computes K3, K5 or K1.
+     own learning rate. K3 is timed beside the one PyTorch call computing
+     its function, the autograd backward of F.local_response_norm (on
+     the NCHW view, checked first to agree with the plain version within
+     1e-5 + 1e-4*|plain|); no single PyTorch call computes K5 or K1.
    K1-K5 within 1e-6 + 1e-5*|plain| (the same f32 arithmetic in the same
-   order, so at most the rsqrt approximation differs). Before the AlexNet
-   shapes, K5 small checks (K5 lines) at shapes the AlexNet ones miss:
+   order, so at most the rsqrt approximation differs). K3 must give the
+   plain version's bits at both shapes, also through its run-time
+   (generic) instance and with 4-byte copies (x not 16-byte aligned),
+   each timed beside the compile-time instance's 16-byte copies. Before
+   the AlexNet shapes, K3 small checks (K3 lines: row counts that leave
+   a ragged last tile, C = 3, 40 and 70, LRN n = 3, an all-zero input,
+   NaNs in x, rows of 4098 and 4100 channels cut into channel tiles),
+   each bit-equal to the plain version (NaN where it has NaN), and K5
+   small checks (K5 lines) at shapes the AlexNet ones miss:
    ceil-mode windows clipped on both axes, C = 3 and C = 40 and 70 (below
    and between its 32-channel tiles), an all-zero input (every window
    ties), windows holding a NaN (which route nowhere), and 3x3 stride 1
@@ -71,7 +82,8 @@
    one validation step) through the function the `--fused` CLI uses,
    under fused and again under composed, from one seed; counters zeroed
    just before each and read just after: K4, K5 and K1 must have launched
-   under fused, K2, K3 and K1 under composed, and the loss be finite. Each
+   under fused, K2, K3 and K1 under composed (the backward kernel, K5 or
+   K3, exactly twice per train step), and the loss be finite. Each
    step's device time comes from CUDA events around it.
    TRAIN transformer: train the char-transformer at its own widths (embed
    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
@@ -242,6 +254,19 @@ def print_flash_smem(libs, kernels):
     sizes = ", ".join(f"D {d}: {smem(d)} B" for d in kernels.FLASH_HEAD_DIMS)
     print(f"BUILD flash_attention_forward dynamic shared memory per block: "
           f"{sizes}", flush=True)
+
+
+def print_lrn_backward_smem(libs):
+    """BUILD line: the dynamic shared memory one K3 block takes at each of
+    AlexNet's LRN widths, as the kernel's own source computes it."""
+    lib = ctypes.CDLL(str(libs["lrn_backward"]))
+    smem = lib.lrn_backward_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_int
+    sizes = ", ".join(f"C {c}: {smem(c, N // 2)} B"
+                      for _, _, c in LRN_SHAPES)
+    print(f"BUILD lrn_backward dynamic shared memory per block: {sizes}",
+          flush=True)
 
 
 class ColdTimer:
@@ -577,9 +602,54 @@ def k5_small_checks(kernels, dev):
               flush=True)
 
 
+#: K3 small checks: (what, x shape, LRN n, input); K3's tiles are whole
+#: rows (32 of 96 channels, 12 of 256 at AlexNet's widths), or runs of
+#: 3072 channels of wider rows
+K3_SMALL = (("ragged last tile, C 96", (3, 5, 9, 96), 5, "relu"),
+            ("ragged last tile, C 256", (3, 5, 7, 256), 5, "relu"),
+            ("C 3", (2, 14, 16, 3), 5, "relu"),
+            ("C 40", (2, 14, 16, 40), 5, "relu"),
+            ("C 70", (2, 9, 11, 70), 5, "relu"),
+            ("LRN n 3", (2, 14, 16, 40), 3, "relu"),
+            ("all zero", (2, 14, 16, 40), 5, "zero"),
+            ("NaN in x", (2, 14, 16, 40), 5, "nan"),
+            ("channel tiles, C 4098", (1, 3, 5, 4098), 5, "relu"),
+            ("channel tiles, C 4100", (1, 3, 5, 4100), 5, "relu"))
+
+
+def k3_small_checks(kernels, dev):
+    """K3 against its plain version at K3_SMALL's shapes: the same bits,
+    NaN exactly where the plain version has NaN."""
+    rs = np.random.RandomState(10)
+    for what, shape, n, kind in K3_SMALL:
+        x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+        if kind == "zero":
+            x[:] = 0.0
+        elif kind == "nan":
+            x[0, 2, 2, 3] = x[1, 13, 15, 39] = x[1, 6, 0, 0] = np.nan
+        g = rs.randn(*shape).astype(np.float32)
+        xt, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        got = kernels.lrn_backward(xt, gt, K, ALPHA, BETA, n)
+        want = kernels.lrn_backward_plain(xt, gt, K, ALPHA, BETA, n)
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        if not torch.equal(got.isnan(), nan):
+            raise AssertionError(f"lrn_backward {what}: NaN at other places "
+                                 f"than the plain version's")
+        got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
+        err = check_close(f"lrn_backward {what}", got, want, KERNEL_RTOL,
+                          KERNEL_ATOL)
+        if not torch.equal(got, want):
+            raise AssertionError(f"lrn_backward {what}: not the plain "
+                                 f"version's bits (max abs err {err:.3e})")
+        print(f"K3 {what} x {list(shape)} n {n}: {int(nan.sum())} NaN, "
+              f"bit-equal", flush=True)
+
+
 def backward_kernel_phase(kernels, dev, bw, flops):
     """Hold K3, K5 and K1 against their plain versions at the training
     path's shapes and time them."""
+    k3_small_checks(kernels, dev)
     k5_small_checks(kernels, dev)
     timer = ColdTimer(dev)
     rs = np.random.RandomState(2)
@@ -592,21 +662,54 @@ def backward_kernel_phase(kernels, dev, bw, flops):
         g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
         nbytes = x.numel() * 4
         # -- K3 ---------------------------------------------------------------
+        # x again, one float into a buffer: not 16-byte aligned, so K3
+        # stages it by 4-byte copies
+        xm = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+        xm.copy_(x)
         dk = kernels.lrn_backward(x, g, K, ALPHA, BETA, N)
         dp = kernels.lrn_backward_plain(x, g, K, ALPHA, BETA, N)
+        dg = kernels.lrn_backward(x, g, K, ALPHA, BETA, N, generic=True)
+        d4 = kernels.lrn_backward(xm, g, K, ALPHA, BETA, N)
         torch.cuda.synchronize()
         err = check_close(f"lrn_backward {layer}", dk, dp, KERNEL_RTOL,
                           KERNEL_ATOL)
+        for what, other in (("plain version", dp), ("generic instance", dg),
+                            ("4-byte copies", d4)):
+            if not torch.equal(dk, other):
+                raise AssertionError(f"lrn_backward {layer}: the {what} "
+                                     f"gives other bits")
+        leaf = x.clone().requires_grad_(True)
+        y = F.local_response_norm(leaf.permute(0, 3, 1, 2), size=N,
+                                  alpha=ALPHA * N, beta=BETA, k=K)
+        g_nchw = g.permute(0, 3, 1, 2)
+
+        def lib():
+            return torch.autograd.grad(y, leaf, g_nchw, retain_graph=True)[0]
+        lib_err = check_close(f"autograd of F.local_response_norm {layer}",
+                              lib(), dp, 1e-4, 1e-5)
         t_bytes, t_ops = 3 * nbytes / bw, lrn_grad_ops(x.numel()) / flops
         rows["lrn_backward"].append({
             "shape": list(shape), "max_abs_err": err,
             "ms": timer(lambda: kernels.lrn_backward(x, g, K, ALPHA, BETA,
                                                      N)),
+            "generic_ms": timer(lambda: kernels.lrn_backward(
+                x, g, K, ALPHA, BETA, N, generic=True)),
+            "copy4_ms": timer(lambda: kernels.lrn_backward(xm, g, K, ALPHA,
+                                                           BETA, N)),
             "plain_ms": timer(lambda: kernels.lrn_backward_plain(
                 x, g, K, ALPHA, BETA, N)),
-            "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "library_ms": timer(lib),
+            "library": "autograd of F.local_response_norm",
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-        del dk, dp, g
+        r = rows["lrn_backward"][-1]
+        print(f"KERNEL lrn_backward {layer}: bit-equal to the plain version; "
+              f"generic instance ms {r['generic_ms']:.4f}, 4-byte copies (x "
+              f"not 16-byte aligned) ms {r['copy4_ms']:.4f}, both bit-equal "
+              f"(compile-time instance, 16-byte copies {r['ms']:.4f}); "
+              f"library = autograd of F.local_response_norm, max abs err "
+              f"against the plain version {lib_err:.3e}", flush=True)
+        del dk, dp, dg, d4, xm, g, leaf, y, g_nchw
         # -- K5 ---------------------------------------------------------------
         oh = -(-(hwc[0] - 3) // 2) + 1
         ow = -(-(hwc[1] - 3) // 2) + 1
@@ -999,6 +1102,16 @@ def train_phase(launcher, kernels, dev):
             if name not in want[setting] and c != 0:
                 raise AssertionError(f"{name} launched {c} times under "
                                      f"lrn_maxpool={setting}")
+        # the backward kernel: once per LRN layer (two) per train step
+        backward = want[setting][1]
+        steps = wf.decision.epoch_number * -(-wf.loader.class_lengths[2]
+                                             // wf.loader.minibatch_size)
+        if counts[backward] != 2 * steps:
+            raise AssertionError(f"{backward} launched {counts[backward]} "
+                                 f"times in {steps} train steps under "
+                                 f"lrn_maxpool={setting}, not twice each")
+        print(f"TRAIN {setting}: {backward} twice in each of {steps} train "
+              f"steps", flush=True)
         del wf
         torch.cuda.empty_cache()
     return launches
@@ -1545,6 +1658,7 @@ def main() -> int:
           flush=True)
     print_resource_usage(libs)
     print_flash_smem(libs, kernels)
+    print_lrn_backward_smem(libs)
     rows = kernel_phase(kernels, dev, bw, flops)
     backward_rows, k5_other = backward_kernel_phase(kernels, dev, bw, flops)
     rows.update(backward_rows)

@@ -1,0 +1,141 @@
+"""K3's CUDA source (`veles_tpu_torch/csrc/lrn_backward.cu`) run on the
+CPU, held bit for bit against the plain version
+`ops/functional.py:lrn_backward` (which `test_torch_backward_kernels.py`
+holds against the JAX package's Pallas kernel and the golden).
+
+The .cu file is compiled by g++ with the emulation of
+`test_torch_lrn_pool_tiles.py` (one std::thread per CUDA thread, a
+std::barrier for `__syncthreads`, the 4- and 16-byte cp.async copies as
+plain copies) and called through the wrapper `kernels.lrn_backward`, so
+the argument order of the C entry point is the wrapper's. The plain
+version runs with a correctly rounded sqrt, as on the card and in g++.
+
+Besides the build as written, a "narrow" build cuts K3's tile to 16
+elements: rows wider than 16 channels are then cut into channel tiles
+whose halo of t is recomputed, and narrow rows fill tiles of several
+rows. Cases: AlexNet's C = 96 and 256 at a few rows, row counts that
+leave a ragged last tile, C = 3, 40 and 70 (4-byte copies where
+C % 4 != 0), LRN n = 3, an all-zero x, NaNs in x, an x that is not
+16-byte aligned (4-byte copies at C = 96), and AlexNet's geometry
+through the generic instance. It cannot see nvcc errors, register
+pressure or speed: chip_smoke.py holds the kernel on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_lrn_pool_tiles import (ALPHA, BETA, K, compile_source,
+                                             emulated_source, find_gxx,
+                                             load_entry, sub, wrapper_on)
+from veles_tpu_torch.ops import functional as fn
+from veles_tpu_torch.ops import kernels
+
+SOURCE = kernels.CSRC / "lrn_backward.cu"
+
+#: build -> substitutions in the kernel's constants
+BUILDS = {"as written": {},
+          "narrow": {"kTile = 3072;": "kTile = 16;"}}
+
+#: (what, x shape, LRN n, input)
+SHAPES = (("AlexNet L1 C 96, one whole tile", (1, 3, 7, 96), 5, "relu"),
+          ("AlexNet L1 C 96, ragged last tile", (1, 5, 9, 96), 5, "relu"),
+          ("AlexNet L2 C 256, ragged last tile", (1, 3, 5, 256), 5, "relu"),
+          ("C 3", (2, 14, 16, 3), 5, "relu"),
+          ("C 40", (2, 5, 7, 40), 5, "relu"),
+          ("C 70", (2, 5, 7, 70), 5, "relu"),
+          ("LRN n 3", (2, 5, 7, 40), 3, "relu"),
+          ("all zero", (2, 5, 7, 40), 5, "zero"),
+          ("NaN in x", (2, 5, 7, 40), 5, "nan"),
+          ("x not 16-byte aligned, C 96", (1, 5, 9, 96), 5, "misaligned"))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """build name -> the C entry point of K3's source compiled by g++,
+    all builds compiled at once."""
+    gxx = find_gxx()
+    out = tmp_path_factory.mktemp("k3_emulation")
+    started = {name: compile_source(gxx, emulated_source(SOURCE, consts, 1),
+                                    out / f"{name.replace(' ', '_')}.so")
+               for name, consts in BUILDS.items()}
+    return {name: load_entry(*job, name="lrn_backward")
+            for name, job in started.items()}
+
+
+def _inputs(shape, kind, seed=3):
+    rs = np.random.RandomState(seed)
+    x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    if kind == "zero":
+        x[:] = 0.0
+    elif kind == "nan":
+        x[0, 1, 2, 0] = x[1, 4, 6, 39] = x[1, 2, 3, 17] = np.nan
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    if kind == "misaligned":
+        # one float into a fresh buffer: contiguous, 4 bytes past 16
+        buf = torch.empty(x.size + 1, dtype=torch.float32)
+        xt = buf[1:].view(shape)
+        xt.copy_(torch.from_numpy(x))
+        assert xt.data_ptr() % 16 != 0
+        return xt, g
+    return torch.from_numpy(x), g
+
+
+def _run(entry, monkeypatch, shape, n, kind, generic=False):
+    """(K3's source through the wrapper, the plain version) on one
+    input."""
+    x, g = _inputs(shape, kind)
+    sqrt = torch.sqrt
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
+        want = fn.lrn_backward(x, g, K, ALPHA, BETA, n)
+    with wrapper_on(entry, monkeypatch):
+        got = kernels.lrn_backward(x, g, K, ALPHA, BETA, n, generic=generic)
+    return got, want
+
+
+def _assert_bit_equal(got, want):
+    """The same bits everywhere, NaN where the plain version has NaN;
+    returns the count of NaN."""
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0))
+    return int(nan.sum())
+
+
+@pytest.mark.parametrize("build", list(BUILDS))
+@pytest.mark.parametrize("what,shape,n,kind", SHAPES,
+                         ids=[s[0] for s in SHAPES])
+def test_k3_source_is_bit_equal_to_the_plain_version(emulated, monkeypatch,
+                                                     build, what, shape, n,
+                                                     kind):
+    nans = _assert_bit_equal(*_run(emulated[build], monkeypatch, shape, n,
+                                   kind))
+    assert (nans > 0) == (kind == "nan")
+
+
+@pytest.mark.parametrize("build", list(BUILDS))
+def test_k3_generic_instance_at_alexnets_geometry(emulated, monkeypatch,
+                                                  build):
+    """The run-time instance, asked for at AlexNet's geometry (which the
+    compile-time one takes otherwise), gives the plain version's bits and
+    the compile-time instance's."""
+    generic, want = _run(emulated[build], monkeypatch, (1, 5, 9, 96), 5,
+                         "relu", generic=True)
+    fixed, _ = _run(emulated[build], monkeypatch, (1, 5, 9, 96), 5, "relu")
+    _assert_bit_equal(generic, want)
+    assert torch.equal(generic, fixed)
+
+
+def test_a_halo_left_at_zero_fails(tmp_path, monkeypatch):
+    """The emulation sees the channel tiles: a narrow build whose halo of
+    t is never computed (left at zero, as beyond the row's ends) is not
+    bit-equal where a row is cut into tiles."""
+    src = sub(emulated_source(SOURCE, BUILDS["narrow"], 1),
+              "if (c0 + cc >= 0 && c0 + cc < p.C) {", "if (false) {")
+    entry = load_entry(*compile_source(find_gxx(), src,
+                                       tmp_path / "wrong.so"),
+                       name="lrn_backward")
+    with pytest.raises(AssertionError):
+        _assert_bit_equal(*_run(entry, monkeypatch, (2, 5, 7, 40), 5,
+                                "relu"))

@@ -10,9 +10,9 @@ with a small prelude in place of the CUDA runtime:
   turn on `threads` std::threads, one per CUDA thread, with its own
   dynamic shared memory (filled with 0x7f bytes, so that a read of
   anything not staged shows) and a std::barrier for `__syncthreads`;
-- `stage` (a 4-byte cp.async) becomes a 4-byte copy, zeros where the
-  source is out of range, and `stage_wait` nothing, one valid schedule of
-  the asynchronous copies;
+- `stage` and `stage16` (lrn_common.cuh's 4- and 16-byte cp.async)
+  become plain copies, zeros where the source is out of range, and
+  `stage_wait` nothing, one valid schedule of the asynchronous copies;
 - the round-to-nearest intrinsics are plain float operations (compiled
   with -ffp-contract=off, so none becomes an FMA), `__ldg` a load, and
   `rsqrtf` 1/sqrtf, which is what torch.rsqrt computes on the CPU.
@@ -24,7 +24,9 @@ float32 may take MKL's vector sqrt, which can be 1 ulp off.
 Everything else is the kernel's own code: its tile sizing (`fit`), its
 table of covering windows, its byte or word staging of the tap record
 and its sums. The wrapper `kernels.lrn_maxpool_backward` calls it, so the
-argument order of the C entry point is the wrapper's. Besides the build
+argument order of the C entry point is the wrapper's. The emulation
+(`emulated_source`, `compile_source`, `load_entry`, `wrapper_on`) also
+serves K3's test, `test_torch_lrn_backward_tiles.py`. Besides the build
 as written, a "narrow" build shrinks K5's shared-memory target to 3 KB
 and its grid to one sample, so that bands shrink to one row, tiles to
 part of the width and channel tiles below 32, and blocks loop over the
@@ -111,7 +113,7 @@ void launch(dim3 grid, int threads, size_t bytes, void*, F kernel,
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define CUDART_INF_F INFINITY
 using std::isnan;
 using std::max;
@@ -147,6 +149,11 @@ __device__ __forceinline__ void stage(void* dst, const void* src, bool in) {
   if (in) std::memcpy(dst, src, 4); else std::memset(dst, 0, 4);
 }
 
+__device__ __forceinline__ void stage16(void* dst, const void* src,
+                                        bool in) {
+  if (in) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
+}
+
 __device__ __forceinline__ void stage_wait() {}
 """
 
@@ -156,41 +163,45 @@ BUILDS = {"as written": {},
                      "kMaxGridZ = 65535": "kMaxGridZ = 1"}}
 
 
-def _sub(text, old, new, count=1):
+def sub(text, old, new, count=1):
     """`text` with `old` replaced; the kernel source must hold it."""
-    assert text.count(old) == count, f"K5's source no longer holds {old!r}"
+    assert text.count(old) == count, f"the source no longer holds {old!r}"
     return text.replace(old, new)
 
 
-def _emulated_source(consts):
+def emulated_source(source, consts, launches):
+    """The CUDA file `source` (one of csrc/, with `launches` kernels, each
+    launched once) with lrn_common.cuh inlined, the prelude before it, its
+    copies, shared memory and launches emulated, and `consts` (old -> new)
+    substituted: C++ for g++."""
     header = (kernels.CSRC / "lrn_common.cuh").read_text()
-    header = _sub(header, "#include <cuda_runtime.h>", "")
-    src = SOURCE.read_text()
-    src = _sub(src, '#include <math_constants.h>', "")
-    src = _sub(src, '#include "lrn_common.cuh"', header)
-    src, n = re.subn(
-        r"__device__ __forceinline__ void stage\(.*?\n}\n\n"
+    header = sub(header, "#include <cuda_runtime.h>", "")
+    header, n = re.subn(
+        r"__device__ __forceinline__ void stage\(.*?"
         r"__device__ __forceinline__ void stage_wait\(\) {.*?\n}\n",
-        lambda m: STAGE, src, flags=re.S)
-    assert n == 1, "K5's stage/stage_wait are not where the emulation looks"
-    src = _sub(src, "extern __shared__ float4 smem4[];",
-               "float4* const smem4 = emu::smem;", 2)
+        lambda m: STAGE, header, flags=re.S)
+    assert n == 1, "the cp.async copies are not where the emulation looks"
+    src = source.read_text().replace("#include <math_constants.h>", "")
+    src = sub(src, '#include "lrn_common.cuh"', header)
+    src = sub(src, "extern __shared__ float4 smem4[];",
+              "float4* const smem4 = emu::smem;", launches)
     src, n = re.subn(r"(\w+)<<<(.*?)>>>\(", r"emu::launch(\2, \1, ", src,
                      flags=re.S)
-    assert n == 2, "K5 is no longer two launches"
+    assert n == launches, f"{source.name} is no longer {launches} launches"
     for old, new in consts.items():
-        src = _sub(src, old, new)
+        src = sub(src, old, new)
     return PRELUDE + src
 
 
-def _gxx():
+def find_gxx():
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ is not installed: K5's source cannot be emulated")
+        pytest.skip("g++ is not installed: the CUDA source cannot be "
+                    "emulated")
     return gxx
 
 
-def _compile(gxx, src, out):
+def compile_source(gxx, src, out):
     """Start g++ on `src`, the library at `out`; (out, process)."""
     cpp = out.with_suffix(".cpp")
     cpp.write_text(src)
@@ -200,11 +211,12 @@ def _compile(gxx, src, out):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _load(out, proc):
-    """K5's C entry point from a finished `_compile`."""
+def load_entry(out, proc, name="lrn_maxpool_backward"):
+    """The C entry point of kernel `name` from a finished
+    `compile_source`."""
     log = proc.communicate()[0]
     assert proc.returncode == 0, f"g++:\n{log}"
-    symbol = kernels.KERNELS["lrn_maxpool_backward"][1]
+    symbol = kernels.KERNELS[name][1]
     entry = getattr(ctypes.CDLL(str(out)), symbol)
     entry.argtypes = kernels._ARGTYPES[symbol]
     entry.restype = ctypes.c_int
@@ -215,17 +227,17 @@ def _load(out, proc):
 def emulated(tmp_path_factory):
     """build name -> the C entry point of K5's source compiled by g++,
     all builds compiled at once."""
-    gxx = _gxx()
+    gxx = find_gxx()
     out = tmp_path_factory.mktemp("k5_emulation")
-    started = {name: _compile(gxx, _emulated_source(consts),
-                              out / f"{name.replace(' ', '_')}.so")
+    started = {name: compile_source(gxx, emulated_source(SOURCE, consts, 2),
+                                    out / f"{name.replace(' ', '_')}.so")
                for name, consts in BUILDS.items()}
-    return {name: _load(*job) for name, job in started.items()}
+    return {name: load_entry(*job) for name, job in started.items()}
 
 
 @contextlib.contextmanager
-def _wrapper_on(entry, monkeypatch):
-    """`kernels.lrn_maxpool_backward` launching `entry` on CPU tensors."""
+def wrapper_on(entry, monkeypatch):
+    """The kernel wrappers launching `entry` on CPU tensors."""
     with monkeypatch.context() as m:
         m.setattr(kernels, "_on_card", lambda name, x: True)
         m.setattr(kernels, "_entry", lambda name: entry)
@@ -270,7 +282,7 @@ def _case(emulated, monkeypatch, build, shape, ksize, stride, n, kind,
         m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
         want = fn.lrn_maxpool_backward(x, g, K, ALPHA, BETA, n, ksize,
                                        stride)
-    with _wrapper_on(emulated[build], monkeypatch):
+    with wrapper_on(emulated[build], monkeypatch):
         got = kernels.lrn_maxpool_backward(x, g, K, ALPHA, BETA, n, ksize,
                                            stride, generic=generic)
     assert torch.equal(got.isnan(), want.isnan())
@@ -303,10 +315,11 @@ def test_a_wrong_covering_window_fails(tmp_path, monkeypatch):
     """The emulation sees the kernel's index logic: a build whose table of
     covering windows drops the last window of each row and column is not
     bit-equal."""
-    src = _sub(_emulated_source({}),
-               "min((kk - 1 - tap) / s + 1, o + 1)",
-               "min((kk - 1 - tap) / s, o + 1)")
-    entry = _load(*_compile(_gxx(), src, tmp_path / "wrong.so"))
+    src = sub(emulated_source(SOURCE, {}, 2),
+              "min((kk - 1 - tap) / s + 1, o + 1)",
+              "min((kk - 1 - tap) / s, o + 1)")
+    entry = load_entry(*compile_source(find_gxx(), src,
+                                       tmp_path / "wrong.so"))
     with pytest.raises(AssertionError):
         _case({"wrong": entry}, monkeypatch, "wrong", (2, 14, 16, 40),
               (3, 3), (2, 2), 5, "relu")

@@ -7,54 +7,218 @@
 // window sums with shifted adds.
 //
 // Bound on the H100: device-memory bytes. The function must read x and g
-// once and write dx once; even recomputed per output, its ~100 float
-// operations per element stay below the card's f32 rate over 12 bytes.
+// once and write dx once (12 bytes an element); its ~22 float operations
+// and one IEEE sqrt, rsqrt and division per element stay below the card's
+// f32 rate over those bytes, if each is computed once.
 //
-// Design: one thread per element of the (rows, C) view, neighbouring
-// threads on neighbouring channels. dx at channel c needs t = g*x*d/s at
-// c-half..c+half, and each of those s its own channel window, so a thread
-// reads x at c +- 2*half and g at c +- half: ~35 loads that its
-// neighbours make too, served by L1, so device memory sees each byte about
-// once. The arithmetic is lrn_grad in lrn_common.cuh, shared with the
-// fused LRN->max-pool backward (K5), in the plain version's order. Staging
-// a row's x and g in shared memory would cut the repeated loads and the
-// 5x recompute of s; that is later work.
+// Design: a block takes a tile of rb consecutive rows, each at its full
+// width C (AlexNet: 32 rows of 96, 12 of 256), so that no window crosses
+// the tile and nothing is computed twice; a row wider than kTile channels
+// is cut into runs of kTile channels (blockIdx.y), one row a tile, whose
+// halo is recomputed. Per tile:
+//   1. stage by cp.async x at channels [c0 - xp, c0 + ct + xp) of each
+//      row, zeros outside [0, C) (xp = 2*half rounded up to 4, so that
+//      each staged row starts 16-byte aligned), and g at the tile's own
+//      elements, one contiguous run; 16-byte copies where C % 4 == 0 and
+//      x and g are 16-byte aligned, else 4-byte ones.
+//   2. For each own element, once: s (lrn_scale_staged), d = s^(-beta),
+//      t = ((g*x)*d)/s into a staged row of t, and g*d over g. t at the
+//      half channels either side of the tile: 0 outside [0, C) (whole
+//      rows: all of them), else computed the same way from g read there.
+//   3. dx = g*d - (c2*x)*W(t), W in the window sums' order, stored
+//      coalesced. No atomics, no scratch in device memory.
+// Every operation is lrn_common.cuh's, in the same order as the plain
+// version's, so dx is bit-equal to it. Latency is hidden by resident
+// blocks: a tile takes ~38 KB of shared memory and a thread at most 48
+// registers (no per-element state is kept in registers across the
+// barriers), so five blocks of 256 threads share an SM, each loading while
+// another computes. The tile's size, the blocks an SM must hold and the
+// 16-byte copies were chosen by timing their alternatives on an H100
+// (PERF.md). AlexNet's half = 2 and 4*beta = 3 run an instance with them
+// as compile-time constants; any other geometry a generic one, which the
+// caller may also ask for at AlexNet's (`generic`), to time what the
+// constants buy.
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include "lrn_common.cuh"
 
 namespace {
 
-__global__ void lrn_backward_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ g,
-                                    float* __restrict__ dx, int64_t total,
-                                    int C, int half, float k, float alpha,
-                                    int q, float beta, float c2) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const int64_t row = i / C;
-    const int c = static_cast<int>(i - row * C);
-    dx[i] = lrn_grad(x + row * C, g + row * C, c, C, half, k, alpha, q,
-                     beta, c2);
+constexpr int kThreads = 256;
+// blocks an SM must hold: bounds a thread's registers to 48
+constexpr int kMinBlocks = 5;
+// own elements of one tile at most: whole rows of C <= kTile channels,
+// else one row's run of kTile channels (a multiple of 4)
+constexpr int kTile = 3072;
+// dynamic shared memory a block may take without opting in
+constexpr size_t kSmemMax = 48 * 1024;
+constexpr int kMaxGridY = 65535;  // channel tiles a row, at most
+
+struct Geom {
+  int64_t rows, row_tiles;
+  int C, half, q;
+  int ct, rb, n_ct;  // channels and rows of a tile, channel tiles a row
+  int xp, xw, tw;    // x's pad, the staged row widths of x and of t
+  int wide;          // 16-byte copies
+};
+
+// (r, c) of a thread's share (tid, tid + T, ...) of a row-major (*, n)
+// grid, beside the flat index i, with no division per step.
+struct Walk {
+  int i, r, c, di, dr, dc, n;
+  __device__ Walk(int tid, int T, int n_)
+      : i(tid), r(tid / n_), c(tid % n_), di(T), dr(T / n_), dc(T % n_),
+        n(n_) {}
+  __device__ void next() {
+    i += di;
+    r += dr;
+    c += dc;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
   }
+};
+
+template <int kHalf, int kQ>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_backward_kernel(
+    const float* __restrict__ x, const float* __restrict__ g,
+    float* __restrict__ dx, Geom p, float k, float alpha, float beta,
+    float c2) {
+  extern __shared__ float4 smem4[];
+  const int h = kHalf >= 0 ? kHalf : p.half;
+  const int q = kQ >= 0 ? kQ : p.q;
+  float* const xs = reinterpret_cast<float*>(smem4);  // [rb][xw]
+  float* const gs = xs + p.rb * p.xw;  // [rb * ct]: g, then g*d
+  float* const ts = gs + p.rb * p.ct;  // [rb][tw]
+  const Walk own(threadIdx.x, kThreads, p.ct);  // own elements: (rb, ct)
+  const int span = p.wide ? p.xw / 4 : p.xw;    // copies a staged row
+  const Walk copies(threadIdx.x, kThreads, span);
+  const int c0 = blockIdx.y * p.ct;  // the tile's first channel
+  const int nc = min(p.ct, p.C - c0);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * p.rb;
+  const int nr =
+      p.rows - row0 < p.rb ? static_cast<int>(p.rows - row0) : p.rb;
+  // own elements: nr whole rows, or one row's run of nc channels, one
+  // contiguous run either way, flat index i = r*ct + c
+  const int n_own = nr * nc;
+  // the tile's first element in x, g and dx
+  const float* const xt = x + row0 * p.C + c0;
+  const float* const gt = g + row0 * p.C + c0;
+  float* const dt = dx + row0 * p.C + c0;
+  // 1. stage x and g
+  for (Walk w = copies; w.r < nr; w.next()) {
+    const int cc = (p.wide ? 4 * w.c : w.c) - p.xp;  // channel less c0
+    const bool in = c0 + cc >= 0 && c0 + cc < p.C;
+    const float* src = in ? xt + w.r * p.C + cc : x;
+    float* dst = xs + w.r * p.xw + p.xp + cc;
+    if (p.wide)
+      stage16(dst, src, in);
+    else
+      stage(dst, src, in);
+  }
+  if (p.wide)
+    for (int i = 4 * threadIdx.x; i < n_own; i += 4 * kThreads)
+      stage16(gs + i, gt + i, true);
+  else
+    for (int i = threadIdx.x; i < n_own; i += kThreads)
+      stage(gs + i, gt + i, true);
+  stage_wait();
+  __syncthreads();
+  // 2. s, d and t once per own element
+  for (Walk w = own; w.i < n_own; w.next()) {
+    const float* xc = xs + w.r * p.xw + p.xp + w.c;
+    const float s = lrn_scale_staged(xc, h, k, alpha);
+    const float d = lrn_pow_neg(s, q, beta);
+    const float gv = gs[w.i];
+    ts[w.r * p.tw + h + w.c] = lrn_grad_term(gv, xc[0], s, d);
+    gs[w.i] = __fmul_rn(gv, d);
+  }
+  // t at [c0 - h, c0) and [c0 + nc, c0 + nc + h) of each row
+  for (int i = threadIdx.x; i < nr * 2 * h; i += kThreads) {
+    const int r = i / (2 * h), j = i - r * 2 * h;
+    const int cc = j < h ? j - h : nc + j - h;  // channel less c0
+    float t = 0.0f;
+    if (c0 + cc >= 0 && c0 + cc < p.C) {
+      const float* xc = xs + r * p.xw + p.xp + cc;
+      const float s = lrn_scale_staged(xc, h, k, alpha);
+      t = lrn_grad_term(__ldg(gt + r * p.C + cc), xc[0], s,
+                        lrn_pow_neg(s, q, beta));
+    }
+    ts[r * p.tw + h + cc] = t;
+  }
+  __syncthreads();
+  // 3. dx
+  for (Walk w = own; w.i < n_own; w.next())
+    dt[w.i] = __fsub_rn(
+        gs[w.i],
+        __fmul_rn(__fmul_rn(c2, xs[w.r * p.xw + p.xp + w.c]),
+                  lrn_window_staged(ts + w.r * p.tw + h + w.c, h)));
+}
+
+// The tiles of C-wide rows under a window of 2*half + 1 channels (all of
+// Geom but rows, q, row_tiles and wide); false where one staged row
+// would exceed kSmemMax or a row have more than kMaxGridY tiles.
+bool plan(int C, int half, Geom* p) {
+  if (C < 1 || half < 0 || half > kTile) return false;
+  p->C = C;
+  p->half = half;
+  p->ct = std::min(C, kTile);
+  p->n_ct = (C + p->ct - 1) / p->ct;
+  p->xp = (2 * half + 3) / 4 * 4;
+  p->xw = p->ct + 2 * p->xp;
+  p->tw = p->ct + 2 * half;
+  const size_t row_bytes = (p->xw + p->ct + p->tw) * sizeof(float);
+  p->rb = static_cast<int>(
+      std::min<size_t>(kTile / p->ct, kSmemMax / row_bytes));
+  return p->rb > 0 && p->n_ct <= kMaxGridY;
+}
+
+size_t smem_bytes(const Geom& p) {
+  return p.rb * (p.xw + p.ct + p.tw) * sizeof(float);
+}
+
+template <int kHalf, int kQ>
+cudaError_t launch(const float* x, const float* g, float* dx, const Geom& p,
+                   float k, float alpha, float beta, float c2,
+                   cudaStream_t st) {
+  auto* kernel = lrn_backward_kernel<kHalf, kQ>;
+  const dim3 grid(static_cast<unsigned>(p.row_tiles), p.n_ct);
+  kernel<<<grid, kThreads, smem_bytes(p), st>>>(x, g, dx, p, k, alpha, beta,
+                                                c2);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// `generic` nonzero takes the run-time instance at any geometry. A window
+// so wide that one staged row of kTile channels exceeds kSmemMax (half
+// above ~500) returns cudaErrorInvalidValue.
 extern "C" int lrn_backward_f32(const float* x, const float* g, float* dx,
                                 int64_t rows, int C, int half, float k,
                                 float alpha, int q, float beta, float c2,
-                                void* stream) {
-  const int64_t total = rows * static_cast<int64_t>(C);
-  if (total > 0) {
-    const int threads = 256;
-    int64_t blocks = (total + threads - 1) / threads;
-    if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
-    lrn_backward_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        x, g, dx, total, C, half, k, alpha, q, beta, c2);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                int generic, void* stream) {
+  if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
+  Geom p{};
+  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  p.rows = rows;
+  p.q = q;
+  p.row_tiles = (rows + p.rb - 1) / p.rb;
+  if (p.row_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  p.wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      !generic && half == 2 && q == 3
+          ? launch<2, 3>(x, g, dx, p, k, alpha, beta, c2, st)
+          : launch<-1, -1>(x, g, dx, p, k, alpha, beta, c2, st);
+  return static_cast<int>(err);
+}
+
+// The dynamic shared memory one block takes for C-wide rows (-1: refused).
+extern "C" int lrn_backward_smem_bytes(int C, int half) {
+  Geom p{};
+  return plan(C, half, &p) ? static_cast<int>(smem_bytes(p)) : -1;
 }

@@ -8,9 +8,12 @@
 // when 4*beta is an integer q in [1, 16] (AlexNet: beta = 0.75, q = 3),
 // else powf.
 //
-// The gradient (lrn_grad) is the closed form of the JAX package's
-// `_lrn_bwd_kernel`: dx = g*d - c2*x*W(t), t = g*x*d/s, d = s^(-beta),
-// c2 = 2*alpha*beta, with W the same window sum.
+// The gradient is the closed form of the JAX package's `_lrn_bwd_kernel`:
+// dx = g*d - (c2*x)*W(t), t = ((g*x)*d)/s, d = s^(-beta), c2 =
+// 2*alpha*beta, with W the same window sum. The backward kernels (K3, K5)
+// stage channel runs of x in shared memory, compute s, d and t once per
+// element (lrn_scale_staged, lrn_pow_neg, lrn_grad_term) into a staged run
+// of t, zero outside [0, C), and sum it with lrn_window_staged.
 //
 // Every multiply and add is spelled with the round-to-nearest intrinsics
 // so that nvcc contracts none of them into an FMA: the LRN value is then
@@ -83,35 +86,42 @@ __device__ __forceinline__ float lrn_value_staged(const float* xs, int half,
                    lrn_pow_neg(lrn_scale_staged(xs, half, k, alpha), q, beta));
 }
 
-// t = ((g*x)*d)/s at channel c; also hands back d = s^(-beta).
-__device__ __forceinline__ float lrn_grad_term(const float* __restrict__ x,
-                                               const float* __restrict__ g,
-                                               int c, int C, int half,
-                                               float k, float alpha, int q,
-                                               float beta, float* d_out) {
-  const float s = lrn_scale(x, c, C, half, k, alpha);
-  const float d = lrn_pow_neg(s, q, beta);
-  *d_out = d;
-  return __fdiv_rn(__fmul_rn(__fmul_rn(__ldg(g + c), __ldg(x + c)), d), s);
+// t = ((g*x)*d)/s of one element, from its s and d = s^(-beta).
+__device__ __forceinline__ float lrn_grad_term(float g, float x, float s,
+                                               float d) {
+  return __fdiv_rn(__fmul_rn(__fmul_rn(g, x), d), s);
 }
 
-// dx at channel c of the channel rows x and g (the incoming gradient).
-__device__ __forceinline__ float lrn_grad(const float* __restrict__ x,
-                                          const float* __restrict__ g, int c,
-                                          int C, int half, float k,
-                                          float alpha, int q, float beta,
-                                          float c2) {
-  float d_c, unused;
-  float tsum = lrn_grad_term(x, g, c, C, half, k, alpha, q, beta, &d_c);
-  for (int dd = 1; dd <= half; ++dd) {
-    const float hi = (c + dd < C) ? lrn_grad_term(x, g, c + dd, C, half, k,
-                                                  alpha, q, beta, &unused)
-                                  : 0.0f;
-    const float lo = (c - dd >= 0) ? lrn_grad_term(x, g, c - dd, C, half, k,
-                                                   alpha, q, beta, &unused)
-                                   : 0.0f;
-    tsum = __fadd_rn(__fadd_rn(tsum, hi), lo);
-  }
-  return __fsub_rn(__fmul_rn(__ldg(g + c), d_c),
-                   __fmul_rn(__fmul_rn(c2, __ldg(x + c)), tsum));
+// W(t) of a staged run of t: `ts` points at the centre channel and
+// ts[-half..half] hold its window, zero outside [0, C). The centre, then
+// +d and -d for d = 1..half, as every window sum here.
+__device__ __forceinline__ float lrn_window_staged(const float* ts,
+                                                   int half) {
+  float acc = ts[0];
+  for (int d = 1; d <= half; ++d)
+    acc = __fadd_rn(__fadd_rn(acc, ts[d]), ts[-d]);
+  return acc;
+}
+
+// Four bytes from device to shared memory by cp.async, zeros where `in`
+// is false (src-size 0: nothing is read): a thread issues all its copies
+// of a tile before any arrives.
+__device__ __forceinline__ void stage(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Sixteen bytes likewise; `dst` and `src` 16-byte aligned.
+__device__ __forceinline__ void stage16(void* dst, const void* src,
+                                        bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

@@ -43,8 +43,8 @@
 //      this tap, summed from 0 in tap order, dy then dx ascending, through
 //      a per-row and per-column table of covering windows) and t =
 //      ((g_lrn*x)*d)/s, 0 outside [0, C). Then dx = g_lrn*d - (c2*x)*W(t)
-//      at the CT channels, W in lrn_grad's order (centre, +d, -d), written
-//      straight to device memory.
+//      at the CT channels (lrn_window_staged), written straight to device
+//      memory.
 // Every operation is lrn_common.cuh's, in the same order, so the result
 // is bit-equal to the plain version, as the three-launch design before it
 // was.
@@ -143,20 +143,6 @@ struct Walk {
     }
   }
 };
-
-// Four bytes from device to shared memory by cp.async, zeros where `in`
-// is false (src-size 0: nothing is read): a thread issues all its copies
-// of a tile before any arrives.
-__device__ __forceinline__ void stage(void* dst, const void* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void stage_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((b - 1 - a) / b);
@@ -335,7 +321,7 @@ __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
     stage_wait();
     __syncthreads();
     // Every index stays inside the staged tiles; a channel outside [0, C)
-    // gets t = 0, as lrn_grad adds there.
+    // gets t = 0, as the plain version's window sum adds there.
     for (Walk w(threadIdx.x, blockDim.x, nc, cte); w.i0 < nr; w.next()) {
       const float* xc = xs + (w.i0 * nc + w.i1) * ctx + h + w.i2;
       const float s = lrn_scale_staged(xc, h, k, alpha);
@@ -358,9 +344,7 @@ __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
         }
       }
       const int c = c0 - h + w.i2;
-      ts[w.i] = c >= 0 && c < p.C
-                    ? __fdiv_rn(__fmul_rn(__fmul_rn(acc, xc[0]), d), s)
-                    : 0.0f;
+      ts[w.i] = c >= 0 && c < p.C ? lrn_grad_term(acc, xc[0], s, d) : 0.0f;
       if (w.i2 >= h && w.i2 < h + ct)
         gd[(w.i0 * nc + w.i1) * ct + w.i2 - h] = __fmul_rn(acc, d);
     }
@@ -370,10 +354,7 @@ __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
       const int c = c0 + w.i2;
       if (c >= p.C) continue;
       const int px = w.i0 * nc + w.i1;
-      const float* tc = ts + px * cte + h + w.i2;
-      float tsum = tc[0];
-      for (int dd = 1; dd <= h; ++dd)
-        tsum = __fadd_rn(__fadd_rn(tsum, tc[dd]), tc[-dd]);
+      const float tsum = lrn_window_staged(ts + px * cte + h + w.i2, h);
       const float xv = xs[px * ctx + 2 * h + w.i2];
       dxn[((r0 + w.i0) * p.W + q0 + w.i1) * p.C + c] =
           __fsub_rn(gd[w.i], __fmul_rn(__fmul_rn(c2, xv), tsum));

@@ -175,8 +175,9 @@ _ARGTYPES = {
     "sgd_update_f32": [_P, _P, _P, _L, _F, _F, _F, _P],
     # x, y, rows, C, half, k, alpha, q, beta, stream
     "lrn_forward_f32": [_P, _P, _L, _I, _I, _F, _F, _I, _F, _P],
-    # x, g, dx, rows, C, half, k, alpha, q, beta, c2, stream
-    "lrn_backward_f32": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _F, _F, _P],
+    # x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic, stream
+    "lrn_backward_f32": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _F, _F, _I,
+                         _P],
     # x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q, beta,
     # stream
     "lrn_maxpool_forward_f32": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
@@ -352,10 +353,13 @@ def lrn_backward_plain(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
 
 
 def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
-                 alpha: float = 1e-4, beta: float = 0.75,
-                 n: int = 5) -> torch.Tensor:
+                 alpha: float = 1e-4, beta: float = 0.75, n: int = 5, *,
+                 generic: bool = False) -> torch.Tensor:
     """Gradient of the LRN of NHWC `x` given the output gradient `g`: K3
-    for CUDA tensors, the plain version for CPU ones."""
+    for CUDA tensors, the plain version for CPU ones. K3 runs AlexNet's
+    geometry (n 5, beta 0.75) as an instance with it compiled in, unless
+    `generic`, which takes the run-time instance every other geometry
+    takes (the same bits; it times what the constants buy)."""
     if not _on_card("lrn_backward", x):
         return lrn_backward_plain(x, g, k, alpha, beta, n)
     _check_lrn_args(x, n, 4)
@@ -367,7 +371,7 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
         status = _entry("lrn_backward")(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, n // 2, k,
             alpha, fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
-            _stream(x))
+            int(generic), _stream(x))
     _check_status("lrn_backward", status)
     _count("lrn_backward")
     return dx
