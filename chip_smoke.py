@@ -7,16 +7,23 @@
 2. Build the port's CUDA kernels from veles_tpu_torch/csrc/ (nvcc, one
    process per source, all at once) and print the build seconds, then
    BUILD lines: each compiled kernel function's registers, stack, local
-   memory (spills land there) and static shared memory, and the dynamic
+   memory (spills land there) and static shared memory, the dynamic
    shared memory K6 takes per block at each head width and K3 at
-   AlexNet's two LRN widths.
+   AlexNet's two LRN widths, and K4's and K2's at AlexNet's two LRN
+   inputs with the blocks of each instance an SM holds at its registers.
 3. KERNEL lines. Each kernel is held against its plain PyTorch version on
    the same inputs and timed beside its plain version and the least time
    the card could take, each launch with a cold L2 cache (median of 25):
    - K2 (LRN forward) and K4 (fused LRN -> max pool forward) at both
      AlexNet LRN shapes at the serving ring's batch 64, K2 also beside the
      one PyTorch call computing the same function (F.local_response_norm,
-     checked first to agree);
+     checked first to agree). Both must give the plain version's bits,
+     also through their run-time (generic) instances and with 4-byte
+     copies (x not 16-byte aligned), each timed. Before them, K4 small
+     checks (K4 lines: K5's small-check shapes below and a 2x2 stride 3
+     pool whose last window lies wholly past the edge, -inf there) and
+     K2 small checks (K2 lines: K3's small-check shapes below), each
+     bit-equal to the plain version (NaN where it has NaN);
    - K3 (LRN backward) and K5 (fused LRN -> max pool backward: a route
      launch, then a gather and LRN-backward launch) at both shapes at the
      training batch 128, on post-ReLU inputs (half zeros, so pooling
@@ -226,7 +233,9 @@ def card_peaks(name: str):
 def print_resource_usage(libs):
     """One BUILD line per compiled kernel function: its registers, stack
     and local memory (spills land there) and static shared memory, as
-    cuobjdump reads them from the built library."""
+    cuobjdump reads them from the built library. Returns each library's
+    functions' registers ({} where cuobjdump did not run)."""
+    regs = {}
     tool = (shutil.which("cuobjdump")
             or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                             "bin", "cuobjdump"))
@@ -237,10 +246,13 @@ def print_resource_usage(libs):
                                  check=True).stdout
         except (OSError, subprocess.SubprocessError) as e:
             print(f"BUILD resource usage not read: {e}", flush=True)
-            return
+            return {}
         for func, usage in re.findall(r"Function (\S+?):\s+(REG:[^\n]*)",
                                       out):
             print(f"BUILD {name} {func}: {usage.strip()}", flush=True)
+            regs.setdefault(name, {})[func] = int(
+                re.match(r"REG:(\d+)", usage).group(1))
+    return regs
 
 
 def print_flash_smem(libs, kernels):
@@ -267,6 +279,57 @@ def print_lrn_backward_smem(libs):
                       for _, _, c in LRN_SHAPES)
     print(f"BUILD lrn_backward dynamic shared memory per block: {sizes}",
           flush=True)
+
+
+#: an H100 SM's limits on the blocks it holds at once: registers (a
+#: warp's allocated in units of 256), shared memory (1 KB more a block),
+#: threads and blocks
+SM_REGS, REG_UNIT, SM_SMEM, BLOCK_SMEM_EXTRA = 65536, 256, 233472, 1024
+SM_THREADS, SM_BLOCKS = 2048, 32
+#: threads of a K4 and of a K2 block (the sources' kThreads)
+LRN_FORWARD_THREADS = 256
+
+
+def blocks_per_sm(regs: int, smem: int, threads: int) -> int:
+    """The blocks of `threads` threads, `regs` registers a thread and
+    `smem` bytes of dynamic shared memory that one SM holds at once."""
+    warp_regs = -(-regs * 32 // REG_UNIT) * REG_UNIT
+    return min(SM_BLOCKS, SM_THREADS // threads,
+               SM_REGS // (warp_regs * (threads // 32)),
+               SM_SMEM // (smem + BLOCK_SMEM_EXTRA))
+
+
+def print_forward_smem(libs, regs):
+    """BUILD lines: the dynamic shared memory one K4 block takes at each of
+    AlexNet's LRN inputs under its 3x3/2 pool and one K2 block at each of
+    its LRN widths, as the kernels' own sources size them, and the blocks
+    an SM holds of each instance at the registers cuobjdump read."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+    k4 = ctypes.CDLL(str(libs["lrn_maxpool_forward"])).\
+        lrn_maxpool_forward_smem_bytes
+    k4.argtypes = [ctypes.c_int] * 10
+    k4.restype = ctypes.c_int
+    k2 = ctypes.CDLL(str(libs["lrn_forward"])).lrn_forward_smem_bytes
+    k2.argtypes = [ctypes.c_int] * 2
+    k2.restype = ctypes.c_int
+    for layer, (h, w, c) in zip(("L1", "L2"), LRN_SHAPES):
+        for name, smem in (
+                ("lrn_maxpool_forward",
+                 k4(h, w, c, *pool_out_hw(h, w, 3, 3, 2, 2), 3, 3, 2, 2,
+                    N // 2)),
+                ("lrn_forward", k2(c, N // 2))):
+            if smem < 0:
+                raise RuntimeError(f"{name} refuses AlexNet's {layer}")
+            parts = []
+            for func, r in sorted(regs.get(name, {}).items()):
+                # the generic instance's template arguments are all -1
+                what = "generic" if "Lin1E" in func else "compile-time"
+                parts.append(f"{what} instance ({r} registers) "
+                             f"{blocks_per_sm(r, smem, LRN_FORWARD_THREADS)} "
+                             f"blocks an SM")
+            print(f"BUILD {name} {layer} ({h}x{w}x{c}): {smem} B dynamic "
+                  f"shared memory per block, "
+                  f"{', '.join(parts) or 'registers not read'}", flush=True)
 
 
 class ColdTimer:
@@ -315,8 +378,72 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(diff.max())
 
 
+def small_input(rs, shape, kind):
+    x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    if kind == "zero":
+        x[:] = 0.0
+    elif kind == "nan":
+        x[0, 2, 2, 3] = x[1, 13, 15, 39] = x[1, 6, 0, 0] = np.nan
+    return x
+
+
+def assert_same_bits(name: str, got: torch.Tensor, want: torch.Tensor):
+    """The same bits as the plain version, NaN exactly where it has NaN;
+    returns the count of NaN."""
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        raise AssertionError(f"{name}: NaN at other places than the plain "
+                             f"version's")
+    got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
+    if not torch.equal(got, want):
+        err = float((got - want).abs().max())
+        raise AssertionError(f"{name}: not the plain version's bits (max "
+                             f"abs err {err:.3e})")
+    return int(nan.sum())
+
+
+def forward_small_checks(kernels, dev):
+    """K4 and K2 against their plain versions at K4_SMALL's and K2_SMALL's
+    shapes: the same bits, NaN exactly where the plain version has NaN."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+    rs = np.random.RandomState(11)
+    for what, shape, ksize, stride, kind in K4_SMALL:
+        x = torch.from_numpy(small_input(rs, shape, kind)).to(dev)
+        got = kernels.lrn_maxpool_forward(x, K, ALPHA, BETA, N, ksize,
+                                          stride)
+        want = kernels.lrn_maxpool_forward_plain(x, K, ALPHA, BETA, N,
+                                                 ksize, stride)
+        torch.cuda.synchronize()
+        nan = assert_same_bits(f"lrn_maxpool_forward {what}", got, want)
+        oh, ow = pool_out_hw(shape[1], shape[2], *ksize, *stride)
+        print(f"K4 {what} x {list(shape)} {ksize[0]}x{ksize[1]}/"
+              f"{stride[0]}x{stride[1]} -> {oh}x{ow}: {nan} NaN, "
+              f"{int(torch.isneginf(want).sum())} -inf, bit-equal",
+              flush=True)
+    for what, shape, n, kind in K2_SMALL:
+        x = torch.from_numpy(small_input(rs, shape, kind)).to(dev)
+        got = kernels.lrn_forward(x, K, ALPHA, BETA, n)
+        want = kernels.lrn_forward_plain(x, K, ALPHA, BETA, n)
+        torch.cuda.synchronize()
+        nan = assert_same_bits(f"lrn_forward {what}", got, want)
+        print(f"K2 {what} x {list(shape)} n {n}: {nan} NaN, bit-equal",
+              flush=True)
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """`x` again, one float into a buffer: contiguous but not 16-byte
+    aligned, so the LRN kernels stage it by 4-byte copies."""
+    xm = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+    xm.copy_(x)
+    return xm
+
+
 def kernel_phase(kernels, dev, bw, flops):
-    """Hold K2 and K4 against their plain versions and time them."""
+    """Hold K2 and K4 against their plain versions and time them: the
+    small checks, then AlexNet's two LRN inputs at the ring's batch, where
+    each must give the plain version's bits, also through its generic
+    instance and with 4-byte copies, each timed."""
+    forward_small_checks(kernels, dev)
     timer = ColdTimer(dev)
     rs = np.random.RandomState(0)
     rows = {"lrn_forward": [], "lrn_maxpool_forward": []}
@@ -326,14 +453,23 @@ def kernel_phase(kernels, dev, bw, flops):
         # windows tie as they do on the served path
         x = torch.from_numpy(np.maximum(rs.randn(*shape), 0)
                              .astype(np.float32)).to(dev)
+        xm = misaligned(x)
         nbytes = x.numel() * 4
         with torch.inference_mode():
             # -- K2 --------------------------------------------------------
             yk = kernels.lrn_forward(x, K, ALPHA, BETA, N)
             yp = kernels.lrn_forward_plain(x, K, ALPHA, BETA, N)
+            yg = kernels.lrn_forward(x, K, ALPHA, BETA, N, generic=True)
+            y4 = kernels.lrn_forward(xm, K, ALPHA, BETA, N)
             torch.cuda.synchronize()
             err = check_close(f"lrn_forward {layer}", yk, yp, KERNEL_RTOL,
                               KERNEL_ATOL)
+            for what, other in (("plain version", yp),
+                                ("generic instance", yg),
+                                ("4-byte copies", y4)):
+                if not torch.equal(yk, other):
+                    raise AssertionError(f"lrn_forward {layer}: the {what} "
+                                         f"gives other bits")
 
             def lib():
                 return F.local_response_norm(x.permute(0, 3, 1, 2), size=N,
@@ -346,6 +482,10 @@ def kernel_phase(kernels, dev, bw, flops):
                 "shape": list(shape), "max_abs_err": err,
                 "ms": timer(lambda: kernels.lrn_forward(x, K, ALPHA, BETA,
                                                         N)),
+                "generic_ms": timer(lambda: kernels.lrn_forward(
+                    x, K, ALPHA, BETA, N, generic=True)),
+                "copy4_ms": timer(lambda: kernels.lrn_forward(
+                    xm, K, ALPHA, BETA, N)),
                 "plain_ms": timer(lambda: kernels.lrn_forward_plain(
                     x, K, ALPHA, BETA, N)),
                 "library_ms": timer(lib), "bound_ms": bound,
@@ -355,9 +495,18 @@ def kernel_phase(kernels, dev, bw, flops):
             # -- K4 --------------------------------------------------------
             zk = kernels.lrn_maxpool_forward(x, K, ALPHA, BETA, N)
             zp = kernels.lrn_maxpool_forward_plain(x, K, ALPHA, BETA, N)
+            zg = kernels.lrn_maxpool_forward(x, K, ALPHA, BETA, N,
+                                             generic=True)
+            z4 = kernels.lrn_maxpool_forward(xm, K, ALPHA, BETA, N)
             torch.cuda.synchronize()
             err = check_close(f"lrn_maxpool_forward {layer}", zk, zp,
                               KERNEL_RTOL, KERNEL_ATOL)
+            for what, other in (("plain version", zp),
+                                ("generic instance", zg),
+                                ("4-byte copies", z4)):
+                if not torch.equal(zk, other):
+                    raise AssertionError(f"lrn_maxpool_forward {layer}: the "
+                                         f"{what} gives other bits")
             t_bytes = (nbytes + zk.numel() * 4) / bw
             t_ops = (lrn_ops(x.numel()) + zk.numel() * 8) / flops
             rows["lrn_maxpool_forward"].append({
@@ -365,6 +514,10 @@ def kernel_phase(kernels, dev, bw, flops):
                 "max_abs_err": err,
                 "ms": timer(lambda: kernels.lrn_maxpool_forward(
                     x, K, ALPHA, BETA, N)),
+                "generic_ms": timer(lambda: kernels.lrn_maxpool_forward(
+                    x, K, ALPHA, BETA, N, generic=True)),
+                "copy4_ms": timer(lambda: kernels.lrn_maxpool_forward(
+                    xm, K, ALPHA, BETA, N)),
                 "plain_ms": timer(lambda: kernels.lrn_maxpool_forward_plain(
                     x, K, ALPHA, BETA, N)),
                 "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -376,7 +529,12 @@ def kernel_phase(kernels, dev, bw, flops):
                   f"{r['library_ms']} bound_ms {r['bound_ms']:.4f} "
                   f"({r['bound_by']}) max_abs_err {r['max_abs_err']:.3e}",
                   flush=True)
-        del x, yk, yp, zk, zp
+            print(f"KERNEL {name} {layer}: bit-equal to the plain version; "
+                  f"generic instance ms {r['generic_ms']:.4f}, 4-byte copies "
+                  f"(x not 16-byte aligned) ms {r['copy4_ms']:.4f}, both "
+                  f"bit-equal (compile-time instance, 16-byte copies "
+                  f"{r['ms']:.4f})", flush=True)
+        del x, xm, yk, yp, yg, y4, zk, zp, zg, z4
     return rows
 
 
@@ -570,17 +728,20 @@ K5_SMALL = (("clipped both axes, C 40", (2, 14, 16, 40), (3, 3), (2, 2),
             ("2x2 stride 2", (2, 13, 15, 40), (2, 2), (2, 2), "relu"))
 
 
+#: K4 small checks: K5's and a 2x2 stride 3 pool whose last pooled row
+#: and column lie wholly past the edge (-inf there); (what, x shape,
+#: window, stride, input)
+K4_SMALL = K5_SMALL + (("empty last window, 2x2 stride 3",
+                        (2, 12, 12, 40), (2, 2), (3, 3), "relu"),)
+
+
 def k5_small_checks(kernels, dev):
     """K5 against its plain version at K5_SMALL's shapes: within the
     kernel gate, NaN exactly where the plain version has NaN."""
     from veles_tpu_torch.ops.functional import pool_out_hw
     rs = np.random.RandomState(8)
     for what, shape, ksize, stride, kind in K5_SMALL:
-        x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
-        if kind == "zero":
-            x[:] = 0.0
-        elif kind == "nan":
-            x[0, 2, 2, 3] = x[1, 13, 15, 39] = x[1, 6, 0, 0] = np.nan
+        x = small_input(rs, shape, kind)
         oh, ow = pool_out_hw(shape[1], shape[2], *ksize, *stride)
         g = rs.randn(shape[0], oh, ow, shape[3]).astype(np.float32)
         xt, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
@@ -617,33 +778,25 @@ K3_SMALL = (("ragged last tile, C 96", (3, 5, 9, 96), 5, "relu"),
             ("channel tiles, C 4100", (1, 3, 5, 4100), 5, "relu"))
 
 
+#: K2 small checks: K3's (ragged last tiles, rows of 4098 and 4100
+#: channels cut into channel tiles); (what, x shape, LRN n, input)
+K2_SMALL = K3_SMALL
+
+
 def k3_small_checks(kernels, dev):
     """K3 against its plain version at K3_SMALL's shapes: the same bits,
     NaN exactly where the plain version has NaN."""
     rs = np.random.RandomState(10)
     for what, shape, n, kind in K3_SMALL:
-        x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
-        if kind == "zero":
-            x[:] = 0.0
-        elif kind == "nan":
-            x[0, 2, 2, 3] = x[1, 13, 15, 39] = x[1, 6, 0, 0] = np.nan
+        x = small_input(rs, shape, kind)
         g = rs.randn(*shape).astype(np.float32)
         xt, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
         got = kernels.lrn_backward(xt, gt, K, ALPHA, BETA, n)
         want = kernels.lrn_backward_plain(xt, gt, K, ALPHA, BETA, n)
         torch.cuda.synchronize()
-        nan = want.isnan()
-        if not torch.equal(got.isnan(), nan):
-            raise AssertionError(f"lrn_backward {what}: NaN at other places "
-                                 f"than the plain version's")
-        got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
-        err = check_close(f"lrn_backward {what}", got, want, KERNEL_RTOL,
-                          KERNEL_ATOL)
-        if not torch.equal(got, want):
-            raise AssertionError(f"lrn_backward {what}: not the plain "
-                                 f"version's bits (max abs err {err:.3e})")
-        print(f"K3 {what} x {list(shape)} n {n}: {int(nan.sum())} NaN, "
-              f"bit-equal", flush=True)
+        nan = assert_same_bits(f"lrn_backward {what}", got, want)
+        print(f"K3 {what} x {list(shape)} n {n}: {nan} NaN, bit-equal",
+              flush=True)
 
 
 def backward_kernel_phase(kernels, dev, bw, flops):
@@ -662,10 +815,7 @@ def backward_kernel_phase(kernels, dev, bw, flops):
         g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
         nbytes = x.numel() * 4
         # -- K3 ---------------------------------------------------------------
-        # x again, one float into a buffer: not 16-byte aligned, so K3
-        # stages it by 4-byte copies
-        xm = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
-        xm.copy_(x)
+        xm = misaligned(x)
         dk = kernels.lrn_backward(x, g, K, ALPHA, BETA, N)
         dp = kernels.lrn_backward_plain(x, g, K, ALPHA, BETA, N)
         dg = kernels.lrn_backward(x, g, K, ALPHA, BETA, N, generic=True)
@@ -1656,9 +1806,10 @@ def main() -> int:
     libs = kernels.build()
     print(f"BUILD {len(libs)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    print_resource_usage(libs)
+    regs = print_resource_usage(libs)
     print_flash_smem(libs, kernels)
     print_lrn_backward_smem(libs)
+    print_forward_smem(libs, regs)
     rows = kernel_phase(kernels, dev, bw, flops)
     backward_rows, k5_other = backward_kernel_phase(kernels, dev, bw, flops)
     rows.update(backward_rows)
@@ -1718,6 +1869,11 @@ def main() -> int:
                          else "operations"),
             "library_ms": None if None in lib else sum(lib),
             "shapes": per_shape})
+        for key in ("generic_ms", "copy4_ms"):
+            # the generic instance and the 4-byte copies (x not 16-byte
+            # aligned), summed like ms, where the kernel has them
+            if all(key in r for r in per_shape):
+                entries[-1][key] = sum(r[key] for r in per_shape)
         if "bound_f32_ms" in per_shape[0]:
             # K6's and K7's bounds at the tensor cores' TF32 rate, and
             # beside them in f32 on the CUDA cores

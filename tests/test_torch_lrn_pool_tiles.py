@@ -9,7 +9,9 @@ with a small prelude in place of the CUDA runtime:
 - a launch `k<<<grid, threads, smem, stream>>>(...)` runs each block in
   turn on `threads` std::threads, one per CUDA thread, with its own
   dynamic shared memory (filled with 0x7f bytes, so that a read of
-  anything not staged shows) and a std::barrier for `__syncthreads`;
+  anything not staged shows), a std::barrier for `__syncthreads` and
+  one of 32 threads per warp for `__syncwarp`;
+- the csrc/ headers a source includes are inlined, each once;
 - `stage` and `stage16` (lrn_common.cuh's 4- and 16-byte cp.async)
   become plain copies, zeros where the source is out of range, and
   `stage_wait` nothing, one valid schedule of the asynchronous copies;
@@ -26,7 +28,8 @@ table of covering windows, its byte or word staging of the tap record
 and its sums. The wrapper `kernels.lrn_maxpool_backward` calls it, so the
 argument order of the C entry point is the wrapper's. The emulation
 (`emulated_source`, `compile_source`, `load_entry`, `wrapper_on`) also
-serves K3's test, `test_torch_lrn_backward_tiles.py`. Besides the build
+serves K3's test, `test_torch_lrn_backward_tiles.py`, and K4's and K2's,
+`test_torch_lrn_forward_tiles.py`. Besides the build
 as written, a "narrow" build shrinks K5's shared-memory target to 3 KB
 and its grid to one sample, so that bands shrink to one row, tiles to
 part of the width and channel tiles below 32, and blocks loop over the
@@ -59,6 +62,7 @@ PRELUDE = r"""
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -72,16 +76,21 @@ namespace emu {
 inline thread_local dim3 thread_idx, block_idx;
 inline dim3 block_dim, grid_dim;
 inline std::barrier<>* bar = nullptr;
+inline std::deque<std::barrier<>>* warp_bars = nullptr;
 inline float4* smem = nullptr;
 
 // Every block in turn on `threads` threads; a barrier between blocks,
-// and the shared memory refilled with 0x7f bytes before each.
+// and the shared memory refilled with 0x7f bytes before each; a barrier
+// of 32 threads for each warp's __syncwarp.
 template <class F, class... A>
 void launch(dim3 grid, int threads, size_t bytes, void*, F kernel,
             A... args) {
   std::vector<float4> buf(bytes / sizeof(float4) + 1);
   std::barrier<> b(threads);
   bar = &b;
+  std::deque<std::barrier<>> wb;
+  for (int w = 0; w < threads / 32; ++w) wb.emplace_back(32);
+  warp_bars = &wb;
   smem = buf.data();
   block_dim = dim3(threads);
   grid_dim = grid;
@@ -110,8 +119,10 @@ void launch(dim3 grid, int threads, size_t bytes, void*, F kernel,
 #define blockDim emu::block_dim
 #define gridDim emu::grid_dim
 #define __syncthreads() emu::bar->arrive_and_wait()
+#define __syncwarp() (*emu::warp_bars)[emu::thread_idx.x / 32].arrive_and_wait()
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define CUDART_INF_F INFINITY
@@ -169,20 +180,40 @@ def sub(text, old, new, count=1):
     return text.replace(old, new)
 
 
+def _header(name):
+    """csrc/`name` as C++ for g++: lrn_common.cuh's cp.async copies
+    emulated."""
+    text = (kernels.CSRC / name).read_text()
+    if name == "lrn_common.cuh":
+        text = sub(text, "#include <cuda_runtime.h>", "")
+        text, n = re.subn(
+            r"__device__ __forceinline__ void stage\(.*?"
+            r"__device__ __forceinline__ void stage_wait\(\) {.*?\n}\n",
+            lambda m: STAGE, text, flags=re.S)
+        assert n == 1, "the cp.async copies are not where the emulation looks"
+    return text
+
+
+def _inline_headers(text, seen):
+    """`text` with each `#include "*.cuh"` of csrc/ replaced by the header,
+    itself inlined, the first time it is included and by nothing after."""
+    def one(m):
+        if m.group(1) in seen:
+            return ""
+        seen.add(m.group(1))
+        return _inline_headers(_header(m.group(1)), seen)
+    text = text.replace("#pragma once\n", "")
+    return re.sub(r'#include "(\w+\.cuh)"\n', one, text)
+
+
 def emulated_source(source, consts, launches):
     """The CUDA file `source` (one of csrc/, with `launches` kernels, each
-    launched once) with lrn_common.cuh inlined, the prelude before it, its
-    copies, shared memory and launches emulated, and `consts` (old -> new)
-    substituted: C++ for g++."""
-    header = (kernels.CSRC / "lrn_common.cuh").read_text()
-    header = sub(header, "#include <cuda_runtime.h>", "")
-    header, n = re.subn(
-        r"__device__ __forceinline__ void stage\(.*?"
-        r"__device__ __forceinline__ void stage_wait\(\) {.*?\n}\n",
-        lambda m: STAGE, header, flags=re.S)
-    assert n == 1, "the cp.async copies are not where the emulation looks"
+    launched once) with its csrc/ headers inlined, the prelude before it,
+    its copies, shared memory and launches emulated, and `consts` (old ->
+    new) substituted in the whole: C++ for g++."""
     src = source.read_text().replace("#include <math_constants.h>", "")
-    src = sub(src, '#include "lrn_common.cuh"', header)
+    assert '#include "lrn_common.cuh"' in src
+    src = _inline_headers(src, set())
     src = sub(src, "extern __shared__ float4 smem4[];",
               "float4* const smem4 = emu::smem;", launches)
     src, n = re.subn(r"(\w+)<<<(.*?)>>>\(", r"emu::launch(\2, \1, ", src,

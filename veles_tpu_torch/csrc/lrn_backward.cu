@@ -43,6 +43,7 @@
 #include <cstdint>
 
 #include "lrn_common.cuh"
+#include "lrn_rows_common.cuh"
 
 namespace {
 
@@ -55,32 +56,6 @@ constexpr int kTile = 3072;
 // dynamic shared memory a block may take without opting in
 constexpr size_t kSmemMax = 48 * 1024;
 constexpr int kMaxGridY = 65535;  // channel tiles a row, at most
-
-struct Geom {
-  int64_t rows, row_tiles;
-  int C, half, q;
-  int ct, rb, n_ct;  // channels and rows of a tile, channel tiles a row
-  int xp, xw, tw;    // x's pad, the staged row widths of x and of t
-  int wide;          // 16-byte copies
-};
-
-// (r, c) of a thread's share (tid, tid + T, ...) of a row-major (*, n)
-// grid, beside the flat index i, with no division per step.
-struct Walk {
-  int i, r, c, di, dr, dc, n;
-  __device__ Walk(int tid, int T, int n_)
-      : i(tid), r(tid / n_), c(tid % n_), di(T), dr(T / n_), dc(T % n_),
-        n(n_) {}
-  __device__ void next() {
-    i += di;
-    r += dr;
-    c += dc;
-    if (c >= n) {
-      c -= n;
-      ++r;
-    }
-  }
-};
 
 template <int kHalf, int kQ>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_backward_kernel(

@@ -5,54 +5,161 @@
 // (row_tile, C) blocks through VMEM and forms the window sum with shifted
 // adds.
 //
-// Bound on the H100: device-memory bytes. Each element needs about 2n+5
-// float operations (n = 5 for AlexNet), far below the ~20 operations per
-// byte at which the card's f32 rate would take over from its 3.35 TB/s
-// (SXM); the least time is one read of x and one write of y.
+// Bound on the H100: device-memory bytes. Each element needs about 2n+6
+// float operations (n = 5 for AlexNet) and one IEEE sqrt and rsqrt, below
+// what the card's f32 rate allows over its 8 bytes; the least time is one
+// read of x and one write of y.
 //
-// Design: one thread per element of the (rows, C) view, neighbouring
-// threads on neighbouring channels, so each warp reads and writes one
-// contiguous run of the row. The +-half channel neighbours a thread reads
-// are the ones its neighbours read as their own element: those repeats hit
-// L1, and device memory sees each byte of x about once. The window sum and
-// s^(-beta) live in lrn_common.cuh, shared with the fused LRN->max-pool
-// kernel. A later PR can vectorise the loads (float4) and stage the row
-// in shared memory; this one is the simple correct kernel.
+// Design: K3's tiles of whole channel rows (lrn_rows_common.cuh) and its
+// staging, forward only. A block takes a tile of rb consecutive rows,
+// each at its full width C (AlexNet: 32 rows of 96, 12 of 256), so that
+// no window crosses the tile and nothing is computed twice; a row wider
+// than kTile channels is cut into runs of kTile channels (blockIdx.y),
+// one row a tile, whose halo is read from x. Per tile:
+//   1. stage by cp.async x at channels [c0 - xp, c0 + ct + xp) of each
+//      row, zeros outside [0, C) (xp = half rounded up to 4, so that each
+//      staged row starts 16-byte aligned); 16-byte copies where C % 4 ==
+//      0 and x and y are 16-byte aligned, else 4-byte ones.
+//   2. y = x*s^(-beta) once per element (lrn_value_staged), stored
+//      coalesced: under 16-byte copies four neighbouring channels a
+//      thread, stored as one float4, else one element a thread.
+// Every operation is lrn_common.cuh's, in the same order as the plain
+// version's, so y is bit-equal to it, and to what the fused LRN->max-pool
+// kernels pool. A tile takes ~13 KB of shared memory, so eight blocks of
+// 256 threads share an SM, each loading while another computes (tiles of
+// half or twice the size and a looser register bound timed no faster on
+// an H100: PERF.md). AlexNet's
+// half = 2 and 4*beta = 3 run an instance with them as compile-time
+// constants; any other geometry a generic one, which the caller may also
+// ask for at AlexNet's (`generic`), to time what the constants buy.
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include "lrn_common.cuh"
+#include "lrn_rows_common.cuh"
 
 namespace {
 
-__global__ void lrn_forward_kernel(const float* __restrict__ x,
-                                   float* __restrict__ y, int64_t total,
-                                   int C, int half, float k, float alpha,
-                                   int q, float beta) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const int64_t row = i / C;
-    const int c = static_cast<int>(i - row * C);
-    y[i] = lrn_value(x + row * C, c, C, half, k, alpha, q, beta);
+constexpr int kThreads = 256;
+// blocks an SM must hold: bounds a thread's registers to 32
+constexpr int kMinBlocks = 8;
+// own elements of one tile at most: whole rows of C <= kTile channels,
+// else one row's run of kTile channels (a multiple of 4)
+constexpr int kTile = 3072;
+// dynamic shared memory a block may take without opting in
+constexpr size_t kSmemMax = 48 * 1024;
+constexpr int kMaxGridY = 65535;  // channel tiles a row, at most
+
+template <int kHalf, int kQ>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_forward_kernel(
+    const float* __restrict__ x, float* __restrict__ y, Geom p, float k,
+    float alpha, float beta) {
+  extern __shared__ float4 smem4[];
+  const int h = kHalf >= 0 ? kHalf : p.half;
+  const int q = kQ >= 0 ? kQ : p.q;
+  float* const xs = reinterpret_cast<float*>(smem4);  // [rb][xw]
+  const int c0 = blockIdx.y * p.ct;  // the tile's first channel
+  const int nc = min(p.ct, p.C - c0);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * p.rb;
+  const int nr =
+      p.rows - row0 < p.rb ? static_cast<int>(p.rows - row0) : p.rb;
+  // own elements: nr whole rows, or one row's run of nc channels, one
+  // contiguous run either way, flat index i = r*ct + c
+  const int n_own = nr * nc;
+  const float* const xt = x + row0 * p.C + c0;
+  float* const yt = y + row0 * p.C + c0;
+  // 1. stage x (K3's loop)
+  const int span = p.wide ? p.xw / 4 : p.xw;  // copies a staged row
+  for (Walk w(threadIdx.x, kThreads, span); w.r < nr; w.next()) {
+    const int cc = (p.wide ? 4 * w.c : w.c) - p.xp;  // channel less c0
+    const bool in = c0 + cc >= 0 && c0 + cc < p.C;
+    const float* src = in ? xt + w.r * p.C + cc : x;
+    float* dst = xs + w.r * p.xw + p.xp + cc;
+    if (p.wide)
+      stage16(dst, src, in);
+    else
+      stage(dst, src, in);
   }
+  stage_wait();
+  __syncthreads();
+  // 2. y
+  if (p.wide) {
+    // ct and nc are multiples of 4: (rows, ct/4) groups of 4 channels
+    for (Walk w(threadIdx.x, kThreads, p.ct / 4); 4 * w.i < n_own;
+         w.next()) {
+      const float* xc = xs + w.r * p.xw + p.xp + 4 * w.c;
+      float4 v;
+      v.x = lrn_value_staged(xc, h, k, alpha, q, beta);
+      v.y = lrn_value_staged(xc + 1, h, k, alpha, q, beta);
+      v.z = lrn_value_staged(xc + 2, h, k, alpha, q, beta);
+      v.w = lrn_value_staged(xc + 3, h, k, alpha, q, beta);
+      reinterpret_cast<float4*>(yt)[w.i] = v;
+    }
+  } else {
+    for (Walk w(threadIdx.x, kThreads, p.ct); w.i < n_own; w.next())
+      yt[w.i] = lrn_value_staged(xs + w.r * p.xw + p.xp + w.c, h, k, alpha,
+                                 q, beta);
+  }
+}
+
+// The tiles of C-wide rows under a window of 2*half + 1 channels (all of
+// Geom but rows, q, row_tiles and wide; tw is K3's); false where one
+// staged row would exceed kSmemMax or a row have more than kMaxGridY
+// tiles.
+bool plan(int C, int half, Geom* p) {
+  if (C < 1 || half < 0 || half > kTile) return false;
+  p->C = C;
+  p->half = half;
+  p->ct = std::min(C, kTile);
+  p->n_ct = (C + p->ct - 1) / p->ct;
+  p->xp = (half + 3) / 4 * 4;
+  p->xw = p->ct + 2 * p->xp;
+  const size_t row_bytes = p->xw * sizeof(float);
+  p->rb = static_cast<int>(
+      std::min<size_t>(kTile / p->ct, kSmemMax / row_bytes));
+  return p->rb > 0 && p->n_ct <= kMaxGridY;
+}
+
+size_t smem_bytes(const Geom& p) { return p.rb * p.xw * sizeof(float); }
+
+template <int kHalf, int kQ>
+cudaError_t launch(const float* x, float* y, const Geom& p, float k,
+                   float alpha, float beta, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>(p.row_tiles), p.n_ct);
+  auto* kernel = lrn_forward_kernel<kHalf, kQ>;
+  kernel<<<grid, kThreads, smem_bytes(p), st>>>(x, y, p, k, alpha, beta);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// `generic` nonzero takes the run-time instance at any geometry. A window
+// so wide that one staged row of kTile channels exceeds kSmemMax (half
+// above ~4500) returns cudaErrorInvalidValue.
 extern "C" int lrn_forward_f32(const float* x, float* y, int64_t rows, int C,
                                int half, float k, float alpha, int q,
-                               float beta, void* stream) {
-  const int64_t total = rows * static_cast<int64_t>(C);
-  if (total > 0) {
-    const int threads = 256;
-    int64_t blocks = (total + threads - 1) / threads;
-    // grid-stride beyond this: 132 SMs x 16 resident blocks is ~2k, so
-    // 1 << 20 blocks keeps every SM fed while staying inside grid limits
-    if (blocks > (1 << 20)) blocks = 1 << 20;
-    lrn_forward_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        x, y, total, C, half, k, alpha, q, beta);
-  }
-  return static_cast<int>(cudaGetLastError());
+                               float beta, int generic, void* stream) {
+  if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
+  Geom p{};
+  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  p.rows = rows;
+  p.q = q;
+  p.row_tiles = (rows + p.rb - 1) / p.rb;
+  if (p.row_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  p.wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      !generic && half == 2 && q == 3
+          ? launch<2, 3>(x, y, p, k, alpha, beta, st)
+          : launch<-1, -1>(x, y, p, k, alpha, beta, st);
+  return static_cast<int>(err);
+}
+
+// The dynamic shared memory one block takes for C-wide rows under a
+// window of 2*half + 1 channels; -1 where the geometry is refused.
+extern "C" int lrn_forward_smem_bytes(int C, int half) {
+  Geom p{};
+  return plan(C, half, &p) ? static_cast<int>(smem_bytes(p)) : -1;
 }

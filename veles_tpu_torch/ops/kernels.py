@@ -173,15 +173,15 @@ _F = ctypes.c_float
 _ARGTYPES = {
     # p, g, v, n, lr, momentum, weight_decay, stream
     "sgd_update_f32": [_P, _P, _P, _L, _F, _F, _F, _P],
-    # x, y, rows, C, half, k, alpha, q, beta, stream
-    "lrn_forward_f32": [_P, _P, _L, _I, _I, _F, _F, _I, _F, _P],
+    # x, y, rows, C, half, k, alpha, q, beta, generic, stream
+    "lrn_forward_f32": [_P, _P, _L, _I, _I, _F, _F, _I, _F, _I, _P],
     # x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic, stream
     "lrn_backward_f32": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _F, _F, _I,
                          _P],
     # x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q, beta,
-    # stream
+    # generic, stream
     "lrn_maxpool_forward_f32": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _F, _F, _I, _F, _P],
+                                _I, _I, _I, _F, _F, _I, _F, _I, _P],
     # x, g, dx, win, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha,
     # q, beta, c2, generic, stream
     "lrn_maxpool_backward_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
@@ -322,9 +322,13 @@ def lrn_forward_plain(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
 
 
 def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
-                beta: float = 0.75, n: int = 5) -> torch.Tensor:
+                beta: float = 0.75, n: int = 5, *,
+                generic: bool = False) -> torch.Tensor:
     """Across-channel LRN of an NHWC tensor: K2 for a CUDA tensor, the
-    plain version for a CPU one."""
+    plain version for a CPU one. K2 runs AlexNet's geometry (n 5, beta
+    0.75) as an instance with it compiled in, unless `generic`, which
+    takes the run-time instance every other geometry takes (the same
+    bits; it times what the constants buy)."""
     if not _on_card("lrn_forward", x):
         return lrn_forward_plain(x, k, alpha, beta, n)
     _check_lrn_args(x, n, 4)
@@ -334,7 +338,7 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     with torch.cuda.device(x.device):
         status = _entry("lrn_forward")(
             x.data_ptr(), y.data_ptr(), rows, c, n // 2, k, alpha,
-            fn.quarter_exponent(beta), beta, _stream(x))
+            fn.quarter_exponent(beta), beta, int(generic), _stream(x))
     _check_status("lrn_forward", status)
     _count("lrn_forward")
     return y
@@ -393,10 +397,14 @@ def lrn_maxpool_forward_plain(x: torch.Tensor, k: float = 2.0,
 
 def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
                         beta: float = 0.75, n: int = 5, ksize=(3, 3),
-                        stride=(2, 2)) -> torch.Tensor:
+                        stride=(2, 2), *,
+                        generic: bool = False) -> torch.Tensor:
     """LRN then ceil-mode max pool of an NHWC tensor, writing only the
     pooled output: K4 for a CUDA tensor, the plain version for a CPU
-    one."""
+    one. K4 runs AlexNet's geometry (n 5, beta 0.75, 3x3/2) as an
+    instance with it compiled in, unless `generic`, which takes the
+    run-time instance every other geometry takes (the same bits; it
+    times what the constants buy)."""
     if not _on_card("lrn_maxpool_forward", x):
         return lrn_maxpool_forward_plain(x, k, alpha, beta, n, ksize, stride)
     _check_lrn_args(x, n, 4)
@@ -407,7 +415,8 @@ def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     with torch.cuda.device(x.device):
         status = _entry("lrn_maxpool_forward")(
             x.data_ptr(), y.data_ptr(), nb, h, w, c, oh, ow, ky, kx, sy, sx,
-            n // 2, k, alpha, fn.quarter_exponent(beta), beta, _stream(x))
+            n // 2, k, alpha, fn.quarter_exponent(beta), beta, int(generic),
+            _stream(x))
     _check_status("lrn_maxpool_forward", status)
     _count("lrn_maxpool_forward")
     return y
