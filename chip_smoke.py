@@ -7,7 +7,8 @@
 2. Build the port's CUDA kernels from veles_tpu_torch/csrc/ (nvcc, one
    process per source, all at once) and print the build seconds, then
    BUILD lines: each compiled kernel function's registers, stack, local
-   memory (spills land there) and static shared memory, the dynamic
+   memory (spills land there) and static shared memory, its stack frame's
+   spill stores and loads as ptxas reports them, the dynamic
    shared memory K6 takes per block at each head width and K3 at
    AlexNet's two LRN widths, and K4's and K2's at AlexNet's two LRN
    inputs with the blocks of each instance an SM holds at its registers.
@@ -75,6 +76,18 @@
      K7 at every head width they are compiled for (8, 16, 32) on a
      ragged S = 200, causal or not, KV forward or reversed, with and
      without a dropout mask (FLASH lines).
+   - The LRN kernels' bf16 instances (bf16 in device memory, f32
+     arithmetic, each output rounded once): first at every small-check
+     shape above (K4, K2 and K3, K5 bf16 lines), then at both AlexNet
+     LRN shapes at the training batch 128 on post-ReLU inputs rounded to
+     bf16 (KERNEL *_bf16 lines): each must give its plain version's bits
+     (NaN where it has NaN), also through the generic instance and with x
+     2 bytes off alignment, and is timed on the same cold timer beside
+     the f32 instance on the same values; K2 beside
+     F.local_response_norm on the bf16 tensor and K3 beside its autograd,
+     each held first within 2^-6 + 2^-4*|plain| of the plain version
+     (each of the library's operations rounds to bf16). Bounds: one read
+     of each bf16 input and one write of each output.
 4. SERVE: serve the full-width AlexNet (227x227x3, fc 4096, 1000 classes,
    ring of 64) through the same function the CLI uses, under
    lrn_maxpool=fused and again under composed, with one seed. POST 1, 8
@@ -92,6 +105,12 @@
    under fused, K2, K3 and K1 under composed (the backward kernel, K5 or
    K3, exactly twice per train step), and the loss be finite. Each
    step's device time comes from CUDA events around it.
+   TRAIN bf16 fused / composed: the same epoch at
+   root.common.precision_type=bfloat16 (bf16 compute over f32 master
+   weights): the LRN kernels' bf16 instances only (K4 and K5 under fused,
+   K2 and K3 under composed, the backward one exactly twice per train
+   step), no f32 LRN instance, K1 on the f32 leaves, every step's
+   compute dtype bf16 and its leaves and velocities f32 afterwards.
    TRAIN transformer: train the char-transformer at its own widths (embed
    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
    4096 for 2 epochs through the same function (1 validation window, so
@@ -99,6 +118,9 @@
    just before and read just after: K6 once per train and validation
    step, K7 and K1 x 13 leaves once per train step, exactly, nothing
    else, and the loss finite.
+   TRAIN transformer bf16: one epoch at root.common.precision_type=
+   bfloat16, K6 and K7 in f32 behind the attention function's casts, with
+   the same exact counts.
    TRAIN transformer n_heads=2: one epoch of the same at 2 heads of 32,
    with the same exact counts (K6 and K7 at head width 32; the unit's
    variant printed); then an attention unit at 1 head of 64, a width
@@ -132,17 +154,32 @@
        minibatch 4, the flash gate forced on) for 3 steps on the card
        against the same 3 steps on the CPU from one seed, on batches
        without such logit ties, within the same tolerance.
+   (a') the first full-width bf16 train step through the kernels against
+       the same step through the plain versions, from one state and
+       batch, and (c') the toy AlexNet's bf16 steps, card against CPU
+       (the card's state copied from the CPU's before each step): the
+       distance between the two updates over every leaf (and between the
+       velocities), relative to the update's norm, within 2^-7, twice
+       bf16's unit roundoff; the loss within 2^-8; n_err equal (in (c')
+       but for rows whose two largest logits lie within two bf16 ulps).
+   (d') the step of (d) in bf16 over f32 master weights (K6 and K7 in f32
+       behind the attention function's casts) through the kernels against
+       the plain versions, held as (a') is, n_err but for tokens whose two
+       largest logits lie within two bf16 ulps.
    A profiler pass over one more full-width step of each model splits its
    device time by kernel family (chiprun_out/train_profile.json and
-   transformer_profile.json), and SPLIT lines time the forward+loss,
+   transformer_profile.json; the bf16 steps' in train_bf16_profile.json
+   and transformer_bf16_profile.json), and SPLIT lines time the
+   forward+loss,
    backward and update of each by CUDA events, with AlexNet's backward
    under fused less that under composed on a line of its own.
 7. Print one {"kernels": [...]} line, then the card line and the closing
    {"ok": true, "device": {...}} line.
 
 The script leaves PyTorch's TF32 defaults as they are: the server's
-forward and the train step turn TF32 off for themselves (the port
-computes in f32), and the plain forward and the per-step times here run
+forward and the train step turn TF32 off for themselves (an f32 step
+computes in f32; a bf16 step's products sum in f32), and the plain
+forward and the per-step times here run
 under the same `backends.full_f32`. Any failure raises before the last
 line, and the exit code is then not 0.
 """
@@ -255,6 +292,36 @@ def print_resource_usage(libs):
     return regs
 
 
+def print_spills(kernels):
+    """BUILD lines from ptxas: each kernel function's stack frame and the
+    bytes of it that are spill stores and loads (cuobjdump's STACK does
+    not tell a spill from a local array). Compiles each source once more
+    to a cubin with `-Xptxas -v`, all at once, flags as the build's."""
+    import tempfile
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    kernels.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        procs = {name: subprocess.Popen(
+            [kernels._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"{name}.cubin"),
+             str(kernels.CSRC / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for name, (src, _) in kernels.KERNELS.items()}
+        for name, proc in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc -Xptxas -v failed for {name}:\n"
+                                   f"{log}")
+            for func, frame, stores, loads in re.findall(
+                    r"Function properties for (\S+)\n\s*(\d+) bytes stack "
+                    r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                    r"loads", log):
+                print(f"BUILD ptxas {name} {func}: {frame} B stack frame, "
+                      f"{stores} B spill stores, {loads} B spill loads",
+                      flush=True)
+
+
 def print_flash_smem(libs, kernels):
     """BUILD line: the dynamic shared memory one K6 block takes at each
     compiled head width, as the kernel's own source computes it
@@ -322,8 +389,10 @@ def print_forward_smem(libs, regs):
                 raise RuntimeError(f"{name} refuses AlexNet's {layer}")
             parts = []
             for func, r in sorted(regs.get(name, {}).items()):
-                # the generic instance's template arguments are all -1
-                what = "generic" if "Lin1E" in func else "compile-time"
+                # the generic instance's template arguments are all -1;
+                # the bf16 instance takes __nv_bfloat16 pointers
+                what = ("generic" if "Lin1E" in func else "compile-time") \
+                    + (" bf16" if "bfloat16" in func else "")
                 parts.append(f"{what} instance ({r} registers) "
                              f"{blocks_per_sm(r, smem, LRN_FORWARD_THREADS)} "
                              f"blocks an SM")
@@ -623,7 +692,7 @@ def serve_phase(launcher, kernels, dev):
     # plain_forward gets
     requests = [rs.randn(rows, HW, HW, 3).round(3)
                 for rows in sorted({1, min(8, B), B})]
-    served, launches = {}, {name: 0 for name in kernels.KERNELS}
+    served, launches = {}, {name: 0 for name in kernels.INSTANCES}
     # what the CLI runs under: PyTorch's defaults, which let cuDNN use TF32
     tf32_default = tf32_flags()
     print(f"SERVE: process TF32 flags (cudnn, matmul) {tf32_default}",
@@ -1421,7 +1490,8 @@ def kernel_family(name: str) -> str:
     if any(t in low for t in ("conv", "cudnn", "wgrad", "dgrad", "fprop",
                               "implicit", "cf32", "flip_filter")):
         return "conv"
-    if any(t in low for t in ("gemm", "gemv", "cublas", "cutlass")):
+    # cuBLAS's Hopper bf16 GEMMs are named nvjet_*
+    if any(t in low for t in ("gemm", "gemv", "cublas", "cutlass", "nvjet")):
         return "matmul"
     return "other"
 
@@ -1654,11 +1724,15 @@ def logit_ties(step, state, x, tau=TIE_TAU) -> int:
         return int(((top[:, 0] - top[:, 1]) <= tau * out.abs().max()).sum())
 
 
-def transformer_step_checks(kernels, dev):
+def transformer_step_checks(kernels, dev, compute_dtype=None):
     """(d) one full-width char-transformer train step at seq_len 4096
     through the kernels against the same step through the plain versions,
     from one state and one batch of 32 distinct windows; then the step's
-    split by CUDA events and by profiler."""
+    split by CUDA events and by profiler. At compute_dtype "bfloat16",
+    (d'): the same in bf16 over f32 master weights, held as (a') is."""
+    bf16 = compute_dtype == "bfloat16"
+    tag, label = ("(d')", "transformer bf16") if bf16 else ("(d)",
+                                                            "transformer")
     from veles_tpu_torch import prng
     from veles_tpu_torch.loader.base import TRAIN
     from veles_tpu_torch.loader.text import synthetic_text
@@ -1673,10 +1747,12 @@ def transformer_step_checks(kernels, dev):
     loader = wf.loader
     if loader.class_lengths != [0, 1, mb]:
         raise AssertionError(f"(d) windows {loader.class_lengths}")
-    step = wf.build_fused_step()
+    step = wf.build_fused_step(compute_dtype)
     table = step.variant_table()
     if table != {"flash_attn": "kernel", "sgd_update": "kernel"}:
-        raise AssertionError(f"(d) variants {table}")
+        raise AssertionError(f"{tag} variants {table}")
+    if step.compute_dtype != compute_dtype:
+        raise AssertionError(f"{tag} computes in {step.compute_dtype}")
     s0 = step.init_state()
     loader.run()
     while loader.minibatch_class != TRAIN:
@@ -1698,34 +1774,49 @@ def transformer_step_checks(kernels, dev):
     counts = kernels.launch_counts()
     if counts["flash_attention_forward"] != 1 \
             or counts["flash_attention_backward"] != 1:
-        raise AssertionError(f"(d) the kernel step launched {counts}")
+        raise AssertionError(f"{tag} the kernel step launched {counts}")
     pst, ploss, perr = run(True)
     with plain_kernels(kernels):
-        ties = logit_ties(step, s0, x)
-    check_loss("(d) kernel vs plain transformer step", kloss, ploss)
+        ties = (logit_near_ties_bf16 if bf16 else logit_ties)(step, s0, x)
     if abs(kerr - perr) > ties:
-        raise AssertionError(f"(d) n_err {kerr} != {perr} beyond the "
+        raise AssertionError(f"{tag} n_err {kerr} != {perr} beyond the "
                              f"{ties} tied tokens")
-    err_d = compare_states("(d) kernel vs plain transformer step", kst,
-                           pst)
-    print(f"CHECK (d) full-width transformer step at S={CT_SEQ}, kernels "
-          f"vs plain versions: loss {kloss} vs {ploss}, n_err {kerr} vs "
-          f"{perr} ({ties} tokens with tied logits), max abs err over "
-          f"every leaf and velocity {err_d:.3e} (tolerance "
-          f"{TRAIN_ATOL} + {TRAIN_RTOL}*|plain|)", flush=True)
+    if bf16:
+        check_loss(f"{tag} bf16 kernel vs plain transformer step", kloss,
+                   ploss, BF16_U, 0.0)
+        dist = update_distance(s0, kst, pst)
+        check_update_distance(f"{tag} bf16 kernel vs plain transformer "
+                              f"step", dist)
+        print(f"CHECK {tag} full-width bf16 transformer step at S={CT_SEQ}, "
+              f"kernels vs plain versions: loss {kloss} vs {ploss}, n_err "
+              f"{kerr} vs {perr} ({ties} tokens with near-tied logits), "
+              f"update distance relative to the update's norm {dist} "
+              f"(tolerance {BF16_STEP_RTOL})", flush=True)
+        out = {"d_update_distance": dist}
+    else:
+        check_loss("(d) kernel vs plain transformer step", kloss, ploss)
+        err_d = compare_states("(d) kernel vs plain transformer step", kst,
+                               pst)
+        print(f"CHECK (d) full-width transformer step at S={CT_SEQ}, "
+              f"kernels vs plain versions: loss {kloss} vs {ploss}, n_err "
+              f"{kerr} vs {perr} ({ties} tokens with tied logits), max abs "
+              f"err over every leaf and velocity {err_d:.3e} (tolerance "
+              f"{TRAIN_ATOL} + {TRAIN_RTOL}*|plain|)", flush=True)
+        out = {"d_max_abs_err": err_d}
     del kst, pst
     st = clone_state(s0)
     step_split_ms(step, st, x, y, w)       # warm
     split = [step_split_ms(step, st, x, y, w) for _ in range(3)]
-    print(f"SPLIT transformer: forward+loss, backward, update device ms "
+    print(f"SPLIT {label}: forward+loss, backward, update device ms "
           f"(3 steps, CUDA events) {split}", flush=True)
     families = profile_step(step, clone_state(s0), x, y, w,
-                            "transformer_profile.json")
+                            f"{label.replace(' ', '_')}_profile.json")
     del wf, step, s0, st
     torch.cuda.empty_cache()
-    return {"d_max_abs_err": err_d, "d_loss": [kloss, ploss],
-            "d_n_err": [kerr, perr], "d_tied_tokens": ties,
-            "split": split, "profile_ms": families}
+    out.update({"d_loss": [kloss, ploss], "d_n_err": [kerr, perr],
+                "d_tied_tokens": ties, "split": split,
+                "profile_ms": families})
+    return out
 
 
 def toy_transformer_card_vs_cpu(kernels, dev):
@@ -1781,6 +1872,470 @@ def toy_transformer_card_vs_cpu(kernels, dev):
         raise AssertionError(f"(e) the card steps launched {counts}")
 
 
+# ---------------------------------------------------------------------------
+# bf16 compute over f32 master weights
+# ---------------------------------------------------------------------------
+
+#: bf16's unit roundoff
+BF16_U = 2.0 ** -8
+#: a library call on bf16 tensors (each of its operations rounds to bf16:
+#: x², the window mean, the scale, the power, the quotient) against the
+#: plain version (f32 arithmetic rounded once): a few bf16 roundings
+BF16_LIB_RTOL, BF16_LIB_ATOL = 2 ** -4, 2 ** -6
+#: a bf16 train step against another (the kernels' against the plain
+#: versions', the card's against the CPU's) from one state: the distance
+#: of the two updates over every leaf (and of the velocities), relative to
+#: the update's norm, within twice the unit roundoff (the argument is at
+#: bf16_step_checks and toy_bf16_card_vs_cpu)
+BF16_STEP_RTOL = 2 * BF16_U
+BF16_ARGS = ["root.common.precision_type=bfloat16"]
+#: the LRN kernels' bf16 instances, as the launch record names them
+BF16_KERNELS = ("lrn_forward_bf16", "lrn_backward_bf16",
+                "lrn_maxpool_forward_bf16", "lrn_maxpool_backward_bf16")
+
+
+def misaligned_bf16(x: torch.Tensor) -> torch.Tensor:
+    """bf16 `x` again, one element into a buffer: contiguous but 2 bytes
+    off 16-byte alignment, so the bf16 instances stage it element by
+    element."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    start = (-(buf.data_ptr() // 2)) % 8 + 1
+    xm = buf[start:start + x.numel()].view(x.shape)
+    xm.copy_(x)
+    if xm.data_ptr() % 16 != 2:
+        raise AssertionError("misaligned_bf16: not 2 bytes off alignment")
+    return xm
+
+
+def bf16(rs, shape, relu=False) -> torch.Tensor:
+    """A seeded normal tensor (post-ReLU where `relu`) rounded to bf16."""
+    a = rs.randn(*shape)
+    if relu:
+        a = np.maximum(a, 0)
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
+def bf16_small_checks(kernels, dev):
+    """The bf16 instances of K4, K2, K3 and K5 against their plain versions
+    at the f32 instances' small-check shapes: the same bits, NaN exactly
+    where the plain version has NaN."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+    rs = np.random.RandomState(12)
+
+    def x_of(shape, kind):
+        return torch.from_numpy(small_input(rs, shape, kind)).to(
+            torch.bfloat16).to(dev)
+
+    for what, shape, ksize, stride, kind in K4_SMALL:
+        x = x_of(shape, kind)
+        nan = assert_same_bits(
+            f"lrn_maxpool_forward_bf16 {what}",
+            kernels.lrn_maxpool_forward(x, K, ALPHA, BETA, N, ksize, stride),
+            kernels.lrn_maxpool_forward_plain(x, K, ALPHA, BETA, N, ksize,
+                                              stride))
+        print(f"K4 bf16 {what} x {list(shape)}: {nan} NaN, bit-equal",
+              flush=True)
+    for what, shape, n, kind in K2_SMALL:
+        x = x_of(shape, kind)
+        g = bf16(rs, shape).to(dev)
+        nan = assert_same_bits(f"lrn_forward_bf16 {what}",
+                               kernels.lrn_forward(x, K, ALPHA, BETA, n),
+                               kernels.lrn_forward_plain(x, K, ALPHA, BETA,
+                                                         n))
+        nan_b = assert_same_bits(
+            f"lrn_backward_bf16 {what}",
+            kernels.lrn_backward(x, g, K, ALPHA, BETA, n),
+            kernels.lrn_backward_plain(x, g, K, ALPHA, BETA, n))
+        print(f"K2, K3 bf16 {what} x {list(shape)} n {n}: {nan}, {nan_b} "
+              f"NaN, bit-equal", flush=True)
+    for what, shape, ksize, stride, kind in K5_SMALL:
+        x = x_of(shape, kind)
+        oh, ow = pool_out_hw(shape[1], shape[2], *ksize, *stride)
+        g = bf16(rs, (shape[0], oh, ow, shape[3])).to(dev)
+        nan = assert_same_bits(
+            f"lrn_maxpool_backward_bf16 {what}",
+            kernels.lrn_maxpool_backward(x, g, K, ALPHA, BETA, N, ksize,
+                                         stride),
+            kernels.lrn_maxpool_backward_plain(x, g, K, ALPHA, BETA, N,
+                                               ksize, stride))
+        print(f"K5 bf16 {what} x {list(shape)}: {nan} NaN, bit-equal",
+              flush=True)
+    torch.cuda.synchronize()
+
+
+def bf16_kernel_row(kernels, timer, name, layer, args, margs, f32_args,
+                    t_bytes, t_ops, lib=None):
+    """The bf16 instance of kernel `name` on `args` (x first) against its
+    plain version: the same bits, also through the generic instance and
+    with x 2 bytes off alignment (`margs`); then each timed on the cold
+    timer beside the f32 instance on `f32_args` (the same values in f32)
+    and the plain version, and `lib` (a PyTorch call on the bf16 tensors,
+    held first within BF16_LIB_RTOL/ATOL of the plain version)."""
+    wrap, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    hyper = (K, ALPHA, BETA, N)
+    got = wrap(*args, *hyper)
+    want = plain(*args, *hyper)
+    others = {"generic instance": wrap(*args, *hyper, generic=True),
+              "x 2 bytes off alignment": wrap(*margs, *hyper)}
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name} bf16 {layer}: returned {got.dtype}")
+    assert_same_bits(f"{name}_bf16 {layer}", got, want)
+    for what, other in others.items():
+        assert_same_bits(f"{name}_bf16 {layer} {what}", other, want)
+    lib_err = None
+    if lib is not None:
+        lib_err = check_close(f"{name}_bf16 {layer} library", lib()[1],
+                              want.float(), BF16_LIB_RTOL, BF16_LIB_ATOL)
+    row = {"shape": list(args[0].shape), "dtype": "bfloat16",
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "ms": timer(lambda: wrap(*args, *hyper)),
+           "generic_ms": timer(lambda: wrap(*args, *hyper, generic=True)),
+           "copy2_ms": timer(lambda: wrap(*margs, *hyper)),
+           "f32_ms": timer(lambda: wrap(*f32_args, *hyper)),
+           "plain_ms": timer(lambda: plain(*args, *hyper)),
+           "library_ms": None if lib is None else timer(lambda: lib()[0]),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print_kernel_line(f"{name}_bf16", layer, row)
+    print(f"KERNEL {name}_bf16 {layer}: bit-equal to the plain version, "
+          f"also the generic instance (ms {row['generic_ms']:.4f}) and x 2 "
+          f"bytes off alignment (ms {row['copy2_ms']:.4f}); the f32 "
+          f"instance on the same values ms {row['f32_ms']:.4f}"
+          + ("" if lib is None else f"; library max abs err against the "
+             f"plain version {lib_err:.3e}"), flush=True)
+    return row
+
+
+def bf16_kernel_phase(kernels, dev, bw, flops):
+    """The LRN kernels' bf16 instances: the small checks at bf16, then
+    AlexNet's two LRN inputs at the training batch on post-ReLU inputs
+    rounded to bf16, each kernel bit-equal to its plain version and timed
+    beside its f32 instance, K2 and K3 beside their PyTorch calls."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+    bf16_small_checks(kernels, dev)
+    timer = ColdTimer(dev)
+    rs = np.random.RandomState(13)
+    rows = {name: [] for name in BF16_KERNELS}
+    for layer, (h, w, c) in zip(("L1", "L2"), LRN_SHAPES):
+        shape = (TB, h, w, c)
+        oh, ow = pool_out_hw(h, w, 3, 3, 2, 2)
+        x = bf16(rs, shape, relu=True).to(dev)
+        g = bf16(rs, shape).to(dev)
+        gp = bf16(rs, (TB, oh, ow, c)).to(dev)
+        xm = misaligned_bf16(x)
+        x32, g32, gp32 = x.float(), g.float(), gp.float()
+        nb, pb = x.numel() * 2, gp.numel() * 2   # bytes of x and of gp
+
+        def lrn_lib():
+            y = F.local_response_norm(x.permute(0, 3, 1, 2), size=N,
+                                      alpha=ALPHA * N, beta=BETA, k=K)
+            return y, y.permute(0, 2, 3, 1).float()
+
+        leaf = x.clone().requires_grad_(True)
+        y_lib = F.local_response_norm(leaf.permute(0, 3, 1, 2), size=N,
+                                      alpha=ALPHA * N, beta=BETA, k=K)
+        g_nchw = g.permute(0, 3, 1, 2)
+
+        def grad_lib():
+            dx = torch.autograd.grad(y_lib, leaf, g_nchw,
+                                     retain_graph=True)[0]
+            return dx, dx.float()
+
+        rows["lrn_forward_bf16"].append(bf16_kernel_row(
+            kernels, timer, "lrn_forward", layer, (x,), (xm,), (x32,),
+            2 * nb / bw, lrn_ops(x.numel()) / flops, lrn_lib))
+        rows["lrn_backward_bf16"].append(bf16_kernel_row(
+            kernels, timer, "lrn_backward", layer, (x, g), (xm, g),
+            (x32, g32), 3 * nb / bw, lrn_grad_ops(x.numel()) / flops,
+            grad_lib))
+        del leaf, y_lib, g_nchw
+        rows["lrn_maxpool_forward_bf16"].append(bf16_kernel_row(
+            kernels, timer, "lrn_maxpool_forward", layer, (x,), (xm,),
+            (x32,), (nb + pb) / bw,
+            (lrn_ops(x.numel()) + gp.numel() * 8) / flops))
+        rows["lrn_maxpool_backward_bf16"].append(bf16_kernel_row(
+            kernels, timer, "lrn_maxpool_backward", layer, (x, gp), (xm, gp),
+            (x32, gp32), (2 * nb + pb) / bw,
+            ((2 * N + 6 + 4) * x.numel() + lrn_grad_ops(x.numel())
+             + 8 * gp.numel()) / flops))
+        del x, g, gp, xm, x32, g32, gp32
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def watched_steps():
+    """Every FusedTrainStep built in the block, and the dtypes its states'
+    leaves and velocities hold after each train call."""
+    from veles_tpu_torch.parallel.fused import FusedTrainStep
+    seen = {"steps": [], "dtypes": set()}
+    init, train = FusedTrainStep.__init__, FusedTrainStep.train
+
+    def spy_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen["steps"].append(self)
+
+    def spy_train(self, *args, **kwargs):
+        out = train(self, *args, **kwargs)
+        seen["dtypes"].update(t.dtype for slot in ("params", "vel")
+                              for layer in out[0][slot]
+                              for t in layer.values())
+        return out
+
+    FusedTrainStep.__init__, FusedTrainStep.train = spy_init, spy_train
+    try:
+        yield seen
+    finally:
+        FusedTrainStep.__init__, FusedTrainStep.train = init, train
+
+
+@contextlib.contextmanager
+def precision_type_kept():
+    """root.common.precision_type as it was before the block, after it
+    (a CLI override sets it for the process)."""
+    from veles_tpu_torch.config import root
+    prev = root.common.precision_type
+    try:
+        yield
+    finally:
+        root.common.precision_type = prev
+
+
+def check_bf16_steps(label, seen):
+    """The steps of a bf16 run computed in bf16 over f32 master weights."""
+    dtypes = {s.compute_dtype for s in seen["steps"]}
+    if dtypes != {"bfloat16"} or seen["dtypes"] != {torch.float32}:
+        raise AssertionError(f"{label}: steps in {dtypes}, leaves and "
+                             f"velocities {seen['dtypes']}")
+    print(f"TRAIN {label}: compute dtype bfloat16, master leaves and "
+          f"velocities float32 after every step", flush=True)
+
+
+def train_bf16_phase(launcher, kernels, dev):
+    """Train the full-width AlexNet one epoch at
+    root.common.precision_type=bfloat16 under both lrn_maxpool settings
+    through `launcher.train`: the LRN kernels' bf16 instances only, the
+    backward one exactly twice per train step, K1 on the f32 leaves."""
+    launches = {}
+    want = {"fused": ("lrn_maxpool_forward_bf16", "lrn_maxpool_backward_bf16",
+                      "sgd_update"),
+            "composed": ("lrn_forward_bf16", "lrn_backward_bf16",
+                         "sgd_update")}
+    for setting in ("fused", "composed"):
+        label = f"bf16 {setting}"
+        with precision_type_kept(), watched_steps() as seen:
+            wf, counts = train_run(
+                launcher, kernels, dev, label,
+                [ALEXNET, "--fused", "-r", "1234", "--lrn-maxpool", setting,
+                 "root.alexnet.decision.max_epochs=1", *BF16_ARGS,
+                 *TRAIN_ARGS])
+        check_bf16_steps(label, seen)
+        launches[setting] = counts
+        for name, c in counts.items():
+            if name in want[setting] and c <= 0:
+                raise AssertionError(f"{name} never launched in {label}")
+            if name not in want[setting] and c != 0:
+                raise AssertionError(f"{name} launched {c} times in {label}")
+        backward = want[setting][1]
+        steps = wf.decision.epoch_number * -(-wf.loader.class_lengths[2]
+                                             // wf.loader.minibatch_size)
+        if counts[backward] != 2 * steps:
+            raise AssertionError(f"{backward} launched {counts[backward]} "
+                                 f"times in {steps} train steps in {label}, "
+                                 f"not twice each")
+        print(f"TRAIN {label}: {backward} twice in each of {steps} train "
+              f"steps; no f32 LRN instance launched", flush=True)
+        del wf
+        torch.cuda.empty_cache()
+    return launches
+
+
+def transformer_bf16_phase(launcher, kernels, dev):
+    """One epoch of the char-transformer at seq_len 4096 at
+    root.common.precision_type=bfloat16: K6 and K7 in f32 behind the
+    attention function's casts, with transformer_run's exact counts."""
+    with precision_type_kept(), watched_steps() as seen:
+        counts = transformer_run(launcher, kernels, dev, "transformer bf16",
+                                 BF16_ARGS, 1)
+    check_bf16_steps("transformer bf16", seen)
+    return counts
+
+
+def update_distance(before, a, b):
+    """{slot: ||(b - before) - (a - before)|| / ||b - before||} over every
+    leaf of the params and of the velocities: how far step a's update lies
+    from step b's, relative to b's (states on any device)."""
+    out = {}
+    for slot in ("params", "vel"):
+        num = den = 0.0
+        for l0, la, lb in zip(before[slot], a[slot], b[slot]):
+            for k in l0:
+                t0 = l0[k].detach().double().cpu()
+                da = la[k].detach().double().cpu() - t0
+                db = lb[k].detach().double().cpu() - t0
+                num += float(((da - db) ** 2).sum())
+                den += float((db ** 2).sum())
+        out[slot] = (num / den) ** 0.5
+    return out
+
+
+def check_update_distance(what, dist):
+    if max(dist.values()) > BF16_STEP_RTOL:
+        raise AssertionError(f"{what}: update distance {dist} beyond "
+                             f"{BF16_STEP_RTOL}")
+
+
+def bf16_step_checks(kernels, variants, dev):
+    """(a') the first full-width bf16 train step through the kernels
+    against the same step through the plain versions, from one state and
+    batch; then its SPLIT and profile beside the f32 step's.
+
+    The gate: K2-K5's bf16 instances give their plain versions' bits and
+    cuDNN's and cuBLAS's forward sums are the same in both runs, so the
+    forward and each pooling window's routing are the same; the backward
+    may differ where cuDNN's or cuBLAS's bf16 gradient sums (f32 partial
+    sums, one rounding) are taken in another order, one bf16 ulp of a
+    gradient element at most, carried linearly: within u of the update's
+    norm. The update distance is held within 2u (BF16_STEP_RTOL), the loss
+    within u, n_err exactly."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow()
+    wf.initialize(dev)
+    steps = {}
+    for setting in ("fused", "composed"):
+        variants.select("lrn_maxpool", setting)
+        steps[setting] = wf.build_fused_step(compute_dtype="bfloat16")
+    variants.clear_selection("lrn_maxpool")
+    s0 = steps["fused"].init_state()
+    rs = np.random.RandomState(3)
+    mb, shape = wf.loader.minibatch_size, wf.loader.sample_shape
+    x = rs.randn(mb, *shape).astype(np.float32)
+    y = rs.randint(0, wf.n_classes, mb)
+    w = np.ones(mb, np.float32)
+
+    def run(setting, plain=False):
+        st = clone_state(s0)
+        steps[setting].gen = prng.get().torch_generator(dev)
+        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+            st, (loss, n_err) = steps[setting].train(st, x, y, w)
+        torch.cuda.synchronize()
+        return st, float(loss), int(n_err)
+
+    kernels.reset_launch_counts()
+    kst, kloss, kerr = run("fused")
+    counts = kernels.launch_counts()
+    pst, ploss, perr = run("fused", plain=True)
+    if counts["lrn_maxpool_backward_bf16"] != 2:
+        raise AssertionError(f"(a') the bf16 step launched {counts}")
+    check_loss("(a') bf16 kernel vs plain step", kloss, ploss, BF16_U, 0.0)
+    if kerr != perr:
+        raise AssertionError(f"(a') n_err {kerr} != {perr}")
+    dist = update_distance(s0, kst, pst)
+    check_update_distance("(a') bf16 kernel vs plain step", dist)
+    print(f"CHECK (a') first full-width bf16 train step, kernels vs plain "
+          f"versions: loss {kloss} vs {ploss}, n_err {kerr} vs {perr}, "
+          f"update distance relative to the update's norm {dist} "
+          f"(tolerance {BF16_STEP_RTOL})", flush=True)
+    del kst, pst
+    split = {}
+    for setting in ("fused", "composed"):
+        st = clone_state(s0)
+        step_split_ms(steps[setting], st, x, y, w)       # warm
+        split[setting] = [step_split_ms(steps[setting], st, x, y, w)
+                          for _ in range(3)]
+        print(f"SPLIT bf16 {setting}: forward+loss, backward, update device "
+              f"ms (3 steps, CUDA events) {split[setting]}", flush=True)
+    families = profile_step(steps["fused"], clone_state(s0), x, y, w,
+                            "train_bf16_profile.json")
+    del wf, steps, s0
+    torch.cuda.empty_cache()
+    return {"a_update_distance": dist, "split": split,
+            "profile_ms": families}
+
+
+def state_on(state, dev):
+    """A copy of `state` on `dev`, its leaves trainable."""
+    return {"params": tuple({k: t.detach().to(dev, copy=True)
+                             .requires_grad_(True) for k, t in layer.items()}
+                            for layer in state["params"]),
+            "vel": tuple({k: t.detach().to(dev, copy=True)
+                          for k, t in layer.items()}
+                         for layer in state["vel"]),
+            "lr_scale": state["lr_scale"]}
+
+
+def logit_near_ties_bf16(step, state, x) -> int:
+    """Rows (tokens) of `x` whose two largest bf16 logits (the step's
+    forward) lie within two bf16 ulps of each other: there a one-ulp
+    difference in a logit may move the argmax, and n_err with it."""
+    out = step.fwd._forward(state["params"],
+                            torch.as_tensor(x, device=step.device))
+    top = out.reshape(-1, out.shape[-1]).topk(2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
+    return int(((top[:, 0] - top[:, 1]) <= 2 * ulp).sum())
+
+
+def toy_bf16_card_vs_cpu(dev):
+    """(c') 3 bf16 train steps of the toy AlexNet on the card against the
+    same steps on the CPU, from one seed, the card's state copied from the
+    CPU's before each step (so no difference compounds).
+
+    The gate: both compute every bf16 product and convolution with f32
+    sums rounded once, so they differ where the two libraries' summation
+    orders move a value across a bf16 rounding tie, one ulp; in bf16 such
+    a value may sit at a pooling window's or a ReLU's tie and move a
+    gradient there. Measured against the JAX package on the CPU, that
+    leaves the update 3.1e-3 to 4.7e-3 of its norm apart
+    (tests/test_torch_bf16.py), so the update distance is held within 2u
+    (BF16_STEP_RTOL), the loss within u, and n_err but for rows whose two
+    largest logits lie within two bf16 ulps."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    steps, states = {}, {}
+    for d in ("cpu", dev):
+        prng.seed_all(1234)
+        wf = alexnet.create_workflow(**TOY_ARGS)
+        for u in wf.forwards:
+            if hasattr(u, "dropout_ratio"):
+                u.dropout_ratio = 0.0
+        wf.initialize(d)
+        steps[d] = wf.build_fused_step(compute_dtype="bfloat16")
+        states[d] = steps[d].init_state()
+    compare_states("(c') initial state", states[dev], states["cpu"], 0.0, 0.0)
+    rs = np.random.RandomState(4)
+    shape = (TOY_ARGS["minibatch_size"], TOY_ARGS["input_hw"],
+             TOY_ARGS["input_hw"], 3)
+    dists = []
+    for i in range(3):
+        x = rs.randn(*shape).astype(np.float32)
+        y = rs.randint(0, TOY_ARGS["n_classes"], shape[0])
+        w = np.ones(shape[0], np.float32)
+        before = state_on(states["cpu"], "cpu")
+        states[dev] = state_on(states["cpu"], dev)
+        ties = logit_near_ties_bf16(steps["cpu"], states["cpu"], x)
+        out = {}
+        for d in ("cpu", dev):
+            states[d], (loss, n_err) = steps[d].train(states[d], x, y, w)
+            out[d] = (float(loss), int(n_err))
+        check_loss(f"(c') step {i} card vs cpu", out[dev][0], out["cpu"][0],
+                   BF16_U, 0.0)
+        if abs(out[dev][1] - out["cpu"][1]) > ties:
+            raise AssertionError(f"(c') step {i}: n_err {out[dev][1]} != "
+                                 f"{out['cpu'][1]} ({ties} logit ties)")
+        dist = update_distance(before, states[dev], states["cpu"])
+        check_update_distance(f"(c') step {i} card vs cpu", dist)
+        dists.append(dist)
+        print(f"CHECK (c') toy bf16 step {i} card vs cpu: loss "
+              f"{out[dev][0]} vs {out['cpu'][0]}, n_err {out[dev][1]} vs "
+              f"{out['cpu'][1]} ({ties} rows with logit near ties), update "
+              f"distance relative to the update's norm {dist} (tolerance "
+              f"{BF16_STEP_RTOL})", flush=True)
+    return dists
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1807,6 +2362,7 @@ def main() -> int:
     print(f"BUILD {len(libs)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     regs = print_resource_usage(libs)
+    print_spills(kernels)
     print_flash_smem(libs, kernels)
     print_lrn_backward_smem(libs)
     print_forward_smem(libs, regs)
@@ -1814,18 +2370,27 @@ def main() -> int:
     backward_rows, k5_other = backward_kernel_phase(kernels, dev, bw, flops)
     rows.update(backward_rows)
     rows.update(flash_kernel_phase(kernels, dev, bw, flops, tf32))
+    rows.update(bf16_kernel_phase(kernels, dev, bw, flops))
     by_path = {"serve": serve_phase(launcher, kernels, dev)}
     for setting, counts in train_phase(launcher, kernels, dev).items():
         by_path[f"train_{setting}"] = counts
+    for setting, counts in train_bf16_phase(launcher, kernels, dev).items():
+        by_path[f"train_bf16_{setting}"] = counts
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
+        launcher, kernels, dev)
+    by_path["train_transformer_bf16"] = transformer_bf16_phase(
         launcher, kernels, dev)
     from veles_tpu_torch.ops import variants
     checks = step_checks(kernels, variants, dev)
     toy_card_vs_cpu(dev)
     checks["transformer"] = transformer_step_checks(kernels, dev)
     toy_transformer_card_vs_cpu(kernels, dev)
+    checks["bf16"] = bf16_step_checks(kernels, variants, dev)
+    checks["bf16"]["c_update_distance"] = toy_bf16_card_vs_cpu(dev)
+    checks["transformer_bf16"] = transformer_step_checks(kernels, dev,
+                                                         "bfloat16")
 
     pallas = "veles_tpu/ops/pallas_kernels.py"
     meta = {
@@ -1846,6 +2411,8 @@ def main() -> int:
         "flash_attention_backward": (
             "veles_tpu_torch/csrc/flash_attention_backward.cu",
             f"{pallas}:553, :595")}
+    # the bf16 instances: the same sources and TPU kernels
+    meta.update({name: meta[name[:-len("_bf16")]] for name in BF16_KERNELS})
     entries = []
     for name, per_shape in rows.items():
         lib = [r["library_ms"] for r in per_shape]
@@ -1858,7 +2425,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in per_shape),
             # a served or trained batch runs each LRN kernel once per
             # AlexNet shape, and K1 once per leaf: the times below are the
-            # sums over the shapes (K2, K4 at batch 64; K3, K5 at 128; K6,
+            # sums over the shapes (K2, K4 at batch 64; K3, K5 and the
+            # bf16 instances at 128; K6,
             # K7 once at each of the transformer's head widths, 16 and 32,
             # one call per train step of each TRAIN transformer run)
             "ms": sum(r["ms"] for r in per_shape),
@@ -1869,9 +2437,11 @@ def main() -> int:
                          else "operations"),
             "library_ms": None if None in lib else sum(lib),
             "shapes": per_shape})
-        for key in ("generic_ms", "copy4_ms"):
-            # the generic instance and the 4-byte copies (x not 16-byte
-            # aligned), summed like ms, where the kernel has them
+        for key in ("generic_ms", "copy4_ms", "copy2_ms", "f32_ms"):
+            # the generic instance, the 4-byte copies (x not 16-byte
+            # aligned), a bf16 instance's copies of x 2 bytes off
+            # alignment and its f32 instance on the same values, summed
+            # like ms, where the kernel has them
             if all(key in r for r in per_shape):
                 entries[-1][key] = sum(r[key] for r in per_shape)
         if "bound_f32_ms" in per_shape[0]:

@@ -220,7 +220,7 @@ def test_http_round_trip_on_loopback():
             info = json.loads(r.read())
         assert info["input_shape"] == [67, 67, 3]
         assert info["variants"]["lrn_maxpool"] == "fused"
-        assert set(info["kernel_launches"]) == set(kernels.KERNELS)
+        assert set(info["kernel_launches"]) == set(kernels.INSTANCES)
     finally:
         srv.stop()
     assert srv._batcher is None

@@ -25,9 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_lrn_pool_tiles import (ALPHA, BETA, K, compile_source,
-                                             emulated_source, find_gxx,
-                                             load_entry, sub, wrapper_on)
+from tests.test_torch_lrn_pool_tiles import (ALPHA, BETA, K, bf16_at,
+                                             compile_source, emulated_source,
+                                             entry_in, find_gxx, load_entry,
+                                             sub, wait_built, wrapper_on)
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import kernels
 
@@ -51,16 +52,29 @@ SHAPES = (("AlexNet L1 C 96, one whole tile", (1, 3, 7, 96), 5, "relu"),
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """build name -> the C entry point of K3's source compiled by g++,
-    all builds compiled at once."""
+def emulated_libs(tmp_path_factory):
+    """build name -> K3's source compiled by g++ (the library), all
+    builds compiled at once."""
     gxx = find_gxx()
     out = tmp_path_factory.mktemp("k3_emulation")
     started = {name: compile_source(gxx, emulated_source(SOURCE, consts, 1),
                                     out / f"{name.replace(' ', '_')}.so")
                for name, consts in BUILDS.items()}
-    return {name: load_entry(*job, name="lrn_backward")
-            for name, job in started.items()}
+    return {name: wait_built(*job) for name, job in started.items()}
+
+
+@pytest.fixture(scope="module")
+def emulated(emulated_libs):
+    """build name -> the C entry point of K3's f32 instance."""
+    return {name: entry_in(lib, "lrn_backward")
+            for name, lib in emulated_libs.items()}
+
+
+@pytest.fixture(scope="module")
+def emulated_bf16(emulated_libs):
+    """build name -> the C entry point of K3's bf16 instance."""
+    return {name: entry_in(lib, "lrn_backward_bf16")
+            for name, lib in emulated_libs.items()}
 
 
 def _inputs(shape, kind, seed=3):
@@ -81,10 +95,13 @@ def _inputs(shape, kind, seed=3):
     return torch.from_numpy(x), g
 
 
-def _run(entry, monkeypatch, shape, n, kind, generic=False):
+def _run(entry, monkeypatch, shape, n, kind, generic=False, bf16_offset=None):
     """(K3's source through the wrapper, the plain version) on one
-    input."""
+    input; in bf16 (x `bf16_offset` elements into its buffer) unless
+    None."""
     x, g = _inputs(shape, kind)
+    if bf16_offset is not None:
+        x, g = bf16_at(x, bf16_offset), g.to(torch.bfloat16)
     sqrt = torch.sqrt
     with monkeypatch.context() as m:
         m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
@@ -125,6 +142,38 @@ def test_k3_generic_instance_at_alexnets_geometry(emulated, monkeypatch,
     fixed, _ = _run(emulated[build], monkeypatch, (1, 5, 9, 96), 5, "relu")
     _assert_bit_equal(generic, want)
     assert torch.equal(generic, fixed)
+
+
+#: K3's bf16 instance: (what, x shape, input, x's offset in elements from
+#: 16-byte alignment); 8-byte copies where C % 4 == 0 and x is 8-byte
+#: aligned, else 2-byte ones
+BF16_SHAPES = (("C 96, ragged last tile", (1, 5, 9, 96), "relu", 0),
+               ("C 256, ragged last tile", (1, 3, 5, 256), "relu", 0),
+               ("C 3", (2, 14, 16, 3), "relu", 0),
+               ("C 70", (2, 5, 7, 70), "relu", 0),
+               ("NaN in x", (2, 5, 7, 40), "nan", 0),
+               ("x 8 bytes off 16-byte alignment, C 96", (1, 5, 9, 96),
+                "relu", 4),
+               ("x 2 bytes off alignment, C 96", (1, 5, 9, 96), "relu", 1))
+
+
+@pytest.mark.parametrize("build", list(BUILDS))
+@pytest.mark.parametrize("what,shape,kind,offset", BF16_SHAPES,
+                         ids=[s[0] for s in BF16_SHAPES])
+def test_k3_bf16_source_is_bit_equal_to_the_plain_version(
+        emulated_bf16, monkeypatch, build, what, shape, kind, offset):
+    """The bf16 instance (bf16 x, g and dx; staged as f32, dx rounded
+    once) gives the plain version's bits."""
+    got, want = _run(emulated_bf16[build], monkeypatch, shape, 5, kind,
+                     bf16_offset=offset)
+    assert got.dtype == torch.bfloat16
+    assert (_assert_bit_equal(got, want) > 0) == (kind == "nan")
+
+
+def test_k3_bf16_generic_instance(emulated_bf16, monkeypatch):
+    _assert_bit_equal(*_run(emulated_bf16["as written"], monkeypatch,
+                            (1, 5, 9, 96), 5, "relu", generic=True,
+                            bf16_offset=0))
 
 
 def test_a_halo_left_at_zero_fails(tmp_path, monkeypatch):

@@ -35,9 +35,10 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_lrn_pool_tiles import (ALPHA, BETA, K, compile_source,
-                                             emulated_source, find_gxx,
-                                             load_entry, wrapper_on)
+from tests.test_torch_lrn_pool_tiles import (ALPHA, BETA, K, bf16_at,
+                                             compile_source, emulated_source,
+                                             entry_in, find_gxx, load_entry,
+                                             wrapper_on)
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import kernels
 
@@ -110,6 +111,14 @@ def emulated(emulated_libs):
     return {key: entry for key, (_, entry) in emulated_libs.items()}
 
 
+@pytest.fixture(scope="module")
+def emulated_bf16(emulated_libs):
+    """(kernel, build) -> the C entry point of the kernel's bf16
+    instance."""
+    return {key: entry_in(lib, f"{key[0]}_bf16")
+            for key, (lib, _) in emulated_libs.items()}
+
+
 def _input(shape, kind, seed=8):
     rs = np.random.RandomState(seed)
     x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
@@ -128,9 +137,13 @@ def _input(shape, kind, seed=8):
     return torch.from_numpy(x)
 
 
-def _run(entry, monkeypatch, name, x, *args, generic=False):
+def _run(entry, monkeypatch, name, x, *args, generic=False,
+         bf16_offset=None):
     """(the kernel's source through its wrapper, the plain version) on
-    `x`; `args` are the wrapper's after x."""
+    `x`; `args` are the wrapper's after x. In bf16 (x `bf16_offset`
+    elements into its buffer) unless None."""
+    if bf16_offset is not None:
+        x = bf16_at(x.contiguous(), bf16_offset)
     plain = getattr(kernels, f"{name}_plain")
     sqrt = torch.sqrt
     with monkeypatch.context() as m:
@@ -150,15 +163,17 @@ def _assert_bit_equal(got, want):
     return int(nan.sum())
 
 
-def _k4(entry, monkeypatch, shape, ksize, stride, n, kind, generic=False):
+def _k4(entry, monkeypatch, shape, ksize, stride, n, kind, generic=False,
+        bf16_offset=None):
     return _run(entry, monkeypatch, "lrn_maxpool_forward",
                 _input(shape, kind), K, ALPHA, BETA, n, ksize, stride,
-                generic=generic)
+                generic=generic, bf16_offset=bf16_offset)
 
 
-def _k2(entry, monkeypatch, shape, n, kind, generic=False):
+def _k2(entry, monkeypatch, shape, n, kind, generic=False,
+        bf16_offset=None):
     return _run(entry, monkeypatch, "lrn_forward", _input(shape, kind, 3), K,
-                ALPHA, BETA, n, generic=generic)
+                ALPHA, BETA, n, generic=generic, bf16_offset=bf16_offset)
 
 
 @pytest.mark.parametrize("build", list(BUILDS["lrn_maxpool_forward"]))
@@ -207,6 +222,62 @@ def test_generic_instance_at_alexnets_geometry(emulated, monkeypatch, name,
         fixed, _ = _k2(entry, monkeypatch, (1, 5, 9, 96), 5, "relu")
     _assert_bit_equal(generic, want)
     assert torch.equal(generic, fixed)
+
+
+#: the bf16 instances at small shapes: (kernel, what, x shape, input, x's
+#: offset in elements from 16-byte alignment); 8-byte copies of four
+#: channels where C % 4 == 0 and x (and K2's y) are 8-byte aligned, else
+#: 2-byte ones; K4 under 3x3/2 pools
+BF16_CASES = (("lrn_maxpool_forward", "clipped both axes, C 40",
+               (2, 14, 16, 40), "relu", 0),
+              ("lrn_maxpool_forward", "C 3", (2, 14, 16, 3), "relu", 0),
+              ("lrn_maxpool_forward", "NaN windows", (2, 14, 16, 40), "nan",
+               0),
+              ("lrn_maxpool_forward", "x 8 bytes off 16-byte alignment",
+               (1, 9, 11, 96), "relu", 4),
+              ("lrn_maxpool_forward", "x 2 bytes off alignment",
+               (1, 9, 11, 96), "relu", 1),
+              ("lrn_forward", "C 96, ragged last tile", (1, 5, 9, 96),
+               "relu", 0),
+              ("lrn_forward", "C 256, ragged last tile", (1, 3, 5, 256),
+               "relu", 0),
+              ("lrn_forward", "C 3", (2, 14, 16, 3), "relu", 0),
+              ("lrn_forward", "C 70", (2, 5, 7, 70), "relu", 0),
+              ("lrn_forward", "NaN in x", (2, 5, 7, 40), "nan", 0),
+              ("lrn_forward", "x 8 bytes off 16-byte alignment",
+               (1, 5, 9, 96), "relu", 4),
+              ("lrn_forward", "x 2 bytes off alignment", (1, 5, 9, 96),
+               "relu", 1))
+
+
+@pytest.mark.parametrize("build", ["as written", "narrow"])
+@pytest.mark.parametrize("name,what,shape,kind,offset", BF16_CASES,
+                         ids=[f"{c[0]} {c[1]}" for c in BF16_CASES])
+def test_bf16_source_is_bit_equal_to_the_plain_version(
+        emulated_bf16, monkeypatch, build, name, what, shape, kind, offset):
+    """The bf16 instances (bf16 x and y; staged as f32, K4's maximum taken
+    in f32 and each output rounded once) give the plain versions' bits."""
+    entry = emulated_bf16[name, build]
+    if name == "lrn_maxpool_forward":
+        got, want = _k4(entry, monkeypatch, shape, (3, 3), (2, 2), 5, kind,
+                        bf16_offset=offset)
+    else:
+        got, want = _k2(entry, monkeypatch, shape, 5, kind,
+                        bf16_offset=offset)
+    assert got.dtype == torch.bfloat16
+    assert (_assert_bit_equal(got, want) > 0) == (kind == "nan")
+
+
+@pytest.mark.parametrize("name", list(SOURCES))
+def test_bf16_generic_instance(emulated_bf16, monkeypatch, name):
+    entry = emulated_bf16[name, "as written"]
+    if name == "lrn_maxpool_forward":
+        _assert_bit_equal(*_k4(entry, monkeypatch, (2, 14, 16, 40), (3, 3),
+                               (2, 2), 5, "relu", generic=True,
+                               bf16_offset=0))
+    else:
+        _assert_bit_equal(*_k2(entry, monkeypatch, (1, 5, 9, 96), 5, "relu",
+                               generic=True, bf16_offset=0))
 
 
 @pytest.mark.parametrize("name", list(SOURCES))

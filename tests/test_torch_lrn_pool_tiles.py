@@ -17,7 +17,11 @@ with a small prelude in place of the CUDA runtime:
   `stage_wait` nothing, one valid schedule of the asynchronous copies;
 - the round-to-nearest intrinsics are plain float operations (compiled
   with -ffp-contract=off, so none becomes an FMA), `__ldg` a load, and
-  `rsqrtf` 1/sqrtf, which is what torch.rsqrt computes on the CPU.
+  `rsqrtf` 1/sqrtf, which is what torch.rsqrt computes on the CPU;
+- `__nv_bfloat16` is a struct of its 16 bits: widened to f32 exactly (the
+  high half of the f32) and rounded from f32 to nearest even, NaN to a
+  NaN, by its conversions and assignment as by `cuda_bf16.h`'s, and as
+  torch rounds.
 
 The plain version runs with torch.sqrt rounded correctly (through
 float64), as sqrtf is on the card and in g++: on the CPU, torch.sqrt of
@@ -71,6 +75,39 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// cuda_bf16.h's type as its 16 bits: widened to f32 exactly (also by the
+// implicit conversion), rounded from f32 to nearest even (also by the
+// assignment from float)
+struct __nv_bfloat16 {
+  unsigned short bits;
+  operator float() const {
+    return __uint_as_float(static_cast<unsigned>(bits) << 16);
+  }
+  __nv_bfloat16& operator=(float f);
+};
+inline float __bfloat162float(__nv_bfloat16 b) { return b; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u)  // NaN stays a (quiet) NaN
+    return {static_cast<unsigned short>((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);  // to nearest, ties to even
+  return {static_cast<unsigned short>(u >> 16)};
+}
+inline __nv_bfloat16& __nv_bfloat16::operator=(float f) {
+  bits = __float2bfloat16_rn(f).bits;
+  return *this;
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.bits; }
 
 namespace emu {
 inline thread_local dim3 thread_idx, block_idx;
@@ -186,6 +223,7 @@ def _header(name):
     text = (kernels.CSRC / name).read_text()
     if name == "lrn_common.cuh":
         text = sub(text, "#include <cuda_runtime.h>", "")
+        text = sub(text, "#include <cuda_bf16.h>", "")
         text, n = re.subn(
             r"__device__ __forceinline__ void stage\(.*?"
             r"__device__ __forceinline__ void stage_wait\(\) {.*?\n}\n",
@@ -242,28 +280,68 @@ def compile_source(gxx, src, out):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def load_entry(out, proc, name="lrn_maxpool_backward"):
-    """The C entry point of kernel `name` from a finished
-    `compile_source`."""
+def wait_built(out, proc):
+    """The library `out` once the `compile_source` building it has
+    finished."""
     log = proc.communicate()[0]
     assert proc.returncode == 0, f"g++:\n{log}"
-    symbol = kernels.KERNELS[name][1]
-    entry = getattr(ctypes.CDLL(str(out)), symbol)
+    return out
+
+
+def entry_in(lib, name):
+    """The C entry point of kernel instance `name` (kernels.INSTANCES:
+    `lrn_forward` (f32), `lrn_forward_bf16`, ...) in the emulated
+    library `lib`."""
+    symbol = kernels.INSTANCES[name][1]
+    entry = getattr(ctypes.CDLL(str(lib)), symbol)
     entry.argtypes = kernels._ARGTYPES[symbol]
     entry.restype = ctypes.c_int
     return entry
 
 
+def load_entry(out, proc, name="lrn_maxpool_backward"):
+    """The C entry point of kernel instance `name` from a finished
+    `compile_source`."""
+    return entry_in(wait_built(out, proc), name)
+
+
+def bf16_at(x, offset=0):
+    """`x` rounded to bf16, `offset` elements (2 bytes each) into a fresh
+    buffer: contiguous, and for offset 1 two bytes off 8-byte alignment
+    (so the kernels stage it element by element), for 4 eight bytes off
+    16-byte alignment (8-byte copies still take it)."""
+    buf = torch.empty(x.numel() + offset + 8, dtype=torch.bfloat16)
+    start = (-(buf.data_ptr() // 2)) % 8 + offset  # from a 16-byte boundary
+    xt = buf[start:start + x.numel()].view(x.shape)
+    xt.copy_(x)
+    assert xt.data_ptr() % 16 == 2 * offset
+    return xt
+
+
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """build name -> the C entry point of K5's source compiled by g++,
-    all builds compiled at once."""
+def emulated_libs(tmp_path_factory):
+    """build name -> K5's source compiled by g++ (the library), all
+    builds compiled at once."""
     gxx = find_gxx()
     out = tmp_path_factory.mktemp("k5_emulation")
     started = {name: compile_source(gxx, emulated_source(SOURCE, consts, 2),
                                     out / f"{name.replace(' ', '_')}.so")
                for name, consts in BUILDS.items()}
-    return {name: load_entry(*job) for name, job in started.items()}
+    return {name: wait_built(*job) for name, job in started.items()}
+
+
+@pytest.fixture(scope="module")
+def emulated(emulated_libs):
+    """build name -> the C entry point of K5's f32 instance."""
+    return {name: entry_in(lib, "lrn_maxpool_backward")
+            for name, lib in emulated_libs.items()}
+
+
+@pytest.fixture(scope="module")
+def emulated_bf16(emulated_libs):
+    """build name -> the C entry point of K5's bf16 instance."""
+    return {name: entry_in(lib, "lrn_maxpool_backward_bf16")
+            for name, lib in emulated_libs.items()}
 
 
 @contextlib.contextmanager
@@ -306,8 +384,12 @@ def _inputs(shape, ksize, stride, kind, seed=8):
 
 
 def _case(emulated, monkeypatch, build, shape, ksize, stride, n, kind,
-          generic=False):
+          generic=False, bf16_offset=None):
+    """K5's source on one input against the plain version, bit for bit;
+    in bf16 (x `bf16_offset` elements into its buffer) unless None."""
     x, g = _inputs(shape, ksize, stride, kind)
+    if bf16_offset is not None:
+        x, g = bf16_at(x, bf16_offset), g.to(torch.bfloat16)
     sqrt = torch.sqrt
     with monkeypatch.context() as m:
         m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
@@ -340,6 +422,35 @@ def test_k5_generic_instance_at_alexnets_geometry(emulated, monkeypatch,
     compile-time one takes otherwise), gives the plain version's bits."""
     _case(emulated, monkeypatch, build, (2, 14, 16, 40), (3, 3), (2, 2), 5,
           "relu", generic=True)
+
+
+#: K5's bf16 instance at small shapes: (what, x shape, window, stride,
+#: input, x's offset in elements from 16-byte alignment)
+BF16_SHAPES = (("clipped both axes, C 40", (2, 14, 16, 40), (3, 3), (2, 2),
+                "relu", 0),
+               ("C 3", (2, 14, 16, 3), (3, 3), (2, 2), "relu", 0),
+               ("all zero", (2, 14, 16, 40), (3, 3), (2, 2), "zero", 0),
+               ("NaN windows", (2, 14, 16, 40), (3, 3), (2, 2), "nan", 0),
+               ("x 2 bytes off alignment", (2, 14, 16, 40), (3, 3), (2, 2),
+                "relu", 1))
+
+
+@pytest.mark.parametrize("build", list(BUILDS))
+@pytest.mark.parametrize("what,shape,ksize,stride,kind,offset", BF16_SHAPES,
+                         ids=[s[0] for s in BF16_SHAPES])
+def test_k5_bf16_source_is_bit_equal_to_the_plain_version(
+        emulated_bf16, monkeypatch, build, what, shape, ksize, stride, kind,
+        offset):
+    """The bf16 instance (bf16 x, g and dx; staged as f32, routed on the
+    f32 LRN values, dx rounded once) gives the plain version's bits."""
+    nans = _case(emulated_bf16, monkeypatch, build, shape, ksize, stride, 5,
+                 kind, bf16_offset=offset)
+    assert (nans > 0) == (kind == "nan")
+
+
+def test_k5_bf16_generic_instance(emulated_bf16, monkeypatch):
+    _case(emulated_bf16, monkeypatch, "as written", (2, 14, 16, 40), (3, 3),
+          (2, 2), 5, "relu", generic=True, bf16_offset=0)
 
 
 def test_a_wrong_covering_window_fails(tmp_path, monkeypatch):

@@ -186,15 +186,16 @@ def test_dropout_step_with_the_jax_masks_tracks_the_jax_step(monkeypatch):
         handed = list(masks)
         calls = []
 
-        def jax_mask(shape, drop_prob, generator, device):
-            calls.append((tuple(shape), drop_prob))
+        def jax_mask(shape, drop_prob, generator, device,
+                     dtype=torch.float32):
+            calls.append((tuple(shape), drop_prob, dtype))
             return torch.tensor(handed.pop(0), device=device)
 
         monkeypatch.setattr(pdropout, "make_mask", jax_mask)
         x, y, w = _batch(300)
         jstate, (jloss, jerr) = jstep.train(jstate, x, y, w)
         pstate, (ploss, perr) = pstep.train(pstate, x, y, w)
-        assert calls == [((8, 64), 0.5)] * 2 and not handed
+        assert calls == [((8, 64), 0.5, torch.float32)] * 2 and not handed
         np.testing.assert_allclose(float(ploss), float(jloss),
                                    rtol=LOSS_RTOL)
         assert int(perr) == int(jerr)

@@ -1,0 +1,29 @@
+"""The port's registry defaults beside the JAX package's, where they
+differ on purpose.
+
+`lrn_maxpool`: the port defaults to `fused` (K4 forward, K5 backward on
+every adjacent LRN -> max-pool pair); the JAX package defaults to
+`composed` (veles_tpu/ops/variants.py:327-329) and reaches a fused point
+only when its kernel search (ops/templates.py) selects one. The port has
+no search yet, so its default keeps K4 and K5 on the main path; the
+registry entry's doc says so. Both lowerings meet the same golden
+(tests/test_torch_kernels.py, tests/test_torch_train_step.py).
+"""
+
+from veles_tpu.ops import variants as jvariants
+from veles_tpu_torch.ops import variants
+
+
+def test_lrn_maxpool_default_is_fused_where_the_reference_composes():
+    assert variants._OPS["lrn_maxpool"].default == "fused"
+    assert jvariants._OPS["lrn_maxpool"].default == "composed"
+    prev = variants.selected("lrn_maxpool")
+    variants.clear_selection("lrn_maxpool")
+    try:
+        assert variants.resolve("lrn_maxpool").name == "fused"
+        assert variants.resolve("lrn_maxpool").fused
+    finally:
+        if prev is not None:
+            variants.select("lrn_maxpool", prev)
+    doc = variants._OPS["lrn_maxpool"].doc
+    assert "composed" in doc and "veles_tpu/ops/variants.py" in doc

@@ -18,23 +18,35 @@ DeviceLike = Union[None, str, torch.device]
 
 @contextlib.contextmanager
 def full_f32(dev: Optional[torch.device]) -> Iterator[None]:
-    """Run the block's convolutions and matrix products in full f32 on
-    the card. PyTorch lets cuDNN convolutions use TF32 by default, which
-    rounds their inputs to a 10-bit mantissa. The two flags are
-    process-wide and read when an op is launched, so they are cleared for
-    the block and restored after it. Nothing to do on the CPU."""
+    """Accumulate the block's convolutions and matrix products in full f32
+    on the card, whatever their input dtype. The flags are process-wide
+    and read when an op is launched, so they are set for the block and
+    restored after it; nothing to do on the CPU.
+
+    - `torch.backends.cudnn.allow_tf32` off: PyTorch lets cuDNN run f32
+      convolutions in TF32 by default, rounding their inputs to a 10-bit
+      mantissa; off, f32 convolutions stay f32.
+    - `torch.backends.cuda.matmul.allow_tf32` off: the same for f32
+      matrix products (off by default already).
+    - `torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`
+      off: cuBLAS may otherwise add the split-K partial sums of a bf16
+      GEMM in bf16; off, they are added in f32, as XLA accumulates a bf16
+      product of the JAX step.
+    """
     if dev is None or dev.type != "cuda":
         yield
         return
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+    matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def make_device(device: DeviceLike = None) -> torch.device:

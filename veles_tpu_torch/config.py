@@ -127,5 +127,7 @@ def parse_override(arg: str) -> Tuple[str, Any]:
 root = Config()
 
 # Common defaults (parity: reference `veles/config.py` root.common.*).
-#: the port computes in float32 only (serving.py checks it)
+#: the fused step's compute dtype: "float32", or "bfloat16" for bf16
+#: compute over f32 master weights (parallel/fused.py); the server takes
+#: float32 only (serving.py checks it)
 root.common.precision_type = "float32"

@@ -1,4 +1,5 @@
-// K3: across-channel LRN backward, f32, on an (rows, C) channels-last view.
+// K3: across-channel LRN backward on an (rows, C) channels-last view, f32
+// or bf16 in device memory, f32 arithmetic.
 //
 // Replaces: veles_tpu/ops/pallas_kernels.py `_lrn_bwd_kernel` (reached
 // through `lrn_backward_pallas`, the backward half of the custom VJP
@@ -38,6 +39,15 @@
 // as compile-time constants; any other geometry a generic one, which the
 // caller may also ask for at AlexNet's (`generic`), to time what the
 // constants buy.
+//
+// bf16 (the JAX kernel's io_dtype="native" under a bf16 step): x, g and dx
+// in bf16, the same tiles, staged rows and arithmetic in f32, each dx
+// rounded once to bf16. Staging loads and converts into the f32 rows
+// (lrn_common.cuh's bf16 stage and stage16: 2-byte loads, or 8-byte loads
+// of four channels where C % 4 == 0 and x and g are 8-byte aligned)
+// instead of cp.async, which cannot convert, so the shared-memory layout
+// and every index stay the f32 instance's, and the f32 instance's
+// statements are unchanged.
 #include <algorithm>
 #include <climits>
 #include <cstdint>
@@ -57,11 +67,11 @@ constexpr int kTile = 3072;
 constexpr size_t kSmemMax = 48 * 1024;
 constexpr int kMaxGridY = 65535;  // channel tiles a row, at most
 
-template <int kHalf, int kQ>
+// T is device memory's element type: float or __nv_bfloat16.
+template <typename T, int kHalf, int kQ>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_backward_kernel(
-    const float* __restrict__ x, const float* __restrict__ g,
-    float* __restrict__ dx, Geom p, float k, float alpha, float beta,
-    float c2) {
+    const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
+    Geom p, float k, float alpha, float beta, float c2) {
   extern __shared__ float4 smem4[];
   const int h = kHalf >= 0 ? kHalf : p.half;
   const int q = kQ >= 0 ? kQ : p.q;
@@ -80,14 +90,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_backward_kernel(
   // contiguous run either way, flat index i = r*ct + c
   const int n_own = nr * nc;
   // the tile's first element in x, g and dx
-  const float* const xt = x + row0 * p.C + c0;
-  const float* const gt = g + row0 * p.C + c0;
-  float* const dt = dx + row0 * p.C + c0;
+  const T* const xt = x + row0 * p.C + c0;
+  const T* const gt = g + row0 * p.C + c0;
+  T* const dt = dx + row0 * p.C + c0;
   // 1. stage x and g
   for (Walk w = copies; w.r < nr; w.next()) {
     const int cc = (p.wide ? 4 * w.c : w.c) - p.xp;  // channel less c0
     const bool in = c0 + cc >= 0 && c0 + cc < p.C;
-    const float* src = in ? xt + w.r * p.C + cc : x;
+    const T* src = in ? xt + w.r * p.C + cc : x;
     float* dst = xs + w.r * p.xw + p.xp + cc;
     if (p.wide)
       stage16(dst, src, in);
@@ -155,15 +165,37 @@ size_t smem_bytes(const Geom& p) {
   return p.rb * (p.xw + p.ct + p.tw) * sizeof(float);
 }
 
-template <int kHalf, int kQ>
-cudaError_t launch(const float* x, const float* g, float* dx, const Geom& p,
-                   float k, float alpha, float beta, float c2,
-                   cudaStream_t st) {
-  auto* kernel = lrn_backward_kernel<kHalf, kQ>;
+template <int kHalf, int kQ, typename T>
+cudaError_t launch(const T* x, const T* g, T* dx, const Geom& p, float k,
+                   float alpha, float beta, float c2, cudaStream_t st) {
+  auto* kernel = lrn_backward_kernel<T, kHalf, kQ>;
   const dim3 grid(static_cast<unsigned>(p.row_tiles), p.n_ct);
   kernel<<<grid, kThreads, smem_bytes(p), st>>>(x, g, dx, p, k, alpha, beta,
                                                 c2);
   return cudaGetLastError();
+}
+
+template <typename T>
+int entry(const T* x, const T* g, T* dx, int64_t rows, int C, int half,
+          float k, float alpha, int q, float beta, float c2, int generic,
+          void* stream) {
+  if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
+  Geom p{};
+  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  p.rows = rows;
+  p.q = q;
+  p.row_tiles = (rows + p.rb - 1) / p.rb;
+  if (p.row_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // four elements a copy: 16 bytes of f32, 8 of bf16
+  constexpr uintptr_t kQuad = 4 * sizeof(T);
+  p.wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % kQuad == 0 &&
+           reinterpret_cast<uintptr_t>(g) % kQuad == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      !generic && half == 2 && q == 3
+          ? launch<2, 3>(x, g, dx, p, k, alpha, beta, c2, st)
+          : launch<-1, -1>(x, g, dx, p, k, alpha, beta, c2, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -175,21 +207,18 @@ extern "C" int lrn_backward_f32(const float* x, const float* g, float* dx,
                                 int64_t rows, int C, int half, float k,
                                 float alpha, int q, float beta, float c2,
                                 int generic, void* stream) {
-  if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
-  Geom p{};
-  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  p.rows = rows;
-  p.q = q;
-  p.row_tiles = (rows + p.rb - 1) / p.rb;
-  if (p.row_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  p.wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-           reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      !generic && half == 2 && q == 3
-          ? launch<2, 3>(x, g, dx, p, k, alpha, beta, c2, st)
-          : launch<-1, -1>(x, g, dx, p, k, alpha, beta, c2, st);
-  return static_cast<int>(err);
+  return entry(x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic,
+               stream);
+}
+
+// The same with bf16 x, g and dx (f32 arithmetic, each dx rounded once).
+extern "C" int lrn_backward_bf16(const __nv_bfloat16* x,
+                                 const __nv_bfloat16* g, __nv_bfloat16* dx,
+                                 int64_t rows, int C, int half, float k,
+                                 float alpha, int q, float beta, float c2,
+                                 int generic, void* stream) {
+  return entry(x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic,
+               stream);
 }
 
 // The dynamic shared memory one block takes for C-wide rows (-1: refused).

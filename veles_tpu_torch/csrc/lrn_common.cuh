@@ -20,8 +20,20 @@
 // bit-identical in every kernel that includes this header, and the fused
 // LRN->max-pool kernels pool and route exactly the values the LRN kernel
 // writes.
+//
+// Device memory holds f32 or bf16 (`__nv_bfloat16`), the JAX kernels'
+// io_dtype="native": the kernels are templated on its element type T.
+// Every staged value and every operation here is f32 either way. A bf16
+// element widens to f32 exactly when it is staged or read (stage, stage16
+// below; cuda_bf16.h's conversion for a load), and an f32 result stored
+// to a bf16 element rounds once, to nearest even (cuda_bf16.h's
+// assignment from float). The f32 instances run the f32 kernels'
+// statements unchanged.
 #pragma once
 
+#include <type_traits>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ float lrn_pow_neg(float s, int q, float beta) {
@@ -125,3 +137,43 @@ __device__ __forceinline__ void stage16(void* dst, const void* src,
 __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// The bf16 instances' copies into the f32 staging, overloads of the two
+// above (cp.async copies bytes and cannot convert): one element by a
+// 2-byte load, widened here; the four elements of one 16-byte f32 copy by
+// one 8-byte load (`src` 8-byte aligned), each half the high half of its
+// f32, stored as one float4. Zeros where `in` is false.
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      bool in) {
+  *dst = in ? __bfloat162float(*src) : 0.0f;
+}
+
+__device__ __forceinline__ void stage16(float* dst,
+                                        const __nv_bfloat16* src, bool in) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (in) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    v.x = __uint_as_float(u.x << 16);
+    v.y = __uint_as_float(u.x & 0xffff0000u);
+    v.z = __uint_as_float(u.y << 16);
+    v.w = __uint_as_float(u.y & 0xffff0000u);
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Four f32 results to the i-th group of four bf16 from `p` (8-byte
+// aligned), each rounded to nearest even, as one 8-byte store.
+__device__ __forceinline__ void store4(__nv_bfloat16* p, int i, float4 v) {
+  uint2 u;
+  u.x = bf16_bits(v.x) | (bf16_bits(v.y) << 16);
+  u.y = bf16_bits(v.z) | (bf16_bits(v.w) << 16);
+  reinterpret_cast<uint2*>(p)[i] = u;
+}
+
+// True for an f32 instance.
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;

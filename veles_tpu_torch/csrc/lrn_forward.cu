@@ -1,4 +1,5 @@
-// K2: across-channel LRN forward, f32, on an (rows, C) channels-last view.
+// K2: across-channel LRN forward on an (rows, C) channels-last view, f32
+// or bf16 in device memory, f32 arithmetic.
 //
 // Replaces: veles_tpu/ops/pallas_kernels.py `_lrn_fwd_kernel` (reached
 // through `_lrn_call` / `lrn_forward_pallas`), the TPU kernel that streams
@@ -32,6 +33,15 @@
 // half = 2 and 4*beta = 3 run an instance with them as compile-time
 // constants; any other geometry a generic one, which the caller may also
 // ask for at AlexNet's (`generic`), to time what the constants buy.
+//
+// bf16 (the JAX kernel's io_dtype="native" under a bf16 step): the same
+// tiles, staged rows and arithmetic, in f32, each y rounded once to bf16
+// (four of them in one 8-byte store where a thread stores four channels).
+// Staging loads and converts into the f32 rows (lrn_common.cuh's bf16
+// stage and stage16: 2-byte loads, or 8-byte loads of four channels where
+// C % 4 == 0 and x and y are 8-byte aligned) instead of cp.async, which
+// cannot convert: the shared-memory layout and every index stay the f32
+// instance's, and the f32 instance's statements are unchanged.
 #include <algorithm>
 #include <climits>
 #include <cstdint>
@@ -51,10 +61,11 @@ constexpr int kTile = 3072;
 constexpr size_t kSmemMax = 48 * 1024;
 constexpr int kMaxGridY = 65535;  // channel tiles a row, at most
 
-template <int kHalf, int kQ>
+// T is device memory's element type: float or __nv_bfloat16.
+template <typename T, int kHalf, int kQ>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_forward_kernel(
-    const float* __restrict__ x, float* __restrict__ y, Geom p, float k,
-    float alpha, float beta) {
+    const T* __restrict__ x, T* __restrict__ y, Geom p, float k, float alpha,
+    float beta) {
   extern __shared__ float4 smem4[];
   const int h = kHalf >= 0 ? kHalf : p.half;
   const int q = kQ >= 0 ? kQ : p.q;
@@ -67,14 +78,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_forward_kernel(
   // own elements: nr whole rows, or one row's run of nc channels, one
   // contiguous run either way, flat index i = r*ct + c
   const int n_own = nr * nc;
-  const float* const xt = x + row0 * p.C + c0;
-  float* const yt = y + row0 * p.C + c0;
+  const T* const xt = x + row0 * p.C + c0;
+  T* const yt = y + row0 * p.C + c0;
   // 1. stage x (K3's loop)
   const int span = p.wide ? p.xw / 4 : p.xw;  // copies a staged row
   for (Walk w(threadIdx.x, kThreads, span); w.r < nr; w.next()) {
     const int cc = (p.wide ? 4 * w.c : w.c) - p.xp;  // channel less c0
     const bool in = c0 + cc >= 0 && c0 + cc < p.C;
-    const float* src = in ? xt + w.r * p.C + cc : x;
+    const T* src = in ? xt + w.r * p.C + cc : x;
     float* dst = xs + w.r * p.xw + p.xp + cc;
     if (p.wide)
       stage16(dst, src, in);
@@ -94,7 +105,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_forward_kernel(
       v.y = lrn_value_staged(xc + 1, h, k, alpha, q, beta);
       v.z = lrn_value_staged(xc + 2, h, k, alpha, q, beta);
       v.w = lrn_value_staged(xc + 3, h, k, alpha, q, beta);
-      reinterpret_cast<float4*>(yt)[w.i] = v;
+      if constexpr (kF32<T>)
+        reinterpret_cast<float4*>(yt)[w.i] = v;
+      else
+        store4(yt, w.i, v);
     }
   } else {
     for (Walk w(threadIdx.x, kThreads, p.ct); w.i < n_own; w.next())
@@ -123,13 +137,35 @@ bool plan(int C, int half, Geom* p) {
 
 size_t smem_bytes(const Geom& p) { return p.rb * p.xw * sizeof(float); }
 
-template <int kHalf, int kQ>
-cudaError_t launch(const float* x, float* y, const Geom& p, float k,
-                   float alpha, float beta, cudaStream_t st) {
+template <int kHalf, int kQ, typename T>
+cudaError_t launch(const T* x, T* y, const Geom& p, float k, float alpha,
+                   float beta, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(p.row_tiles), p.n_ct);
-  auto* kernel = lrn_forward_kernel<kHalf, kQ>;
+  auto* kernel = lrn_forward_kernel<T, kHalf, kQ>;
   kernel<<<grid, kThreads, smem_bytes(p), st>>>(x, y, p, k, alpha, beta);
   return cudaGetLastError();
+}
+
+template <typename T>
+int entry(const T* x, T* y, int64_t rows, int C, int half, float k,
+          float alpha, int q, float beta, int generic, void* stream) {
+  if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
+  Geom p{};
+  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  p.rows = rows;
+  p.q = q;
+  p.row_tiles = (rows + p.rb - 1) / p.rb;
+  if (p.row_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // four elements a copy: 16 bytes of f32, 8 of bf16
+  constexpr uintptr_t kQuad = 4 * sizeof(T);
+  p.wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % kQuad == 0 &&
+           reinterpret_cast<uintptr_t>(y) % kQuad == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      !generic && half == 2 && q == 3
+          ? launch<2, 3>(x, y, p, k, alpha, beta, st)
+          : launch<-1, -1>(x, y, p, k, alpha, beta, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -140,21 +176,15 @@ cudaError_t launch(const float* x, float* y, const Geom& p, float k,
 extern "C" int lrn_forward_f32(const float* x, float* y, int64_t rows, int C,
                                int half, float k, float alpha, int q,
                                float beta, int generic, void* stream) {
-  if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
-  Geom p{};
-  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  p.rows = rows;
-  p.q = q;
-  p.row_tiles = (rows + p.rb - 1) / p.rb;
-  if (p.row_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  p.wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-           reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      !generic && half == 2 && q == 3
-          ? launch<2, 3>(x, y, p, k, alpha, beta, st)
-          : launch<-1, -1>(x, y, p, k, alpha, beta, st);
-  return static_cast<int>(err);
+  return entry(x, y, rows, C, half, k, alpha, q, beta, generic, stream);
+}
+
+// The same with bf16 x and y (f32 arithmetic, each y rounded once).
+extern "C" int lrn_forward_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                                int64_t rows, int C, int half, float k,
+                                float alpha, int q, float beta, int generic,
+                                void* stream) {
+  return entry(x, y, rows, C, half, k, alpha, q, beta, generic, stream);
 }
 
 // The dynamic shared memory one block takes for C-wide rows under a

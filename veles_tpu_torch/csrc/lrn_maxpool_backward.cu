@@ -1,4 +1,5 @@
-// K5: fused LRN -> ceil-mode max pool backward, f32, NHWC.
+// K5: fused LRN -> ceil-mode max pool backward, NHWC, f32 or bf16 in
+// device memory, f32 arithmetic.
 //
 // Replaces: veles_tpu/ops/pallas_kernels.py `_lrn_pool_bwd_kernel`
 // (reached through `_lrn_pool_bwd_rule`, the backward half of the custom
@@ -72,6 +73,16 @@
 // as compile-time constants; any other geometry a generic one, which the
 // caller may also ask for at AlexNet's (`generic`), to time what the
 // constants buy.
+//
+// bf16 (the JAX kernel's io_dtype="native" under a bf16 step): x, the
+// pooled gradient and dx in bf16, the same tiles and arithmetic in f32.
+// The route compares the f32 LRN values, as the JAX kernel does after
+// promoting its block; the tap record is the same bytes; each dx is
+// rounded once to bf16. Staging loads and converts each element into the
+// f32 tiles (lrn_common.cuh's bf16 stage: 2-byte loads) instead of
+// cp.async, which cannot convert, so the shared-memory layout and every
+// index stay the f32 instance's, and the f32 instance's statements are
+// unchanged.
 #include <algorithm>
 #include <climits>
 #include <cstdint>
@@ -94,9 +105,10 @@ constexpr int kMaxGridZ = 65535;  // samples beyond this loop
 // Launch 1. Grid: (bands of rb pooled rows x cb pooled columns, channel
 // tiles of ct, samples); offsets inside a sample are 32-bit (the host
 // refuses a sample of 2^31 elements or more).
-template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+// T is device memory's element type: float or __nv_bfloat16.
+template <typename T, int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
 __global__ void __launch_bounds__(512) lrn_pool_route_kernel(
-    const float* __restrict__ x, uint8_t* __restrict__ win, Geom p, int n,
+    const T* __restrict__ x, uint8_t* __restrict__ win, Geom p, int n,
     int rb, int cb, int ct, int n_cb, float k, float alpha, float beta) {
   extern __shared__ float4 smem4[];
   const Shape<kHalf, kQ, kKY, kKX, kSY, kSX> sh(p);
@@ -115,7 +127,7 @@ __global__ void __launch_bounds__(512) lrn_pool_route_kernel(
   const int64_t sample = static_cast<int64_t>(p.H) * p.W * p.C;
   const int64_t pooled = static_cast<int64_t>(p.OH) * p.OW * p.C;
   for (int ni = blockIdx.z; ni < n; ni += gridDim.z) {
-    const float* xn = x + ni * sample;
+    const T* xn = x + ni * sample;
     uint8_t* wn = win + ni * pooled;
     if (nr > 0 && nc > 0) {
       for (Walk w(threadIdx.x, blockDim.x, nc, cte); w.i0 < nr; w.next()) {
@@ -169,10 +181,11 @@ __global__ void __launch_bounds__(512) lrn_pool_route_kernel(
 
 // Launch 2. Grid: (tiles of ri owned input rows x wi columns, channel
 // tiles of ct, samples).
-template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+// T is device memory's element type: float or __nv_bfloat16.
+template <typename T, int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
 __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
-    const float* __restrict__ x, const float* __restrict__ g,
-    const uint8_t* __restrict__ win, float* __restrict__ dx, Geom p, int n,
+    const T* __restrict__ x, const T* __restrict__ g,
+    const uint8_t* __restrict__ win, T* __restrict__ dx, Geom p, int n,
     int ri, int wi, int ct, int pr, int pc, int n_wi, float k, float alpha,
     float beta, float c2) {
   extern __shared__ float4 smem4[];
@@ -225,7 +238,7 @@ __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
   const int64_t sample = static_cast<int64_t>(p.H) * p.W * p.C;
   const int64_t pooled = static_cast<int64_t>(p.OH) * p.OW * p.C;
   for (int ni = blockIdx.z; ni < n; ni += gridDim.z) {
-    const float* xn = x + ni * sample;
+    const T* xn = x + ni * sample;
     for (Walk w(threadIdx.x, blockDim.x, nc, ctx); w.i0 < nr; w.next()) {
       const int c = c0 - 2 * h + w.i2;
       const bool in = c >= 0 && c < p.C;
@@ -233,7 +246,7 @@ __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
             in ? xn + ((r0 + w.i0) * p.W + q0 + w.i1) * p.C + c : x, in);
     }
     if (npr > 0 && npc > 0) {
-      const float* gn = g + ni * pooled;
+      const T* gn = g + ni * pooled;
       const uint8_t* wn = win + ni * pooled;
       for (Walk w(threadIdx.x, blockDim.x, npc, cte); w.i0 < npr;
            w.next()) {
@@ -292,7 +305,7 @@ __global__ void __launch_bounds__(512) lrn_pool_grad_kernel(
         gd[(w.i0 * nc + w.i1) * ct + w.i2 - h] = __fmul_rn(acc, d);
     }
     __syncthreads();
-    float* dxn = dx + ni * sample;
+    T* dxn = dx + ni * sample;
     for (Walk w(threadIdx.x, blockDim.x, nc, ct); w.i0 < nr; w.next()) {
       const int c = c0 + w.i2;
       if (c >= p.C) continue;
@@ -350,12 +363,12 @@ int threads_for(size_t smem, int sm_smem) {
   return sm_smem / static_cast<int>(smem + 1024) <= 2 ? 512 : kThreads;
 }
 
-template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
-cudaError_t launch(const float* x, const float* g, float* dx, uint8_t* win,
-                   int n, const Geom& p, float k, float alpha, float beta,
-                   float c2, cudaStream_t st) {
-  auto* route = lrn_pool_route_kernel<kHalf, kQ, kKY, kKX, kSY, kSX>;
-  auto* grad = lrn_pool_grad_kernel<kHalf, kQ, kKY, kKX, kSY, kSX>;
+template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX, typename T>
+cudaError_t launch(const T* x, const T* g, T* dx, uint8_t* win, int n,
+                   const Geom& p, float k, float alpha, float beta, float c2,
+                   cudaStream_t st) {
+  auto* route = lrn_pool_route_kernel<T, kHalf, kQ, kKY, kKX, kSY, kSX>;
+  auto* grad = lrn_pool_grad_kernel<T, kHalf, kQ, kKY, kKX, kSY, kSX>;
   int dev = 0, optin = 0, sm_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -365,7 +378,7 @@ cudaError_t launch(const float* x, const float* g, float* dx, uint8_t* win,
     err = cudaDeviceGetAttribute(
         &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   // both kernels may take up to the card's opt-in shared memory per
-  // block: once per device and process
+  // block: once per device, process and instance
   static bool allowed[64] = {};
   if (err == cudaSuccess && !(dev < 64 && allowed[dev])) {
     err = cudaFuncSetAttribute(
@@ -403,18 +416,11 @@ cudaError_t launch(const float* x, const float* g, float* dx, uint8_t* win,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// `win` (n*OH*OW*C bytes) is scratch the caller allocates; `generic`
-// nonzero takes the generic instance at any geometry. A sample of
-// 2^31 elements or more, more than 65535 channel tiles, or a geometry
-// whose smallest tiles still exceed the card's shared memory per block
-// returns cudaErrorInvalidValue.
-extern "C" int lrn_maxpool_backward_f32(
-    const float* x, const float* g, float* dx, uint8_t* win, int64_t n,
-    int H, int W, int C, int OH, int OW, int ky, int kx, int sy, int sx,
-    int half, float k, float alpha, int q, float beta, float c2,
-    int generic, void* stream) {
+template <typename T>
+int entry(const T* x, const T* g, T* dx, uint8_t* win, int64_t n, int H,
+          int W, int C, int OH, int OW, int ky, int kx, int sy, int sx,
+          int half, float k, float alpha, int q, float beta, float c2,
+          int generic, void* stream) {
   if (n * H * W * static_cast<int64_t>(C) == 0) return cudaSuccess;
   if (static_cast<int64_t>(H) * W * C > INT_MAX || n > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -429,4 +435,30 @@ extern "C" int lrn_maxpool_backward_f32(
           : launch<-1, -1, -1, -1, -1, -1>(x, g, dx, win, nn, p, k, alpha,
                                            beta, c2, st);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// `win` (n*OH*OW*C bytes) is scratch the caller allocates; `generic`
+// nonzero takes the generic instance at any geometry. A sample of
+// 2^31 elements or more, more than 65535 channel tiles, or a geometry
+// whose smallest tiles still exceed the card's shared memory per block
+// returns cudaErrorInvalidValue.
+extern "C" int lrn_maxpool_backward_f32(
+    const float* x, const float* g, float* dx, uint8_t* win, int64_t n,
+    int H, int W, int C, int OH, int OW, int ky, int kx, int sy, int sx,
+    int half, float k, float alpha, int q, float beta, float c2,
+    int generic, void* stream) {
+  return entry(x, g, dx, win, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k,
+               alpha, q, beta, c2, generic, stream);
+}
+
+// The same with bf16 x, g and dx (f32 arithmetic, each dx rounded once).
+extern "C" int lrn_maxpool_backward_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
+    uint8_t* win, int64_t n, int H, int W, int C, int OH, int OW, int ky,
+    int kx, int sy, int sx, int half, float k, float alpha, int q,
+    float beta, float c2, int generic, void* stream) {
+  return entry(x, g, dx, win, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k,
+               alpha, q, beta, c2, generic, stream);
 }

@@ -1,4 +1,5 @@
-// K4: fused LRN -> ceil-mode max pool forward, f32, NHWC.
+// K4: fused LRN -> ceil-mode max pool forward, NHWC, f32 or bf16 in device
+// memory, f32 arithmetic.
 //
 // Replaces: veles_tpu/ops/pallas_kernels.py `_lrn_pool_fwd_kernel`
 // (reached through `_lrn_pool_call` / `lrn_maxpool_pallas`), the TPU
@@ -42,6 +43,16 @@
 // instance with those as compile-time constants; any other geometry a
 // generic one, which the caller may also ask for at AlexNet's
 // (`generic`), to time what the constants buy.
+//
+// bf16 (the JAX kernel's io_dtype="native" under a bf16 step): the same
+// bands and arithmetic in f32; the window maxima are taken of the f32 LRN
+// values and each is rounded once to bf16, which gives the bits of pooling
+// the rounded values (rounding is monotone). Staging loads and converts
+// into the f32 band (lrn_common.cuh's bf16 stage and stage16: 2-byte
+// loads, or 8-byte loads of four channels where C % 4 == 0 and x is 8-byte
+// aligned) instead of cp.async, which cannot convert, so the shared-memory
+// layout and every index stay the f32 instance's, and the f32 instance's
+// statements are unchanged.
 #include <algorithm>
 #include <climits>
 #include <cstdint>
@@ -78,12 +89,13 @@ __device__ __forceinline__ float pool_max(float m, float v) {
 // Grid: (bands of rb pooled rows x cb pooled columns x channel tiles,
 // the channel tile fastest; samples); offsets inside a sample are 32-bit
 // (the host refuses a sample of 2^31 elements or more).
-template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
+// T is device memory's element type: float or __nv_bfloat16.
+template <typename T, int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    lrn_maxpool_forward_kernel(const float* __restrict__ x,
-                               float* __restrict__ y, Geom p, int n, int rb,
-                               int cb, int n_cb, int n_ct, int wide, float k,
-                               float alpha, float beta) {
+    lrn_maxpool_forward_kernel(const T* __restrict__ x, T* __restrict__ y,
+                               Geom p, int n, int rb, int cb, int n_cb,
+                               int n_ct, int wide, float k, float alpha,
+                               float beta) {
   extern __shared__ float4 smem4[];
   const Shape<kHalf, kQ, kKY, kKX, kSY, kSX> sh(p);
   const int xp = pad_for(sh.half);
@@ -106,13 +118,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int64_t sample = static_cast<int64_t>(p.H) * p.W * p.C;
   const int64_t pooled = static_cast<int64_t>(p.OH) * p.OW * p.C;
   for (int ni = blockIdx.y; ni < n; ni += gridDim.y) {
-    const float* xn = x + ni * sample;
+    const T* xn = x + ni * sample;
     // 1. stage x
     if (nr > 0 && nc > 0) {
       for (Walk w(threadIdx.x, kThreads, nc, span); w.i0 < nr; w.next()) {
         const int cc = (wide ? 4 * w.i2 : w.i2) - xp;  // channel less c0
         const bool in = c0 + cc >= 0 && c0 + cc < p.C;
-        const float* src =
+        const T* src =
             in ? xn + ((ih0 + w.i0) * p.W + iw0 + w.i1) * p.C + c0 + cc
                : x;
         float* dst = xs + (w.i0 * nc + w.i1) * xw + xp + cc;
@@ -134,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     __syncthreads();
     // 3. the window maxima
-    float* const yn = y + ni * pooled;
+    T* const yn = y + ni * pooled;
     if (c < p.C) {
       for (Walk w(warp, warps, ow1 - ow0, 1); w.i0 < oh1 - oh0; w.next()) {
         const int oh = oh0 + w.i0, ow = ow0 + w.i1;
@@ -189,16 +201,16 @@ bool plan(const Geom& p, int* rb, int* cb) {
              INT_MAX;
 }
 
-template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX>
-cudaError_t launch(const float* x, float* y, int n, const Geom& p,
-                   bool wide, float k, float alpha, float beta,
-                   cudaStream_t st) {
+template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX, typename T>
+cudaError_t launch(const T* x, T* y, int n, const Geom& p, bool wide,
+                   float k, float alpha, float beta, cudaStream_t st) {
   int rb = 0, cb = 0;
   if (!plan(p, &rb, &cb)) return cudaErrorInvalidValue;
   const int n_cb = ceil_div(p.OW, cb), n_ct = ceil_div(p.C, kCT);
   const dim3 grid(ceil_div(p.OH, rb) * n_cb * n_ct,
                   static_cast<unsigned>(std::min(n, kMaxGridY)));
-  auto* kernel = lrn_maxpool_forward_kernel<kHalf, kQ, kKY, kKX, kSY, kSX>;
+  auto* kernel =
+      lrn_maxpool_forward_kernel<T, kHalf, kQ, kKY, kKX, kSY, kSX>;
   kernel<<<grid, kThreads, smem_bytes(p, rb, cb), st>>>(
       x, y, p, n, rb, cb, n_cb, n_ct, wide, k, alpha, beta);
   return cudaGetLastError();
@@ -208,6 +220,27 @@ cudaError_t launch(const float* x, float* y, int n, const Geom& p,
 bool alexnet(const Geom& p, int generic) {
   return !generic && p.half == 2 && p.q == 3 && p.ky == 3 && p.kx == 3 &&
          p.sy == 2 && p.sx == 2;
+}
+
+template <typename T>
+int entry(const T* x, T* y, int64_t n, int H, int W, int C, int OH, int OW,
+          int ky, int kx, int sy, int sx, int half, float k, float alpha,
+          int q, float beta, int generic, void* stream) {
+  if (n * OH * OW * static_cast<int64_t>(C) == 0) return cudaSuccess;
+  if (static_cast<int64_t>(H) * W * C > INT_MAX || n > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom p{H, W, C, OH, OW, ky, kx, sy, sx, half, q};
+  // four elements a copy: 16 bytes of f32, 8 of bf16
+  const bool wide =
+      C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nn = static_cast<int>(n);
+  const cudaError_t err =
+      alexnet(p, generic)
+          ? launch<2, 3, 3, 3, 2, 2>(x, y, nn, p, wide, k, alpha, beta, st)
+          : launch<-1, -1, -1, -1, -1, -1>(x, y, nn, p, wide, k, alpha,
+                                           beta, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -222,19 +255,20 @@ extern "C" int lrn_maxpool_forward_f32(const float* x, float* y, int64_t n,
                                        int half, float k, float alpha, int q,
                                        float beta, int generic,
                                        void* stream) {
-  if (n * OH * OW * static_cast<int64_t>(C) == 0) return cudaSuccess;
-  if (static_cast<int64_t>(H) * W * C > INT_MAX || n > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Geom p{H, W, C, OH, OW, ky, kx, sy, sx, half, q};
-  const bool wide = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nn = static_cast<int>(n);
-  const cudaError_t err =
-      alexnet(p, generic)
-          ? launch<2, 3, 3, 3, 2, 2>(x, y, nn, p, wide, k, alpha, beta, st)
-          : launch<-1, -1, -1, -1, -1, -1>(x, y, nn, p, wide, k, alpha,
-                                           beta, st);
-  return static_cast<int>(err);
+  return entry(x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q,
+               beta, generic, stream);
+}
+
+// The same with bf16 x and y (f32 arithmetic, each maximum rounded once).
+extern "C" int lrn_maxpool_forward_bf16(const __nv_bfloat16* x,
+                                        __nv_bfloat16* y, int64_t n, int H,
+                                        int W, int C, int OH, int OW, int ky,
+                                        int kx, int sy, int sx, int half,
+                                        float k, float alpha, int q,
+                                        float beta, int generic,
+                                        void* stream) {
+  return entry(x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q,
+               beta, generic, stream);
 }
 
 // The dynamic shared memory one block takes at this geometry; -1 where

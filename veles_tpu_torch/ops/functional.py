@@ -36,8 +36,19 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "linear":
         return x
     if name == "tanh":
+        if x.element_size() < 4:
+            # a bf16 x: the constants round to its dtype first, as the
+            # JAX package's weakly typed Python floats do (B 0.66796875,
+            # A 1.71875); torch would multiply by their f32 values
+            a, b = x.new_tensor(TANH_A), x.new_tensor(TANH_B)
+            return a * torch.tanh(b * x)
         return TANH_A * torch.tanh(TANH_B * x)
     if name == "strictrelu":
+        if x.element_size() < 4:
+            # bf16 pre-activations are exactly 0 often enough for the tie's
+            # gradient to count: jnp.maximum(x, 0) and torch.maximum give
+            # it half, torch.relu none
+            return torch.maximum(x, x.new_zeros(()))
         return torch.relu(x)
     raise ValueError(f"unknown activation {name!r}")
 
@@ -50,8 +61,12 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
 def all2all_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     activation: str = "linear") -> torch.Tensor:
     """y = act(x @ W + b). Trailing dims flatten in NHWC order (H·W·C), the
-    row order of the JAX package's FC weights."""
+    row order of the JAX package's FC weights. In f32 the bias is added
+    inside the product (addmm); a sub-f32 (bf16) product is rounded before
+    the bias is added, as the JAX package's `x @ W + b` rounds it."""
     x2 = x.reshape(x.shape[0], -1)
+    if x2.element_size() < 4:
+        return act_forward(activation, x2 @ w + b)
     return act_forward(activation, torch.addmm(b, x2, w))
 
 
@@ -74,12 +89,18 @@ def conv2d_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    w_oihw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(conv2d(x, W) + b) with symmetric (ph, ph), (pw, pw) padding and
     the bias added before the activation (xla.py conv2d_forward).
-    `w_oihw` is `conv_weight_oihw(w)` when the caller caches it."""
+    `w_oihw` is `conv_weight_oihw(w)` when the caller caches it. In f32
+    cuDNN adds the bias inside the convolution; a sub-f32 (bf16)
+    convolution is rounded before the bias is added, as XLA's conv
+    followed by `+ b` rounds it in the JAX package."""
     if w_oihw is None:
         w_oihw = conv_weight_oihw(w)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, tuple(stride),
-                 tuple(padding))
-    return act_forward(activation, y.permute(0, 2, 3, 1).contiguous())
+    narrow = x.element_size() < 4
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, None if narrow else b,
+                 tuple(stride), tuple(padding)).permute(0, 2, 3, 1)
+    if narrow:
+        y = y + b
+    return act_forward(activation, y.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -158,14 +179,25 @@ def pow_neg_quarters(s: torch.Tensor, beta: float) -> torch.Tensor:
     return s ** (-beta)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in f32 where its floating dtype is narrower (bf16, f16), else
+    `t` itself."""
+    if t.is_floating_point() and t.element_size() < 4:
+        return t.to(torch.float32)
+    return t
+
+
 def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
                 beta: float = 0.75, n: int = 5) -> torch.Tensor:
     """AlexNet across-channel LRN: y = x·(k + α·W(x²))^(−β), W the ±n//2
-    window (odd n only: even n would silently widen to n+1 taps)."""
+    window (odd n only: even n would silently widen to n+1 taps). A
+    sub-f32 x (bf16) is computed in f32 and y rounded once to x's dtype,
+    as the JAX package's Pallas kernel computes its blocks."""
     if n % 2 == 0:
         raise ValueError(f"LRN window n must be odd, got {n}")
-    s = k + alpha * lrn_window_sum(x * x, n)
-    return x * pow_neg_quarters(s, beta)
+    xf = _f32(x)
+    s = k + alpha * lrn_window_sum(xf * xf, n)
+    return (xf * pow_neg_quarters(s, beta)).to(x.dtype)
 
 
 def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
@@ -173,13 +205,15 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
                  n: int = 5) -> torch.Tensor:
     """Closed-form LRN gradient, the math of the JAX package's Pallas
     `_lrn_bwd_kernel`: dx = g·d − 2αβ·x·W(g·x·d/s), s = k + α·W(x²),
-    d = s^(−β), in that kernel's order of operations."""
+    d = s^(−β), in that kernel's order of operations. Sub-f32 x and g
+    (bf16) are computed in f32 and dx rounded once to x's dtype."""
     if n % 2 == 0:
         raise ValueError(f"LRN window n must be odd, got {n}")
-    s = k + alpha * lrn_window_sum(x * x, n)
+    xf, gf = _f32(x), _f32(g)
+    s = k + alpha * lrn_window_sum(xf * xf, n)
     d = pow_neg_quarters(s, beta)
-    tsum = lrn_window_sum(g * x * d / s, n)
-    return g * d - (2.0 * alpha * beta) * x * tsum
+    tsum = lrn_window_sum(gf * xf * d / s, n)
+    return (gf * d - (2.0 * alpha * beta) * xf * tsum).to(x.dtype)
 
 
 def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
@@ -192,7 +226,10 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     maximum in scan order (dy, then dx; post-ReLU zeros tie constantly),
     sum the routed gradients in that tap order, then the closed-form LRN
     backward. A NaN in a window makes its maximum NaN, which equals no
-    tap: that window's gradient goes nowhere."""
+    tap: that window's gradient goes nowhere. Sub-f32 x and g (bf16) are
+    computed in f32, routed on the f32 LRN values as the JAX kernel
+    routes its promoted block, and dx rounded once to x's dtype."""
+    dtype, x, g = x.dtype, _f32(x), _f32(g)
     ky, kx = ksize
     sy, sx = stride
     nb, h, w, c = x.shape
@@ -213,7 +250,8 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
     for lin, (_, _, v) in enumerate(views):
         g_lrn[v] += torch.where(win == lin, g, zero)
-    return lrn_backward(x, g_lrn[:, :h, :w, :], k, alpha, beta, n)
+    return lrn_backward(x, g_lrn[:, :h, :w, :], k, alpha, beta,
+                        n).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +282,9 @@ def dropout_mask(shape, drop_prob: float, generator: torch.Generator,
     """Pre-scaled dropout mask, values 0 or 1/keep: (u < keep) / keep with
     u uniform in [0, 1) from `generator` (xla.py make_dropout_mask; the
     bits cannot match jax's, so tests hand both packages the same
-    masks)."""
+    masks). As there, the comparison's 0/1 is cast to `dtype` first and
+    divided by keep as `dtype` holds it: under bf16, round(1 /
+    round(keep))."""
     keep = 1.0 - drop_prob
     u = torch.rand(shape, generator=generator, device=device)
-    return (u < keep).to(dtype) / keep
+    return (u < keep).to(dtype) / float(torch.tensor(keep, dtype=dtype))

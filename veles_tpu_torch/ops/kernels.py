@@ -28,10 +28,18 @@ keyed by the hash of the sources, all `nvcc` processes at once.
 
 A wrapper launches its kernel for a CUDA tensor — or raises; it never
 falls back — and takes the plain version only because its tensor lies on
-the CPU. Each call that launches adds one to the kernel's counter in
+the CPU. Each call that launches adds one to its instance's counter in
 `LAUNCHES` (K5's and K7's calls are two launches each, and each counts
 once), and nothing else does. On the CPU the autograd functions run the
 plain closed forms both ways — never autograd of the plain forward.
+
+Device memory's dtype: K1, K6 and K7 take f32. K2–K5 take f32 or bf16
+(the JAX kernels' io_dtype="native" under a bf16 step): each source has
+a second C entry `*_bf16`, an instance that loads bf16, computes in f32
+as the f32 instance does, and rounds each output once; its launches
+count under `<kernel>_bf16`, the f32 instance's under `<kernel>`. Any
+other dtype raises on the card. `FlashAttentionFunction` casts bf16 q, k
+and v to f32 around K6 and K7, as `flash_attention_pallas` does.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: kernel name -> its source under csrc/ and its C entry point
+#: kernel name -> its source under csrc/ and its (f32) C entry point
 KERNELS: Dict[str, Tuple[str, str]] = {
     "sgd_update": ("sgd_update.cu", "sgd_update_f32"),
     "lrn_forward": ("lrn_forward.cu", "lrn_forward_f32"),
@@ -73,8 +81,17 @@ KERNELS: Dict[str, Tuple[str, str]] = {
                                  "flash_attention_backward_f32"),
 }
 
-#: kernel name -> launches since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: the kernels with a bf16 instance: K2-K5
+BF16_KERNELS = ("lrn_forward", "lrn_backward", "lrn_maxpool_forward",
+                "lrn_maxpool_backward")
+#: kernel instance -> (its kernel, its C entry point): each kernel's f32
+#: instance under the kernel's name, the bf16 ones under `<kernel>_bf16`
+INSTANCES: Dict[str, Tuple[str, str]] = {
+    **{name: (name, entry) for name, (_, entry) in KERNELS.items()},
+    **{f"{name}_bf16": (name, f"{name}_bf16") for name in BF16_KERNELS}}
+
+#: kernel instance -> launches since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {name: 0 for name in INSTANCES}
 _count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -159,9 +176,9 @@ def build() -> Dict[str, Path]:
                 if failed:
                     raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for name, out in outs.items():
-            lib = ctypes.CDLL(str(out))
-            _declare(lib, KERNELS[name][1])
-            _libs[name] = lib
+            _libs[name] = ctypes.CDLL(str(out))
+        for kernel, entry in INSTANCES.values():
+            _declare(_libs[kernel], entry)
         _lib_paths.update(outs)
         return outs
 
@@ -194,6 +211,9 @@ _ARGTYPES = {
     "flash_attention_backward_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                                      _L, _I, _F, _I, _P],
 }
+# the bf16 instances take the f32 ones' arguments
+_ARGTYPES.update({f"{name}_bf16": _ARGTYPES[f"{name}_f32"]
+                  for name in BF16_KERNELS})
 
 
 def _declare(lib: ctypes.CDLL, symbol: str) -> None:
@@ -202,10 +222,11 @@ def _declare(lib: ctypes.CDLL, symbol: str) -> None:
     f.restype = ctypes.c_int
 
 
-def _entry(name: str):
-    if name not in _libs:
+def _entry(instance: str):
+    kernel, entry = INSTANCES[instance]
+    if kernel not in _libs:
         build()
-    return getattr(_libs[name], KERNELS[name][1])
+    return getattr(_libs[kernel], entry)
 
 
 # ---------------------------------------------------------------------------
@@ -223,9 +244,16 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     return True
 
 
-def _check_lrn_args(x: torch.Tensor, n: int, ndim: int) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"kernel takes float32, got {x.dtype}")
+#: device memory's dtype -> the suffix of the LRN kernels' instance
+_LRN_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _check_lrn_args(x: torch.Tensor, n: int, ndim: int) -> str:
+    """Checks an LRN kernel's x; returns the suffix of the kernel's
+    instance that takes x's dtype ("" for f32, "_bf16"; any other dtype
+    raises)."""
+    if x.dtype not in _LRN_DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"expected a {ndim}-d NHWC tensor, got shape "
                          f"{tuple(x.shape)}")
@@ -233,14 +261,15 @@ def _check_lrn_args(x: torch.Tensor, n: int, ndim: int) -> None:
         raise ValueError("kernel takes a contiguous (NHWC) tensor")
     if n % 2 == 0 or n < 1:
         raise ValueError(f"LRN window n must be odd, got {n}")
+    return _LRN_DTYPES[x.dtype]
 
 
 def _check_like(name: str, t: torch.Tensor, shape, ref: torch.Tensor):
-    """`t` on `ref`'s device in float32 with `shape`; returns it
+    """`t` on `ref`'s device in `ref`'s dtype with `shape`; returns it
     contiguous (an incoming gradient may be a permuted view)."""
-    if t.device != ref.device or t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32 on {ref.device}, got "
-                        f"{t.dtype} on {t.device}")
+    if t.device != ref.device or t.dtype != ref.dtype:
+        raise TypeError(f"{name}: expected {ref.dtype} on {ref.device}, "
+                        f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                          f"{tuple(shape)}")
@@ -317,7 +346,8 @@ def sgd_update(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
 
 def lrn_forward_plain(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
                       beta: float = 0.75, n: int = 5) -> torch.Tensor:
-    """Plain PyTorch version of K2 (any layout whose LAST axis is C)."""
+    """Plain PyTorch version of K2 (any layout whose LAST axis is C; a
+    bf16 x is computed in f32 and rounded once)."""
     return fn.lrn_forward(x, k, alpha, beta, n)
 
 
@@ -328,19 +358,20 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     plain version for a CPU one. K2 runs AlexNet's geometry (n 5, beta
     0.75) as an instance with it compiled in, unless `generic`, which
     takes the run-time instance every other geometry takes (the same
-    bits; it times what the constants buy)."""
+    bits; it times what the constants buy). x is f32 or bf16, and y
+    comes back in x's dtype."""
     if not _on_card("lrn_forward", x):
         return lrn_forward_plain(x, k, alpha, beta, n)
-    _check_lrn_args(x, n, 4)
+    inst = "lrn_forward" + _check_lrn_args(x, n, 4)
     c = x.shape[-1]
     rows = x.numel() // c if c else 0
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        status = _entry("lrn_forward")(
+        status = _entry(inst)(
             x.data_ptr(), y.data_ptr(), rows, c, n // 2, k, alpha,
             fn.quarter_exponent(beta), beta, int(generic), _stream(x))
-    _check_status("lrn_forward", status)
-    _count("lrn_forward")
+    _check_status(inst, status)
+    _count(inst)
     return y
 
 
@@ -363,21 +394,22 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     for CUDA tensors, the plain version for CPU ones. K3 runs AlexNet's
     geometry (n 5, beta 0.75) as an instance with it compiled in, unless
     `generic`, which takes the run-time instance every other geometry
-    takes (the same bits; it times what the constants buy)."""
+    takes (the same bits; it times what the constants buy). x is f32 or
+    bf16, g has x's dtype, and dx comes back in it."""
     if not _on_card("lrn_backward", x):
         return lrn_backward_plain(x, g, k, alpha, beta, n)
-    _check_lrn_args(x, n, 4)
+    inst = "lrn_backward" + _check_lrn_args(x, n, 4)
     g = _check_like("lrn_backward gradient", g, x.shape, x)
     c = x.shape[-1]
     rows = x.numel() // c if c else 0
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        status = _entry("lrn_backward")(
+        status = _entry(inst)(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, n // 2, k,
             alpha, fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
             int(generic), _stream(x))
-    _check_status("lrn_backward", status)
-    _count("lrn_backward")
+    _check_status(inst, status)
+    _count(inst)
     return dx
 
 
@@ -404,21 +436,22 @@ def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     one. K4 runs AlexNet's geometry (n 5, beta 0.75, 3x3/2) as an
     instance with it compiled in, unless `generic`, which takes the
     run-time instance every other geometry takes (the same bits; it
-    times what the constants buy)."""
+    times what the constants buy). x is f32 or bf16, and the output comes
+    back in x's dtype."""
     if not _on_card("lrn_maxpool_forward", x):
         return lrn_maxpool_forward_plain(x, k, alpha, beta, n, ksize, stride)
-    _check_lrn_args(x, n, 4)
+    inst = "lrn_maxpool_forward" + _check_lrn_args(x, n, 4)
     ky, kx, sy, sx = _pool_geometry(ksize, stride)
     nb, h, w, c = x.shape
     oh, ow = fn.pool_out_hw(h, w, ky, kx, sy, sx)
     y = torch.empty((nb, oh, ow, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        status = _entry("lrn_maxpool_forward")(
+        status = _entry(inst)(
             x.data_ptr(), y.data_ptr(), nb, h, w, c, oh, ow, ky, kx, sy, sx,
             n // 2, k, alpha, fn.quarter_exponent(beta), beta, int(generic),
             _stream(x))
-    _check_status("lrn_maxpool_forward", status)
-    _count("lrn_maxpool_forward")
+    _check_status(inst, status)
+    _count(inst)
     return y
 
 
@@ -446,11 +479,13 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     CUDA tensors, the plain version for CPU ones. K5 runs AlexNet's
     geometry (n 5, beta 0.75, 3x3/2) as an instance with it compiled in,
     unless `generic`, which takes the run-time instance every other
-    geometry takes (the same bits; it times what the constants buy)."""
+    geometry takes (the same bits; it times what the constants buy). x is
+    f32 or bf16 (routed on its f32 LRN values), g has x's dtype, and dx
+    comes back in it."""
     if not _on_card("lrn_maxpool_backward", x):
         return lrn_maxpool_backward_plain(x, g, k, alpha, beta, n, ksize,
                                           stride)
-    _check_lrn_args(x, n, 4)
+    inst = "lrn_maxpool_backward" + _check_lrn_args(x, n, 4)
     ky, kx, sy, sx = _pool_geometry(ksize, stride)
     if ky * kx > 254:
         raise ValueError(f"a {ky}x{kx} window has more taps than K5's "
@@ -461,13 +496,13 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     dx = torch.empty_like(x)
     win = torch.empty((nb, oh, ow, c), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
-        status = _entry("lrn_maxpool_backward")(
+        status = _entry(inst)(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), win.data_ptr(), nb, h,
             w, c, oh, ow, ky, kx, sy, sx, n // 2, k, alpha,
             fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
             int(generic), _stream(x))
-    _check_status("lrn_maxpool_backward", status)
-    _count("lrn_maxpool_backward")
+    _check_status(inst, status)
+    _count(inst)
     return dx
 
 
@@ -697,28 +732,34 @@ class FlashAttentionFunction(torch.autograd.Function):
     heads-first inputs, O and the row logsumexp; the backward takes
     D = rowsum(dO⊙O) here with torch, as the JAX package leaves it to XLA.
     With a mask the saved O is the masked output, dO = g⊙mask, and
-    D = rowsum(g⊙O) equals the unmasked rowsum(dO⊙O_unmasked)."""
+    D = rowsum(g⊙O) equals the unmasked rowsum(dO⊙O_unmasked).
+
+    The kernels take f32. As `flash_attention_pallas` does, q, k, v and
+    the mask are cast to f32 before K6 and O back to q's dtype; the
+    backward casts g to f32 and returns each gradient in its input's
+    dtype (the VJPs of those casts). Nothing is cast in an f32 step."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=False, scale=None, kv_order="fwd",
                 mask=None):
         b, _, h, _ = q.shape
-        qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
-        mf = None if mask is None else _heads_first(mask)
+        qf, kf, vf = (_heads_first(t).to(torch.float32) for t in (q, k, v))
+        mf = None if mask is None else \
+            _heads_first(mask).to(torch.float32)
         out, lse = flash_attention_forward(qf, kf, vf, causal, scale,
                                            kv_order, mf)
         ctx.save_for_backward(qf, kf, vf, out, lse, mf)
-        ctx.hyper = (b, h, causal, scale)
-        return _heads_last(out, b, h)
+        ctx.hyper = (b, h, causal, scale, q.dtype, k.dtype, v.dtype)
+        return _heads_last(out, b, h).to(q.dtype)
 
     @staticmethod
     def backward(ctx, g):
         qf, kf, vf, out, lse, mf = ctx.saved_tensors
-        b, h, causal, scale = ctx.hyper
-        gf = _heads_first(g)
+        b, h, causal, scale, qt, kt, vt = ctx.hyper
+        gf = _heads_first(g).to(torch.float32)
         di = torch.sum(gf * out, dim=-1, keepdim=True)
         do = gf if mf is None else gf * mf
         dq, dk, dv = flash_attention_backward(qf, kf, vf, do, lse, di, causal,
                                               scale)
-        return (_heads_last(dq, b, h), _heads_last(dk, b, h),
-                _heads_last(dv, b, h), None, None, None, None)
+        return (_heads_last(dq, b, h).to(qt), _heads_last(dk, b, h).to(kt),
+                _heads_last(dv, b, h).to(vt), None, None, None, None)

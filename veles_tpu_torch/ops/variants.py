@@ -152,7 +152,11 @@ def _lrn_maxpool_fused(x, *, k, alpha, beta, n, ksize, stride):
 
 register_op(
     "lrn_maxpool", default="fused",
-    doc="cross-op fusion of an adjacent (lrn, max pooling) unit pair")
+    doc="cross-op fusion of an adjacent (lrn, max pooling) unit pair. The "
+        "default differs from the JAX package's, which is composed "
+        "(veles_tpu/ops/variants.py:327-329) and reaches a fused point "
+        "only when its kernel search selects one; the port has no search "
+        "yet, and its default keeps K4 and K5 on the main path")
 register(Variant("lrn_maxpool", "composed",
                  doc="marker: no pair is claimed; the LRN writes its "
                      "output, the pool reads it back"))

@@ -3,7 +3,7 @@ call, with the cross-op fusion of adjacent (LRN, max pooling) pairs, and
 the training step built on it.
 
 The port's counterpart of `FusedTrainStep` in
-`veles_tpu/parallel/fused.py` in local mode, one device, f32:
+`veles_tpu/parallel/fused.py` in local mode, one device:
 `FusedForward` is its forward half (`_forward`, `_pair_fusion`,
 `fusion_pairs`, `_apply_fused_pair`), which the server serves from;
 `FusedTrainStep` adds the loss, the backward and the update (`init_state`,
@@ -17,6 +17,15 @@ attention unit runs the plan's `flash_attn` variant where its gate
 admits the sequence length and the einsum golden elsewhere, and
 `variant_table` reports what it runs (`variant_effective`). The rule
 that a claimed pool is a pass-through is the JAX package's.
+
+Compute dtype (the JAX step's `compute_dtype`, fused.py:165-174 and
+:686-736 there): None falls back to `root.common.precision_type` unless
+that is "float32"; an explicit argument wins. Under "bfloat16" the
+forward casts x and every parameter leaf to bf16 once per call, with a
+differentiable `.to`, so that `torch.autograd.grad` over the f32 master
+leaves returns f32 gradients (the cast's VJP, as in JAX), runs the units
+in bf16 and casts their output to f32 before the loss; the state, the
+velocities and the update stay f32.
 
 Differences from the JAX step: the step updates its state in place (the
 JAX step returns a new one); its dropout masks come from a
@@ -36,18 +45,41 @@ import torch
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.backends import full_f32
+from veles_tpu_torch.config import root
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import optim, variants
 
+#: compute dtypes the fused step takes, by the names
+#: root.common.precision_type and `compute_dtype` give them
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(compute_dtype: Optional[str]) -> Optional[str]:
+    """The JAX step's rule: an explicit `compute_dtype` wins; None falls
+    back to root.common.precision_type unless that is "float32" (no cast:
+    the parameters are already f32 master weights)."""
+    if compute_dtype is None:
+        pt = getattr(root.common, "precision_type", None)
+        if pt and pt != "float32":
+            compute_dtype = pt
+    if compute_dtype is not None and compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {compute_dtype!r}: the port "
+                         f"computes in {sorted(COMPUTE_DTYPES)}")
+    return compute_dtype
+
 
 class FusedForward:
-    """Forward chain of `workflow` on its device, lowerings fixed at
-    build time."""
+    """Forward chain of `workflow` on its device, lowerings and compute
+    dtype fixed at build time."""
 
-    def __init__(self, workflow) -> None:
+    def __init__(self, workflow, compute_dtype: Optional[str] = None) -> None:
         if not workflow.is_initialized:
             raise RuntimeError("initialize the workflow before building "
                                "its fused forward")
+        #: "bfloat16", "float32" or None (f32, no cast)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self._dtype = (None if self.compute_dtype is None
+                       else COMPUTE_DTYPES[self.compute_dtype])
         self.workflow = workflow
         self.forwards = list(workflow.forwards)
         self.device: torch.device = workflow.device
@@ -116,14 +148,21 @@ class FusedForward:
 
     def _forward(self, params, x: torch.Tensor, train: bool = False,
                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Forward `x` (NHWC, on this forward's device) through the plan,
-        in full f32 (no TF32) on the card; returns the last unit's output
-        (logits for a softmax head). `train=False` runs under
+        """Forward `x` (NHWC, on this forward's device) through the plan
+        in the compute dtype (an f32 step: full f32, no TF32, on the card;
+        see `backends.full_f32`); returns the last unit's output
+        (logits for a softmax head) in f32. `train=False` runs under
         `torch.inference_mode()`; `train=True` records the autograd graph
         in the caller's grad mode and hands `gen` to the units that draw
         random numbers (dropout)."""
         mode = contextlib.nullcontext() if train else torch.inference_mode()
         with mode, full_f32(self.device):
+            if self._dtype is not None:
+                # once per call; differentiable, so the gradients of the
+                # f32 master leaves come back f32
+                x = x.to(self._dtype)
+                params = tuple({k: t.to(self._dtype) for k, t in p.items()}
+                               for p in params)
             for i, (kind, j, v) in enumerate(self._plan):
                 u = self.forwards[i]
                 if kind == "skip":
@@ -137,7 +176,7 @@ class FusedForward:
                 if u.fused_needs_gen:
                     kw["gen"] = gen
                 x = u.fused_apply(params[i], x, **kw)
-        return x
+        return x.to(torch.float32)
 
     def variant_table(self) -> Dict[str, str]:
         """{op: variant-name} this forward runs. A claimed pair reports the
@@ -181,7 +220,7 @@ class FusedTrainStep:
              "lr_scale": the schedule's lr multiplier (a float)}
     """
 
-    def __init__(self, workflow) -> None:
+    def __init__(self, workflow, compute_dtype: Optional[str] = None) -> None:
         if workflow.loss != "softmax":
             raise NotImplementedError(
                 f"the fused step trains a softmax head; loss "
@@ -190,7 +229,9 @@ class FusedTrainStep:
             raise ValueError(
                 "fused softmax loss needs a final layer that emits logits "
                 "(All2AllSoftmax, SeqSoftmax) for log-softmax CE")
-        self.fwd = FusedForward(workflow)
+        self.fwd = FusedForward(workflow, compute_dtype)
+        #: "bfloat16", "float32" or None, by the JAX step's rule
+        self.compute_dtype = self.fwd.compute_dtype
         self.forwards = self.fwd.forwards
         self.device = self.fwd.device
         self.gd_units, self.cfgs = pair_gd_configs(workflow)

@@ -55,7 +55,11 @@ class Conv(Forward):
 
     def _weights_oihw(self, w: torch.Tensor) -> torch.Tensor:
         """F.conv2d's layout of `w`, made once per weight tensor, in-place
-        version and device of it."""
+        version and device of it. A weight made under inference mode (a
+        bf16 step's cast, made anew each call) has no version to key on
+        and is not cached."""
+        if w.is_inference():
+            return fn.conv_weight_oihw(w)
         src = self._oihw_src
         if src is None or src[0]() is not w \
                 or src[1:] != (w._version, w.device):

@@ -17,7 +17,7 @@ from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.znicz.nn_units import Forward
 
 #: where every training mask comes from: (shape, drop_prob, generator,
-#: device) -> pre-scaled mask
+#: device, dtype=) -> pre-scaled mask
 make_mask = fn.dropout_mask
 
 
@@ -38,4 +38,7 @@ class DropoutForward(Forward):
         if gen is None:
             raise ValueError("a training dropout needs the step's "
                              "torch.Generator (gen=)")
-        return x * make_mask(x.shape, self.dropout_ratio, gen, x.device)
+        # the mask in x's dtype (the compute dtype), as the JAX unit
+        # draws it (dropout.py:84 there)
+        return x * make_mask(x.shape, self.dropout_ratio, gen, x.device,
+                             dtype=x.dtype)

@@ -129,11 +129,13 @@ class StandardWorkflow:
 
     # -- fused training -------------------------------------------------------
 
-    def build_fused_step(self):
+    def build_fused_step(self, compute_dtype: Optional[str] = None):
         """The fused train step over this workflow's units (see
-        parallel/fused.py); resolves its lowerings now."""
+        parallel/fused.py); resolves its lowerings now. `compute_dtype`
+        ("bfloat16": bf16 compute over f32 master weights) falls back to
+        root.common.precision_type when None."""
         from veles_tpu_torch.parallel.fused import FusedTrainStep
-        return FusedTrainStep(self)
+        return FusedTrainStep(self, compute_dtype=compute_dtype)
 
     def run_fused(self, epochs: Optional[int] = None,
                   device: DeviceLike = None) -> None:
