@@ -99,18 +99,49 @@
    setting's requests and read just after: K4 must have launched under
    fused, K2 under composed. FORWARD lines time each step of one ring.
 5. TRAIN: train the full-width AlexNet one epoch (4 train steps of 128 and
-   one validation step) through the function the `--fused` CLI uses,
-   under fused and again under composed, from one seed; counters zeroed
-   just before each and read just after: K4, K5 and K1 must have launched
-   under fused, K2, K3 and K1 under composed (the backward kernel, K5 or
-   K3, exactly twice per train step), and the loss be finite. Each
-   step's device time comes from CUDA events around it.
+   one validation step) through the function the `--fused` CLI uses (the
+   batches come through the device feed), under fused and again under
+   composed, from one seed; counters zeroed just before each and read
+   just after: K4, K5 and K1 must have launched under fused, K2, K3 and
+   K1 under composed (the backward kernel, K5 or K3, exactly twice per
+   train step), and the loss be finite. Each step's device time comes
+   from CUDA events around it (since the device feed, the batch's upload
+   is not inside them).
    TRAIN bf16 fused / composed: the same epoch at
    root.common.precision_type=bfloat16 (bf16 compute over f32 master
    weights): the LRN kernels' bf16 instances only (K4 and K5 under fused,
    K2 and K3 under composed, the backward one exactly twice per train
    step), no f32 LRN instance, K1 on the f32 leaves, every step's
    compute dtype bf16 and its leaves and velocities f32 afterwards.
+   FEED: the full-width AlexNet, batch 128, bf16 over f32 master
+   weights, lrn_maxpool fused, through `launcher.train` with the device
+   feed: 1280 train and 128 validation images of 227x227x3 uint8, made
+   from --seed (default 1234) by quantizing class prototypes plus noise,
+   packed with a mean image by `pack_arrays` under chiprun_out/feed_data
+   (deleted after the phase), trained 2 epochs (a) on the uint8 wire (the
+   step normalizes on the card), (b) on the f32 wire from the same
+   memmap, (c) from the synthetic loader on its f32 wire, each at
+   feed_ahead 1, 0, 0, 1. Each run's counts are zeroed just before it and
+   read just after (K4 and K5's bf16 instances and K1; K5 twice per train
+   step; no other instance); it prints the train steps' device ms by
+   CUDA events (the upload is no longer inside them), the host ms per
+   train step and the train samples/s over the second epoch's train pass
+   (synchronized at both ends), and the feed's loader_block_s,
+   put_block_s and device_sync_s. It fails unless the native gather
+   built and ran, the uint8 wire's batch is 128*227*227*3 bytes plus the
+   labels' and mask's (the f32 wire's image bytes exactly 4x), the host
+   buffers are pinned, the copies run on a stream other than the
+   default one, x is gathered straight into a pinned buffer (only y and
+   w copied on the host), every turn of a wire gives the first turn's
+   bits (the loss, the n_err history, every parameter and velocity), and
+   the uint8 wire's head weights lie within 1e-5 + 1e-4*|f32| of the f32
+   wire's. Then a child process (a process's first profiler session is
+   the one that records memcpys) profiles 8 steady train steps of (a)
+   at feed_ahead=1 (CUDA activity only): the batch's HtoD copies must be
+   pinned, on a stream other than the kernels', none may start only
+   after compute-stream work that was queued when its copy was issued
+   (by the runtime calls' correlation), and they must overlap the
+   kernels (chiprun_out/feed_profile.json).
    TRAIN transformer: train the char-transformer at its own widths (embed
    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
    4096 for 2 epochs through the same function (1 validation window, so
@@ -1498,9 +1529,12 @@ def kernel_family(name: str) -> str:
 
 def profile_step(step, state, x, y, w, out_name="train_profile.json"):
     """Device time of one train step by kernel family, from
-    torch.profiler's CUDA activity; the kernels' table goes to
-    chiprun_out/`out_name`."""
+    torch.profiler's CUDA activity, the batch already on the card; the
+    kernels' table goes to chiprun_out/`out_name`."""
     from torch.profiler import ProfilerActivity, profile
+    # the batch on the card first, as the device feed hands it to the
+    # step on the main path
+    x, y, w = step._batch(x, y, w)
     step.train(state, x, y, w)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2336,11 +2370,436 @@ def toy_bf16_card_vs_cpu(dev):
     return dists
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# FEED: the device feed on the full-width bf16 AlexNet
+# ---------------------------------------------------------------------------
+
+#: the FEED phase's packed set: FEED_VALID validation and FEED_TRAIN train
+#: images of 227x227x3 uint8, made from --seed by quantizing FEED_PROTOS
+#: class prototypes plus noise, with a mean image (~218 MB)
+FEED_TRAIN, FEED_VALID, FEED_PROTOS = 1280, 128, 64
+FEED_EPOCHS = 2
+#: feed_ahead of each wire's runs, in turns
+FEED_TURNS = (1, 0, 0, 1)
+#: the FEED phase's wires: (label, float wire pinned, memmap)
+FEED_WIRES = (("memmap uint8", False, True), ("memmap f32", True, True),
+              ("synthetic f32", True, False))
+#: the uint8 wire against the f32 wire on the head weights: the JAX
+#: package's test tolerance (tests/test_device_feed.py:249-259)
+WIRE_RTOL, WIRE_ATOL = 1e-4, 1e-5
+#: the overlap profile's window: train steps of the second epoch
+FEED_PROFILE_FROM, FEED_PROFILE_STEPS = 11, 8
+
+
+def pack_feed_data(out_dir: str, seed: int) -> str:
+    """FEED's packed set, made from `seed` with numpy in chunks."""
+    from veles_tpu_torch.loader import memmap as mm
+    rs = np.random.RandomState(seed)
+    shape = (HW, HW, 3)
+    n = FEED_VALID + FEED_TRAIN
+    protos = np.clip(127.5 + 48.0 * rs.randn(FEED_PROTOS, *shape), 0,
+                     255).astype(np.int16)
+    labels = rs.randint(0, FEED_PROTOS, n).astype(np.int64)
+    data = np.empty((n,) + shape, np.uint8)
+    acc = np.zeros(shape, np.float64)
+    for lo in range(0, n, TB):
+        hi = min(lo + TB, n)
+        noise = rs.randint(-24, 25, (hi - lo,) + shape).astype(np.int16)
+        data[lo:hi] = np.clip(protos[labels[lo:hi]] + noise, 0, 255)
+        acc += data[lo:hi].sum(axis=0, dtype=np.float64)
+    mean = (acc / n / 127.5 - 1.0).astype(np.float32)
+    return mm.pack_arrays(out_dir, data, labels, [0, FEED_VALID, FEED_TRAIN],
+                          shard_mb=64.0, mean_image=mean)
+
+
+def feed_argv(data_dir, memmap: bool, ahead: int, seed: int):
+    argv = [ALEXNET, "--fused", "-r", str(seed), "--lrn-maxpool", "fused",
+            "--feed-ahead", str(ahead),
+            f"root.alexnet.decision.max_epochs={FEED_EPOCHS}", *BF16_ARGS]
+    if memmap:
+        return argv + [f"root.alexnet.loader.data_path={data_dir}"]
+    return argv + [f"root.alexnet.loader.n_train={FEED_TRAIN}",
+                   f"root.alexnet.loader.n_validation={FEED_VALID}"]
+
+
+@contextlib.contextmanager
+def float_wire(pinned: bool):
+    """run_fused with uint8_wire=False (the f32 wire) in the block."""
+    if not pinned:
+        yield
+        return
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    inner = StandardWorkflow.run_fused
+
+    def run_fused(self, *args, **kwargs):
+        kwargs["uint8_wire"] = False
+        return inner(self, *args, **kwargs)
+
+    StandardWorkflow.run_fused = run_fused
+    try:
+        yield
+    finally:
+        StandardWorkflow.run_fused = inner
+
+
+@contextlib.contextmanager
+def train_calls(hooks):
+    """Call hooks[i] = (before, after) around the i-th
+    FusedTrainStep.train call of the block (0-based)."""
+    from veles_tpu_torch.parallel.fused import FusedTrainStep
+    inner = FusedTrainStep.train
+    calls = [0]
+
+    def train(self, *args, **kwargs):
+        i = calls[0]
+        calls[0] += 1
+        before, after = hooks.get(i, (None, None))
+        if before is not None:
+            before()
+        out = inner(self, *args, **kwargs)
+        if after is not None:
+            after()
+        return out
+
+    FusedTrainStep.train = train
+    try:
+        yield calls
+    finally:
+        FusedTrainStep.train = inner
+
+
+def trained_state(wf):
+    """Every parameter and velocity the run wrote back, cloned on the
+    card."""
+    out = []
+    for u in wf.forwards:
+        out += [t.detach().clone() for t in u.param_arrays().values()]
+    for g in wf.gds:
+        out += [getattr(g, a).detach().clone()
+                for a in sorted(vars(g)) if a.startswith("vel_")
+                and isinstance(getattr(g, a), torch.Tensor)]
+    return out
+
+
+def feed_run(launcher, kernels, dev, label, argv, pinned_float, ahead):
+    """One FEED run: 2 epochs through `launcher.train(argv)`, counts
+    zeroed just before and read just after, CUDA events around each step,
+    and the host clock over the second epoch's train pass (synchronized
+    at both ends). Checks the feed (pinned slots, a copy stream other
+    than the default one, one upload per batch, the lookahead) and the
+    launches; returns a record."""
+    from veles_tpu_torch.loader.device_feed import PinnedStreamPut
+    steps = FEED_TRAIN // TB
+    clock = {}
+
+    def mark(key):
+        def at():
+            torch.cuda.synchronize()
+            clock[key] = time.perf_counter()
+        return at
+
+    hooks = {steps: (mark("t0"), None), 2 * steps - 1: (None, mark("t1"))}
+    with precision_type_kept(), float_wire(pinned_float), \
+            timed_steps() as events, train_calls(hooks):
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        wf = launcher.train(argv)
+        counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    st = wf.feed_stats
+    put = wf.device_feed.put
+    host_s = clock["t1"] - clock["t0"]
+    step_ms = [s.elapsed_time(e) for kind, s, e in events if kind == "train"]
+    rec = {"label": label, "ahead": ahead,
+           "host_ms_per_step": host_s / steps * 1e3,
+           "samples_per_s": steps * TB / host_s,
+           "train_step_ms_events": step_ms,
+           "steady_step_ms_events": float(np.median(step_ms[steps:])),
+           "loss": wf.evaluator.loss, "history": wf.decision.history,
+           "pinned_buffers": put.pool.allocated,
+           "gather": getattr(wf.loader, "gather_used", None),
+           "launches": counts,
+           **{k: st[k] for k in ("batches", "bytes_per_batch", "uint8_wire",
+                                 "loader_block_s", "put_block_s",
+                                 "device_sync_s", "on_demand")}}
+    print(f"FEED {label} feed_ahead={ahead}: host ms "
+          f"per steady train step {rec['host_ms_per_step']:.3f}, train "
+          f"samples/s {rec['samples_per_s']:.1f}; train step device ms "
+          f"(CUDA events, upload not included) median "
+          f"{rec['steady_step_ms_events']:.3f} of "
+          + ", ".join(f"{ms:.3f}" for ms in step_ms)
+          + f"; loader_block_s {st['loader_block_s']}, put_block_s "
+          f"{st['put_block_s']}, device_sync_s {st['device_sync_s']}, "
+          f"on_demand {st['on_demand']}, bytes_per_batch "
+          f"{st['bytes_per_batch']}, gather {rec['gather']}, pinned "
+          f"buffers {put.pool.allocated}; loss {rec['loss']}", flush=True)
+    if wf.device != dev or not np.isfinite(rec["loss"]):
+        raise AssertionError(f"FEED {label}: on {wf.device}, loss "
+                             f"{rec['loss']}")
+    if wf.decision.epoch_number != FEED_EPOCHS:
+        raise AssertionError(f"FEED {label}: {wf.decision.epoch_number} "
+                             f"epochs")
+    if not isinstance(put, PinnedStreamPut) or not put.pinned():
+        raise AssertionError(f"FEED {label}: the upload is {put!r}, not "
+                             f"from pinned slots")
+    if put.stream.cuda_stream == torch.cuda.default_stream(dev).cuda_stream:
+        raise AssertionError(f"FEED {label}: copies on the default stream")
+    if put.uploads != st["batches"] or st["ahead"] != ahead:
+        raise AssertionError(f"FEED {label}: {put.uploads} uploads of "
+                             f"{st['batches']} batches, ahead {st['ahead']}")
+    # x gathered straight into the pool's pinned buffers: only y and w
+    # (a few hundred bytes each) are copied on the host
+    if put.host_copies != 2 * st["batches"]:
+        raise AssertionError(f"FEED {label}: {put.host_copies} host copies "
+                             f"into pinned buffers for {st['batches']} "
+                             f"batches, not 2 each (y, w)")
+    if st["on_demand"] != (1 if ahead else st["batches"]):
+        raise AssertionError(f"FEED {label}: {st['on_demand']} batches "
+                             f"produced on demand at feed_ahead={ahead}")
+    want = ("lrn_maxpool_forward_bf16", "lrn_maxpool_backward_bf16",
+            "sgd_update")
+    for name, c in counts.items():
+        if (name in want) != (c > 0):
+            raise AssertionError(f"FEED {label}: {name} launched {c} times")
+    if counts["lrn_maxpool_backward_bf16"] != 2 * steps * FEED_EPOCHS:
+        raise AssertionError(
+            f"FEED {label}: lrn_maxpool_backward_bf16 launched "
+            f"{counts['lrn_maxpool_backward_bf16']} times in "
+            f"{steps * FEED_EPOCHS} train steps, not twice each")
+    state = trained_state(wf)
+    head = wf.forwards[-1].weights.detach().clone()
+    del wf
+    torch.cuda.empty_cache()
+    return rec, state, head
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def feed_profile(data_dir: str, seed: int) -> dict:
+    """Run wire (a) at feed_ahead=1 under torch.profiler over
+    FEED_PROFILE_STEPS train steps of the second epoch, in a child process
+    (only a process's first profiler session records memcpys here), and
+    read the HtoD copies' streams and overlap with the step's kernels."""
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--feed-profile",
+         data_dir, "--seed", str(seed)], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("FEEDPROFILE ")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"the FEED profile child failed "
+                             f"({r.returncode}):\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    prof = json.loads(lines[-1][len("FEEDPROFILE "):])
+    s = prof["summary"]
+    print(f"FEED profile (memmap uint8, feed_ahead=1, "
+          f"{FEED_PROFILE_STEPS} steady train steps; "
+          f"chiprun_out/feed_profile.json): {s['batch_copies']} batch "
+          f"copies, {s['batch_overlap_share']:.3f} of their time under the "
+          f"step's kernels; " + json.dumps(
+              {k: v for k, v in s.items() if k != "batch_copy_rows"}),
+          flush=True)
+    if not s["batch_copies"]:
+        raise AssertionError("FEED profile: no HtoD copy of a batch")
+    if s["batch_copies_on_compute_stream"] or not s["batch_copies_pinned"]:
+        raise AssertionError(f"FEED profile: batch copies not all pinned "
+                             f"and on a side stream: {s}")
+    if s["batch_copies_that_waited_for_compute"] \
+            or s["batch_copies_without_issue_record"]:
+        raise AssertionError(f"FEED profile: a batch copy waited for the "
+                             f"compute stream's queued work: {s}")
+    if not s["batch_overlap_ms"] > 0:
+        raise AssertionError(f"FEED profile: no batch copy overlaps a "
+                             f"kernel of the step: {s}")
+    return s
+
+
+def feed_overlap(events):
+    """(summary, GPU events) of a chrome trace's batch copies: their
+    streams, whether pinned, their overlap with the compute stream's
+    kernels, and whether any waited for compute work queued before it
+    was issued."""
+    gpu = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # when the host issued each kernel and copy (the runtime call's start)
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    kern = [e for e in gpu if e["cat"] == "kernel"]
+    streams: dict = {}
+    for e in kern:
+        s = e["args"].get("stream")
+        streams[s] = streams.get(s, 0) + 1
+    compute = max(streams, key=streams.get)
+    on_compute = [e for e in kern if e["args"].get("stream") == compute]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in on_compute]
+    htod = [e for e in gpu if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    # the image tensor's copy: the batch's largest by far
+    big = max((e.get("args", {}).get("bytes", 0) for e in htod), default=0)
+    batch = [e for e in htod if e.get("args", {}).get("bytes", 0)
+             >= max(big // 2, 1)] if big else htod
+    rows = []
+    for e in batch:
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        ov = sum(max(0.0, min(t1, b) - max(t0, a)) for a, b in spans)
+        at = issued.get(e["args"].get("correlation"))
+        # compute-stream work queued before the copy was issued and not
+        # done by then: a copy that waited for it ran after the step
+        pending = [k["ts"] + k["dur"] for k in on_compute
+                   if at is not None
+                   and issued.get(k["args"].get("correlation"), at) < at
+                   and k["ts"] + k["dur"] > at]
+        rows.append({"name": e["name"], "stream": e["args"].get("stream"),
+                     "bytes": e["args"].get("bytes"), "ms": e["dur"] / 1e3,
+                     "overlap_ms": ov / 1e3, "issued": at is not None,
+                     "pending_at_issue": len(pending),
+                     "waited_for_compute": bool(pending)
+                     and t0 >= max(pending)})
+    summary = {
+        "compute_stream": compute, "kernel_streams": streams,
+        "htod_copies": len(htod),
+        "htod_streams": sorted({e["args"].get("stream") for e in htod}),
+        "batch_copies": len(rows),
+        "batch_copies_on_compute_stream": sum(r["stream"] == compute
+                                              for r in rows),
+        "batch_copies_pinned": all("Pinned" in r["name"] for r in rows),
+        "batch_copies_issued_with_work_pending": sum(
+            r["pending_at_issue"] > 0 for r in rows),
+        "batch_copies_that_waited_for_compute": sum(
+            r["waited_for_compute"] for r in rows),
+        "batch_copies_without_issue_record": sum(not r["issued"]
+                                                 for r in rows),
+        "batch_copy_ms": sum(r["ms"] for r in rows),
+        "batch_overlap_ms": sum(r["overlap_ms"] for r in rows),
+        "batch_copy_rows": rows,
+        "kernel_ms": sum(b - a for a, b in spans) / 1e3}
+    summary["batch_overlap_share"] = (summary["batch_overlap_ms"]
+                                      / max(summary["batch_copy_ms"], 1e-9))
+    return summary, gpu
+
+
+def feed_profile_main(data_dir: str, seed: int) -> int:
+    """The child of feed_profile: one profiled run, its summary printed on
+    a FEEDPROFILE line."""
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, REPO)
+    from veles_tpu_torch import launcher
+    from veles_tpu_torch.ops import kernels
+    kernels.build()
+    # CUDA activity only (kernels, copies and the runtime calls that
+    # issued them): recording every CPU op slows the host enough to leave
+    # the card idle between steps, with nothing queued to overlap
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def stop():
+        torch.cuda.synchronize()
+        prof.stop()
+
+    last = FEED_PROFILE_FROM + FEED_PROFILE_STEPS - 1
+    with precision_type_kept(), \
+            train_calls({FEED_PROFILE_FROM: (prof.start, None),
+                         last: (None, stop)}):
+        launcher.train(feed_argv(data_dir, True, 1, seed))
+    os.makedirs(OUT, exist_ok=True)
+    tmp = os.path.join(OUT, "feed_trace.tmp.json")
+    prof.export_chrome_trace(tmp)
+    with open(tmp) as f:
+        trace = json.load(f)
+    os.remove(tmp)
+    summary, gpu = feed_overlap(trace["traceEvents"])
+    with open(os.path.join(OUT, "feed_profile.json"), "w") as f:
+        json.dump({"summary": summary, "gpu_events": gpu}, f)
+    print("FEEDPROFILE " + json.dumps({"summary": summary}), flush=True)
+    return 0
+
+
+def feed_phase(launcher, kernels, dev, seed: int):
+    """FEED: the full-width AlexNet, batch 128, bf16 over f32 master
+    weights, lrn_maxpool fused, 2 epochs per run through
+    `launcher.train`: (a) the uint8 wire from a packed memmap, (b) the f32
+    wire from the same memmap, (c) the synthetic loader's f32 wire, each
+    at feed_ahead 1, 0, 0, 1. Returns (launches of each wire's first run,
+    the records)."""
+    from veles_tpu_torch import native_gather
+    data_dir = os.path.join(OUT, "feed_data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        pack_feed_data(data_dir, seed)
+        print(f"FEED packed {FEED_VALID} + {FEED_TRAIN} images of "
+              f"{HW}x{HW}x3 uint8 in {time.perf_counter() - t0:.2f} s; "
+              f"native gather {native_gather.available()} "
+              f"({native_gather.last_error or native_gather.library_path()})",
+              flush=True)
+        if not native_gather.available():
+            raise AssertionError("the native gather did not build: "
+                                 f"{native_gather.last_error}")
+        x_bytes = TB * HW * HW * 3
+        records, launches, states, heads = [], {}, {}, {}
+        for label, pinned_float, memmap in FEED_WIRES:
+            for turn, ahead in enumerate(FEED_TURNS):
+                rec, state, head = feed_run(
+                    launcher, kernels, dev, label,
+                    feed_argv(data_dir, memmap, ahead, seed), pinned_float,
+                    ahead)
+                records.append(rec)
+                want = x_bytes * (1 if not pinned_float else 4) + TB * 12
+                if rec["bytes_per_batch"] != want or \
+                        rec["uint8_wire"] != (not pinned_float):
+                    raise AssertionError(
+                        f"FEED {label}: {rec['bytes_per_batch']} bytes a "
+                        f"batch (uint8 {rec['uint8_wire']}), not {want}")
+                if memmap and rec["gather"] != "native":
+                    raise AssertionError(f"FEED {label}: the {rec['gather']}"
+                                         f" gather ran, not the native one")
+                metrics = (rec["loss"], rec["history"])
+                if turn == 0:
+                    launches[label] = rec["launches"]
+                    states[label], heads[label] = state, head
+                    first = metrics
+                else:
+                    rec["same_bits_as_first"] = (
+                        metrics == first and same_bits(state, states[label]))
+                del state, head
+            same = [r["same_bits_as_first"] for r in records[-3:]]
+            print(f"FEED {label}: turns {FEED_TURNS} give the same bits as "
+                  f"the first: {same}", flush=True)
+            if not all(same):
+                raise AssertionError(f"FEED {label}: feed_ahead 1 and 0 "
+                                     f"give different bits")
+        a, b = heads["memmap uint8"], heads["memmap f32"]
+        err = float((a - b).abs().max())
+        print(f"FEED uint8 wire against f32 wire: head weights max abs "
+              f"difference {err} (tolerance {WIRE_ATOL} + {WIRE_RTOL}"
+              f"*|f32|)", flush=True)
+        if not torch.allclose(a, b, rtol=WIRE_RTOL, atol=WIRE_ATOL):
+            raise AssertionError("FEED: the uint8 wire does not track the "
+                                 "f32 wire")
+        del states, heads, a, b
+        torch.cuda.empty_cache()
+        profile = feed_profile(data_dir, seed)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return launches, {"runs": records, "profile": profile,
+                      "head_max_abs_diff": err}
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(description="Drive the port on one card.")
+    p.add_argument("--seed", type=int, default=1234,
+                   help="seed of the FEED phase's packed images")
+    p.add_argument("--feed-profile", metavar="DIR", default=None,
+                   help=argparse.SUPPRESS)   # feed_profile's child
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script runs on an NVIDIA card", file=sys.stderr)
         return 2
+    if args.feed_profile is not None:
+        return feed_profile_main(args.feed_profile, args.seed)
     sys.path.insert(0, REPO)
     from veles_tpu_torch import launcher
     from veles_tpu_torch.ops import kernels
@@ -2376,6 +2835,9 @@ def main() -> int:
         by_path[f"train_{setting}"] = counts
     for setting, counts in train_bf16_phase(launcher, kernels, dev).items():
         by_path[f"train_bf16_{setting}"] = counts
+    feed_launches, feed = feed_phase(launcher, kernels, dev, args.seed)
+    for label, counts in feed_launches.items():
+        by_path[f"feed_{label.replace(' ', '_')}"] = counts
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
@@ -2453,8 +2915,8 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
-                   "checks": checks, "k5_other_geometry": k5_other}, f,
-                  indent=1)
+                   "checks": checks, "k5_other_geometry": k5_other,
+                   "feed": feed}, f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -271,8 +271,8 @@ def test_the_cli_override_trains_in_bf16_and_serving_refuses_it(
     built = []
     real = StandardWorkflow.build_fused_step
 
-    def spy(self, compute_dtype=None):
-        built.append(real(self, compute_dtype))
+    def spy(self, compute_dtype=None, **kwargs):
+        built.append(real(self, compute_dtype, **kwargs))
         return built[-1]
 
     monkeypatch.setattr(StandardWorkflow, "build_fused_step", spy)

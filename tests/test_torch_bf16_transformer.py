@@ -14,6 +14,11 @@ kernels in interpret mode; the port's attention goes through
   at their f32 values (the port's tanh before it rounded them to bf16,
   as the JAX package's weakly typed Python floats are rounded) and the
   step left in f32 (x and the parameters uncast).
+- With the flash gate off both packages run the einsum attention, whose
+  numpy float64 scale promotes the bf16 scores to f32 in the JAX
+  function: the units after it compute in f32 and the logits are f32,
+  held by their distance from the JAX step's relative to its norm
+  (within 2^-10; an einsum left in bf16 misses it).
 
 Where the two packages round. Both round every bf16 product, sum and
 activation once to bf16, so most values are the same bits; the f32
@@ -47,6 +52,8 @@ Tolerances, with u = 2^-8 bf16's unit roundoff:
   bias vectors against the JAX f32 step).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +74,11 @@ UPDATE_RTOL = 2 * U
 LOSS_RTOL = U
 #: the share of logits (or unit outputs) that may differ by one bf16 ulp
 DIFFER_SHARE = 2.0 ** -10
+#: the f32 logits of the einsum attention's step (flash gate off),
+#: ||port - jax|| / ||jax||: the bf16 products before the einsum differ
+#: by an ulp where they lie near a rounding tie (measured 5.6e-4 at the
+#: first step; an einsum left in bf16 misses it, see the test below)
+EINSUM_LOGIT_RTOL = U / 4
 #: the leaves whose gradient is a sum over every token
 BIAS = ("bias", "b2")
 SEL_J = {"sgd_update": "pallas_rows[rt=8]"}
@@ -111,14 +123,14 @@ def _distance(before, ref, port, slot, bias):
     return (num / den) ** 0.5
 
 
-def _steps(port_dtype=BF16, steps=3):
+def _steps(port_dtype=BF16, steps=3, use_flash="on"):
     """The JAX bf16 step, the JAX f32 step and the port's step in
     `port_dtype` from one common state each step; yields per step a dict
     of the share of differing logits, the losses, n_errs and near ties,
     the update distances and the JAX bf16 step's bias distance from its
     f32 step, then the validation batch's losses, n_errs
-    and near ties."""
-    jwf, pwf = _workflows(TOY, use_flash="on")
+    and near ties. `use_flash` sets both attention units' gate."""
+    jwf, pwf = _workflows(TOY, use_flash=use_flash)
     try:
         with jvariants.pallas_interpret(), _Selected(jvariants, **SEL_J), \
                 _Selected(variants, **SEL_P):
@@ -136,8 +148,10 @@ def _steps(port_dtype=BF16, steps=3):
                 x, y, w = _batch(pwf, 20 + i, pad=1 if i == 1 else 0)
                 plog = pstep.fwd._forward(pstate["params"],
                                           torch.from_numpy(x)).numpy()
-                differing = _differing(plog,
-                                       _as_bf16(jfwd(jstate["params"], x)))
+                jlog = np.asarray(jfwd(jstate["params"], x))
+                differing = _differing(plog, _as_bf16(jlog))
+                distance = float(np.linalg.norm(plog - jlog)
+                                 / np.linalg.norm(jlog))
                 copy = jax.tree_util.tree_map(
                     lambda a: a.copy() if hasattr(a, "copy") else a, jstate)
                 fstate, _ = jf32.train(copy, x, y, w)
@@ -148,6 +162,7 @@ def _steps(port_dtype=BF16, steps=3):
                             for t in layer.values()} == {torch.float32}
                 ja, fa, pa = _copy(jstate), _copy(fstate), _copy(pstate)
                 yield {"step": i, "logits_differing": differing,
+                       "logits_distance": distance,
                        "loss": (float(pl), float(jl)),
                        "n_err": (int(pe), int(je)), "ties": _near_ties(plog),
                        "distance": {
@@ -202,8 +217,12 @@ def test_bf16_transformer_units_give_the_jax_units_bits(unit):
         jwf._stop_units()
 
 
-def test_bf16_transformer_steps_track_the_jax_bf16_step():
-    for r in _steps():
+@pytest.mark.parametrize("use_flash", ["on", "off"])
+def test_bf16_transformer_steps_track_the_jax_bf16_step(use_flash):
+    """With the flash gate off, the attention runs the einsum golden,
+    whose f32 promotion (see the test below) carries every unit after it
+    into f32 in both packages."""
+    for r in _steps(use_flash=use_flash):
         i = r["step"]
         np.testing.assert_allclose(*r["loss"], rtol=LOSS_RTOL,
                                    err_msg=str(i))
@@ -211,8 +230,11 @@ def test_bf16_transformer_steps_track_the_jax_bf16_step():
         assert abs(pe - je) <= r["ties"], (i, r["n_err"], r["ties"])
         if i == "validation":
             continue
-        share, far = r["logits_differing"]
-        assert share <= DIFFER_SHARE and far == 0, r
+        if use_flash == "on":
+            share, far = r["logits_differing"]
+            assert share <= DIFFER_SHARE and far == 0, r
+        else:
+            assert r["logits_distance"] <= EINSUM_LOGIT_RTOL, r
         for slot, (other, bias) in r["distance"].items():
             assert other <= UPDATE_RTOL, (i, slot, r["distance"])
             assert bias <= UPDATE_RTOL, (i, slot, r["distance"])
@@ -237,3 +259,51 @@ def test_the_logit_check_catches_f32_tanh_constants_and_an_f32_step(
     r = next(steps)
     steps.close()
     assert r["logits_differing"][0] > 16 * DIFFER_SHARE, r
+
+
+def test_the_einsum_logit_check_catches_an_einsum_left_in_bf16(monkeypatch):
+    """The flash-off logit gate fails a step whose einsum attention keeps
+    bf16 scores and output (the port's arithmetic before it followed the
+    JAX promotion), at the first step."""
+    from veles_tpu_torch.ops import attention
+
+    def bf16_mha(q, k, v, scale=None, causal=False):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
+            1.0 / math.sqrt(q.shape[-1]))
+        if causal:
+            keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool).tril()
+            s = torch.where(keep, s, torch.full((), attention.NEG_INF,
+                                                dtype=s.dtype))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+    monkeypatch.setattr(attention, "mha_forward", bf16_mha)
+    steps = _steps(steps=1, use_flash="off")
+    r = next(steps)
+    steps.close()
+    assert r["logits_distance"] > EINSUM_LOGIT_RTOL, r
+
+
+def test_bf16_einsum_attention_promotes_to_f32_as_the_jax_function():
+    """The JAX `mha_forward`'s default scale is a numpy float64, which
+    promotes bf16 scores, the softmax and the output to f32; the port's
+    function returns the same dtype and values (causal ones of
+    (1, 8, 2, 8), and a seeded random bf16 input), and an explicit scale
+    keeps bf16 in both."""
+    from veles_tpu.ops import attention as jattention
+    from veles_tpu_torch.ops import attention
+
+    rs = np.random.RandomState(5)
+    for q, k, v in ((np.ones((1, 8, 2, 8), np.float32),) * 3,
+                    tuple(rs.randn(2, 16, 2, 8).astype(np.float32)
+                          for _ in range(3))):
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        pq, pk, pv = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v))
+        want = jattention.mha_forward(jq, jk, jv, causal=True)
+        got = attention.mha_forward(pq, pk, pv, causal=True)
+        assert want.dtype == jnp.float32 and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-7)
+        want = jattention.mha_forward(jq, jk, jv, scale=0.25, causal=True)
+        got = attention.mha_forward(pq, pk, pv, scale=0.25, causal=True)
+        assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16

@@ -2,8 +2,9 @@
 it.
 
 `python -m veles_tpu_torch WORKFLOW.py (--fused | --serve PORT)
-[--device cpu] [-r SEED] [--lrn-maxpool fused|composed] [--serve-ring N]
-[root.x=y ...]` — the port's counterpart of `veles_tpu/__main__.py` and of
+[--device cpu] [-r SEED] [--lrn-maxpool fused|composed]
+[--feed-ahead N] [--serve-ring N] [root.x=y ...]` — the port's
+counterpart of `veles_tpu/__main__.py` and of
 the `--fused` and `--serve` branches of `veles_tpu/launcher.py`
 (launcher.py:898-907 there). The workflow module keeps the reference's
 `run(load, main)` convention: it registers its `root` defaults when
@@ -56,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="lowering of adjacent LRN -> max pooling pairs "
                         "(default: the registry's, fused)")
+    p.add_argument("--feed-ahead", type=int, default=None, metavar="N",
+                   help="batches the device feed uploads ahead of the "
+                        "step (default 1; 0 uploads each on demand); "
+                        "--fused only")
     p.add_argument("--serve-ring", type=int, default=64, metavar="N",
                    help="rows in the ring batch (and the per-request cap)")
     p.add_argument("--serve-token", default=None,
@@ -79,6 +84,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("give --fused (train) or --serve PORT (serve); the "
                 "granular Unit/Workflow graph, which runs without either, "
                 "comes with a later slice of the port")
+    if args.feed_ahead is not None:
+        if args.feed_ahead < 0:
+            p.error(f"--feed-ahead needs N >= 0 (got {args.feed_ahead})")
+        if not args.fused:
+            # a knob nothing would read: refused rather than ignored
+            p.error("--feed-ahead tunes the device feed of the fused "
+                    "training loop: combine it with --fused")
     return args
 
 
@@ -133,7 +145,7 @@ def train(argv: Optional[List[str]] = None):
     done = {}
 
     def main_fn(wf):
-        wf.run_fused(device=args.device)
+        wf.run_fused(device=args.device, feed_ahead=args.feed_ahead)
         done["workflow"] = wf
 
     _run(args, main_fn)

@@ -30,5 +30,10 @@ class FullBatchLoader(Loader):
         self.sample_shape = tuple(self.data.shape[1:])
 
     def fill_minibatch(self, indices: np.ndarray) -> None:
-        self.minibatch_data = self.data[indices]
+        out = self.empty_minibatch((len(indices),) + self.data.shape[1:],
+                                   self.data.dtype)
+        # the indices are the schedule's, all in range: "clip" spares
+        # np.take the buffered copy its default "raise" makes
+        np.take(self.data, indices, axis=0, out=out, mode="clip")
+        self.minibatch_data = out
         self.minibatch_labels = self.labels[indices]

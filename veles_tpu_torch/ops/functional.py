@@ -58,6 +58,14 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the dtype the JAX package's `@` promotes its operands to
+    (`torch.promote_types`): f32 activations against bf16 weights compute
+    in f32, where `torch.matmul` would refuse the mixed dtypes."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t) @ b.to(t)
+
+
 def all2all_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     activation: str = "linear") -> torch.Tensor:
     """y = act(x @ W + b). Trailing dims flatten in NHWC order (H·W·C), the

@@ -27,6 +27,13 @@ leaves returns f32 gradients (the cast's VJP, as in JAX), runs the units
 in bf16 and casts their output to f32 before the loss; the state, the
 velocities and the update stay f32.
 
+Input normalize (the uint8 wire's prologue, the JAX step's
+`input_normalize`, applied at :683-685 there): `apply_input_normalize`
+converts a uint8 x to f32 and applies the loader's affine on the card,
+in the JAX function's order and operations, before the compute-dtype
+cast. A batch that the device feed uploaded arrives as tensors on the
+step's device and is taken as it is: no second copy, no host sync.
+
 Differences from the JAX step: the step updates its state in place (the
 JAX step returns a new one); its dropout masks come from a
 `torch.Generator` the step owns instead of the state's key; the backward
@@ -54,6 +61,21 @@ from veles_tpu_torch.ops import optim, variants
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def apply_input_normalize(spec: Optional[Dict[str, Any]],
+                          x: torch.Tensor) -> torch.Tensor:
+    """The uint8 wire's prologue: x to f32, `* scale + offset`, `- mean`
+    (a multiplication by the scale, as the JAX function does), in f32.
+    No-op when `spec` is None."""
+    if spec is None:
+        return x
+    x = x.to(torch.float32) * spec.get("scale", 1.0) \
+        + spec.get("offset", 0.0)
+    mean = spec.get("mean")
+    if mean is not None:
+        x = x - torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+    return x
+
+
 def resolve_compute_dtype(compute_dtype: Optional[str]) -> Optional[str]:
     """The JAX step's rule: an explicit `compute_dtype` wins; None falls
     back to root.common.precision_type unless that is "float32" (no cast:
@@ -72,7 +94,8 @@ class FusedForward:
     """Forward chain of `workflow` on its device, lowerings and compute
     dtype fixed at build time."""
 
-    def __init__(self, workflow, compute_dtype: Optional[str] = None) -> None:
+    def __init__(self, workflow, compute_dtype: Optional[str] = None,
+                 input_normalize: Optional[Dict[str, Any]] = None) -> None:
         if not workflow.is_initialized:
             raise RuntimeError("initialize the workflow before building "
                                "its fused forward")
@@ -83,6 +106,15 @@ class FusedForward:
         self.workflow = workflow
         self.forwards = list(workflow.forwards)
         self.device: torch.device = workflow.device
+        #: the uint8 wire's prologue spec (None: x arrives normalized),
+        #: its mean image on the device once
+        self.input_normalize = None
+        if input_normalize:
+            self.input_normalize = dict(input_normalize)
+            mean = self.input_normalize.get("mean")
+            if mean is not None:
+                self.input_normalize["mean"] = torch.as_tensor(
+                    mean, dtype=torch.float32, device=self.device)
         self.pairs = self.fusion_pairs()
         claimed = {j: i for i, j, _ in self.pairs}
         fused = {i: (j, v) for i, j, v in self.pairs}
@@ -157,6 +189,7 @@ class FusedForward:
         random numbers (dropout)."""
         mode = contextlib.nullcontext() if train else torch.inference_mode()
         with mode, full_f32(self.device):
+            x = apply_input_normalize(self.input_normalize, x)
             if self._dtype is not None:
                 # once per call; differentiable, so the gradients of the
                 # f32 master leaves come back f32
@@ -220,7 +253,8 @@ class FusedTrainStep:
              "lr_scale": the schedule's lr multiplier (a float)}
     """
 
-    def __init__(self, workflow, compute_dtype: Optional[str] = None) -> None:
+    def __init__(self, workflow, compute_dtype: Optional[str] = None,
+                 input_normalize: Optional[Dict[str, Any]] = None) -> None:
         if workflow.loss != "softmax":
             raise NotImplementedError(
                 f"the fused step trains a softmax head; loss "
@@ -229,7 +263,9 @@ class FusedTrainStep:
             raise ValueError(
                 "fused softmax loss needs a final layer that emits logits "
                 "(All2AllSoftmax, SeqSoftmax) for log-softmax CE")
-        self.fwd = FusedForward(workflow, compute_dtype)
+        self.fwd = FusedForward(workflow, compute_dtype, input_normalize)
+        #: the uint8 wire's prologue spec, None without one
+        self.input_normalize = self.fwd.input_normalize
         #: "bfloat16", "float32" or None, by the JAX step's rule
         self.compute_dtype = self.fwd.compute_dtype
         self.forwards = self.fwd.forwards
@@ -277,7 +313,12 @@ class FusedTrainStep:
     # -- steps ----------------------------------------------------------------
 
     def _batch(self, x, y, w):
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        """The batch as tensors on the step's device: tensors already
+        there (the device feed's) are taken as they are; host arrays are
+        uploaded. x stays uint8 where the prologue normalizes it."""
+        x = torch.as_tensor(x, device=self.device)
+        if self.input_normalize is None:
+            x = x.to(torch.float32)
         y = torch.as_tensor(y, device=self.device).long()
         w = (torch.ones(x.shape[0], device=self.device) if w is None else
              torch.as_tensor(w, dtype=torch.float32, device=self.device))

@@ -34,6 +34,9 @@ class RandomGenerator:
     def shuffle(self, arr) -> None:
         self.state.shuffle(arr)
 
+    def randint(self, low: int, high: Optional[int] = None, size=None):
+        return self.state.randint(low, high, size)
+
     def fill_uniform(self, shape, low: float, high: float,
                      dtype=np.float32) -> np.ndarray:
         """Weight-init fill (parity: reference `Forward` uniform fills)."""

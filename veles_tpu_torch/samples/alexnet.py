@@ -4,7 +4,10 @@ The port's counterpart of `veles_tpu/samples/alexnet.py`, with the same
 layer list, geometry, `init` modes and `root.alexnet` defaults: 5 conv
 blocks with LRN and overlapping 3×3/2 max pooling, two 4096-wide FC
 layers with dropout, a 1000-way softmax head, on the deterministic
-synthetic ImageNet-shaped dataset. `root.alexnet.width_mult` and
+synthetic ImageNet-shaped dataset, or on a packed uint8 memmap dataset
+(`root.alexnet.loader.data_path`, a directory holding the `manifest.json`
+that loader/memmap.py's `pack_arrays` writes), which the fused loop
+sends to the card as raw bytes. `root.alexnet.width_mult` and
 `root.alexnet.fc_width` (defaults 1.0 and 4096, the JAX package's
 argument defaults) let a command line cut the widths for a toy run.
 
@@ -17,11 +20,13 @@ lr 0.01 with momentum 0.9 and weight decay 5e-4.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from veles_tpu_torch.config import root
+from veles_tpu_torch.loader.memmap import MANIFEST, MemmapImageLoader
 from veles_tpu_torch.loader.synthetic import SyntheticClassifierLoader
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
@@ -103,20 +108,25 @@ def create_workflow(minibatch_size: Optional[int] = None,
                     n_validation: Optional[int] = None,
                     init: str = "reference") -> AlexNetWorkflow:
     cfg = root.alexnet
-    if cfg.loader.get("data_path"):
-        raise NotImplementedError(
-            "image-directory and memmap loaders come with a later slice; "
-            "the port serves the synthetic dataset")
     mb = minibatch_size or cfg.loader.minibatch_size
     hw = input_hw or cfg.loader.input_hw
     nc = n_classes or cfg.n_classes
-    loader = SyntheticClassifierLoader(
-        n_classes=min(nc, 64),  # prototype count, not the head width
-        sample_shape=(hw, hw, 3),
-        n_validation=(n_validation if n_validation is not None
-                      else cfg.loader.n_validation),
-        n_train=n_train if n_train is not None else cfg.loader.n_train,
-        minibatch_size=mb, noise=0.5)
+    data_path = cfg.loader.get("data_path")
+    if data_path:
+        if not os.path.exists(os.path.join(data_path, MANIFEST)):
+            raise NotImplementedError(
+                f"{data_path} holds no {MANIFEST}: the port trains from a "
+                f"packed memmap dataset (loader/memmap.py pack_arrays); "
+                f"the image-directory loader comes with a later slice")
+        loader = MemmapImageLoader(data_path=data_path, minibatch_size=mb)
+    else:
+        loader = SyntheticClassifierLoader(
+            n_classes=min(nc, 64),  # prototype count, not the head width
+            sample_shape=(hw, hw, 3),
+            n_validation=(n_validation if n_validation is not None
+                          else cfg.loader.n_validation),
+            n_train=n_train if n_train is not None else cfg.loader.n_train,
+            minibatch_size=mb, noise=0.5)
     return AlexNetWorkflow(
         layers=alexnet_layers(
             nc, width_mult if width_mult is not None else cfg.width_mult,

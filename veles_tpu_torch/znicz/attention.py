@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from veles_tpu_torch.ops import attention, variants
+from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.znicz.nn_units import Forward
 
 FLASH_MIN_SEQ = 4096
@@ -108,13 +109,15 @@ class MultiHeadAttention(Forward):
         n, s, _ = x.shape
         d = self.head_dim
         h = params["wq"].shape[1] // d
-        q = (x @ params["wq"]).reshape(n, s, h, d)
-        k = (x @ params["wk"]).reshape(n, s, h, d)
-        v = (x @ params["wv"]).reshape(n, s, h, d)
+        q = fn.matmul(x, params["wq"]).reshape(n, s, h, d)
+        k = fn.matmul(x, params["wk"]).reshape(n, s, h, d)
+        v = fn.matmul(x, params["wv"]).reshape(n, s, h, d)
         if self._flash_ok(s):
             v_ = variant or variants.resolve(self.variant_op, unit=self)
             o = v_.apply(q, k, v, causal=self.causal)
         else:
             o = attention.mha_forward(q, k, v, causal=self.causal)
-        y = o.reshape(n, s, h * d) @ params["wo"]
+        # the einsum's output is f32 under bf16 (mha_forward's promotion):
+        # so is everything after it, as in the JAX unit
+        y = fn.matmul(o.reshape(n, s, h * d), params["wo"])
         return x + y if self.residual else y

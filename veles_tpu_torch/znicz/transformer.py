@@ -15,6 +15,10 @@ bit-identical parameters in both packages.
 - `SeqSoftmax`: the per-token head; emits (N, S, V) logits for the fused
   step's per-token cross-entropy.
 
+Their products promote as the JAX package's `@` does (`fn.matmul`): the
+f32 activations after a bf16 step's einsum attention meet bf16 weights
+in f32.
+
 The sequence-sharded ("seq") mode and megatron tensor parallelism come
 with the many-GPU slice; the granular path's flattened probabilities
 with the granular graph.
@@ -71,7 +75,7 @@ class SeqLinear(Forward):
         return (s, dout)
 
     def fused_apply(self, params, x, *, train=False):
-        y = x @ params["weights"] + params["bias"]
+        y = fn.matmul(x, params["weights"]) + params["bias"]
         if self.pos_embed:
             y = y + params["pos"][:x.shape[1]][None]
         return fn.act_forward(self.activation, y)
@@ -109,8 +113,9 @@ class SeqFFN(Forward):
 
     def fused_apply(self, params, x, *, train=False):
         hmid = fn.act_forward(self.activation,
-                              x @ params["weights"] + params["bias"])
-        return x + hmid @ params["w2"] + params["b2"]
+                              fn.matmul(x, params["weights"])
+                              + params["bias"])
+        return x + fn.matmul(hmid, params["w2"]) + params["b2"]
 
 
 class SeqSoftmax(SeqLinear):
