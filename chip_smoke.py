@@ -142,6 +142,30 @@
    after compute-stream work that was queued when its copy was issued
    (by the runtime calls' correlation), and they must overlap the
    kernels (chiprun_out/feed_profile.json).
+   RESUME: on FEED's packed memmap (kept until RESUME ends), the same
+   AlexNet (dropout 0.5 as the sample has it, feed_ahead 1) trained 3
+   epochs through `launcher.train` from a workflow file this script
+   writes into a temporary directory, which rebuilds the sample's
+   workflow with snapshot_config (gz, keep_last 2): (a) in process, the
+   uninterrupted run against the same argv cut at 2 epochs and resumed
+   from its newest snapshot (`-s`, max_epochs 3), which must be the one
+   of epoch 2's validation pass, after epoch 1's 10 train steps (the
+   resumed run trains 20 steps: trained weights, non-zero velocities, a
+   dropout stream past its seed's position): the same bits in every
+   parameter and velocity, the history, best_validation_err, the epoch
+   counter and the loss, the sidecar verified, and the resumed run's
+   counts (zeroed just before it, read just after) exactly K1 16 and K5
+   bf16 2 a train step, K4 bf16 2 a train or validation step; each run
+   prints its snapshots' export seconds and bytes, the import seconds,
+   the move to the card, and the host ms a train step over its last
+   epoch's train pass; (b) `python -m veles_tpu_torch ... --fused
+   --supervise` with VELES_FAULT_PLAN=kill@epoch=2 in a child: exit 0,
+   one restart from a snapshot, the final TRAINED line equal to (a)'s
+   uninterrupted run's, and the time to recover (the kill to the
+   restarted child's first step, from RESUMEMARK lines the workflow
+   file prints); (c) `--serve 0 -s SNAPSHOT` through `launcher.serve`:
+   a 1-row /predict within 1e-5 of the restored workflow's forward on
+   the card, K4 launched twice.
    TRAIN transformer: train the char-transformer at its own widths (embed
    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
    4096 for 2 epochs through the same function (1 validation window, so
@@ -225,6 +249,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -2136,6 +2161,20 @@ def precision_type_kept():
         root.common.precision_type = prev
 
 
+@contextlib.contextmanager
+def alexnet_config_kept():
+    """root.alexnet as it was before the block, after it: the CLI's
+    overrides (a data_path among them) set it for the process, and the
+    sample, once imported as a module, does not register its defaults
+    again."""
+    from veles_tpu_torch.config import root
+    saved = root.alexnet.to_dict()
+    try:
+        yield
+    finally:
+        root.alexnet = saved
+
+
 def check_bf16_steps(label, seen):
     """The steps of a bf16 run computed in bf16 over f32 master weights."""
     dtypes = {s.compute_dtype for s in seen["steps"]}
@@ -2715,75 +2754,473 @@ def feed_profile_main(data_dir: str, seed: int) -> int:
     return 0
 
 
-def feed_phase(launcher, kernels, dev, seed: int):
+def feed_phase(launcher, kernels, dev, seed: int, data_dir: str):
     """FEED: the full-width AlexNet, batch 128, bf16 over f32 master
     weights, lrn_maxpool fused, 2 epochs per run through
-    `launcher.train`: (a) the uint8 wire from a packed memmap, (b) the f32
-    wire from the same memmap, (c) the synthetic loader's f32 wire, each
-    at feed_ahead 1, 0, 0, 1. Returns (launches of each wire's first run,
-    the records)."""
+    `launcher.train`: (a) the uint8 wire from a packed memmap (packed
+    into `data_dir`, which the caller deletes), (b) the f32 wire from the
+    same memmap, (c) the synthetic loader's f32 wire, each at feed_ahead
+    1, 0, 0, 1. Returns (launches of each wire's first run, the
+    records)."""
     from veles_tpu_torch import native_gather
-    data_dir = os.path.join(OUT, "feed_data")
     shutil.rmtree(data_dir, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        pack_feed_data(data_dir, seed)
-        print(f"FEED packed {FEED_VALID} + {FEED_TRAIN} images of "
-              f"{HW}x{HW}x3 uint8 in {time.perf_counter() - t0:.2f} s; "
-              f"native gather {native_gather.available()} "
-              f"({native_gather.last_error or native_gather.library_path()})",
-              flush=True)
-        if not native_gather.available():
-            raise AssertionError("the native gather did not build: "
-                                 f"{native_gather.last_error}")
-        x_bytes = TB * HW * HW * 3
-        records, launches, states, heads = [], {}, {}, {}
-        for label, pinned_float, memmap in FEED_WIRES:
-            for turn, ahead in enumerate(FEED_TURNS):
-                rec, state, head = feed_run(
-                    launcher, kernels, dev, label,
-                    feed_argv(data_dir, memmap, ahead, seed), pinned_float,
-                    ahead)
-                records.append(rec)
-                want = x_bytes * (1 if not pinned_float else 4) + TB * 12
-                if rec["bytes_per_batch"] != want or \
-                        rec["uint8_wire"] != (not pinned_float):
-                    raise AssertionError(
-                        f"FEED {label}: {rec['bytes_per_batch']} bytes a "
-                        f"batch (uint8 {rec['uint8_wire']}), not {want}")
-                if memmap and rec["gather"] != "native":
-                    raise AssertionError(f"FEED {label}: the {rec['gather']}"
-                                         f" gather ran, not the native one")
-                metrics = (rec["loss"], rec["history"])
-                if turn == 0:
-                    launches[label] = rec["launches"]
-                    states[label], heads[label] = state, head
-                    first = metrics
-                else:
-                    rec["same_bits_as_first"] = (
-                        metrics == first and same_bits(state, states[label]))
-                del state, head
-            same = [r["same_bits_as_first"] for r in records[-3:]]
-            print(f"FEED {label}: turns {FEED_TURNS} give the same bits as "
-                  f"the first: {same}", flush=True)
-            if not all(same):
-                raise AssertionError(f"FEED {label}: feed_ahead 1 and 0 "
-                                     f"give different bits")
-        a, b = heads["memmap uint8"], heads["memmap f32"]
-        err = float((a - b).abs().max())
-        print(f"FEED uint8 wire against f32 wire: head weights max abs "
-              f"difference {err} (tolerance {WIRE_ATOL} + {WIRE_RTOL}"
-              f"*|f32|)", flush=True)
-        if not torch.allclose(a, b, rtol=WIRE_RTOL, atol=WIRE_ATOL):
-            raise AssertionError("FEED: the uint8 wire does not track the "
-                                 "f32 wire")
-        del states, heads, a, b
-        torch.cuda.empty_cache()
-        profile = feed_profile(data_dir, seed)
-    finally:
-        shutil.rmtree(data_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    pack_feed_data(data_dir, seed)
+    print(f"FEED packed {FEED_VALID} + {FEED_TRAIN} images of "
+          f"{HW}x{HW}x3 uint8 in {time.perf_counter() - t0:.2f} s; "
+          f"native gather {native_gather.available()} "
+          f"({native_gather.last_error or native_gather.library_path()})",
+          flush=True)
+    if not native_gather.available():
+        raise AssertionError("the native gather did not build: "
+                             f"{native_gather.last_error}")
+    x_bytes = TB * HW * HW * 3
+    records, launches, states, heads = [], {}, {}, {}
+    for label, pinned_float, memmap in FEED_WIRES:
+        for turn, ahead in enumerate(FEED_TURNS):
+            rec, state, head = feed_run(
+                launcher, kernels, dev, label,
+                feed_argv(data_dir, memmap, ahead, seed), pinned_float,
+                ahead)
+            records.append(rec)
+            want = x_bytes * (1 if not pinned_float else 4) + TB * 12
+            if rec["bytes_per_batch"] != want or \
+                    rec["uint8_wire"] != (not pinned_float):
+                raise AssertionError(
+                    f"FEED {label}: {rec['bytes_per_batch']} bytes a "
+                    f"batch (uint8 {rec['uint8_wire']}), not {want}")
+            if memmap and rec["gather"] != "native":
+                raise AssertionError(f"FEED {label}: the {rec['gather']}"
+                                     f" gather ran, not the native one")
+            metrics = (rec["loss"], rec["history"])
+            if turn == 0:
+                launches[label] = rec["launches"]
+                states[label], heads[label] = state, head
+                first = metrics
+            else:
+                rec["same_bits_as_first"] = (
+                    metrics == first and same_bits(state, states[label]))
+            del state, head
+        same = [r["same_bits_as_first"] for r in records[-3:]]
+        print(f"FEED {label}: turns {FEED_TURNS} give the same bits as "
+              f"the first: {same}", flush=True)
+        if not all(same):
+            raise AssertionError(f"FEED {label}: feed_ahead 1 and 0 "
+                                 f"give different bits")
+    a, b = heads["memmap uint8"], heads["memmap f32"]
+    err = float((a - b).abs().max())
+    print(f"FEED uint8 wire against f32 wire: head weights max abs "
+          f"difference {err} (tolerance {WIRE_ATOL} + {WIRE_RTOL}"
+          f"*|f32|)", flush=True)
+    if not torch.allclose(a, b, rtol=WIRE_RTOL, atol=WIRE_ATOL):
+        raise AssertionError("FEED: the uint8 wire does not track the "
+                             "f32 wire")
+    del states, heads, a, b
+    torch.cuda.empty_cache()
+    profile = feed_profile(data_dir, seed)
     return launches, {"runs": records, "profile": profile,
                       "head_max_abs_diff": err}
+
+
+#: RESUME: the FEED phase's packed memmap; full-width AlexNet, bf16 over f32
+#: master weights, fused, batch 128, the sample's dropout, feed_ahead 1,
+#: RESUME_EPOCHS epochs of 10 train + 1 validation steps, (a)'s cut run
+#: RESUME_CUT of them; the snapshot settings a workflow file adds (gz,
+#: keep_last 2) and the fault the supervised run takes
+RESUME_EPOCHS, RESUME_CUT, RESUME_KEEP, RESUME_FAULT = \
+    3, 2, 2, "kill@epoch=2"
+#: the workflow file RESUME writes: the AlexNet sample's workflow rebuilt
+#: with snapshot_config (the sample has none, as the JAX sample has
+#: none); a restored run trains on to root.alexnet.decision.max_epochs.
+#: With root.resume.marks set, it prints RESUMEMARK lines of the host
+#: clock: at each closed epoch, and in a restored run where the module
+#: was imported (the interpreter and torch up), where load() returned
+#: (the snapshot imported) and after its first train step
+#: (synchronized).
+RESUME_WORKFLOW = '''
+import time
+
+IMPORTED = time.time()
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.samples import alexnet
+from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+
+root.resume.snapshot_dir = "."
+root.resume.marks = 0
+
+
+def create_workflow():
+    wf = alexnet.create_workflow()
+    return StandardWorkflow(
+        layers=wf.layers_config, loader=wf.loader, loss=wf.loss,
+        n_classes=wf.n_classes,
+        decision_config=root.alexnet.decision.to_dict(),
+        gd_config=root.alexnet.gd.to_dict(),
+        snapshot_config={"directory": root.resume.snapshot_dir,
+                         "prefix": "alexnet", "keep_last": %d},
+        name="AlexNetWorkflow")
+
+
+def marks(wf, restored, loaded):
+    import torch
+    from veles_tpu_torch.parallel.fused import FusedTrainStep
+    from veles_tpu_torch.resilience import hooks
+    hooks.add_epoch_hook(lambda e: print(f"RESUMEMARK epoch {e} "
+                                         f"{time.time()!r}", flush=True))
+    if restored:
+        print(f"RESUMEMARK imported {IMPORTED!r}", flush=True)
+        print(f"RESUMEMARK restored {loaded!r} {wf.decision.epoch_number}",
+              flush=True)
+        inner = FusedTrainStep.train
+
+        def train(self, *args, **kwargs):
+            out = inner(self, *args, **kwargs)
+            FusedTrainStep.train = inner
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            print(f"RESUMEMARK first_step {time.time()!r}", flush=True)
+            return out
+
+        FusedTrainStep.train = train
+
+
+def run(load, main):
+    wf, restored = load(create_workflow)
+    loaded = time.time()
+    if restored:
+        wf.decision.max_epochs = root.alexnet.decision.max_epochs
+        wf.decision.complete = False
+    if root.resume.marks:
+        marks(wf, restored, loaded)
+    main()
+''' % RESUME_KEEP
+
+
+def resume_argv(wf_file, data_dir, snap_dir, epochs, seed):
+    return [wf_file, "--fused", "-r", str(seed), "--lrn-maxpool", "fused",
+            "--feed-ahead", "1",
+            f"root.alexnet.loader.data_path={data_dir}",
+            f"root.alexnet.decision.max_epochs={epochs}",
+            f"root.resume.snapshot_dir={snap_dir}", *BF16_ARGS, *TRAIN_ARGS]
+
+
+def trained_line(wf) -> str:
+    """The CLI's TRAINED line for `wf` (launcher.main prints it)."""
+    dec = wf.decision
+    return (f"TRAINED {dec.epoch_number} epochs: loss {wf.evaluator.loss} "
+            f"best_err {dec.best_validation_err} history {dec.history}")
+
+
+@contextlib.contextmanager
+def snapshot_clock():
+    """Host seconds of every Snapshotter.export and import_ in the block,
+    and of moving a restored workflow to the card (StandardWorkflow.place
+    of a restored workflow)."""
+    from veles_tpu_torch.snapshotter import Snapshotter
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    seen = {"export": [], "import": [], "place": []}
+    export, import_, place = (Snapshotter.export, Snapshotter.import_,
+                              StandardWorkflow.place)
+
+    def timed_export(self):
+        t0 = time.perf_counter()
+        path = export(self)
+        seen["export"].append((time.perf_counter() - t0,
+                               os.path.getsize(path)))
+        return path
+
+    def timed_import(path, restore_prng=True):
+        t0 = time.perf_counter()
+        wf = import_(path, restore_prng)
+        seen["import"].append((time.perf_counter() - t0,
+                               os.path.getsize(path)))
+        return wf
+
+    def timed_place(self, device=None):
+        restored = self.restored and not self.is_initialized
+        t0 = time.perf_counter()
+        place(self, device)
+        if restored:
+            torch.cuda.synchronize()
+            seen["place"].append(time.perf_counter() - t0)
+
+    Snapshotter.export = timed_export
+    Snapshotter.import_ = staticmethod(timed_import)
+    StandardWorkflow.place = timed_place
+    try:
+        yield seen
+    finally:
+        Snapshotter.export, StandardWorkflow.place = export, place
+        Snapshotter.import_ = staticmethod(import_)
+
+
+def resume_run(launcher, kernels, label, argv, epochs):
+    """One RESUME run through `launcher.train(argv)`, which trains
+    `epochs` epochs: counts zeroed just before and read just after, CUDA
+    events around each step, the host clock over the last epoch's train
+    pass (synchronized at both ends), the snapshot clock. Returns
+    (workflow, record)."""
+    steps = FEED_TRAIN // TB
+    clock = {}
+
+    def mark(key):
+        def at():
+            torch.cuda.synchronize()
+            clock[key] = time.perf_counter()
+        return at
+
+    last = (epochs - 1) * steps
+    hooks = {last: (mark("t0"), None),
+             last + steps - 1: (None, mark("t1"))}
+    with precision_type_kept(), snapshot_clock() as snaps, \
+            timed_steps() as events, train_calls(hooks) as calls:
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        wf = launcher.train(argv)
+        counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    kinds = [kind for kind, _, _ in events]
+    rec = {"label": label, "launches": counts,
+           "train_steps": kinds.count("train"),
+           "eval_steps": kinds.count("evaluate"),
+           "exports": snaps["export"], "imports": snaps["import"],
+           "place_s": snaps["place"], "line": trained_line(wf)}
+    if "t1" in clock:
+        rec["host_ms_per_step"] = (clock["t1"] - clock["t0"]) / steps * 1e3
+    print(f"RESUME {label}: {calls[0]} train steps, "
+          f"{rec['eval_steps']} validation steps; host ms per train step "
+          f"over the last epoch's train pass "
+          f"{rec.get('host_ms_per_step', float('nan')):.3f}; snapshot "
+          f"exports (s, bytes) {snaps['export']}; imports (s, bytes) "
+          f"{snaps['import']}; restored workflow to the card "
+          f"{snaps['place']} s; {rec['line']}", flush=True)
+    return wf, rec
+
+
+def check_resumed_launches(rec):
+    """The resumed run's launches: K1 16, K4 and K5 bf16 twice a train
+    step (K4 also twice a validation step), nothing else."""
+    train, ev = rec["train_steps"], rec["eval_steps"]
+    want = {"sgd_update": 16 * train,
+            "lrn_maxpool_forward_bf16": 2 * (train + ev),
+            "lrn_maxpool_backward_bf16": 2 * train}
+    got = {name: c for name, c in rec["launches"].items() if c}
+    if got != want or not train:
+        raise AssertionError(f"RESUME {rec['label']}: launches {got} in "
+                             f"{train} train and {ev} validation steps, "
+                             f"not {want}")
+    print(f"RESUME {rec['label']}: launches {got}: K1 16, K4 2 and K5 2 "
+          f"a train step", flush=True)
+
+
+def supervised_resume(argv, snap_dir, work):
+    """RESUME (b): `--fused --supervise` of `argv` in a child process
+    under RESUME_FAULT. Returns (stdout, stderr, report, seconds)."""
+    report = os.path.join(work, "supervise_report.json")
+    env = dict(os.environ, PYTHONPATH=REPO, VELES_FAULT_PLAN=RESUME_FAULT)
+    env.pop("VELES_FAULT_STATE", None)
+    cmd = [sys.executable, "-m", "veles_tpu_torch", *argv, "--supervise",
+           "--snapshot-dir", snap_dir, "--snapshot-prefix", "alexnet",
+           "--supervise-report", report, "root.resume.marks=1"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or not os.path.exists(report):
+        raise AssertionError(f"RESUME (b): the supervisor exited "
+                             f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-5000:]}")
+    with open(report) as f:
+        return r.stdout, r.stderr, json.load(f), wall
+
+
+def resume_serve(launcher, kernels, dev, wf_file, snap):
+    """RESUME (c): `--serve 0 -s SNAP` answers a 1-row /predict; its
+    softmax against the restored workflow's forward on the card, on the
+    same 64-row ring. Returns (launches, max abs difference)."""
+    from veles_tpu_torch.backends import full_f32
+    from veles_tpu_torch.snapshotter import Snapshotter
+    x = np.random.RandomState(5).randn(1, HW, HW, 3).round(3)
+    srv = launcher.serve([wf_file, "--serve", "0", "-s", snap,
+                          "--lrn-maxpool", "fused", "--serve-ring",
+                          str(B), "--serve-max-body", str(1 << 30),
+                          *SERVE_ARGS])
+    try:
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        status, resp, dt = post(f"http://127.0.0.1:{srv.port}", x)
+        counts = kernels.launch_counts()
+    finally:
+        srv.stop()
+    if status != 200:
+        raise AssertionError(f"RESUME (c): /predict answered {status}")
+    got = np.asarray(resp["outputs"], np.float64)
+    wf = Snapshotter.import_(snap, restore_prng=False)
+    wf.place(dev)
+    fwd = wf.build_forward()
+    ring = np.zeros((B, HW, HW, 3), np.float32)
+    ring[0] = x[0]
+    with torch.inference_mode(), full_f32(dev):
+        want = torch.softmax(fwd._forward(
+            fwd.params(), torch.from_numpy(ring).to(dev)), dim=-1)
+    want = want[:1].double().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    print(f"RESUME (c) --serve 0 -s {os.path.basename(snap)}: 1 row -> "
+          f"200 in {dt * 1e3:.1f} ms, softmax max abs difference from the "
+          f"restored workflow's forward on the card {err:.3e} (tolerance "
+          f"{SERVE_ATOL}); launches {counts}", flush=True)
+    if got.shape != (1, N_CLASSES) or not err <= SERVE_ATOL:
+        raise AssertionError(f"RESUME (c): outputs {got.shape}, max abs "
+                             f"difference {err}")
+    if {k: c for k, c in counts.items() if c} != {"lrn_maxpool_forward": 2}:
+        raise AssertionError(f"RESUME (c): launches {counts}, not K4 "
+                             f"twice (one ring round)")
+    del wf, fwd
+    return counts, err
+
+
+def resume_phase(launcher, kernels, dev, seed: int, data_dir: str):
+    """RESUME on the FEED phase's packed memmap: (a) in process, an
+    uninterrupted run of RESUME_EPOCHS epochs against a run cut after
+    RESUME_CUT epochs and restored from its newest snapshot, taken after
+    train steps (the same bits in params,
+    velocities, history, best_validation_err, the epoch counter, the
+    loss); (b) through the CLI, `--fused --supervise` under RESUME_FAULT
+    against (a)'s uninterrupted run, and the time to recover; (c) `--serve
+    0 -s SNAPSHOT` against the restored workflow's forward. Returns
+    (launches by path, the record)."""
+    work = tempfile.mkdtemp(prefix="veles_resume_")
+    with alexnet_config_kept():
+        try:
+            return resume_runs(launcher, kernels, dev, seed, data_dir, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def resume_runs(launcher, kernels, dev, seed, data_dir, work):
+    """resume_phase's runs, in the temporary directory `work`."""
+    from veles_tpu_torch.snapshotter import Snapshotter
+    wf_file = os.path.join(work, "alexnet_snapshots.py")
+    with open(wf_file, "w") as f:
+        f.write(RESUME_WORKFLOW)
+    dirs = {k: os.path.join(work, k) for k in ("whole", "cut", "sup")}
+    # (a) the uninterrupted run
+    whole, rec_whole = resume_run(
+        launcher, kernels, "(a) uninterrupted",
+        resume_argv(wf_file, data_dir, dirs["whole"], RESUME_EPOCHS,
+                    seed), RESUME_EPOCHS)
+    want, want_line = trained_state(whole), rec_whole["line"]
+    want_meta = (whole.decision.history, whole.decision.epoch_number,
+                 whole.decision.best_validation_err,
+                 whole.evaluator.loss)
+    del whole
+    torch.cuda.empty_cache()
+    # (a) the same argv at RESUME_CUT epochs, then resumed from its newest
+    # snapshot: epoch RESUME_CUT's validation pass, after the train steps
+    # of the epochs before it
+    cut, rec_cut = resume_run(
+        launcher, kernels, f"(a) {RESUME_CUT} epochs",
+        resume_argv(wf_file, data_dir, dirs["cut"], RESUME_CUT, seed),
+        RESUME_CUT)
+    del cut
+    snap = Snapshotter.latest(dirs["cut"], prefix="alexnet")
+    if snap is None or not Snapshotter.verify(snap) \
+            or not os.path.exists(snap + ".sha256"):
+        raise AssertionError(f"RESUME (a): no verified snapshot in "
+                             f"{os.listdir(dirs['cut'])}")
+    resumed, rec = resume_run(
+        launcher, kernels, "(a) resumed",
+        resume_argv(wf_file, data_dir, dirs["cut"], RESUME_EPOCHS,
+                    seed) + ["-s", snap], RESUME_EPOCHS - RESUME_CUT + 1)
+    # the snapshot held epoch RESUME_CUT - 1's counter: the resumed run
+    # trained the epochs from there, not from the seed's weights
+    want_steps = (RESUME_EPOCHS - RESUME_CUT + 1) * (FEED_TRAIN // TB)
+    if rec["train_steps"] != want_steps:
+        raise AssertionError(f"RESUME (a): the resumed run trained "
+                             f"{rec['train_steps']} steps, not "
+                             f"{want_steps}: {os.path.basename(snap)} is "
+                             f"not the snapshot taken after train steps")
+    got = trained_state(resumed)
+    got_meta = (resumed.decision.history, resumed.decision.epoch_number,
+                resumed.decision.best_validation_err,
+                resumed.evaluator.loss)
+    if resumed.device != dev:
+        raise AssertionError(f"RESUME (a): resumed on {resumed.device}")
+    same = same_bits(got, want) and got_meta == want_meta
+    print(f"RESUME (a) resumed from {os.path.basename(snap)} "
+          f"({os.path.getsize(snap)} bytes, sidecar verified) against "
+          f"the uninterrupted run: the same bits in {len(got)} "
+          f"parameters and velocities, history, best_validation_err, "
+          f"epoch counter and loss: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"RESUME (a): the resumed run differs: "
+                             f"{got_meta} against {want_meta}")
+    check_resumed_launches(rec)
+    del resumed, got, want
+    torch.cuda.empty_cache()
+    # (b) through the CLI, under the supervisor
+    out, err, report, wall = supervised_resume(
+        resume_argv(wf_file, data_dir, dirs["sup"], RESUME_EPOCHS,
+                    seed), dirs["sup"], work)
+    attempts = report["attempts"]
+    lines = [ln for ln in out.splitlines() if ln.startswith("TRAINED")]
+    marks = {}
+    for ln in out.splitlines():
+        if ln.startswith("RESUMEMARK "):
+            m = ln.split()
+            key = f"{m[1]} {m[2]}" if m[1] == "epoch" else m[1]
+            marks.setdefault(key, m[2:] if m[1] != "epoch" else m[3:])
+    t = {k: float(v[0]) for k, v in marks.items()}
+    # the first "epoch 2" mark is the killed child's, just before the
+    # kill; the others are the restarted child's
+    recover = (t["first_step"] - t["epoch 2"]
+               if {"first_step", "epoch 2"} <= set(t) else None)
+    split = ({"kill_to_imported": t["imported"] - t["epoch 2"],
+              "snapshot_import": t["restored"] - t["imported"],
+              "restored_to_first_step": t["first_step"]
+              - t["restored"]} if recover is not None
+             and {"imported", "restored"} <= set(t) else None)
+    print(f"RESUME (b) --fused --supervise under {RESUME_FAULT}: exit "
+          f"0 in {wall:.2f} s; attempts "
+          + "; ".join(f"{a['attempt']}: {a['reason']} {a['exit_codes']}"
+                      f" at epoch {a['epoch_reached']} from "
+                      f"{os.path.basename(a['snapshot'] or '<fresh>')}"
+                      for a in attempts)
+          + f" (its epoch counter "
+          f"{marks.get('restored', [None, None])[1]}); time to "
+          f"recover (the kill to the restarted child's first step, "
+          f"host clock) {recover} s: {split}", flush=True)
+    print(f"RESUME (b) {lines[-1] if lines else '<no TRAINED line>'}",
+          flush=True)
+    # kill@epoch=2 fires in the Decision's epoch hook, before the loop's
+    # snapshot branch: the restart resumes from the snapshot of epoch 2's
+    # validation pass, which holds epoch 1's counter
+    if len(attempts) != 2 or attempts[0]["exit_codes"] != [-9] \
+            or attempts[0]["epoch_reached"] != 2 \
+            or not attempts[1]["snapshot"] \
+            or marks.get("restored", [None, None])[1] != "1" \
+            or attempts[1]["reason"] != "ok" or recover is None:
+        raise AssertionError(f"RESUME (b): attempts {attempts}, "
+                             f"marks {marks}:\n{err[-3000:]}")
+    if lines[-1:] != [want_line]:
+        raise AssertionError(f"RESUME (b): {lines[-1:]} is not the "
+                             f"uninterrupted run's {want_line}")
+    # (c) serve the resumed run's newest snapshot
+    serve_counts, serve_err = resume_serve(
+        launcher, kernels, dev, wf_file,
+        Snapshotter.latest(dirs["cut"], prefix="alexnet"))
+    record = {"uninterrupted": rec_whole, "cut": rec_cut,
+              "resumed": rec, "snapshot_bytes": os.path.getsize(snap),
+              "supervised": {"attempts": attempts, "wall_s": wall,
+                             "recover_s": recover,
+                             "recover_split_s": split,
+                             "restored_epoch": marks.get(
+                                 "restored", [None, None])[1],
+                             "line": lines[-1]},
+              "serve_max_abs_err": serve_err}
+    return {"resume": rec["launches"],
+            "resume_serve": serve_counts}, record
 
 
 def main(argv=None) -> int:
@@ -2835,9 +3272,17 @@ def main(argv=None) -> int:
         by_path[f"train_{setting}"] = counts
     for setting, counts in train_bf16_phase(launcher, kernels, dev).items():
         by_path[f"train_bf16_{setting}"] = counts
-    feed_launches, feed = feed_phase(launcher, kernels, dev, args.seed)
+    data_dir = os.path.join(OUT, "feed_data")
+    try:
+        feed_launches, feed = feed_phase(launcher, kernels, dev, args.seed,
+                                         data_dir)
+        resume_launches, resume = resume_phase(launcher, kernels, dev,
+                                               args.seed, data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
     for label, counts in feed_launches.items():
         by_path[f"feed_{label.replace(' ', '_')}"] = counts
+    by_path.update(resume_launches)
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
@@ -2916,7 +3361,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
                    "checks": checks, "k5_other_geometry": k5_other,
-                   "feed": feed}, f, indent=1)
+                   "feed": feed, "resume": resume}, f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

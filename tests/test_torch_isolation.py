@@ -148,3 +148,25 @@ def test_torch_generator_follows_the_seed(monkeypatch):
     np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert prng.get("other").state.get_state()[1][0] \
         == np.random.RandomState(12).get_state()[1][0]
+
+
+#: the supervisor's parent imports these: they must not import torch (so
+#: the parent never initializes CUDA on the card its children use)
+TORCH_FREE = ["veles_tpu_torch.launcher", "veles_tpu_torch.snapshotter",
+              "veles_tpu_torch.resilience",
+              "veles_tpu_torch.resilience.backoff",
+              "veles_tpu_torch.resilience.clock",
+              "veles_tpu_torch.resilience.faults",
+              "veles_tpu_torch.resilience.hooks",
+              "veles_tpu_torch.resilience.supervisor"]
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_supervisor_side_modules_import_without_torch(module):
+    code = ("import importlib, sys\n"
+            "sys.modules['torch'] = None\n"
+            f"importlib.import_module({module!r})\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]

@@ -286,9 +286,11 @@ def test_loader_throughput_reports_a_rate(tmp_path):
 
 
 def test_alexnet_data_path_builds_the_memmap_loader(tmp_path):
-    """A data_path holding a manifest builds MemmapImageLoader; an image
-    tree without one is refused, naming the image loader's slice."""
+    """A data_path holding a manifest builds MemmapImageLoader; a
+    directory without one is taken for an image tree and builds
+    ImageDirectoryLoader, as the JAX sample does."""
     from veles_tpu_torch import root
+    from veles_tpu_torch.loader.image import ImageDirectoryLoader
     from veles_tpu_torch.samples import alexnet
 
     out, _, _ = make_packed(tmp_path)
@@ -300,7 +302,10 @@ def test_alexnet_data_path_builds_the_memmap_loader(tmp_path):
         assert wf.loader.data_path == out
         assert wf.loader.minibatch_size == 8
         root.alexnet.loader.data_path = str(tmp_path)
-        with pytest.raises(NotImplementedError, match="image-directory"):
-            alexnet.create_workflow()
+        wf = alexnet.create_workflow(input_hw=67, n_validation=3)
+        assert isinstance(wf.loader, ImageDirectoryLoader)
+        assert wf.loader.data_path == str(tmp_path)
+        assert wf.loader.size_hw == (67, 67)
+        assert wf.loader.n_validation == 3
     finally:
         root.alexnet.loader.data_path = saved

@@ -1,18 +1,34 @@
-"""Command line of the port: build a sample workflow, then train or serve
-it.
+"""Command line of the port: build a sample workflow, or restore it from
+a snapshot, then train or serve it, optionally under the supervisor.
 
 `python -m veles_tpu_torch WORKFLOW.py (--fused | --serve PORT)
-[--device cpu] [-r SEED] [--lrn-maxpool fused|composed]
-[--feed-ahead N] [--serve-ring N] [root.x=y ...]` — the port's
-counterpart of `veles_tpu/__main__.py` and of
-the `--fused` and `--serve` branches of `veles_tpu/launcher.py`
-(launcher.py:898-907 there). The workflow module keeps the reference's
+[-s SNAPSHOT] [--device cpu] [-r SEED] [--lrn-maxpool fused|composed]
+[--feed-ahead N] [--nonfinite-guard] [--serve-ring N] [root.x=y ...]`,
+and with `--fused` also `--supervise [--max-restarts N]
+[--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
+[--supervise-report PATH]` — the port's counterpart of
+`veles_tpu/__main__.py` and of the `--fused` and `--serve` branches of
+`veles_tpu/launcher.py`. The workflow module keeps the reference's
 `run(load, main)` convention: it registers its `root` defaults when
 imported, the trailing overrides win over them, `load(create_workflow)`
-builds the workflow and `main()` initializes it on the device and trains
-it through the fused step (`--fused`) or starts the server (`--serve`).
+builds the workflow (under `-s`, restores it from the snapshot instead
+and returns `(workflow, True)`, JAX launcher.py:369-382), and `main()`
+trains it through the fused step (`--fused`) or starts the server on it
+(`--serve`; a restored workflow serves the snapshot's weights).
+
+`--supervise` makes this process the supervisor
+(`resilience/supervisor.py`) of a child running the same command line
+without the supervisor's flags: it is routed before torch is imported,
+so the parent never touches the card. A training child writes the
+heartbeat the supervisor reads (`VELES_HEARTBEAT_FILE`) at startup and
+at each epoch, a fault plan (`VELES_FAULT_PLAN`) rides the same epoch
+hooks, and a non-finite loss under `--nonfinite-guard` exits with
+`EXIT_NONFINITE` (81), on which the supervisor rolls back one snapshot.
 The granular Unit/Workflow graph, the JAX package's mode without either
 flag, comes with a later slice.
+
+Import-light: torch and the workflow machinery are imported where a run
+starts, not here (the supervisor's parent imports this module).
 """
 
 from __future__ import annotations
@@ -25,10 +41,8 @@ import sys
 import threading
 from typing import List, Optional
 
-from veles_tpu_torch import prng
 from veles_tpu_torch.config import parse_override, root
 from veles_tpu_torch.logger import set_verbosity
-from veles_tpu_torch.ops import variants
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve the workflow's forward over HTTP on PORT "
                         "(0 picks a free port)")
+    p.add_argument("-s", "--snapshot", default="",
+                   help="restore the workflow from this snapshot file "
+                        "instead of building it (resume a run, or serve "
+                        "its weights)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' must be asked "
                         "for)")
@@ -61,6 +79,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batches the device feed uploads ahead of the "
                         "step (default 1; 0 uploads each on demand); "
                         "--fused only")
+    p.add_argument("--nonfinite-guard", action="store_true",
+                   help="abort training with exit code 81 the moment the "
+                        "loss goes NaN/inf (the supervisor then rolls "
+                        "back one snapshot before retrying)")
+    # the supervisor's own flags: one group, which supervisor_flags()
+    # reads to strip them from the child's command line
+    sup = p.add_argument_group("supervisor (--fused --supervise)")
+    p.supervisor_actions = [
+        sup.add_argument("--supervise", action="store_true",
+                         help="run under the supervisor: this process "
+                              "becomes a light parent that spawns the "
+                              "training run, watches its per-epoch "
+                              "heartbeat, and on a crash or hang restarts "
+                              "it from the newest VALID snapshot "
+                              "(exponential backoff, bounded retries, "
+                              "no-progress cutoff)"),
+        sup.add_argument("--max-restarts", type=int, default=3,
+                         metavar="N",
+                         help="supervisor retry budget: give up after N "
+                              "restarts (default 3)"),
+        sup.add_argument("--stall-timeout", type=float, default=300.0,
+                         metavar="SECONDS",
+                         help="supervisor hang detection: kill and "
+                              "restart the job when its heartbeat "
+                              "(touched every epoch) goes stale this long "
+                              "(default 300; 0 disables)"),
+        sup.add_argument("--snapshot-dir", default=".", metavar="DIR",
+                         help="where the supervisor looks for snapshots "
+                              "to restart from (default: cwd)"),
+        sup.add_argument("--snapshot-prefix", default="", metavar="PREFIX",
+                         help="snapshot filename prefix filter for "
+                              "--supervise restarts"),
+        sup.add_argument("--supervise-report", default="", metavar="PATH",
+                         help="write the supervisor's JSON exit report "
+                              "(attempt log, outcome) to PATH"),
+    ]
     p.add_argument("--serve-ring", type=int, default=64, metavar="N",
                    help="rows in the ring batch (and the per-request cap)")
     p.add_argument("--serve-token", default=None,
@@ -91,7 +145,37 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             # a knob nothing would read: refused rather than ignored
             p.error("--feed-ahead tunes the device feed of the fused "
                     "training loop: combine it with --fused")
+    if args.supervise and not args.fused:
+        p.error("--supervise supervises a training run: combine it with "
+                "--fused")
+    if args.nonfinite_guard and not args.fused:
+        p.error("--nonfinite-guard guards a training run: combine it "
+                "with --fused")
     return args
+
+
+def supervisor_flags() -> dict:
+    """The supervisor's own flags, from build_parser's supervisor group:
+    flag name -> whether it takes a value."""
+    return {opt: action.nargs != 0
+            for action in build_parser().supervisor_actions
+            for opt in action.option_strings}
+
+
+def supervise(args: argparse.Namespace, argv: List[str]) -> int:
+    """--supervise: supervise `python -m veles_tpu_torch` on `argv`
+    without the supervisor's flags, until it completes or the supervisor
+    gives up. Imports nothing of torch."""
+    from veles_tpu_torch.resilience.supervisor import Supervisor, \
+        strip_flags
+    cmd = [sys.executable, "-m", "veles_tpu_torch"] \
+        + strip_flags(argv, supervisor_flags())
+    return Supervisor(
+        cmd, snapshot_dir=args.snapshot_dir,
+        snapshot_prefix=args.snapshot_prefix,
+        max_restarts=args.max_restarts,
+        stall_timeout=args.stall_timeout,
+        report_path=args.supervise_report).run()
 
 
 def _import_file(path: str, name: str):
@@ -107,6 +191,9 @@ def _import_file(path: str, name: str):
 def _run(args: argparse.Namespace, main_fn) -> None:
     """Seed, select, import the workflow module, apply the overrides, and
     run its `run(load, main)` with `main_fn(workflow)` as `main`."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import variants
+
     set_verbosity(args.verbose)
     if args.random_seed is not None:
         prng.seed_all(args.random_seed)
@@ -122,6 +209,12 @@ def _run(args: argparse.Namespace, main_fn) -> None:
     built = {}
 
     def load(factory, **kwargs):
+        if args.snapshot:
+            from veles_tpu_torch.snapshotter import Snapshotter
+            # the snapshot's PRNG registry replaces the seeded one: the
+            # restored run continues its streams
+            built["workflow"] = Snapshotter.import_(args.snapshot)
+            return built["workflow"], True
         built["workflow"] = factory(**kwargs)
         return built["workflow"], False
 
@@ -134,18 +227,46 @@ def _run(args: argparse.Namespace, main_fn) -> None:
         raise SystemExit(f"{args.workflow}'s run() never called main()")
 
 
+def _install_run_hooks(wf) -> list:
+    """The training child's epoch hooks: the supervisor's heartbeat
+    (written now, then at every epoch, with the feed's counters) and
+    the fault plan's kill/hang; heartbeat first, so a hang's last epoch
+    is still reported. Returns the hooks for removal."""
+    from veles_tpu_torch.resilience import faults, hooks
+    installed = []
+    hb_path = os.environ.get("VELES_HEARTBEAT_FILE", "")
+    if hb_path:
+        from veles_tpu_torch.resilience.supervisor import write_heartbeat
+        write_heartbeat(hb_path, wf.decision.epoch_number)
+        installed.append(hooks.add_epoch_hook(
+            lambda epoch: write_heartbeat(hb_path, epoch,
+                                          feed=wf.feed_stats)))
+    plan = faults.active_plan()
+    if plan is not None:
+        installed.append(hooks.add_epoch_hook(plan.on_epoch))
+    return installed
+
+
 def train(argv: Optional[List[str]] = None):
     """Parse `argv` (which must hold --fused), build the workflow through
-    its module's `run(load, main)` and train it with `run_fused` until its
-    decision completes. Returns the trained workflow. The CLI and
-    chip_smoke.py both come through here."""
+    its module's `run(load, main)` (or restore it under -s) and train it
+    with `run_fused` until its decision completes. Returns the trained
+    workflow. The CLI and chip_smoke.py both come through here."""
+    from veles_tpu_torch.resilience import hooks
+
     args = parse_args(argv)
     if not args.fused:
         raise SystemExit("train() runs --fused")
     done = {}
 
     def main_fn(wf):
-        wf.run_fused(device=args.device, feed_ahead=args.feed_ahead)
+        installed = _install_run_hooks(wf)
+        try:
+            wf.run_fused(device=args.device, feed_ahead=args.feed_ahead,
+                         nonfinite_guard=args.nonfinite_guard)
+        finally:
+            for fn in installed:
+                hooks.remove_epoch_hook(fn)
         done["workflow"] = wf
 
     _run(args, main_fn)
@@ -154,9 +275,9 @@ def train(argv: Optional[List[str]] = None):
 
 def serve(argv: Optional[List[str]] = None):
     """Parse `argv` (which must hold --serve PORT), build the workflow
-    through its module's `run(load, main)` and start its InferenceServer.
-    Returns the started server; the caller stops it. The CLI and
-    chip_smoke.py both come through here."""
+    through its module's `run(load, main)` (or restore it under -s) and
+    start its InferenceServer. Returns the started server; the caller
+    stops it. The CLI and chip_smoke.py both come through here."""
     from veles_tpu_torch.serving import InferenceServer
 
     args = parse_args(argv)
@@ -175,8 +296,19 @@ def serve(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    if parse_args(argv).fused:
-        wf = train(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    if args.supervise:
+        set_verbosity(args.verbose)
+        return supervise(args, argv)
+    if args.fused:
+        from veles_tpu_torch.resilience import EXIT_NONFINITE, \
+            NonFiniteLossError
+        try:
+            wf = train(argv)
+        except NonFiniteLossError as e:
+            print(f"non-finite loss: {e}", file=sys.stderr, flush=True)
+            return EXIT_NONFINITE
         dec = wf.decision
         print(f"TRAINED {dec.epoch_number} epochs: loss {wf.evaluator.loss} "
               f"best_err {dec.best_validation_err} history {dec.history}",

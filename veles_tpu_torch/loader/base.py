@@ -15,7 +15,14 @@ production on background threads with `prefetch` batches of exact
 lookahead (the schedule within an epoch is known), and the seeded
 horizontal flip of train rows (`hflip`) by the same integer hash, so one
 seed flips the same rows in both packages. `wire_format()` is the uint8
-wire's offer to the device feed (loader/device_feed.py). Class-balanced
+wire's offer to the device feed (loader/device_feed.py).
+
+A pickle (a snapshot) keeps the cursor, the schedule and the shuffled
+indices of the last batch the loop trained, and drops the batch itself,
+the produce threads and their lookahead: with the feed's `prefetch()`
+after the Decision, a snapshot taken there holds the cursor of the
+consumed batch + 1, and the restored loader produces from it again
+(the exact-resume window). Class-balanced
 sampling, and the multi-host `local_rows_fn` sharding of production,
 come with later slices.
 """
@@ -95,6 +102,9 @@ class Loader:
         # the run's
         d.pop("feed_stats", None)
         d["out_alloc"] = None
+        # the batch of the moment (in the feed's pinned memory during a
+        # run): the cursor says which comes next, and run() produces it
+        d["minibatch_data"] = d["minibatch_labels"] = None
         # a run's negotiated wire (StandardWorkflow._run_with_step) stays
         # with the run: pickle the emit the loader was constructed with
         pristine = d.pop("_emit_pristine", None)

@@ -9,8 +9,9 @@ package's layout, so one packed directory feeds both packages.
 native gather when it builds) and emits either normalized float32 (the
 host path: `u8 / 127.5 - 1 - mean`) or the raw uint8 bytes, which the
 fused step normalizes on the card (`wire_format`, the uint8 wire).
-`pack_image_dataset`, which decodes an image tree with PIL, comes with
-the image loader of a later slice.
+`pack_image_dataset` decodes an image tree (loader/image.py) once into
+the same format, streaming one shard at a time, with the image loader's
+split and a mean image, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -57,6 +58,64 @@ def pack_arrays(out_dir: str, data_u8: np.ndarray, labels: np.ndarray,
             "class_lengths": [int(c) for c in class_lengths],
             "shards": shards,
         }, f, indent=1)
+    return out_dir
+
+
+def pack_image_dataset(src_tree: str, out_dir: str,
+                       size_hw: Tuple[int, int] = (227, 227),
+                       n_validation: int = 0,
+                       shard_mb: float = 512.0,
+                       mean_sample: int = 64) -> str:
+    """Decode a class-per-directory image tree once into the packed
+    format, rows in ImageDirectoryLoader's split and order (an
+    `image_split` permutation, validation first). Streaming: images are
+    decoded shard by shard and written as they go, so resident memory is
+    one shard, never the dataset. Pixels are stored as `rint((x + 1) *
+    127.5)` (rounding, not truncation: the f32 round trip lands just
+    below the integer for about a quarter of the values); the mean image
+    is that of every (n // mean_sample)-th decoded image, at most
+    `mean_sample` of them. Writes classes.json beside the manifest.
+    Returns out_dir."""
+    from veles_tpu_torch.loader.image import (decode_image, list_image_tree,
+                                              split_order)
+
+    paths, labels, class_names = list_image_tree(src_tree)
+    if not paths:
+        raise FileNotFoundError(f"no images under {src_tree!r}")
+    labels = np.asarray(labels, np.int64)
+    n = len(paths)
+    order, n_valid = split_order(n, n_validation)
+    h, w = size_hw
+    os.makedirs(out_dir, exist_ok=True)
+    rows_per_shard = max(1, int(shard_mb * 2 ** 20) // (h * w * 3))
+    shards = []
+    acc = np.zeros((h, w, 3), np.float64)
+    mean_step = max(1, n // mean_sample)
+    mean_cnt = 0
+    for si, lo in enumerate(range(0, n, rows_per_shard)):
+        chunk_idx = order[lo:lo + rows_per_shard]
+        chunk = np.zeros((len(chunk_idx), h, w, 3), np.uint8)
+        for j, src_i in enumerate(chunk_idx):
+            img = decode_image(paths[int(src_i)], size_hw)  # [-1, 1] f32
+            chunk[j] = np.rint((img + 1.0) * 127.5).astype(np.uint8)
+            if (lo + j) % mean_step == 0 and mean_cnt < mean_sample:
+                acc += img
+                mean_cnt += 1
+        fname = f"shard_{si:05d}.bin"
+        chunk.tofile(os.path.join(out_dir, fname))
+        shards.append({"file": fname, "rows": int(len(chunk))})
+    np.save(os.path.join(out_dir, "labels.npy"), labels[order])
+    np.save(os.path.join(out_dir, "mean.npy"),
+            (acc / max(mean_cnt, 1)).astype(np.float32))
+    with open(os.path.join(out_dir, MANIFEST), "w") as f:
+        json.dump({
+            "sample_shape": [h, w, 3], "dtype": "uint8",
+            "n_samples": n,
+            "class_lengths": [0, n_valid, n - n_valid],
+            "shards": shards,
+        }, f, indent=1)
+    with open(os.path.join(out_dir, "classes.json"), "w") as f:
+        json.dump(class_names, f)
     return out_dir
 
 

@@ -35,8 +35,10 @@ cast. A batch that the device feed uploaded arrives as tensors on the
 step's device and is taken as it is: no second copy, no host sync.
 
 Differences from the JAX step: the step updates its state in place (the
-JAX step returns a new one); its dropout masks come from a
-`torch.Generator` the step owns instead of the state's key; the backward
+JAX step returns a new one); its dropout masks come from the PRNG
+registry's device stream (`prng.RandomGenerator.device_stream`, one
+`torch.Generator` per device type that advances across steps and
+builds) instead of the state's key; the backward
 is `torch.autograd.grad` over the parameter leaves, through the kernels'
 autograd functions (ops/kernels.py). Velocities follow the JAX package's
 names (`vel_w` / `vel_b` for weights / bias, `vel_<name>` otherwise;
@@ -273,8 +275,10 @@ class FusedTrainStep:
         self.gd_units, self.cfgs = pair_gd_configs(workflow)
         #: the update's lowering, fixed at build like the forward's
         self._sgd = variants.resolve("sgd_update")
-        #: the dropout masks' source (the JAX step folds its state key)
-        self.gen = prng.get().torch_generator(self.device)
+        #: the dropout masks' source: the registry's device stream, which
+        #: advances across steps and builds and rides in a snapshot (the
+        #: JAX step draws a new key split, fused.py:470 there)
+        self.gen = prng.get().device_stream(self.device)
 
     def fusion_pairs(self):
         return self.fwd.fusion_pairs()

@@ -4,12 +4,15 @@ The port's counterpart of `veles_tpu/samples/alexnet.py`, with the same
 layer list, geometry, `init` modes and `root.alexnet` defaults: 5 conv
 blocks with LRN and overlapping 3×3/2 max pooling, two 4096-wide FC
 layers with dropout, a 1000-way softmax head, on the deterministic
-synthetic ImageNet-shaped dataset, or on a packed uint8 memmap dataset
+synthetic ImageNet-shaped dataset, on a packed uint8 memmap dataset
 (`root.alexnet.loader.data_path`, a directory holding the `manifest.json`
-that loader/memmap.py's `pack_arrays` writes), which the fused loop
-sends to the card as raw bytes. `root.alexnet.width_mult` and
-`root.alexnet.fc_width` (defaults 1.0 and 4096, the JAX package's
-argument defaults) let a command line cut the widths for a toy run.
+that loader/memmap.py's `pack_arrays` or `pack_image_dataset` writes),
+which the fused loop sends to the card as raw bytes, or on an image tree
+(`data_path` a `<root>/<class>/<image>` directory without a manifest,
+loader/image.py, `n_validation` images held out), decoded on the host.
+`root.alexnet.width_mult` and `root.alexnet.fc_width` (defaults 1.0 and
+4096, the JAX package's argument defaults) let a command line cut the
+widths for a toy run.
 
 Train it: `python -m veles_tpu_torch veles_tpu_torch/samples/alexnet.py
 --fused [--device cpu] [-r SEED] [root.x=y ...]`; serve it: the same with
@@ -26,6 +29,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from veles_tpu_torch.config import root
+from veles_tpu_torch.loader.image import ImageDirectoryLoader
 from veles_tpu_torch.loader.memmap import MANIFEST, MemmapImageLoader
 from veles_tpu_torch.loader.synthetic import SyntheticClassifierLoader
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
@@ -113,12 +117,16 @@ def create_workflow(minibatch_size: Optional[int] = None,
     nc = n_classes or cfg.n_classes
     data_path = cfg.loader.get("data_path")
     if data_path:
-        if not os.path.exists(os.path.join(data_path, MANIFEST)):
-            raise NotImplementedError(
-                f"{data_path} holds no {MANIFEST}: the port trains from a "
-                f"packed memmap dataset (loader/memmap.py pack_arrays); "
-                f"the image-directory loader comes with a later slice")
-        loader = MemmapImageLoader(data_path=data_path, minibatch_size=mb)
+        if os.path.exists(os.path.join(data_path, MANIFEST)):
+            # the packed format: pack once, train many times
+            loader = MemmapImageLoader(data_path=data_path,
+                                       minibatch_size=mb)
+        else:
+            loader = ImageDirectoryLoader(
+                data_path=data_path, size_hw=(hw, hw),
+                n_validation=(n_validation if n_validation is not None
+                              else cfg.loader.n_validation),
+                minibatch_size=mb)
     else:
         loader = SyntheticClassifierLoader(
             n_classes=min(nc, 64),  # prototype count, not the head width

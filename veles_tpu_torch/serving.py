@@ -1,7 +1,9 @@
 """In-process HTTP inference serving of a workflow's forward, on the card.
 
 The port's counterpart of `veles_tpu/serving.py`, reduced to the serving
-slice: the continuous-batching slot ring, f32 only, on one device.
+slice: the continuous-batching slot ring, f32 only, on one device. It
+serves a fresh workflow (initialized from the seed) or one restored from
+a snapshot (`--serve PORT -s SNAPSHOT`), which it moves to the device.
 
 Endpoints:
 - POST /predict  {"inputs": [[...], ...]} -> {"outputs": [[...]],
@@ -41,7 +43,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from veles_tpu_torch.backends import DeviceLike, device_name, make_device
+from veles_tpu_torch.backends import DeviceLike, device_name
 from veles_tpu_torch.config import root
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.ops import kernels
@@ -127,10 +129,9 @@ class InferenceServer(Logger):
                 f"{root.common.precision_type!r}: the port serves float32 "
                 f"only (bf16 comes with a later slice)")
         wf = self.workflow
-        if not wf.is_initialized:
-            wf.initialize(device)
-        elif device is not None and make_device(device) != wf.device:
-            wf.to(device)
+        # a fresh workflow is initialized, a restored one (a snapshot's,
+        # on the host) moved to the device
+        wf.place(device)
         self.device = wf.device
         self._fwd = wf.build_forward()
         self._params = self._fwd.params()

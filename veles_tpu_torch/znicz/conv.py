@@ -41,6 +41,12 @@ class Conv(Forward):
         self._oihw_src = None
         self._oihw = None
 
+    def __getstate__(self):
+        d = super().__getstate__()
+        # the OIHW copy is a cache (a weakref keys it): made again on use
+        d["_oihw_src"] = d["_oihw"] = None
+        return d
+
     def output_hw(self, h: int, w: int) -> Tuple[int, int]:
         sy, sx = self.stride
         ph, pw = self.padding

@@ -10,19 +10,32 @@ pass closes the epoch: one `history` record, then `complete` once
 `fail_iterations` epochs. It reads the loader's `minibatch_class`,
 `last_minibatch` and `class_lengths` and the evaluator's `n_err`.
 `complete` and `improved` are plain bools here (the JAX package's are
-gate objects of its Unit graph); the epoch hooks and the non-finite guard
-come with the resilience slice.
+gate objects of its Unit graph). At each closed epoch it fires the
+process's epoch hooks (`resilience/hooks.py`: heartbeats, epoch-keyed
+faults; JAX decision.py:149). With `nonfinite_guard` armed it raises
+`NonFiniteLossError` on a non-finite loss before it counts anything
+(JAX :93-100), so a poisoned state never looks improved and is never
+snapshotted; a pickle leaves the guard out (JAX :39): a restored run
+arms it again from its own command line.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 from veles_tpu_torch.loader.base import TEST, TRAIN, VALIDATION
 from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.resilience import NonFiniteLossError
+from veles_tpu_torch.resilience.hooks import fire_epoch
 
 
 class DecisionGD(Logger):
+
+    #: raise NonFiniteLossError the moment the evaluator's loss is NaN or
+    #: inf; armed per run by instance attribute, and a class attribute so
+    #: that a pickle, which leaves the instance's out, never carries it
+    nonfinite_guard = False
 
     def __init__(self, loader, evaluator, max_epochs: Optional[int] = None,
                  fail_iterations: int = 100,
@@ -42,8 +55,18 @@ class DecisionGD(Logger):
         self._accum = [0.0, 0.0, 0.0]
         self._epochs_since_improvement = 0
 
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d.pop("nonfinite_guard", None)
+        return d
+
     def run(self) -> None:
         cls = int(self.loader.minibatch_class)
+        if self.nonfinite_guard and not math.isfinite(
+                float(self.evaluator.loss)):
+            raise NonFiniteLossError(
+                f"non-finite loss {float(self.evaluator.loss)!r} at epoch "
+                f"{self.epoch_number} (class {cls} pass)")
         self._accum[cls] += float(self.evaluator.n_err)
         self.improved = False
         if not self.loader.last_minibatch:
@@ -81,3 +104,5 @@ class DecisionGD(Logger):
                     or self._epochs_since_improvement
                     >= self.fail_iterations):
                 self.complete = True
+            # the process's epoch boundary: heartbeats, epoch-keyed faults
+            fire_epoch(self.epoch_number)

@@ -20,8 +20,23 @@ the feed's `device_sync_s`), and the Decision runs after every
 minibatch; the trained state is written back into the units at the end.
 A loader that offers the uint8 wire (`wire_format()`, the memmap loader)
 is switched to raw bytes for the run and the step normalizes them on the
-card (`_wire_spec`). Snapshots, telemetry, gradient accumulation,
-meshes and the granular Unit/Workflow graph come with later slices.
+card (`_wire_spec`).
+
+Snapshots (`snapshot_config`, the Snapshotter's keywords; JAX :125-129):
+where the Decision marks an improvement, the loop writes the trained
+state back into the units and the gradient twins and runs the
+Snapshotter, after `dec.run()` and before `feed.prefetch()`, so the
+pickled loader cursor is the consumed batch's + 1 (JAX :700-708); a
+lookahead deeper than 1 would pickle a cursor past batches not yet
+trained, so `feed_ahead > 1` is clamped to 1 where a snapshotter runs
+(JAX :517-523). A pickled workflow keeps its tensors (the Snapshotter
+writes them as host bytes) and drops its device and its device feed;
+`restored` marks it, and `place(device)` moves such a workflow to the
+card where a fresh one is initialized from the seed streams.
+`nonfinite_guard` arms the Decision's guard for the run, and a
+`nan@step=K` fault plan (`resilience/faults.py`) replaces the K-th train
+step's loss with NaN. Telemetry, gradient accumulation, meshes and the
+granular Unit/Workflow graph come with later slices.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ from torch import nn
 
 from veles_tpu_torch.backends import DeviceLike, make_device
 from veles_tpu_torch.loader.base import TRAIN, Loader
+from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.znicz import all2all, attention, conv, dropout, \
     normalization, pooling, transformer
 from veles_tpu_torch.znicz.decision import DecisionGD
@@ -61,15 +77,16 @@ LAYER_TYPES: Dict[str, type] = {
 }
 
 
-class StandardWorkflow:
-    """loader + declarative layer list -> forwards, evaluator, decision and
-    gradient twins."""
+class StandardWorkflow(Logger):
+    """loader + declarative layer list -> forwards, evaluator, decision,
+    gradient twins and, with `snapshot_config`, a Snapshotter."""
 
     def __init__(self, layers: Sequence[Dict[str, Any]] = (),
                  loader: Optional[Loader] = None, loss: str = "softmax",
                  n_classes: int = 10,
                  decision_config: Optional[Dict[str, Any]] = None,
                  gd_config: Optional[Dict[str, Any]] = None,
+                 snapshot_config: Optional[Dict[str, Any]] = None,
                  name: Optional[str] = None) -> None:
         if loader is None:
             raise ValueError("StandardWorkflow needs a loader")
@@ -95,7 +112,15 @@ class StandardWorkflow:
                                    **(decision_config or {}))
         self.gds = [gd_for(type(fwd))(**(gd_config or {}))
                     for fwd in reversed(units)]
+        self.snapshotter = None
+        if snapshot_config is not None:
+            from veles_tpu_torch.snapshotter import Snapshotter
+            self.snapshotter = Snapshotter(
+                self, **snapshot_config).link_decision(self.decision)
         self.device: Optional[torch.device] = None
+        #: True for a workflow unpickled from a snapshot: initialized,
+        #: its tensors on the host until `place` moves them
+        self.restored = False
         #: the DeviceFeed of the last fused run, and its counters
         self.device_feed = None
         self.feed_stats: Optional[Dict[str, Any]] = None
@@ -103,6 +128,36 @@ class StandardWorkflow:
     @property
     def is_initialized(self) -> bool:
         return self.device is not None
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        # the feed (pinned pool, side stream, events) and its counters
+        # are the run's; the device is where the tensors were, not where
+        # the pickle's host bytes come back
+        d["device_feed"] = None
+        d["feed_stats"] = None
+        d["device"] = None
+        d["restored"] = True
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        if self.snapshotter is not None:
+            self.snapshotter.link_decision(self.decision)
+
+    def place(self, device: DeviceLike = None) -> None:
+        """Ready the workflow on `device` (the card unless "cpu" is asked
+        for): a fresh workflow is initialized, a restored one is moved
+        there (never refilled from the seed streams: its weights, cursor
+        and counters are the snapshot's), and an initialized one asked
+        for another device moves."""
+        if not self.is_initialized:
+            if self.restored:
+                self.to(device)
+            else:
+                self.initialize(device)
+        elif device is not None and make_device(device) != self.device:
+            self.to(device)
 
     def initialize(self, device: DeviceLike = None) -> None:
         """Initialize the loader, then each forward unit in order, with its
@@ -115,9 +170,14 @@ class StandardWorkflow:
         self.device = dev
 
     def to(self, device: DeviceLike) -> "StandardWorkflow":
-        """Move the initialized parameters to `device`."""
+        """Move the parameters and the gradient twins' velocities to
+        `device` (raises where it is the card and CUDA is absent)."""
         dev = make_device(device)
         self.forwards.to(dev)
+        for g in self.gds:
+            for k, v in list(vars(g).items()):
+                if isinstance(v, torch.Tensor):
+                    setattr(g, k, v.to(dev))
         self.device = dev
         return self
 
@@ -165,33 +225,39 @@ class StandardWorkflow:
 
     def run_fused(self, epochs: Optional[int] = None,
                   device: DeviceLike = None, uint8_wire="auto",
-                  feed_ahead: Optional[int] = None) -> None:
+                  feed_ahead: Optional[int] = None,
+                  nonfinite_guard: bool = False) -> None:
         """Train with the fused step until the Decision completes
         (`epochs` overrides its `max_epochs`), on `device` (the card unless
-        "cpu" is asked for) if not initialized yet. Batches reach the
-        card through the DeviceFeed; a loader offering the uint8 wire
-        sends raw bytes, which the step normalizes on the card
-        (`uint8_wire=False` pins the float wire); `feed_ahead` is the
-        feed's lookahead (default 1, 0 uploads each batch on demand)."""
+        "cpu" is asked for; see `place`). Batches reach the card through
+        the DeviceFeed; a loader offering the uint8 wire sends raw bytes,
+        which the step normalizes on the card (`uint8_wire=False` pins
+        the float wire); `feed_ahead` is the feed's lookahead (default 1,
+        0 uploads each batch on demand). `nonfinite_guard` raises
+        NonFiniteLossError at the first non-finite class-pass loss."""
         if epochs is not None:
             self.decision.max_epochs = epochs
-        if not self.is_initialized:
-            self.initialize(device)
+        self.place(device)
         wire = self._wire_spec(uint8_wire)
         step = self.build_fused_step(
             input_normalize=wire["normalize"] if wire else None)
-        self._run_with_step(step, wire=wire, feed_ahead=feed_ahead)
+        self._run_with_step(step, wire=wire, feed_ahead=feed_ahead,
+                            nonfinite_guard=nonfinite_guard)
 
     def _run_with_step(self, step, wire: Optional[Dict[str, Any]] = None,
-                       feed_ahead: Optional[int] = None) -> None:
+                       feed_ahead: Optional[int] = None,
+                       nonfinite_guard: bool = False) -> None:
         """Drive `step` through the Loader + Decision bookkeeping, the
         batches coming through the DeviceFeed (uploaded by the previous
-        iteration's prefetch, which runs after the Decision). A step's
-        loss is the weighted mean over its minibatch: scaled by the
-        minibatch's valid-row weight, the class pass's total is the exact
-        weighted mean even when its last minibatch wraps."""
+        iteration's prefetch, which runs after the Decision and the
+        snapshot). A step's loss is the weighted mean over its minibatch:
+        scaled by the minibatch's valid-row weight, the class pass's
+        total is the exact weighted mean even when its last minibatch
+        wraps."""
         from veles_tpu_torch.loader.device_feed import DeviceFeed
+        from veles_tpu_torch.resilience.faults import active_plan
 
+        fault_plan = active_plan()   # None unless a plan is set
         state = step.init_state()
         loader, ev, dec = self.loader, self.evaluator, self.decision
         # the negotiated wire is the run's: the loader's emit comes back
@@ -200,8 +266,19 @@ class StandardWorkflow:
         if wire is not None and hasattr(loader, "set_emit"):
             loader.set_emit(wire["emit"])
             loader._emit_pristine = prev_emit
-        feed = DeviceFeed.for_step(
-            loader, step, ahead=1 if feed_ahead is None else feed_ahead)
+        ahead = 1 if feed_ahead is None else feed_ahead
+        if self.snapshotter is not None:
+            self.snapshotter.initialize()
+            if ahead > 1:
+                # a snapshot taken with k pending batches pickles a loader
+                # cursor k past the trained batch: the restore would skip
+                # them
+                self.warning("feed_ahead=%d clamped to 1: snapshots need "
+                             "an exact-resume loader cursor", ahead)
+                ahead = 1
+        # the Decision raises before it counts a non-finite pass
+        dec.nonfinite_guard = bool(nonfinite_guard)
+        feed = DeviceFeed.for_step(loader, step, ahead=ahead)
         #: the feed of the last run (its put, its counters)
         self.device_feed = feed
         # the loader gathers straight into the feed's pinned buffers
@@ -213,6 +290,8 @@ class StandardWorkflow:
                 b = feed.next()
                 if b.minibatch_class == TRAIN:
                     state, (loss, n_err) = step.train(state, b.x, b.y, b.w)
+                    if fault_plan is not None and fault_plan.nan_at_step():
+                        loss = float("nan")   # a deterministic divergence
                 else:
                     loss, n_err = step.evaluate(state, b.x, b.y, b.w)
                 bw = float(b.w_host.sum())
@@ -236,7 +315,11 @@ class StandardWorkflow:
                 if b.epoch_ended:
                     self.feed_stats = feed.stats()
                 dec.run()
-                # now batch k+1: its upload runs under step k
+                if self.snapshotter is not None and dec.improved:
+                    step.write_back(state)
+                    self.snapshotter.run()
+                # now batch k+1: its upload runs under step k, and the
+                # snapshot above pickled the consumed batch's cursor
                 if not dec.complete:
                     feed.prefetch()
         finally:
