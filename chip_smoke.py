@@ -3223,6 +3223,503 @@ def resume_runs(launcher, kernels, dev, seed, data_dir, work):
             "resume_serve": serve_counts}, record
 
 
+# ---------------------------------------------------------------------------
+# the rest of the local fused step: gradient accumulation, Adam,
+# train_repeat / train_many and the state checkpoint
+# ---------------------------------------------------------------------------
+
+#: ACCUM: one update of ACCUM_BATCH rows (5 of them pad rows) as ACCUM_K
+#: microbatches against one update of the same rows; the CLI epoch's K
+ACCUM_BATCH, ACCUM_K, ACCUM_CLI_K, ACCUM_PAD = 1024, 8, 4, 5
+#: ADAM: the lr of the Adam runs, the CLI run's train steps, and the bound
+#: on elements that the kernels' step and the plain versions' step move
+#: in opposite directions (Adam moves every element by about ±lr at its
+#: first step, so a gradient near zero whose sign two cuDNN summation
+#: orders give differently moves 2·lr apart: about one in a million of
+#: the 62,378,344 parameters)
+ADAM_LR, ADAM_STEPS, ADAM_FLIP_MAX = 1e-4, 3, 64
+#: REPEAT: train_repeat's k on one resident batch; train_many's batches
+REPEAT_K, MANY_K = 20, 4
+#: the kernels of the full-width bf16 step, as the launch record names
+#: them: K4's and K5's bf16 instances and K1
+K4_BF16, K5_BF16, K1 = ("lrn_maxpool_forward_bf16",
+                        "lrn_maxpool_backward_bf16", "sgd_update")
+#: AlexNet's parameter leaves, each one K1 launch per SGD update
+N_LEAVES = len(LEAVES)
+
+
+def full_width_step(dev, optimizer="sgd", dropout=None):
+    """The full-width AlexNet from seed 1234 and its fused step in bf16
+    over f32 master weights, lrn_maxpool fused: `optimizer` on every
+    gradient twin (Adam at ADAM_LR), dropout at the sample's ratio unless
+    `dropout` is given."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import variants
+    from veles_tpu_torch.samples import alexnet
+    variants.select("lrn_maxpool", "fused")
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow()
+    for u in wf.forwards:
+        if dropout is not None and hasattr(u, "dropout_ratio"):
+            u.dropout_ratio = dropout
+    for g in wf.gds:
+        g.optimizer = optimizer
+        if optimizer == "adam":
+            g.learning_rate = ADAM_LR
+    wf.initialize(dev)
+    return wf, wf.build_fused_step(compute_dtype="bfloat16")
+
+
+def card_batch(dev, n, seed, pad=0):
+    """n rows of AlexNet's input, labels and pad mask (the last `pad`
+    rows 0), drawn on the card from `seed`."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((n, HW, HW, 3), generator=gen, device=dev)
+    y = torch.randint(0, N_CLASSES, (n,), generator=gen, device=dev)
+    w = torch.ones(n, device=dev)
+    if pad:
+        w[-pad:] = 0.0
+    return x, y, w
+
+
+def copy_state(state):
+    """A copy of a fused state on its device (SGD velocities, or Adam's
+    moments and t), its leaves trainable."""
+    from veles_tpu_torch.ops.optim import is_adam_state
+
+    def vel(layer):
+        if is_adam_state(layer):
+            return {"m": {k: t.clone() for k, t in layer["m"].items()},
+                    "v": {k: t.clone() for k, t in layer["v"].items()},
+                    "t": layer["t"].clone()}
+        return {k: t.clone() for k, t in layer.items()}
+    return {"params": tuple({k: t.detach().clone().requires_grad_(True)
+                             for k, t in layer.items()}
+                            for layer in state["params"]),
+            "vel": tuple(vel(layer) for layer in state["vel"]),
+            "lr_scale": state["lr_scale"]}
+
+
+def state_tensors(state):
+    """Every tensor of a fused state, in a fixed order."""
+    from veles_tpu_torch.ops.optim import is_adam_state
+    out = []
+    for layer in state["params"]:
+        out += [t.detach() for t in layer.values()]
+    for layer in state["vel"]:
+        if is_adam_state(layer):
+            out += list(layer["m"].values()) + list(layer["v"].values())
+            out.append(layer["t"])
+        else:
+            out += list(layer.values())
+    return out
+
+
+def check_counts(what, counts, want):
+    """Each kernel of `want` launched exactly that often, every other
+    kernel never."""
+    bad = {k: c for k, c in counts.items() if c != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {bad}, want {want} and no "
+                             f"other kernel")
+
+
+@contextlib.contextmanager
+def last_train_state():
+    """The step and the state of the block's last FusedTrainStep.train
+    call: {"step", "state"}."""
+    from veles_tpu_torch.parallel.fused import FusedTrainStep
+    inner, last = FusedTrainStep.train, {}
+
+    def train(self, *args, **kwargs):
+        out = inner(self, *args, **kwargs)
+        last["step"], last["state"] = self, out[0]
+        return out
+
+    FusedTrainStep.train = train
+    try:
+        yield last
+    finally:
+        FusedTrainStep.train = inner
+
+
+def accum_checks(kernels, dev, seed):
+    """ACCUM (a)-(c): one train_accum(k=ACCUM_K) of ACCUM_BATCH rows
+    against one train of the same rows, from one state, dropout 0: the
+    update distance within BF16_STEP_RTOL of the update's norm and the
+    loss within BF16_U, as (a') holds a bf16 step (both take the same
+    rows through the same kernels, bit-equal to their plain versions;
+    cuDNN's and cuBLAS's bf16 sums over 128 rows and over 1024 differ in
+    order, and the microbatch gradients are added in f32); the peak device
+    memory of each call, the accumulated one's below the full one's; the
+    exact launches."""
+    wf, step = full_width_step(dev, dropout=0.0)
+    s0 = step.init_state()
+    x, y, w = card_batch(dev, ACCUM_BATCH, seed, pad=ACCUM_PAD)
+
+    def run(accum):
+        st = copy_state(s0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if accum:
+            st, (loss, n_err) = step.train_accum(st, x, y, ACCUM_K, w)
+        else:
+            st, (loss, n_err) = step.train(st, x, y, w)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        return st, {"loss": float(loss), "n_err": int(n_err),
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "resident_bytes": before, "s": secs}, counts
+
+    ast, arec, acounts = run(True)
+    fst, frec, fcounts = run(False)
+    for label, rec in (("accumulated", arec), ("full batch", frec)):
+        above = rec["peak_bytes"] - rec["resident_bytes"]
+        print(f"ACCUM (b) {label}: peak device memory "
+              f"{rec['peak_bytes']} bytes ({above} above the "
+              f"{rec['resident_bytes']} resident before the call); loss "
+              f"{rec['loss']}, n_err {rec['n_err']}, {rec['s']:.3f} s of "
+              f"host time", flush=True)
+    if not arec["peak_bytes"] < frec["peak_bytes"]:
+        raise AssertionError("ACCUM (b): the accumulated update's peak "
+                             "memory is not below the full batch's")
+    check_counts("ACCUM (c) accumulated", acounts,
+                 {K4_BF16: 2 * ACCUM_K, K5_BF16: 2 * ACCUM_K,
+                  K1: N_LEAVES})
+    check_counts("ACCUM (c) full batch", fcounts,
+                 {K4_BF16: 2, K5_BF16: 2, K1: N_LEAVES})
+    check_loss("ACCUM (a) accumulated vs full batch", arec["loss"],
+               frec["loss"], BF16_U, 0.0)
+    dist = update_distance(s0, ast, fst)
+    check_update_distance("ACCUM (a) accumulated vs full batch", dist)
+    print(f"ACCUM (a) train_accum(k={ACCUM_K}) of {ACCUM_BATCH} rows "
+          f"({ACCUM_PAD} pad) against train of the same rows: update "
+          f"distance relative to the update's norm {dist} (tolerance "
+          f"{BF16_STEP_RTOL}), loss within {BF16_U}; (c) launches "
+          f"accumulated {acounts[K4_BF16]}/{acounts[K5_BF16]}/"
+          f"{acounts[K1]} (K4/K5/K1), full batch {fcounts[K4_BF16]}/"
+          f"{fcounts[K5_BF16]}/{fcounts[K1]}", flush=True)
+    del wf, step, s0, ast, fst, x, y, w
+    torch.cuda.empty_cache()
+    return acounts, {"accumulated": arec, "full": frec,
+                     "update_distance": dist}
+
+
+def accum_epoch(launcher, kernels, dev, seed, data_dir):
+    """ACCUM (d): one epoch through `launcher.train` with --accum
+    ACCUM_CLI_K on FEED's packed uint8 memmap: exact launches per train
+    minibatch (K1 once per leaf, K4 and K5 twice per microbatch) and per
+    validation batch (K4 twice)."""
+    argv = feed_argv(data_dir, True, 1, seed) + [
+        "root.alexnet.decision.max_epochs=1", "--accum", str(ACCUM_CLI_K)]
+    with precision_type_kept(), alexnet_config_kept():
+        wf, counts = train_run(launcher, kernels, dev,
+                               f"accum {ACCUM_CLI_K} memmap", argv)
+    steps, val = FEED_TRAIN // TB, -(-FEED_VALID // TB)
+    if wf.decision.epoch_number != 1:
+        raise AssertionError(f"ACCUM (d): {wf.decision.epoch_number} "
+                             f"epochs")
+    check_counts("ACCUM (d)", counts,
+                 {K1: N_LEAVES * steps,
+                  K5_BF16: 2 * ACCUM_CLI_K * steps,
+                  K4_BF16: 2 * ACCUM_CLI_K * steps + 2 * val})
+    print(f"ACCUM (d) --accum {ACCUM_CLI_K}: {steps} train minibatches of "
+          f"{TB} as {ACCUM_CLI_K} microbatches and {val} validation batch; "
+          f"K1 {N_LEAVES} and K5 {2 * ACCUM_CLI_K} per train minibatch, "
+          f"K4 {2 * ACCUM_CLI_K} per train minibatch and 2 per validation "
+          f"batch; loss {wf.evaluator.loss}", flush=True)
+    rec = {"loss": wf.evaluator.loss, "history": wf.decision.history}
+    del wf
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def adam_distance(before, a, b):
+    """{"params", "m", "v"}: ||Δa − Δb|| / ||Δb|| over every leaf, of the
+    parameters' updates from `before` and of the moments (zero before);
+    and the count of parameter elements the two moved in opposite
+    directions."""
+    sums = {s: [0.0, 0.0] for s in ("params", "m", "v")}
+    flips = 0
+    for l0, la, lb, va, vb in zip(before["params"], a["params"],
+                                  b["params"], a["vel"], b["vel"]):
+        for k in l0:
+            t0 = l0[k].detach().double()
+            da = la[k].detach().double() - t0
+            db = lb[k].detach().double() - t0
+            flips += int(((da * db) < 0).sum())
+            pairs = (("params", da, db),
+                     ("m", va["m"][k].double(), vb["m"][k].double()),
+                     ("v", va["v"][k].double(), vb["v"][k].double()))
+            for slot, x, y in pairs:
+                sums[slot][0] += float(((x - y) ** 2).sum())
+                sums[slot][1] += float((y ** 2).sum())
+    return {s: (n / d) ** 0.5 for s, (n, d) in sums.items()}, flips
+
+
+def adam_checks(kernels, dev, seed):
+    """ADAM (a): the first full-width Adam step in bf16 through the
+    kernels against the same step through the plain versions, from one
+    state, batch and dropout stream: the update distance of the
+    parameters and of both moments within BF16_STEP_RTOL, the loss within
+    BF16_U, the sign flips counted and at most ADAM_FLIP_MAX; the
+    kernels' launches exact (no K1: every layer is Adam)."""
+    from veles_tpu_torch import prng
+    wf, step = full_width_step(dev, "adam")
+    if "sgd_update" in step.variant_table():
+        raise AssertionError("ADAM (a): an all-Adam step reports an SGD "
+                             "update")
+    s0 = step.init_state()
+    x, y, w = card_batch(dev, TB, seed + 1)
+
+    def run(plain):
+        st = copy_state(s0)
+        step.gen = prng.get().torch_generator(dev)
+        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+            st, (loss, n_err) = step.train(st, x, y, w)
+        torch.cuda.synchronize()
+        return st, float(loss), int(n_err)
+
+    kernels.reset_launch_counts()
+    kst, kloss, kerr = run(False)
+    counts = kernels.launch_counts()
+    pst, ploss, perr = run(True)
+    check_counts("ADAM (a)", counts, {K4_BF16: 2, K5_BF16: 2})
+    check_loss("ADAM (a) kernels vs plain", kloss, ploss, BF16_U, 0.0)
+    dist, flips = adam_distance(s0, kst, pst)
+    check_update_distance("ADAM (a) kernels vs plain", dist)
+    ts = {int(v["t"]) for v, p in zip(kst["vel"], kst["params"]) if p}
+    print(f"ADAM (a) first full-width Adam step (lr {ADAM_LR}), kernels "
+          f"vs plain versions: loss {kloss} vs {ploss}, n_err {kerr} vs "
+          f"{perr}, update distance relative to the update's norm "
+          f"(params, m, v) {dist} (tolerance {BF16_STEP_RTOL}); elements "
+          f"moved in opposite directions {flips} (at most "
+          f"{ADAM_FLIP_MAX}); t {ts}; launches K4 {counts[K4_BF16]}, K5 "
+          f"{counts[K5_BF16]}, K1 {counts[K1]}", flush=True)
+    if flips > ADAM_FLIP_MAX or ts != {1}:
+        raise AssertionError(f"ADAM (a): {flips} sign flips, t {ts}")
+    del wf, step, s0, kst, pst
+    torch.cuda.empty_cache()
+    return counts, {"update_distance": dist, "sign_flips": flips,
+                    "loss": [kloss, ploss]}
+
+
+def adam_cli(launcher, kernels, dev, seed):
+    """ADAM (b): ADAM_STEPS train steps and one validation batch through
+    `launcher.train` with root.alexnet.gd.optimizer=adam: no K1, K5 twice
+    per train step, K4 twice per train or validation step, `t` the train
+    steps in every layer with parameters (0 in the others). Returns the
+    launches, the record, and the run's step and trained state."""
+    argv = [ALEXNET, "--fused", "-r", str(seed), "--lrn-maxpool", "fused",
+            "root.alexnet.gd.optimizer=adam",
+            f"root.alexnet.gd.learning_rate={ADAM_LR}",
+            f"root.alexnet.loader.n_train={ADAM_STEPS * TB}",
+            f"root.alexnet.loader.n_validation={TB}",
+            "root.alexnet.decision.max_epochs=1", *BF16_ARGS]
+    with precision_type_kept(), alexnet_config_kept(), \
+            last_train_state() as last:
+        wf, counts = train_run(launcher, kernels, dev, "adam", argv)
+    step, state = last["step"], last["state"]
+    check_counts("ADAM (b)", counts, {K5_BF16: 2 * ADAM_STEPS,
+                                      K4_BF16: 2 * ADAM_STEPS + 2})
+    ts = [int(v["t"]) for v in state["vel"]]
+    want = [ADAM_STEPS if p else 0 for p in state["params"]]
+    from veles_tpu_torch.ops.optim import is_adam_state
+    if ts != want or not all(is_adam_state(v) for v in state["vel"]):
+        raise AssertionError(f"ADAM (b): t {ts}, want {want}")
+    print(f"ADAM (b) {ADAM_STEPS} train steps through the CLI with "
+          f"root.alexnet.gd.optimizer=adam: t {ts}; launches K1 "
+          f"{counts[K1]}, K5 {counts[K5_BF16]}, K4 {counts[K4_BF16]}; "
+          f"loss {wf.evaluator.loss}", flush=True)
+    return counts, {"t": ts, "loss": wf.evaluator.loss}, step, state
+
+
+def ckpt_phase(dev, step, state, seed):
+    """CKPT: (a) save_state of ADAM (b)'s full-width Adam state into a
+    temporary directory, its bytes and the save and restore seconds; (b)
+    the restored tensors the saved bits, and the next step from the
+    restored state the next step's bits from the saved one (dropout at
+    the sample's ratio: the stream's position rides in the file); (c) a
+    step of the toy AlexNet refuses the checkpoint with
+    CheckpointGeometryError."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.parallel import checkpoint
+    from veles_tpu_torch.samples import alexnet
+    work = tempfile.mkdtemp(prefix="veles_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_state(state, work)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_state(step, work)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        n = sum(t.numel() for layer in state["params"]
+                for t in layer.values())
+        same = same_bits(state_tensors(restored), state_tensors(state))
+        print(f"CKPT (a) save_state of the full-width Adam state ({n} "
+              f"parameters, as many m and v, t {ADAM_STEPS}): {nbytes} "
+              f"bytes in {save_s:.3f} s; restore_state {restore_s:.3f} s; "
+              f"(b) the restored tensors the saved bits: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("CKPT (b): the restored state differs")
+        del restored
+        x, y, w = card_batch(dev, TB, seed + 2)
+        want, (wloss, werr) = step.train(state, x, y, w)
+        again = checkpoint.restore_state(step, work)   # the stream too
+        got, (gloss, gerr) = step.train(again, x, y, w)
+        torch.cuda.synchronize()
+        same = (same_bits(state_tensors(got), state_tensors(want))
+                and float(gloss) == float(wloss) and int(gerr) == int(werr))
+        print(f"CKPT (b) the next step from the restored state against the "
+              f"next step from the saved one: the same bits in every "
+              f"leaf, moment, t and the loss ({float(gloss)}): {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("CKPT (b): the restored state trains "
+                                 "differently")
+        del want, got, again
+        prng.seed_all(1234)
+        toy = alexnet.create_workflow(**TOY_ARGS)
+        toy.initialize(dev)
+        try:
+            checkpoint.restore_state(toy.build_fused_step(), work)
+        except checkpoint.CheckpointGeometryError as e:
+            mismatches = e.mismatches
+        else:
+            raise AssertionError("CKPT (c): the toy AlexNet loaded the "
+                                 "full-width checkpoint")
+        if not mismatches:
+            raise AssertionError("CKPT (c): no mismatches named")
+        print(f"CKPT (c) the toy AlexNet's step refuses it: "
+              f"CheckpointGeometryError with {len(mismatches)} mismatched "
+              f"leaves, e.g. {mismatches[0]!r}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "parameters": n, "toy_mismatches": len(mismatches)}
+
+
+def repeat_checks(kernels, dev, seed):
+    """REPEAT: train_repeat(k=REPEAT_K) on one resident batch against
+    REPEAT_K train calls on it, and train_many over MANY_K stacked
+    batches against MANY_K train calls, from one state at dropout 0: the
+    same bits in every leaf, velocity, loss and n_err; the host ms per
+    step of each (synchronized at both ends; information, no gate); the
+    exact launches of the train_repeat and train_many calls."""
+    wf, step = full_width_step(dev, dropout=0.0)
+    s0 = step.init_state()
+    x, y, w = card_batch(dev, TB, seed + 3)
+    step.train(copy_state(s0), x, y, w)                      # warm
+
+    def timed(fn):
+        st = copy_state(s0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, (losses, errs) = fn(st)
+        torch.cuda.synchronize()
+        return st, losses, errs, time.perf_counter() - t0, \
+            kernels.launch_counts()
+
+    def loop(batches):
+        def run(st):
+            losses, errs = [], []
+            for xb, yb, wb in batches:
+                st, (loss, err) = step.train(st, xb, yb, wb)
+                losses.append(loss)
+                errs.append(err)
+            return st, (torch.stack(losses), torch.stack(errs))
+        return run
+
+    rec, counts = {}, {}
+    lst, ll, le, lsec, _ = timed(loop([(x, y, w)] * REPEAT_K))
+    rst, rl, re_, rsec, counts["repeat"] = timed(
+        lambda st: step.train_repeat(st, x, y, REPEAT_K, w))
+    same = (same_bits(state_tensors(rst), state_tensors(lst))
+            and torch.equal(rl, ll) and torch.equal(re_, le))
+    rec["repeat"] = {"same_bits": same, "loop_ms_per_step":
+                     lsec * 1e3 / REPEAT_K, "repeat_ms_per_step":
+                     rsec * 1e3 / REPEAT_K}
+    print(f"REPEAT train_repeat(k={REPEAT_K}) on one resident batch of "
+          f"{TB} against {REPEAT_K} train calls: the same bits in every "
+          f"leaf, velocity, loss and n_err: {same}; host ms per step "
+          f"{rec['repeat']['repeat_ms_per_step']:.3f} (train_repeat) and "
+          f"{rec['repeat']['loop_ms_per_step']:.3f} (train loop); "
+          f"launches {counts['repeat'][K4_BF16]}/{counts['repeat'][K5_BF16]}"
+          f"/{counts['repeat'][K1]} (K4/K5/K1)", flush=True)
+    del lst, rst
+    batches = [card_batch(dev, TB, seed + 4 + i) for i in range(MANY_K)]
+    xs, ys, ws = (torch.stack(t) for t in zip(*batches))
+    lst, ll, le, lsec, _ = timed(loop(batches))
+    mst, ml, me, msec, counts["many"] = timed(
+        lambda st: step.train_many(st, xs, ys, ws))
+    same_many = (same_bits(state_tensors(mst), state_tensors(lst))
+                 and torch.equal(ml, ll) and torch.equal(me, le))
+    rec["many"] = {"same_bits": same_many, "loop_ms_per_step":
+                   lsec * 1e3 / MANY_K, "many_ms_per_step":
+                   msec * 1e3 / MANY_K}
+    print(f"REPEAT train_many over {MANY_K} stacked batches against "
+          f"{MANY_K} train calls: the same bits: {same_many}; host ms per "
+          f"step {rec['many']['many_ms_per_step']:.3f} (train_many) and "
+          f"{rec['many']['loop_ms_per_step']:.3f} (train loop); launches "
+          f"{counts['many'][K4_BF16]}/{counts['many'][K5_BF16]}/"
+          f"{counts['many'][K1]} (K4/K5/K1)", flush=True)
+    if not (same and same_many):
+        raise AssertionError("REPEAT: train_repeat or train_many differs "
+                             "from the train loop")
+    for label, k in (("repeat", REPEAT_K), ("many", MANY_K)):
+        check_counts(f"REPEAT {label}", counts[label],
+                     {K4_BF16: 2 * k, K5_BF16: 2 * k, K1: N_LEAVES * k})
+    del wf, step, s0, lst, mst, xs, ys, ws, batches
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def local_step_phase(launcher, kernels, dev, seed, data_dir):
+    """ACCUM, ADAM, REPEAT and CKPT at full width (227x227x3, fc 4096,
+    1000 classes, bf16 over f32 master weights, lrn_maxpool fused); each
+    run's counters zeroed just before it and read just after. Returns
+    (launches by path, the record)."""
+    launches, rec, secs = {}, {}, {}
+    with alexnet_config_kept():
+        t0 = time.perf_counter()
+        launches["accum"], rec["accum"] = accum_checks(kernels, dev, seed)
+        launches["accum_cli"], rec["accum_cli"] = accum_epoch(
+            launcher, kernels, dev, seed, data_dir)
+        secs["ACCUM"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches["adam"], rec["adam"] = adam_checks(kernels, dev, seed)
+        launches["adam_cli"], rec["adam_cli"], step, state = adam_cli(
+            launcher, kernels, dev, seed)
+        secs["ADAM"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["ckpt"] = ckpt_phase(dev, step, state, seed)
+        secs["CKPT"] = time.perf_counter() - t0
+        del step, state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts, rec["repeat"] = repeat_checks(kernels, dev, seed)
+        launches["repeat"], launches["many"] = counts["repeat"], \
+            counts["many"]
+        secs["REPEAT"] = time.perf_counter() - t0
+    from veles_tpu_torch.ops import variants
+    variants.clear_selection("lrn_maxpool")
+    rec["seconds"] = secs
+    print("LOCAL phase seconds " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in secs.items()),
+          flush=True)
+    return launches, rec
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="Drive the port on one card.")
@@ -3278,11 +3775,14 @@ def main(argv=None) -> int:
                                          data_dir)
         resume_launches, resume = resume_phase(launcher, kernels, dev,
                                                args.seed, data_dir)
+        local_launches, local = local_step_phase(launcher, kernels, dev,
+                                                 args.seed, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     for label, counts in feed_launches.items():
         by_path[f"feed_{label.replace(' ', '_')}"] = counts
     by_path.update(resume_launches)
+    by_path.update(local_launches)
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
@@ -3361,7 +3861,8 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
                    "checks": checks, "k5_other_geometry": k5_other,
-                   "feed": feed, "resume": resume}, f, indent=1)
+                   "feed": feed, "resume": resume, "local_step": local},
+                  f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

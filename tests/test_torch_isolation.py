@@ -111,6 +111,22 @@ def imports_with_jax_blocked():
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
+#: the modules the local fused step's Adam, accumulation and checkpoint
+#: added or extended: each among those the two tests above walk
+LOCAL_STEP_MODULES = ["veles_tpu_torch.parallel.checkpoint",
+                      "veles_tpu_torch.parallel.fused",
+                      "veles_tpu_torch.ops.optim", "veles_tpu_torch.convert"]
+
+
+@pytest.mark.parametrize("module", LOCAL_STEP_MODULES)
+def test_local_step_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_with_jax_blocked(module, imports_with_jax_blocked):
     assert imports_with_jax_blocked[module] is None, \

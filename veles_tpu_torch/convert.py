@@ -13,8 +13,11 @@ it; any mismatch raises.
 `state_from_jax(state, device, step=None)` carries a JAX fused-step state
 (`FusedTrainStep.init_state()` there: `params`, `vel`, `lr_scale`, and a
 PRNG key the port has no use for) across as the port step's state, with
-the same checks against `step`'s units; `state_to_numpy(state)` turns
-the port's state into host arrays for comparisons.
+the same checks against `step`'s units; an Adam layer's `vel` is
+`{"m": {...}, "v": {...}, "t": int32}` in both packages, and given
+`step`, a layer is Adam exactly where the step's config is.
+`state_to_numpy(state)` turns the port's state into host arrays for
+comparisons.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from veles_tpu_torch.backends import DeviceLike, make_device
+from veles_tpu_torch.ops import optim
 
 
 def params_from_jax(params: Sequence[Dict[str, np.ndarray]],
@@ -57,16 +61,29 @@ def params_from_jax(params: Sequence[Dict[str, np.ndarray]],
 def state_from_jax(state: Dict[str, Any], device: DeviceLike = None,
                    step=None) -> Dict[str, Any]:
     """The port step's state from a JAX fused state: `params` as trainable
-    leaves and `vel` as tensors on `device`, `lr_scale` as a float.
-    Given `step`, the names and shapes of both must be its units'."""
-    params = params_from_jax(state["params"], device)
-    vel = params_from_jax(state["vel"], device)
-    for name, layers in (("params", params), ("vel", vel)):
-        try:
-            if step is not None:
+    leaves, `vel` as tensors on `device` (an Adam layer's moments, and
+    its `t` as a 0-d int32 tensor), `lr_scale` as a float. Given `step`,
+    the names and shapes of every leaf and moment must be its units', and
+    each layer's update rule its config's."""
+    dev = make_device(device)
+    params = params_from_jax(state["params"], dev)
+    vel = tuple(_vel_from_jax(i, layer, dev)
+                for i, layer in enumerate(state["vel"]))
+    if step is not None:
+        checks = [("params", params)] + [
+            ("vel", tuple(v[slot] if optim.is_adam_state(v) else v
+                          for v in vel))
+            for slot in ("m", "v")]
+        for name, layers in checks:
+            try:
                 _check_against(step.forwards, layers)
-        except ValueError as e:
-            raise ValueError(f"state[{name!r}]: {e}") from None
+            except ValueError as e:
+                raise ValueError(f"state[{name!r}]: {e}") from None
+        for i, (layer, cfg) in enumerate(zip(vel, step.cfgs)):
+            rule = "Adam" if isinstance(cfg, optim.AdamConfig) else "SGD"
+            if ("Adam" if optim.is_adam_state(layer) else "SGD") != rule:
+                raise ValueError(f"state['vel'] unit {i}: the step updates "
+                                 f"this layer with {rule}")
     for layer in params:
         for t in layer.values():
             t.requires_grad_(True)
@@ -74,13 +91,33 @@ def state_from_jax(state: Dict[str, Any], device: DeviceLike = None,
             "lr_scale": float(np.asarray(state["lr_scale"]))}
 
 
+def _vel_from_jax(i: int, layer, dev: torch.device):
+    """One layer's SGD velocities or Adam state as tensors on `dev`."""
+    if not optim.is_adam_state(layer):
+        return params_from_jax((layer,), dev)[0]
+    m, v = params_from_jax((layer["m"], layer["v"]), dev)
+    t = np.asarray(layer["t"])
+    if t.shape != () or not np.issubdtype(t.dtype, np.integer):
+        raise ValueError(f"state['vel'] unit {i}: Adam's t must be an "
+                         f"integer scalar, not {t.dtype}{t.shape}")
+    return {"m": m, "v": v,
+            "t": torch.tensor(int(t), dtype=torch.int32, device=dev)}
+
+
 def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
-    """`params` and `vel` as tuples of {name: ndarray}, `lr_scale` as a
+    """`params` and `vel` as tuples of {name: ndarray} (an Adam layer's
+    `vel` as {"m": {...}, "v": {...}, "t": np.int32}), `lr_scale` as a
     float."""
-    def host(layers):
-        return tuple({k: t.detach().cpu().numpy() for k, t in layer.items()}
-                     for layer in layers)
-    return {"params": host(state["params"]), "vel": host(state["vel"]),
+    def host(layer):
+        return {k: t.detach().cpu().numpy() for k, t in layer.items()}
+
+    def host_vel(layer):
+        if optim.is_adam_state(layer):
+            return {"m": host(layer["m"]), "v": host(layer["v"]),
+                    "t": np.int32(int(layer["t"]))}
+        return host(layer)
+    return {"params": tuple(host(p) for p in state["params"]),
+            "vel": tuple(host_vel(v) for v in state["vel"]),
             "lr_scale": float(state["lr_scale"])}
 
 

@@ -3,7 +3,8 @@ a snapshot, then train or serve it, optionally under the supervisor.
 
 `python -m veles_tpu_torch WORKFLOW.py (--fused | --serve PORT)
 [-s SNAPSHOT] [--device cpu] [-r SEED] [--lrn-maxpool fused|composed]
-[--feed-ahead N] [--nonfinite-guard] [--serve-ring N] [root.x=y ...]`,
+[--feed-ahead N] [--accum K] [--nonfinite-guard] [--serve-ring N]
+[root.x=y ...]`,
 and with `--fused` also `--supervise [--max-restarts N]
 [--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
 [--supervise-report PATH]` — the port's counterpart of
@@ -79,6 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batches the device feed uploads ahead of the "
                         "step (default 1; 0 uploads each on demand); "
                         "--fused only")
+    p.add_argument("--accum", type=int, default=None, metavar="K",
+                   help="gradient accumulation: compute each minibatch's "
+                        "gradient as K microbatches before its one "
+                        "update (--fused; activation memory /K, the "
+                        "full batch's gradient)")
     p.add_argument("--nonfinite-guard", action="store_true",
                    help="abort training with exit code 81 the moment the "
                         "loss goes NaN/inf (the supervisor then rolls "
@@ -145,6 +151,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             # a knob nothing would read: refused rather than ignored
             p.error("--feed-ahead tunes the device feed of the fused "
                     "training loop: combine it with --fused")
+    # the JAX launcher's refusals (launcher.py:193-197 there)
+    if args.accum is not None and args.accum < 1:
+        p.error(f"--accum needs K >= 1 (got {args.accum})")
+    if args.accum and args.accum > 1 and not args.fused:
+        p.error("--accum applies to the fused step: combine with --fused")
     if args.supervise and not args.fused:
         p.error("--supervise supervises a training run: combine it with "
                 "--fused")
@@ -263,7 +274,8 @@ def train(argv: Optional[List[str]] = None):
         installed = _install_run_hooks(wf)
         try:
             wf.run_fused(device=args.device, feed_ahead=args.feed_ahead,
-                         nonfinite_guard=args.nonfinite_guard)
+                         nonfinite_guard=args.nonfinite_guard,
+                         accum_steps=args.accum)
         finally:
             for fn in installed:
                 hooks.remove_epoch_hook(fn)

@@ -7,7 +7,8 @@ The port's counterpart of `FusedTrainStep` in
 `FusedForward` is its forward half (`_forward`, `_pair_fusion`,
 `fusion_pairs`, `_apply_fused_pair`), which the server serves from;
 `FusedTrainStep` adds the loss, the backward and the update (`init_state`,
-`train`, `evaluate`, `write_back`, `variant_table`). The JAX package
+`train`, `train_accum`, `train_repeat`, `train_many`, `evaluate`,
+`write_back`, `variant_table`). The JAX package
 resolves lowerings when it traces; PyTorch runs eagerly, so both resolve
 them once, when built, into a fixed plan — a server keeps serving, and a
 step keeps training, what it was built with whatever the registry selects
@@ -34,6 +35,18 @@ in the JAX function's order and operations, before the compute-dtype
 cast. A batch that the device feed uploaded arrives as tensors on the
 step's device and is taken as it is: no second copy, no host sync.
 
+The update (the JAX step's `_apply_update`, local mode): per layer, the
+SGD rule through the `sgd_update` lowering (K1), or Adam
+(`ops/optim.py`, plain tensor operations as in the JAX package, which
+computes Adam in XLA) where the gradient twin's `optimizer` is "adam";
+an Adam layer's state is `{"m", "v", "t"}` and its moments stay in the
+state (`write_back` copies only its parameters; parallel/checkpoint.py
+carries them). `train_accum(k)` sums the gradients of k microbatches,
+each normalized by the full batch's weight sum, before one update;
+`train_repeat` and `train_many` are k calls of `train` in a Python loop,
+their metrics stacked on the device (the JAX package's are one
+`lax.scan` dispatch).
+
 Differences from the JAX step: the step updates its state in place (the
 JAX step returns a new one); its dropout masks come from the PRNG
 registry's device stream (`prng.RandomGenerator.device_stream`, one
@@ -50,6 +63,7 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from veles_tpu_torch import prng
@@ -231,27 +245,48 @@ class FusedForward:
         return table
 
 
+#: the update rules a gradient twin's `optimizer` names
+OPTIMIZERS = ("sgd", "adam")
+
+
 def pair_gd_configs(workflow):
-    """(gd_units, SGD configs) aligned with workflow.forwards — each forward
-    keeps its gradient twin's hyperparameters (`workflow.gds` is built in
-    reverse order)."""
+    """(gd_units, update configs) aligned with workflow.forwards — each
+    forward keeps its gradient twin's hyperparameters (`workflow.gds` is
+    built in reverse order). A twin whose `optimizer` is "adam" gets an
+    AdamConfig, any other an SGDConfig; the attribute is read here, when
+    the step is built (fused.py:110-133 in the JAX package)."""
     gds = list(workflow.gds)
     n = len(list(workflow.forwards))
     gd_units = [gds[n - 1 - i] for i in range(n)]
-    cfgs = [optim.SGDConfig(lr=g.learning_rate, momentum=g.gradient_moment,
-                            weight_decay=g.weights_decay,
-                            l1_decay=g.l1_decay,
-                            lr_bias_mult=g.learning_rate_bias)
-            for g in gd_units]
+    cfgs = []
+    for g in gd_units:
+        kind = getattr(g, "optimizer", "sgd")
+        if kind not in OPTIMIZERS:
+            raise ValueError(f"{g.name}: optimizer {kind!r}; the fused "
+                             f"step updates with {OPTIMIZERS}")
+        if kind == "adam":
+            cfgs.append(optim.AdamConfig(
+                lr=g.learning_rate, b1=getattr(g, "adam_beta1", 0.9),
+                b2=getattr(g, "adam_beta2", 0.999),
+                eps=getattr(g, "adam_eps", 1e-8),
+                weight_decay=g.weights_decay))
+        else:
+            cfgs.append(optim.SGDConfig(
+                lr=g.learning_rate, momentum=g.gradient_moment,
+                weight_decay=g.weights_decay, l1_decay=g.l1_decay,
+                lr_bias_mult=g.learning_rate_bias))
     return gd_units, cfgs
 
 
 class FusedTrainStep:
     """One training step of a StandardWorkflow: forward, softmax
-    cross-entropy, backward, SGD update, on the workflow's device.
+    cross-entropy, backward, update (SGD or Adam per layer), on the
+    workflow's device.
 
     state = {"params": tuple of {name: leaf} (one per forward unit),
-             "vel":    the matching velocities,
+             "vel":    per unit, the SGD velocities {name: tensor}, or
+                       the Adam state {"m": {...}, "v": {...}, "t": 0-d
+                       int32 tensor},
              "lr_scale": the schedule's lr multiplier (a float)}
     """
 
@@ -273,7 +308,7 @@ class FusedTrainStep:
         self.forwards = self.fwd.forwards
         self.device = self.fwd.device
         self.gd_units, self.cfgs = pair_gd_configs(workflow)
-        #: the update's lowering, fixed at build like the forward's
+        #: the SGD update's lowering, fixed at build like the forward's
         self._sgd = variants.resolve("sgd_update")
         #: the dropout masks' source: the registry's device stream, which
         #: advances across steps and builds and rides in a snapshot (the
@@ -286,15 +321,20 @@ class FusedTrainStep:
     # -- state <-> units ------------------------------------------------------
 
     def init_state(self) -> Dict[str, Any]:
-        """A copy of the units' parameters as trainable leaves, and the
-        velocities the gradient twins hold (zeros where they hold
-        none)."""
+        """A copy of the units' parameters as trainable leaves; for an SGD
+        layer the velocities its gradient twin holds (zeros where it holds
+        none), for an Adam layer zero moments and `t` = 0 (the twin holds
+        no moments: a snapshot resume restarts them, as in the JAX
+        package)."""
         params = tuple(
             {k: t.detach().clone().requires_grad_(True)
              for k, t in u.param_arrays().items()}
             for u in self.forwards)
         vel = []
-        for g, p in zip(self.gd_units, params):
+        for g, p, cfg in zip(self.gd_units, params, self.cfgs):
+            if isinstance(cfg, optim.AdamConfig):
+                vel.append(optim.adam_init(p, self.device))
+                continue
             layer = {}
             for k, t in p.items():
                 seed = g.velocity(k)
@@ -306,13 +346,16 @@ class FusedTrainStep:
 
     @torch.no_grad()
     def write_back(self, state: Dict[str, Any]) -> None:
-        """Copy the state's parameters into the units and its velocities
-        into the gradient twins."""
-        for u, g, p, v in zip(self.forwards, self.gd_units, state["params"],
-                              state["vel"]):
+        """Copy the state's parameters into the units, and an SGD layer's
+        velocities into its gradient twin (an Adam layer's moments stay in
+        the state)."""
+        for u, g, p, v, cfg in zip(self.forwards, self.gd_units,
+                                   state["params"], state["vel"], self.cfgs):
+            adam = isinstance(cfg, optim.AdamConfig)
             for k, t in u.param_arrays().items():
                 t.copy_(p[k])
-                setattr(g, g.vel_attr(k), v[k].clone())
+                if not adam:
+                    setattr(g, g.vel_attr(k), v[k].clone())
 
     # -- steps ----------------------------------------------------------------
 
@@ -329,14 +372,16 @@ class FusedTrainStep:
         return x, y, w
 
     @staticmethod
-    def _loss_metrics(out, y, w):
+    def _loss_metrics(out, y, w, wsum=None):
         """(weighted mean cross-entropy, misclassified valid labels): the
         pad mask's zero rows drop out of both, and of the gradient. The
         JAX step's rule (fused.py:781-801 there): the (N,) sample weights
         cover (N,) classifier labels, (N, S) per-token labels, or flat
         (N·S,) labels, each sample's weight repeated over its S
         consecutive tokens, and the denominator is the weight sum times
-        the tokens per sample."""
+        the tokens per sample. `wsum` overrides that weight sum: gradient
+        accumulation passes the full batch's, so the microbatches' losses
+        and gradients sum to the full batch's mean."""
         if y.dim() == w.dim() and y.shape[0] != w.shape[0] \
                 and y.shape[0] % w.shape[0] == 0:
             wt = w.repeat_interleave(y.shape[0] // w.shape[0])
@@ -344,12 +389,39 @@ class FusedTrainStep:
             wt = w.reshape(w.shape + (1,) * (y.dim() - w.dim())) \
                 .broadcast_to(y.shape)
         tokens = wt.numel() // w.numel()
-        loss = fn.ce_loss_from_logits(out, y, weights=wt,
-                                      denom=w.sum() * tokens)
+        loss = fn.ce_loss_from_logits(
+            out, y, weights=wt,
+            denom=(w.sum() if wsum is None else wsum) * tokens)
         wrong = (out.reshape(-1, out.shape[-1]).argmax(dim=-1)
                  != y.reshape(-1))
         n_err = (wrong & (wt.reshape(-1) > 0)).sum()
         return loss, n_err
+
+    def _grads(self, state, x, y, w, wsum=None):
+        """(gradients, one tuple per layer aligned with state["params"],
+        loss, n_err) of one batch already on the device; the autograd
+        graph is freed before this returns."""
+        leaves = [t for layer in state["params"] for t in layer.values()]
+        with torch.enable_grad(), full_f32(self.device):
+            out = self.fwd._forward(state["params"], x, train=True,
+                                    gen=self.gen)
+            loss, n_err = self._loss_metrics(out, y, w, wsum)
+            flat = iter(torch.autograd.grad(loss, leaves))
+        grads = tuple({k: next(flat) for k in p} for p in state["params"])
+        return grads, loss.detach(), n_err
+
+    @torch.no_grad()
+    def _apply_update(self, state, grads) -> None:
+        """One update of every layer in place: Adam where the layer's
+        config is Adam, the `sgd_update` lowering (K1) elsewhere."""
+        for p, g, v, cfg in zip(state["params"], grads, state["vel"],
+                                self.cfgs):
+            if not p:
+                continue
+            if isinstance(cfg, optim.AdamConfig):
+                optim.adam_update(p, g, v, cfg, lr_scale=state["lr_scale"])
+            else:
+                self._sgd.apply(p, g, v, cfg, lr_scale=state["lr_scale"])
 
     def train(self, state, x, y, w=None):
         """One training step on a minibatch (host arrays or tensors; `y`
@@ -358,18 +430,84 @@ class FusedTrainStep:
         in place and returns `(state, (loss, n_err))`, the metrics as 0-d
         tensors on the device (no host sync)."""
         x, y, w = self._batch(x, y, w)
-        leaves = [t for layer in state["params"] for t in layer.values()]
-        with torch.enable_grad(), full_f32(self.device):
-            out = self.fwd._forward(state["params"], x, train=True,
-                                    gen=self.gen)
-            loss, n_err = self._loss_metrics(out, y, w)
-            grads = iter(torch.autograd.grad(loss, leaves))
-        with torch.no_grad():
-            for p, v, cfg in zip(state["params"], state["vel"], self.cfgs):
-                if p:
-                    g = {k: next(grads) for k in p}
-                    self._sgd.apply(p, g, v, cfg, lr_scale=state["lr_scale"])
-        return state, (loss.detach(), n_err)
+        grads, loss, n_err = self._grads(state, x, y, w)
+        self._apply_update(state, grads)
+        return state, (loss, n_err)
+
+    def train_accum(self, state, x, y, k: int, w=None):
+        """ONE update from the gradient of the full (N,) batch, computed
+        as k microbatches of N/k rows, one after another, each one's
+        autograd graph freed before the next runs (activation memory
+        O(N/k)). Each microbatch's loss is normalized by the full batch's
+        weight sum, so the summed gradient is the full batch's mean
+        gradient, pad rows included; the loss and n_err are the sums over
+        the microbatches; dropout draws from the device stream,
+        microbatch after microbatch (`train_accum`, fused.py:1526-1580,
+        and `_accum_body`, :1028-1073, in the JAX package). Returns
+        `(state, (loss, n_err))` for the whole batch."""
+        n = int(np.shape(x)[0])
+        if n % k:
+            raise ValueError(f"batch {n} not divisible by k={k}")
+        if int(np.shape(y)[0]) != n:
+            # the JAX function reshapes y to (k, N/k) + y.shape[1:]: flat
+            # (N·S,) per-token labels do not split into k microbatches
+            raise ValueError(
+                f"train_accum splits x {tuple(np.shape(x))} and y "
+                f"{tuple(np.shape(y))} into {k} microbatches along the "
+                f"first dimension: y needs {n} rows, one per sample")
+        m = n // k
+        x, y, w = self._batch(x, y, w)
+        wsum = w.sum()
+        acc = None
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        n_err = torch.zeros((), dtype=torch.int64, device=self.device)
+        for i in range(k):
+            rows = slice(i * m, (i + 1) * m)
+            grads, mloss, merr = self._grads(state, x[rows], y[rows],
+                                             w[rows], wsum)
+            if acc is None:
+                acc = grads
+            else:
+                for a, g in zip(acc, grads):
+                    for key in a:
+                        a[key].add_(g[key])
+            del grads
+            loss = loss + mloss
+            n_err = n_err + merr
+        self._apply_update(state, acc)
+        return state, (loss, n_err)
+
+    def train_repeat(self, state, x, y, k: int, w=None):
+        """k updates on ONE minibatch, uploaded once and kept on the
+        device (the JAX package's benchmark loop, fused.py:1476-1524
+        there). Returns `(state, (losses, n_errs))` with a leading
+        dimension of k, tensors on the device (no host sync)."""
+        x, y, w = self._batch(x, y, w)
+        losses, errs = [], []
+        for _ in range(k):
+            state, (loss, n_err) = self.train(state, x, y, w)
+            losses.append(loss)
+            errs.append(n_err)
+        return state, (torch.stack(losses), torch.stack(errs))
+
+    def train_many(self, state, xs, ys, ws=None):
+        """len(xs) training steps over stacked minibatches: xs (K, N,
+        ...), ys (K, N, ...), ws (K, N) or None, uploaded once
+        (fused.py:1582-1632 in the JAX package). Returns `(state,
+        (losses, n_errs))` with a leading dimension of K, tensors on the
+        device (no host sync)."""
+        xs = torch.as_tensor(xs, device=self.device)
+        ys = torch.as_tensor(ys, device=self.device)
+        if ws is not None:
+            ws = torch.as_tensor(ws, dtype=torch.float32,
+                                 device=self.device)
+        losses, errs = [], []
+        for i in range(xs.shape[0]):
+            state, (loss, n_err) = self.train(
+                state, xs[i], ys[i], None if ws is None else ws[i])
+            losses.append(loss)
+            errs.append(n_err)
+        return state, (torch.stack(losses), torch.stack(errs))
 
     def evaluate(self, state, x, y, w=None):
         """Forward-only `(loss, n_err)` of a validation/test minibatch."""
@@ -379,8 +517,10 @@ class FusedTrainStep:
             return self._loss_metrics(out, y, w)
 
     def variant_table(self) -> Dict[str, str]:
-        """{op: variant-name} this step runs: the forward's, and the
-        update's."""
+        """{op: variant-name} this step runs: the forward's, and the SGD
+        update's where at least one layer updates with SGD (the JAX
+        step's rule, fused.py:1460-1465 there)."""
         table = self.fwd.variant_table()
-        table["sgd_update"] = self._sgd.name
+        if any(isinstance(c, optim.SGDConfig) for c in self.cfgs):
+            table["sgd_update"] = self._sgd.name
         return table

@@ -1,4 +1,5 @@
-"""Fully-connected forward units (linear, strict ReLU, softmax head).
+"""Fully-connected forward units (linear, scaled tanh, strict ReLU,
+softmax head).
 
 The port's counterpart of `veles_tpu/znicz/all2all.py`: y = act(x·W + b)
 with W (fan_in, units) and image inputs flattened in NHWC (H·W·C) order.
@@ -41,6 +42,12 @@ class All2All(Forward):
         y = fn.all2all_forward(x, params["weights"], params["bias"],
                                self.activation)
         return y.reshape((-1,) + self.output_sample_shape)
+
+
+class All2AllTanh(All2All):
+    """y = 1.7159·tanh(0.6666·(x·W + b)), the reference's scaled tanh."""
+
+    activation = "tanh"
 
 
 class All2AllStrictRELU(All2All):

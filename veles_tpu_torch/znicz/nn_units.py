@@ -148,17 +148,22 @@ _VEL_ALIASES = {"weights": "vel_w", "bias": "vel_b"}
 
 @register_gd(Forward)
 class GradientDescentBase:
-    """One layer's SGD hyperparameters, as the JAX package names them
+    """One layer's update hyperparameters, as the JAX package names them
     (nn_units.py:148-180 there): `learning_rate`, `gradient_moment`
     (momentum), `weights_decay` (L2), `l1_decay`, `learning_rate_bias`
     (the bias lr multiplier, 2 by default, the reference's convention),
-    plus one momentum velocity per parameter leaf, under `vel_attr(name)`
-    (None until a fused run writes it back)."""
+    `optimizer` ("sgd", the reference rule, or "adam") with
+    `adam_beta1`, `adam_beta2` and `adam_eps`, plus one momentum velocity
+    per parameter leaf, under `vel_attr(name)` (None until a fused run
+    writes it back; an Adam layer's moments stay in the fused state and
+    travel through parallel/checkpoint.py, not through this unit)."""
 
     def __init__(self, learning_rate: float = 0.01,
                  gradient_moment: float = 0.0,
                  weights_decay: float = 0.0, l1_decay: float = 0.0,
                  learning_rate_bias: float = 2.0,
+                 optimizer: str = "sgd", adam_beta1: float = 0.9,
+                 adam_beta2: float = 0.999, adam_eps: float = 1e-8,
                  name: Optional[str] = None) -> None:
         self.name = name or type(self).__name__
         self.learning_rate = learning_rate
@@ -166,6 +171,11 @@ class GradientDescentBase:
         self.weights_decay = weights_decay
         self.l1_decay = l1_decay
         self.learning_rate_bias = learning_rate_bias
+        #: read by the fused step when it is built (pair_gd_configs)
+        self.optimizer = optimizer
+        self.adam_beta1 = adam_beta1
+        self.adam_beta2 = adam_beta2
+        self.adam_eps = adam_eps
         self.vel_w: Optional[torch.Tensor] = None
         self.vel_b: Optional[torch.Tensor] = None
 

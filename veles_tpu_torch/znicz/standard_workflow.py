@@ -35,8 +35,10 @@ writes them as host bytes) and drops its device and its device feed;
 card where a fresh one is initialized from the seed streams.
 `nonfinite_guard` arms the Decision's guard for the run, and a
 `nan@step=K` fault plan (`resilience/faults.py`) replaces the K-th train
-step's loss with NaN. Telemetry, gradient accumulation, meshes and the
-granular Unit/Workflow graph come with later slices.
+step's loss with NaN. `accum_steps=K` trains each minibatch through the
+step's `train_accum` (K microbatches, one update; JAX :449-465), the
+feed, the snapshots and the Decision unchanged. Telemetry, meshes and
+the granular Unit/Workflow graph come with later slices.
 """
 
 from __future__ import annotations
@@ -58,10 +60,12 @@ from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.znicz.nn_units import Forward, gd_for
 
 #: layer-type name -> forward unit class
-#: (AlexNet's and the char-transformer's types; the JAX package's other
-#: activation flavors come with a later slice)
+#: (AlexNet's and the char-transformer's types, and the scaled-tanh layer
+#: of the JAX package's fused-step tests; its other activation flavors
+#: come with a later slice)
 LAYER_TYPES: Dict[str, type] = {
     "all2all": all2all.All2All,
+    "all2all_tanh": all2all.All2AllTanh,
     "all2all_strictrelu": all2all.All2AllStrictRELU,
     "softmax": all2all.All2AllSoftmax,
     "conv": conv.Conv,
@@ -75,6 +79,22 @@ LAYER_TYPES: Dict[str, type] = {
     "seq_ffn": transformer.SeqFFN,
     "seq_softmax": transformer.SeqSoftmax,
 }
+
+
+class AccumulatingStep:
+    """`step` with `train` computing each minibatch's gradient as
+    `accum_steps` microbatches before its one update (`train_accum`);
+    every other attribute is the step's."""
+
+    def __init__(self, step, accum_steps: int) -> None:
+        self.step = step
+        self.accum_steps = accum_steps
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def train(self, state, x, y, w=None):
+        return self.step.train_accum(state, x, y, self.accum_steps, w)
 
 
 class StandardWorkflow(Logger):
@@ -226,7 +246,8 @@ class StandardWorkflow(Logger):
     def run_fused(self, epochs: Optional[int] = None,
                   device: DeviceLike = None, uint8_wire="auto",
                   feed_ahead: Optional[int] = None,
-                  nonfinite_guard: bool = False) -> None:
+                  nonfinite_guard: bool = False,
+                  accum_steps: Optional[int] = None) -> None:
         """Train with the fused step until the Decision completes
         (`epochs` overrides its `max_epochs`), on `device` (the card unless
         "cpu" is asked for; see `place`). Batches reach the card through
@@ -234,13 +255,18 @@ class StandardWorkflow(Logger):
         which the step normalizes on the card (`uint8_wire=False` pins
         the float wire); `feed_ahead` is the feed's lookahead (default 1,
         0 uploads each batch on demand). `nonfinite_guard` raises
-        NonFiniteLossError at the first non-finite class-pass loss."""
+        NonFiniteLossError at the first non-finite class-pass loss.
+        `accum_steps=K` (K > 1) computes each train minibatch's gradient
+        as K microbatches before its one update (activation memory
+        O(minibatch/K), the full batch's gradient)."""
         if epochs is not None:
             self.decision.max_epochs = epochs
         self.place(device)
         wire = self._wire_spec(uint8_wire)
         step = self.build_fused_step(
             input_normalize=wire["normalize"] if wire else None)
+        if accum_steps and accum_steps > 1:
+            step = AccumulatingStep(step, accum_steps)
         self._run_with_step(step, wire=wire, feed_ahead=feed_ahead,
                             nonfinite_guard=nonfinite_guard)
 
