@@ -166,6 +166,26 @@
    file prints); (c) `--serve 0 -s SNAPSHOT` through `launcher.serve`:
    a 1-row /predict within 1e-5 of the restored workflow's forward on
    the card, K4 launched twice.
+   GRANULAR: the full-width AlexNet one epoch (4 train minibatches of 128
+   and one validation minibatch, dropout 0.5 as the sample has it)
+   through the granular Unit/Workflow graph, `launcher.train` without
+   --fused (the CLI's mode without --fused and --serve), on the torch
+   backend; counters zeroed just before and read just after must equal
+   what the unit firings predict — K2 once per LRN forward firing (2 a
+   minibatch), K3 once per LRN backward firing and K1 once per leaf per
+   gradient-unit firing (2 and 16 a train minibatch whose update runs;
+   the last one's is skipped once the Decision completes) — and every
+   other instance, K4 and K5 among them, zero; the loss finite. GRANULAR
+   lines print the host ms of each minibatch's pulse cycle (from one
+   loader firing to the next; the evaluator's loss syncs each) and each
+   unit's mean run_time. Then, at dropout 0, one granular epoch with
+   the state captured at each loader firing: each granular update must
+   equal the fused step's from the same state on the same batch, every
+   parameter and velocity within TRAIN_ATOL + TRAIN_RTOL*|fused|; the
+   fused step chained over those batches from the first state is held
+   against the granular end state and reported, not gated (float noise
+   can flip a max-pool near tie, as in 6 (c)); the fused step's
+   synchronized host ms per train step print beside the granular cycles.
    TRAIN transformer: train the char-transformer at its own widths (embed
    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
    4096 for 2 epochs through the same function (1 validation window, so
@@ -2659,13 +2679,19 @@ def feed_overlap(events):
     """(summary, GPU events) of a chrome trace's batch copies: their
     streams, whether pinned, their overlap with the compute stream's
     kernels, and whether any waited for compute work queued before it
-    was issued."""
+    was issued. A copy is on its stream once its runtime call returns
+    (on an H100 it began within a few microseconds of that, 15-30 us
+    after the call began: each row's `issue_call_ms` and
+    `start_after_issue_ms`): compute work that ended before then was not
+    pending when the copy was queued, and a copy that began after that
+    work did not wait for it."""
     gpu = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    # when the host issued each kernel and copy (the runtime call's start)
-    issued = {e["args"]["correlation"]: e["ts"] for e in events
-              if e.get("cat") == "cuda_runtime"
-              and "correlation" in e.get("args", {})}
+    # the runtime call that issued each kernel and copy
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    issued = {c: e["ts"] for c, e in calls.items()}
     kern = [e for e in gpu if e["cat"] == "kernel"]
     streams: dict = {}
     for e in kern:
@@ -2683,16 +2709,33 @@ def feed_overlap(events):
     for e in batch:
         t0, t1 = e["ts"], e["ts"] + e["dur"]
         ov = sum(max(0.0, min(t1, b) - max(t0, a)) for a, b in spans)
-        at = issued.get(e["args"].get("correlation"))
-        # compute-stream work queued before the copy was issued and not
-        # done by then: a copy that waited for it ran after the step
-        pending = [k["ts"] + k["dur"] for k in on_compute
-                   if at is not None
-                   and issued.get(k["args"].get("correlation"), at) < at
-                   and k["ts"] + k["dur"] > at]
+        call = calls.get(e["args"].get("correlation"))
+        at = None if call is None else call["ts"]
+        queued = None if call is None else call["ts"] + call.get("dur", 0)
+
+        def pending_at(t):
+            # compute-stream work issued before the copy's call and not
+            # done at t
+            return [k["ts"] + k["dur"] for k in on_compute
+                    if issued.get(k["args"].get("correlation"), at) < at
+                    and k["ts"] + k["dur"] > t] if call is not None else []
+
+        # a copy that waited for the work pending when it was queued
+        # began after that work ended
+        pending = pending_at(queued)
         rows.append({"name": e["name"], "stream": e["args"].get("stream"),
                      "bytes": e["args"].get("bytes"), "ms": e["dur"] / 1e3,
-                     "overlap_ms": ov / 1e3, "issued": at is not None,
+                     "overlap_ms": ov / 1e3, "issued": call is not None,
+                     # the runtime call's own time; when the copy began,
+                     # and when the work pending at its queueing ended,
+                     # each after the call's start
+                     "issue_call_ms": (queued - at) / 1e3
+                     if call is not None else None,
+                     "start_after_issue_ms": (t0 - at) / 1e3
+                     if call is not None else None,
+                     "pending_end_after_issue_ms":
+                     (max(pending) - at) / 1e3 if pending else None,
+                     "pending_at_call_start": len(pending_at(at)),
                      "pending_at_issue": len(pending),
                      "waited_for_compute": bool(pending)
                      and t0 >= max(pending)})
@@ -2716,6 +2759,15 @@ def feed_overlap(events):
         "kernel_ms": sum(b - a for a, b in spans) / 1e3}
     summary["batch_overlap_share"] = (summary["batch_overlap_ms"]
                                       / max(summary["batch_copy_ms"], 1e-9))
+    # the range of each copy's start after its runtime call returned, and
+    # of the calls' own times
+    after = [r["start_after_issue_ms"] - r["issue_call_ms"] for r in rows
+             if r["issued"]]
+    call_ms = [r["issue_call_ms"] for r in rows if r["issued"]]
+    summary["copy_start_after_call_return_ms"] = \
+        [min(after), max(after)] if after else None
+    summary["copy_call_ms"] = [min(call_ms), max(call_ms)] if call_ms \
+        else None
     return summary, gpu
 
 
@@ -3720,6 +3772,224 @@ def local_step_phase(launcher, kernels, dev, seed, data_dir):
     return launches, rec
 
 
+@contextlib.contextmanager
+def loader_pulses():
+    """Record every Loader.run of the block: (perf_counter after it, the
+    minibatch's class); yields the list."""
+    from veles_tpu_torch.loader.base import Loader
+    inner = Loader.run
+    seen = []
+
+    def run(self):
+        inner(self)
+        seen.append((time.perf_counter(), int(self.minibatch_class)))
+
+    Loader.run = run
+    try:
+        yield seen
+    finally:
+        Loader.run = inner
+
+
+def granular_want(wf) -> dict:
+    """The launches the unit firings predict: K2 once per LRN forward
+    firing, K3 once per LRN backward firing, K1 once per parameter leaf
+    per gradient-unit firing; nothing else."""
+    from veles_tpu_torch.znicz.normalization import (LRNormalizerBackward,
+                                                     LRNormalizerUnit)
+    return {
+        "lrn_forward": sum(u.run_count for u in wf.fwd_units
+                           if isinstance(u, LRNormalizerUnit)),
+        "lrn_backward": sum(g.run_count for g in wf.gds
+                            if isinstance(g, LRNormalizerBackward)),
+        "sgd_update": sum(len(g._pnames) * g.run_count for g in wf.gds)}
+
+
+def granular_state(wf):
+    """Every forward unit's parameters and its gradient unit's velocities
+    (zeros before the first update made them), cloned on the card: one
+    {name: (param, velocity)} per forward unit."""
+    n = len(wf.forwards)
+    out = []
+    for i, u in enumerate(wf.forwards):
+        g = wf.gds[n - 1 - i]
+        out.append({k: (t.detach().clone(),
+                        torch.zeros_like(t) if g.velocity(k) is None
+                        else g.velocity(k).detach().clone())
+                    for k, t in u.param_arrays().items()})
+    return out
+
+
+@torch.no_grad()
+def load_state(state, snap):
+    """Write a `granular_state` into a fused step's state."""
+    for p, v, layer in zip(state["params"], state["vel"], snap):
+        for k, (t, vel) in layer.items():
+            p[k].copy_(t)
+            v[k].copy_(vel)
+
+
+def compare_granular(what, state, snap, rtol=TRAIN_RTOL, atol=TRAIN_ATOL,
+                     gate=True):
+    """The granular `snap` against a fused step's state, leaf by leaf:
+    (max abs err, elements beyond the tolerance); raises where `gate`."""
+    worst, beyond = 0.0, 0
+    for i, (p, v, layer) in enumerate(zip(state["params"], state["vel"],
+                                          snap)):
+        for k, (t, vel) in layer.items():
+            for name, got, want in ((k, t, p[k].detach()),
+                                    (f"velocity {k}", vel, v[k])):
+                diff = (got - want).abs()
+                worst = max(worst, float(diff.max()))
+                beyond += int((diff > atol + rtol * want.abs()).sum())
+                if gate:
+                    check_close(f"{what} unit {i} {name}", got, want,
+                                rtol, atol)
+    return worst, beyond
+
+
+def granular_equals_fused(dev):
+    """The full-width AlexNet at dropout 0: one granular epoch (torch
+    backend), the state captured at each loader firing. Each update the
+    granular units made (the last train minibatch's is skipped once the
+    Decision completes) must equal the fused step's from the same state
+    on the same batch, every parameter and velocity within
+    TRAIN_ATOL + TRAIN_RTOL*|fused|. The fused step chained over the same
+    batches from the first state is also held against the granular end
+    state and reported, not gated: once the two paths' float noise has
+    moved the weights, a max-pool window whose two largest values lie
+    within it may route its gradient to the other tap (the max's
+    discontinuity, CHECK (c)). Prints the fused step's synchronized host
+    ms per train step."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.base import TRAIN, Loader
+    from veles_tpu_torch.samples import alexnet
+
+    def build():
+        # the sample's full-width defaults, whatever earlier phases left
+        # in root.alexnet (the sample registers them once a process)
+        prng.seed_all(1234)
+        root.alexnet.decision.max_epochs = 1
+        root.alexnet.loader.data_path = ""
+        wf = alexnet.create_workflow(
+            minibatch_size=TB, input_hw=227, n_classes=1000,
+            width_mult=1.0, fc_width=4096, n_train=4 * TB,
+            n_validation=TB)
+        for layer in wf.forwards:
+            if hasattr(layer, "dropout_ratio"):
+                layer.dropout_ratio = 0.0
+        wf.initialize(device=dev)
+        return wf
+
+    g = build()
+    train = []      # (state before the minibatch, x, y, w)
+    inner = Loader.run
+
+    def capture(self):
+        before = granular_state(g)
+        inner(self)
+        if self.minibatch_class == TRAIN:
+            train.append((before, self.minibatch_data.copy(),
+                          self.minibatch_labels.copy(),
+                          self.minibatch_valid.copy()))
+    Loader.run = capture
+    try:
+        g.run()
+    finally:
+        Loader.run = inner
+    end = granular_state(g)
+    updates = g.gds[0].run_count
+    del g
+    f = build()
+    step = f.build_fused_step()
+    state = step.init_state()
+    worst, fused_ms = 0.0, []
+    for k in range(updates):
+        before, x, y, w = train[k]
+        after = train[k + 1][0] if k + 1 < len(train) else end
+        load_state(state, before)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, (loss, _) = step.train(state, x, y, w)
+        float(loss)
+        fused_ms.append(1e3 * (time.perf_counter() - t0))
+        worst = max(worst, compare_granular(f"GRANULAR update {k}", state,
+                                            after)[0])
+    load_state(state, train[0][0])
+    for _, x, y, w in train[:updates]:
+        state, _ = step.train(state, x, y, w)
+    chained, beyond = compare_granular("GRANULAR chained", state, end,
+                                       gate=False)
+    print(f"GRANULAR dropout 0: each of {updates} granular updates equals "
+          f"the fused step's from the same state on the same batch within "
+          f"{TRAIN_ATOL} + {TRAIN_RTOL}*|fused| (max abs err {worst:.3e}); "
+          f"chained over the {updates} batches from the first state: max "
+          f"abs err {chained:.3e}, {beyond} elements beyond (not gated); "
+          f"fused host ms per train step (synchronized) "
+          + ", ".join(f"{ms:.1f}" for ms in fused_ms), flush=True)
+    del f, step, state, train, end
+    torch.cuda.empty_cache()
+    return {"updates": updates, "max_abs_err": worst,
+            "chained_max_abs_err": chained, "chained_beyond": beyond,
+            "fused_host_ms": fused_ms}
+
+
+def granular_phase(launcher, kernels, dev):
+    """GRANULAR: the full-width AlexNet one epoch (4 train minibatches of
+    128 and one validation minibatch, dropout 0.5 as the sample has it)
+    through the granular Unit/Workflow graph — `launcher.train` without
+    --fused, the CLI's function, on the torch backend: counters zeroed
+    just before and read just after must equal the unit firings' (K2 per
+    LRN forward firing, K3 per LRN backward firing, K1 per leaf per
+    gradient-unit firing), K4, K5 and every other instance zero. Prints
+    the host ms of each train minibatch's pulse cycle and each unit's
+    mean run_time; then `granular_equals_fused`. Returns (counts,
+    record)."""
+    with alexnet_config_kept(), loader_pulses() as pulses:
+        t0 = time.perf_counter()
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        wf = launcher.train([ALEXNET, "-r", "1234",
+                             "root.alexnet.decision.max_epochs=1",
+                             *TRAIN_ARGS])
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    if wf.device != dev or wf.backend_device.backend_name != "torch":
+        raise AssertionError(f"granular run on {wf.backend_device}")
+    want = granular_want(wf)
+    check_counts("GRANULAR", counts, want)
+    loss = wf.evaluator.loss
+    if not np.isfinite(loss):
+        raise AssertionError(f"GRANULAR: non-finite loss {loss}")
+    # a pulse cycle: from one loader firing to the next (the last to the
+    # end of the run); the first train minibatch's holds the warm-up
+    marks = [t for t, _ in pulses] + [end]
+    cycles = [(cls, 1e3 * (marks[i + 1] - marks[i]))
+              for i, (_, cls) in enumerate(pulses)]
+    train_ms = [ms for cls, ms in cycles if cls == 2]
+    print(f"GRANULAR: {wf.decision.epoch_number} epoch in "
+          f"{end - t0:.2f} s of host time; host ms per train minibatch "
+          + ", ".join(f"{ms:.1f}" for ms in train_ms)
+          + "; validation " + ", ".join(f"{ms:.1f}" for cls, ms in cycles
+                                        if cls != 2), flush=True)
+    print(f"GRANULAR: loss {loss}; history {wf.decision.history}; "
+          f"launches {counts} = the firings' {want}", flush=True)
+    print("GRANULAR unit mean run_time ms: " + ", ".join(
+        f"{u.name} {1e3 * u.run_time / u.run_count:.2f} (x{u.run_count})"
+        for u in wf.units if u.run_count), flush=True)
+    rec = {"launches": counts, "want": want, "train_host_ms": train_ms,
+           "loss": loss, "units": {f"{i}:{u.name}": [u.run_count,
+                                                   u.run_time]
+                                   for i, u in enumerate(wf.units)}}
+    del wf
+    torch.cuda.empty_cache()
+    with alexnet_config_kept():
+        rec["vs_fused"] = granular_equals_fused(dev)
+    return counts, rec
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="Drive the port on one card.")
@@ -3783,6 +4053,7 @@ def main(argv=None) -> int:
         by_path[f"feed_{label.replace(' ', '_')}"] = counts
     by_path.update(resume_launches)
     by_path.update(local_launches)
+    by_path["granular"], granular = granular_phase(launcher, kernels, dev)
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
@@ -3861,7 +4132,8 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
                    "checks": checks, "k5_other_geometry": k5_other,
-                   "feed": feed, "resume": resume, "local_step": local},
+                   "feed": feed, "resume": resume, "local_step": local,
+                   "granular": granular},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,7 @@
 """The port's command line: `python -m veles_tpu_torch <alexnet.py> --serve
 0 --device cpu` serves a toy AlexNet, answers a request over loopback, and
-exits cleanly on SIGINT; `--fused` trains it; one of the two is
-required."""
+exits cleanly on SIGINT; `--fused` trains it; the two together are
+refused."""
 
 import json
 import os
@@ -86,11 +86,19 @@ def test_cli_trains_with_fused():
 
 @pytest.mark.parametrize("mode", [["--fused", "--serve", "0"], []])
 def test_cli_needs_exactly_one_of_fused_and_serve(mode):
+    """Both flags exit 2; neither, once a refusal, now trains through the
+    granular unit graph (tests/test_torch_granular_numpy.py holds that
+    mode against the JAX package)."""
     cmd = [sys.executable, "-m", "veles_tpu_torch",
            "veles_tpu_torch/samples/alexnet.py", "--device", "cpu", *mode,
-           *TOY]
+           *TOY, *([] if mode else ["root.alexnet.decision.max_epochs=1"])]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=300)
-    assert r.returncode == 2, (r.returncode, r.stderr[-2000:])
-    assert ("give one of them" if mode else "later slice") in r.stderr
+    if mode:
+        assert r.returncode == 2, (r.returncode, r.stderr[-2000:])
+        assert "give one of them" in r.stderr
+    else:
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert r.stdout.strip().splitlines()[-1].startswith(
+            "TRAINED 1 epochs: loss ")

@@ -389,10 +389,10 @@ def test_feed_ahead_cli_refusals(argv, ok):
 
 
 def _trace(copy_start, kernels=((0, 10), (10, 20)), copy_stream=13,
-           name="Memcpy HtoD (Pinned -> Device)"):
+           name="Memcpy HtoD (Pinned -> Device)", call_dur=1):
     """A chrome trace: kernels (start, end) in µs on stream 7, issued at 0
-    and 1, and one 19.8 MB copy issued at 5 that runs from copy_start for
-    4 µs."""
+    and 1, and one 19.8 MB copy whose runtime call starts at 5 and lasts
+    call_dur µs, that runs from copy_start for 4 µs."""
     ev = []
     for i, (a, b) in enumerate(kernels):
         ev.append({"ph": "X", "cat": "kernel", "name": f"k{i}", "ts": a,
@@ -405,7 +405,7 @@ def _trace(copy_start, kernels=((0, 10), (10, 20)), copy_stream=13,
                "args": {"stream": copy_stream, "correlation": 99,
                         "bytes": 19787136}})
     ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
-               "ts": 5, "dur": 1, "args": {"correlation": 99}})
+               "ts": 5, "dur": call_dur, "args": {"correlation": 99}})
     return ev
 
 
@@ -427,3 +427,23 @@ def test_chip_smokes_overlap_reading_of_a_trace(copy_start, stream, waited,
     assert s["batch_copies_that_waited_for_compute"] == waited
     assert s["batch_copies_on_compute_stream"] == (stream == 7)
     assert s["batch_overlap_ms"] == pytest.approx(overlap)
+
+
+@pytest.mark.parametrize("call_dur, pending, waited", [
+    (16, 0, 0),     # the step's last kernel ended before the call returned
+    (10, 1, 1),     # it ran past the call's return, and the copy after it
+])
+def test_chip_smoke_judges_pending_work_when_the_copy_is_queued(
+        call_dur, pending, waited):
+    """A copy is queued when its runtime call returns: compute work that
+    ended inside the call was not pending, and a copy that began after it
+    did not wait for it; work that outlasted the call still counts."""
+    import chip_smoke
+
+    s, _ = chip_smoke.feed_overlap(_trace(22, call_dur=call_dur))
+    assert s["batch_copies_issued_with_work_pending"] == pending
+    assert s["batch_copies_that_waited_for_compute"] == waited
+    row = s["batch_copy_rows"][0]
+    assert row["pending_at_call_start"] == 2
+    assert row["issue_call_ms"] == pytest.approx(call_dur / 1e3)
+    assert row["start_after_issue_ms"] == pytest.approx(0.017)

@@ -127,6 +127,33 @@ def test_local_step_modules_stand_alone(module, imports_with_jax_blocked):
         imports_with_jax_blocked[module]
 
 
+#: the modules the granular Unit/Workflow graph added or extended
+GRANULAR_MODULES = ["veles_tpu_torch.mutable", "veles_tpu_torch.units",
+                    "veles_tpu_torch.workflow",
+                    "veles_tpu_torch.distributable",
+                    "veles_tpu_torch.memory", "veles_tpu_torch.backends",
+                    "veles_tpu_torch.accelerated_units",
+                    "veles_tpu_torch.ops.reference",
+                    "veles_tpu_torch.znicz.nn_units",
+                    "veles_tpu_torch.znicz.gd",
+                    "veles_tpu_torch.znicz.gd_conv",
+                    "veles_tpu_torch.znicz.gd_pooling",
+                    "veles_tpu_torch.znicz.lr_adjust",
+                    "veles_tpu_torch.znicz.evaluator",
+                    "veles_tpu_torch.znicz.decision",
+                    "veles_tpu_torch.loader.base",
+                    "veles_tpu_torch.znicz.standard_workflow"]
+
+
+@pytest.mark.parametrize("module", GRANULAR_MODULES)
+def test_granular_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_with_jax_blocked(module, imports_with_jax_blocked):
     assert imports_with_jax_blocked[module] is None, \
@@ -145,11 +172,18 @@ def test_entry_points_ask_for_the_card(monkeypatch):
         wf.initialize()
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceServer(wf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wf.initialize(backend="torch")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wf.run_epochs(1)
     saved = root.alexnet.to_dict()
     try:
         with pytest.raises(RuntimeError, match="CUDA"):
             launcher.serve([str(PKG / "samples" / "alexnet.py"), "--serve",
                             "0", *TOY])
+        # the granular graph's default backend is the card's
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launcher.train([str(PKG / "samples" / "alexnet.py"), *TOY])
     finally:
         root.alexnet = saved    # the CLI's overrides stay in this test
     assert not wf.is_initialized

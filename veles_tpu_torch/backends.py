@@ -1,9 +1,14 @@
 """Device choice for the port: the card by default, the CPU on request.
 
-The port's counterpart of `veles_tpu/backends.py`, reduced to a
-`torch.device`. Asking for the card where CUDA is absent raises;
-nothing falls back to the CPU on its own. (The `Array` of `memory.py` and
-the granular per-unit backend dispatch come with a later slice.)
+The port's counterpart of `veles_tpu/backends.py`. `make_device` gives the
+`torch.device` the fused step, the server and the loops run on: asking
+for the card where CUDA is absent raises; nothing falls back to the CPU
+on its own. The granular unit graph dispatches on a backend `Device`
+(`make_backend`): `NumpyDevice` (`backend_name` "numpy", the golden host
+path of `ops/reference.py`) or `TorchDevice` ("torch", the counterpart of
+the JAX package's `XLADevice`: each unit's `torch_run` on the card, or on
+the CPU where that is asked for). Units read `torch_device` from either:
+the numpy backend's is the CPU, where its parameters live.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ import contextlib
 from typing import Iterator, Optional, Union
 
 import torch
+
+from veles_tpu_torch.logger import Logger
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -70,3 +77,79 @@ def device_name(dev: Optional[torch.device]) -> str:
     if dev is not None and dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return "cpu"
+
+
+class Device(Logger):
+    """Base backend device. `backend_name` selects which `<backend>_init`
+    / `<backend>_run` methods an AcceleratedUnit dispatches to."""
+
+    backend_name = "abstract"
+
+    def __init__(self) -> None:
+        self.pid = None
+
+    @property
+    def torch_device(self) -> torch.device:
+        """Where the tensors of this backend's units live."""
+        return torch.device("cpu")
+
+    def sync(self) -> None:
+        """Block until outstanding device work completes."""
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__}>"
+
+
+class NumpyDevice(Device):
+    """Pure-host golden backend (parity: reference `NumpyDevice`)."""
+
+    backend_name = "numpy"
+
+
+class TorchDevice(Device):
+    """The port's compute backend: one `torch.device`, the card unless the
+    CPU is asked for (`make_device`'s rule)."""
+
+    backend_name = "torch"
+
+    def __init__(self, device: DeviceLike = None) -> None:
+        super().__init__()
+        self.device = make_device(device)
+
+    @property
+    def torch_device(self) -> torch.device:
+        return self.device
+
+    def sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # a pickle keeps the device's kind; the card's index is this
+    # process's
+    def __getstate__(self):
+        return {"type": self.device.type}
+
+    def __setstate__(self, state):
+        self.pid = None
+        self.device = torch.device(state["type"])
+
+    def __repr__(self) -> str:
+        return f"<TorchDevice {self.device}>"
+
+
+#: the backends of the granular graph, by their CLI names
+BACKENDS = ("torch", "numpy")
+
+
+def make_backend(backend: Optional[str] = None,
+                 device: DeviceLike = None) -> Device:
+    """The backend Device of a granular run: "torch" (the default) on
+    `device` (the card unless "cpu" is asked for), or "numpy", which runs
+    on the host whatever `device` says."""
+    backend = backend or "torch"
+    if backend == "numpy":
+        return NumpyDevice()
+    if backend == "torch":
+        return TorchDevice(device)
+    raise ValueError(f"unknown backend {backend!r} (expected one of "
+                     f"{BACKENDS})")

@@ -18,10 +18,21 @@ the same checks against `step`'s units; an Adam layer's `vel` is
 `step`, a layer is Adam exactly where the step's config is.
 `state_to_numpy(state)` turns the port's state into host arrays for
 comparisons.
+
+`granular_from_jax(jax_workflow, workflow)` carries a JAX granular
+workflow's units into the port's initialized workflow of the same layer
+list: each forward unit's parameter `Array`s (`weights`, `bias`) into the
+layer's tensors, each gradient unit's velocities (`vel_w`, `vel_b`) and
+`lr_scale`, the evaluator's last metrics, the Decision's counters and
+the loader's schedule, cursor and shuffled indices, so the port's graph
+continues the JAX run (the shuffle stream itself is the PRNG
+registry's). It
+reads the JAX units' host views (`.mem`), never JAX itself.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
@@ -147,3 +158,44 @@ def _load_into(workflow, params: Tuple[Dict[str, torch.Tensor], ...]):
         for u, layer in zip(units, params):
             for name, t in u.param_arrays().items():
                 t.copy_(layer[name])
+
+
+#: the Decision's counters and the loader's cursor that a granular run
+#: carries across
+_DECISION_STATE = ("epoch_number", "epoch_n_err", "best_validation_err",
+                   "history", "_accum", "_epochs_since_improvement")
+_LOADER_STATE = ("epoch_number", "_cursor", "_schedule")
+
+
+def granular_from_jax(jax_workflow, workflow) -> None:
+    jf, pf = list(jax_workflow.forwards), list(workflow.forwards)
+    if len(jf) != len(pf):
+        raise ValueError(f"{len(jf)} JAX forward units for {len(pf)} "
+                         f"layers")
+    params = tuple({k: np.asarray(a.mem) for k, a in u.param_arrays().items()
+                    if a} for u in jf)
+    _load_into(workflow, params_from_jax(params, workflow.device))
+    for i, (jg, pg) in enumerate(zip(jax_workflow.gds, workflow.gds)):
+        for name in pg._pnames:
+            jv = getattr(jg, pg.vel_attr(name), None)
+            if jv is None or not jv:
+                continue
+            v = np.asarray(jv.mem, np.float32)
+            p = getattr(pg, name).devmem()
+            if v.shape != tuple(p.shape):
+                raise ValueError(f"gradient unit {i} {pg.vel_attr(name)}: "
+                                 f"shape {v.shape} != {tuple(p.shape)}")
+            setattr(pg, pg.vel_attr(name),
+                    torch.tensor(v, device=p.device))
+        pg.lr_scale = float(jg.lr_scale)
+    je, pe = jax_workflow.evaluator, workflow.evaluator
+    pe.loss, pe.n_err = float(je.loss), int(je.n_err)
+    jd, pd = jax_workflow.decision, workflow.decision
+    for k in _DECISION_STATE:
+        setattr(pd, k, copy.deepcopy(getattr(jd, k)))
+    pd.complete = bool(jd.complete)
+    jl, pl = jax_workflow.loader, workflow.loader
+    for k in _LOADER_STATE:
+        setattr(pl, k, copy.deepcopy(getattr(jl, k)))
+    pl._indices_per_class = [np.array(a, np.int64)
+                             for a in jl._indices_per_class]

@@ -1,21 +1,30 @@
 """Command line of the port: build a sample workflow, or restore it from
 a snapshot, then train or serve it, optionally under the supervisor.
 
-`python -m veles_tpu_torch WORKFLOW.py (--fused | --serve PORT)
-[-s SNAPSHOT] [--device cpu] [-r SEED] [--lrn-maxpool fused|composed]
-[--feed-ahead N] [--accum K] [--nonfinite-guard] [--serve-ring N]
-[root.x=y ...]`,
+`python -m veles_tpu_torch WORKFLOW.py [--fused | --serve PORT]
+[-b torch|numpy] [-s SNAPSHOT] [--device cpu] [-r SEED]
+[--lrn-maxpool fused|composed] [--feed-ahead N] [--accum K]
+[--nonfinite-guard] [--serve-ring N] [root.x=y ...]`,
 and with `--fused` also `--supervise [--max-restarts N]
 [--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
 [--supervise-report PATH]` — the port's counterpart of
-`veles_tpu/__main__.py` and of the `--fused` and `--serve` branches of
-`veles_tpu/launcher.py`. The workflow module keeps the reference's
+`veles_tpu/__main__.py` and of `veles_tpu/launcher.py`'s training and
+serving branches. The workflow module keeps the reference's
 `run(load, main)` convention: it registers its `root` defaults when
 imported, the trailing overrides win over them, `load(create_workflow)`
 builds the workflow (under `-s`, restores it from the snapshot instead
 and returns `(workflow, True)`, JAX launcher.py:369-382), and `main()`
-trains it through the fused step (`--fused`) or starts the server on it
-(`--serve`; a restored workflow serves the snapshot's weights).
+trains it through the fused step (`--fused`), starts the server on it
+(`--serve`; a restored workflow serves the snapshot's weights), or,
+with neither flag, trains it through the granular Unit/Workflow graph
+(JAX launcher.py:908-918: `initialize(device)`, then `run()`), each unit
+firing on its backend: `-b torch` (the default, the counterpart of the
+JAX package's `xla`) runs each unit's `torch_run` on the card, or on the
+CPU under `--device cpu`; `-b numpy` runs each unit's `numpy_run`, the
+host goldens. `--nonfinite-guard` arms the Decision in either training
+mode. Snapshots and resume of a granular run (`-s`, `--snapshot-dir`),
+its supervisor (`--supervise`), and `--accum` and `--feed-ahead`, which
+tune the fused step and its device feed, are refused without `--fused`.
 
 `--supervise` makes this process the supervisor
 (`resilience/supervisor.py`) of a child running the same command line
@@ -25,8 +34,6 @@ heartbeat the supervisor reads (`VELES_HEARTBEAT_FILE`) at startup and
 at each epoch, a fault plan (`VELES_FAULT_PLAN`) rides the same epoch
 hooks, and a non-finite loss under `--nonfinite-guard` exits with
 `EXIT_NONFINITE` (81), on which the supervisor rolls back one snapshot.
-The granular Unit/Workflow graph, the JAX package's mode without either
-flag, comes with a later slice.
 
 Import-light: torch and the workflow machinery are imported where a run
 starts, not here (the supervisor's parent imports this module).
@@ -50,8 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="veles_tpu_torch",
         description="Train or serve a workflow: veles_tpu_torch "
-                    "workflow.py (--fused | --serve PORT) "
-                    "[root.path.key=value ...]",
+                    "workflow.py [--fused | --serve PORT] "
+                    "[root.path.key=value ...]; without either flag it "
+                    "trains through the granular unit graph",
         allow_abbrev=False)
     p.add_argument("workflow", help="workflow module (.py) with "
                                     "run(load, main)")
@@ -63,6 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve the workflow's forward over HTTP on PORT "
                         "(0 picks a free port)")
+    p.add_argument("-b", "--backend", default="torch",
+                   choices=("torch", "numpy"),
+                   help="backend of the granular graph's units (numpy = "
+                        "the golden host path); without --fused and "
+                        "--serve only")
     p.add_argument("-s", "--snapshot", default="",
                    help="restore the workflow from this snapshot file "
                         "instead of building it (resume a run, or serve "
@@ -111,7 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
                               "restart the job when its heartbeat "
                               "(touched every epoch) goes stale this long "
                               "(default 300; 0 disables)"),
-        sup.add_argument("--snapshot-dir", default=".", metavar="DIR",
+        sup.add_argument("--snapshot-dir", default=None, metavar="DIR",
                          help="where the supervisor looks for snapshots "
                               "to restart from (default: cwd)"),
         sup.add_argument("--snapshot-prefix", default="", metavar="PREFIX",
@@ -134,16 +147,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+#: what the granular graph does not take yet, and why (the refusals of
+#: parse_args without --fused and --serve)
+_LATER_SLICE = ("snapshots and resume of the granular graph come with a "
+                "later slice of the port")
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    """Parse `argv`; exactly one of --fused and --serve (exit 2 else)."""
+    """Parse `argv`: at most one of --fused and --serve, and the flags
+    each mode takes (exit 2 else)."""
     p = build_parser()
     args = p.parse_intermixed_args(argv)
     if args.fused and args.serve is not None:
         p.error("--fused trains and --serve serves: give one of them")
-    if not args.fused and args.serve is None:
-        p.error("give --fused (train) or --serve PORT (serve); the "
-                "granular Unit/Workflow graph, which runs without either, "
-                "comes with a later slice of the port")
+    granular = not args.fused and args.serve is None
+    if args.backend != "torch" and not granular:
+        p.error("-b/--backend picks the granular graph's backend: give it "
+                "without --fused and --serve")
     if args.feed_ahead is not None:
         if args.feed_ahead < 0:
             p.error(f"--feed-ahead needs N >= 0 (got {args.feed_ahead})")
@@ -158,10 +178,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--accum applies to the fused step: combine with --fused")
     if args.supervise and not args.fused:
         p.error("--supervise supervises a training run: combine it with "
-                "--fused")
-    if args.nonfinite_guard and not args.fused:
-        p.error("--nonfinite-guard guards a training run: combine it "
-                "with --fused")
+                f"--fused ({_LATER_SLICE})")
+    if args.nonfinite_guard and args.serve is not None:
+        p.error("--nonfinite-guard guards a training run: give it with "
+                "--fused or without --serve")
+    if granular and args.snapshot:
+        p.error(f"-s/--snapshot restores a fused run: {_LATER_SLICE}; "
+                "combine it with --fused or --serve")
+    if args.snapshot_dir is not None and not args.fused:
+        p.error(f"--snapshot-dir is the supervisor's: combine it with "
+                f"--fused --supervise ({_LATER_SLICE})")
     return args
 
 
@@ -182,7 +208,7 @@ def supervise(args: argparse.Namespace, argv: List[str]) -> int:
     cmd = [sys.executable, "-m", "veles_tpu_torch"] \
         + strip_flags(argv, supervisor_flags())
     return Supervisor(
-        cmd, snapshot_dir=args.snapshot_dir,
+        cmd, snapshot_dir=args.snapshot_dir or ".",
         snapshot_prefix=args.snapshot_prefix,
         max_restarts=args.max_restarts,
         stall_timeout=args.stall_timeout,
@@ -259,23 +285,33 @@ def _install_run_hooks(wf) -> list:
 
 
 def train(argv: Optional[List[str]] = None):
-    """Parse `argv` (which must hold --fused), build the workflow through
-    its module's `run(load, main)` (or restore it under -s) and train it
-    with `run_fused` until its decision completes. Returns the trained
+    """Parse `argv` (which must not hold --serve), build the workflow
+    through its module's `run(load, main)` (or restore it under -s) and
+    train it until its decision completes: through the fused step with
+    `run_fused` under --fused, else through the granular graph
+    (`initialize` on the backend, then `run()`). Returns the trained
     workflow. The CLI and chip_smoke.py both come through here."""
     from veles_tpu_torch.resilience import hooks
 
     args = parse_args(argv)
-    if not args.fused:
-        raise SystemExit("train() runs --fused")
+    if args.serve is not None:
+        raise SystemExit("train() trains: --serve is serve()'s")
     done = {}
 
     def main_fn(wf):
         installed = _install_run_hooks(wf)
         try:
-            wf.run_fused(device=args.device, feed_ahead=args.feed_ahead,
-                         nonfinite_guard=args.nonfinite_guard,
-                         accum_steps=args.accum)
+            if args.fused:
+                wf.run_fused(device=args.device,
+                             feed_ahead=args.feed_ahead,
+                             nonfinite_guard=args.nonfinite_guard,
+                             accum_steps=args.accum)
+            else:
+                # the granular graph: the Decision raises at the
+                # minibatch whose loss goes non-finite (JAX :909-916)
+                wf.decision.nonfinite_guard = bool(args.nonfinite_guard)
+                wf.initialize(device=args.device, backend=args.backend)
+                wf.run()
         finally:
             for fn in installed:
                 hooks.remove_epoch_hook(fn)
@@ -313,7 +349,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.supervise:
         set_verbosity(args.verbose)
         return supervise(args, argv)
-    if args.fused:
+    if args.serve is None:
         from veles_tpu_torch.resilience import EXIT_NONFINITE, \
             NonFiniteLossError
         try:

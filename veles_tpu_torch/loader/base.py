@@ -10,6 +10,15 @@ gives the same minibatch sequence — and leaves the default generator in
 the same state for the weight fills that follow. `minibatch_class`,
 `last_minibatch` and `class_lengths` drive the Decision.
 
+The loader is a unit of the granular graph (`AcceleratedUnit`, with the
+JAX `Loader`'s `IDistributable` job-piece hooks): each pulse produces the
+next minibatch of the schedule into `minibatch_data` / `minibatch_labels`
+/ `minibatch_valid`, host numpy arrays the first forward unit and the
+evaluator link to, and the fused loop calls the same `run()` through the
+device feed. `last_minibatch`, `epoch_ended` and `not_train` are
+`mutable.Bool`s (`BoolField`s), the gates of the JAX package's graph:
+`not_train` skips the gradient units on validation and test minibatches.
+
 `PrefetchingLoader` is the counterpart of the JAX package's: minibatch
 production on background threads with `prefetch` batches of exact
 lookahead (the schedule within an epoch is known), and the seeded
@@ -36,18 +45,27 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from veles_tpu_torch import prng
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
+from veles_tpu_torch.distributable import IDistributable
+from veles_tpu_torch.mutable import BoolField
 
 TEST, VALIDATION, TRAIN = 0, 1, 2
 
 
-class Loader:
+class Loader(AcceleratedUnit, IDistributable):
     """Subclasses implement `load_data()` (fill `class_lengths` and
     `sample_shape`) and `fill_minibatch(indices)`."""
 
+    #: the gates the Decision and the gradient units read
+    last_minibatch = BoolField()
+    epoch_ended = BoolField()
+    #: True on validation and test minibatches
+    not_train = BoolField()
+
     def __init__(self, minibatch_size: int = 100,
                  shuffle_train: bool = True,
-                 name: Optional[str] = None) -> None:
-        self.name = name or type(self).__name__
+                 name: Optional[str] = None, workflow=None) -> None:
+        super().__init__(workflow, name=name)
         self.minibatch_size = int(minibatch_size)
         self.shuffle_train = shuffle_train
         self.class_lengths: List[int] = [0, 0, 0]
@@ -62,6 +80,7 @@ class Loader:
         self.minibatch_class = TRAIN
         self.last_minibatch = False
         self.epoch_ended = False
+        self.not_train = False
         self.epoch_number = 0
         self._schedule: List[Tuple[int, int, bool]] = []
         self._cursor = 0
@@ -97,7 +116,7 @@ class Loader:
         return None
 
     def __getstate__(self):
-        d = dict(self.__dict__)
+        d = super().__getstate__()
         # the feed's counters are process-local timings, its allocator
         # the run's
         d.pop("feed_stats", None)
@@ -114,7 +133,7 @@ class Loader:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def initialize(self) -> None:
+    def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
         self.load_data()
         offset = 0
         for cls in (TEST, VALIDATION, TRAIN):
@@ -123,6 +142,7 @@ class Loader:
                 offset, offset + n, dtype=np.int64)
             offset += n
         self._start_epoch()
+        return super().initialize(device=device, **kwargs)
 
     def _start_epoch(self) -> None:
         if self.shuffle_train:
@@ -138,7 +158,8 @@ class Loader:
         self._cursor = 0
 
     def run(self) -> None:
-        """Produce the next minibatch of the schedule."""
+        """Produce the next minibatch of the schedule (one code path for
+        both backends: host index math and host arrays)."""
         cls, b, last = self._schedule[self._cursor]
         idx = self._indices_per_class[cls]
         lo = b * self.minibatch_size
@@ -146,6 +167,7 @@ class Loader:
         chosen = idx[take]
         self.minibatch_class = cls
         self.last_minibatch = last
+        self.not_train = cls != TRAIN
         self.minibatch_indices = chosen
         self.minibatch_valid = (np.arange(lo, lo + self.minibatch_size)
                                 < len(idx)).astype(np.float32)
@@ -155,6 +177,21 @@ class Loader:
         if self.epoch_ended:
             self.epoch_number += 1
             self._start_epoch()
+
+    # -- the JAX Loader's IDistributable job piece ----------------------------
+
+    def generate_data_for_slave(self, slave: Any = None) -> Any:
+        return {"indices": self.minibatch_indices}
+
+    def apply_data_from_master(self, data: Any) -> None:
+        if data and "indices" in data:
+            self.fill_minibatch(np.asarray(data["indices"]))
+
+    def generate_data_for_master(self) -> Any:
+        """This process's epoch and minibatch accounting."""
+        return {"epoch_number": self.epoch_number,
+                "cursor": int(self._cursor),
+                "rows_decoded": int(getattr(self, "rows_decoded", 0))}
 
 
 class PrefetchingLoader(Loader):
@@ -184,12 +221,12 @@ class PrefetchingLoader(Loader):
         #: on unpickling, never lazily on a produce thread
         self._count_lock = threading.Lock()
 
-    def initialize(self) -> None:
+    def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
         # the "hflip" stream's one draw comes before the shuffle, as in
         # the JAX package, so the stream registers at the same index
         if self.hflip:
             self._hflip_seed = int(prng.get("hflip").randint(0, 2 ** 31))
-        super().initialize()
+        return super().initialize(device=device, **kwargs)
 
     def _produce_batch(self, indices: np.ndarray):
         raise NotImplementedError
@@ -311,5 +348,5 @@ class PrefetchingLoader(Loader):
         return d
 
     def __setstate__(self, d):
-        self.__dict__.update(d)
+        super().__setstate__(d)
         self._count_lock = threading.Lock()

@@ -349,8 +349,10 @@ class DeviceFeed:
         `ahead` batches past it."""
         ld = self.loader
         ld.minibatch_class = b.minibatch_class
+        # the loader's flags are Bools: these assignments set them
         ld.last_minibatch = b.last_minibatch
         ld.epoch_ended = b.epoch_ended
+        ld.not_train = b.minibatch_class != TRAIN
         ld.minibatch_valid = b.w_host
 
     def note_device_sync(self, seconds: float) -> None:

@@ -17,6 +17,8 @@ port leaves it to PyTorch here.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -29,12 +31,17 @@ TANH_B = 0.6666
 
 
 def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
-    """The port's activations so far: "linear", "tanh" = the reference's
-    scaled 1.7159·tanh(0.6666·x), and "strictrelu" = max(x, 0) (NaN
-    propagates, as in jnp.maximum). The softplus "relu", sigmoid and log
-    come with a later slice."""
+    """The port's activations: "linear", "tanh" = the reference's scaled
+    1.7159·tanh(0.6666·x), "relu" = the reference's smooth RELU
+    ln(1 + eˣ) (softplus), "strictrelu" = max(x, 0) (NaN propagates, as
+    in jnp.maximum) and "sigmoid". The log activation comes with a later
+    slice."""
     if name == "linear":
         return x
+    if name == "relu":
+        return F.softplus(x)
+    if name == "sigmoid":
+        return torch.sigmoid(x)
     if name == "tanh":
         if x.element_size() < 4:
             # a bf16 x: the constants round to its dtype first, as the
@@ -50,6 +57,24 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
             # it half, torch.relu none
             return torch.maximum(x, x.new_zeros(()))
         return torch.relu(x)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def act_backward(name: str, y: torch.Tensor,
+                 err: torch.Tensor) -> torch.Tensor:
+    """dL/dx from dL/dy (`err`) and the forward OUTPUT y, the reference's
+    memory model (pre-activations are never kept): xla.py / reference.py
+    act_backward, the granular gradient units' rule."""
+    if name == "linear":
+        return err
+    if name == "tanh":
+        return err * (TANH_B * (TANH_A - y * y / TANH_A))
+    if name == "relu":
+        return err * (1.0 - torch.exp(-y))
+    if name == "strictrelu":
+        return err * (y > 0)
+    if name == "sigmoid":
+        return err * y * (1.0 - y)
     raise ValueError(f"unknown activation {name!r}")
 
 
@@ -143,6 +168,53 @@ def maxpool_forward(x: torch.Tensor, ksize: Tuple[int, int],
         xp = F.pad(xp, (0, ew, 0, eh), value=float("-inf"))
     y = F.max_pool2d(xp, (ky, kx), (sy, sx))
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def maxpool_forward_with_idx(x: torch.Tensor, ksize: Tuple[int, int],
+                             stride: Tuple[int, int]
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ceil-mode max pooling of NHWC `x` that also records each window's
+    winner as a flat offset into x: the rule of the JAX package's
+    `maxpool_forward_with_idx` (xla.py:283-308), an argmax — the FIRST
+    maximum in row-major window order (dy, then dx), where the padded
+    slots never win. After a ReLU windows tie constantly (all zeros), so
+    the rule is computed here, not taken from `F.max_pool2d`'s indices,
+    which promise no order. Offsets are int64, ((n·H + i·sy + dy)·W +
+    j·sx + dx)·C + c (xla.py `_flat_offsets`)."""
+    ky, kx = ksize
+    sy, sx = stride
+    nb, h, w, c = x.shape
+    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
+    hp, wp = (oh - 1) * sy + ky, (ow - 1) * sx + kx
+    xp = F.pad(x, (0, 0, 0, wp - w, 0, hp - h), value=float("-inf"))
+    taps = [xp[:, dy:dy + (oh - 1) * sy + 1:sy, dx:dx + (ow - 1) * sx + 1:sx]
+            for dy in range(ky) for dx in range(kx)]
+    y = taps[0]
+    for t in taps[1:]:
+        y = torch.maximum(y, t)
+    # the first tap equal to the maximum, scanning backwards so that the
+    # earliest one is written last (every window's tap 0 is a real pixel)
+    choice = torch.zeros(y.shape, dtype=torch.int64, device=x.device)
+    for lin in reversed(range(len(taps))):
+        choice = torch.where(taps[lin] == y, lin, choice)
+    dy, dx = choice // kx, choice % kx
+    ar = functools.partial(torch.arange, device=x.device)
+    ii = ar(oh)[None, :, None, None] * sy + dy
+    jj = ar(ow)[None, None, :, None] * sx + dx
+    nn_ = ar(nb)[:, None, None, None]
+    cc = ar(c)[None, None, None, :]
+    return y.contiguous(), ((nn_ * h + ii) * w + jj) * c + cc
+
+
+def pool_scatter(err_y: torch.Tensor, idx: torch.Tensor,
+                 x_shape: Tuple[int, ...]) -> torch.Tensor:
+    """The max pooling's backward (xla.py pool_scatter): each window's
+    gradient added at its recorded winner; overlapping windows that share
+    a winner sum."""
+    flat = torch.zeros(math.prod(x_shape), dtype=err_y.dtype,
+                       device=err_y.device)
+    flat.index_add_(0, idx.reshape(-1), err_y.reshape(-1))
+    return flat.reshape(x_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +354,27 @@ def ce_loss_from_logits(logits: torch.Tensor, labels: torch.Tensor,
     w = weights.broadcast_to(labels.shape).reshape(-1).to(picked.dtype)
     d = w.sum() if denom is None else denom
     return -(picked * w).sum() / torch.clamp(d, min=1e-9)
+
+
+def softmax_ce(probs: torch.Tensor, labels: torch.Tensor, n_classes: int,
+               weights: Optional[torch.Tensor] = None):
+    """The granular softmax evaluator's metrics (xla.py softmax_ce): from
+    probabilities and integer labels, (loss, err wrt the logits, n_err).
+    `weights` (N,) are the Loader's pad mask: zero-weight rows add to no
+    metric and get no gradient; err is (probs − onehot)·w / Σw. The
+    confusion matrix of the JAX function comes with a later slice."""
+    onehot = F.one_hot(labels.long(), n_classes).to(probs.dtype)
+    eps = torch.finfo(probs.dtype).tiny
+    picked = probs.gather(1, labels.long()[:, None])[:, 0]
+    logs = -torch.log(torch.clamp(picked, min=eps))
+    wrong = probs.argmax(dim=1) != labels
+    if weights is None:
+        return (logs.mean(), (probs - onehot) / probs.shape[0],
+                wrong.sum())
+    w = weights.to(probs.dtype)
+    wsum = torch.clamp(w.sum(), min=eps)
+    return ((logs * w).sum() / wsum, (probs - onehot) * w[:, None] / wsum,
+            (wrong & (w > 0)).sum())
 
 
 def dropout_mask(shape, drop_prob: float, generator: torch.Generator,

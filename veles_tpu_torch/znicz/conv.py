@@ -9,6 +9,11 @@ is made once per weight tensor and cached where no gradient is recorded
 copy is part of its autograd graph. (The JAX package's
 space-to-depth stem is an exact rewrite of the same convolution and has
 no counterpart here.)
+
+`ConvUnit` is the layer's node in the granular graph (JAX conv.py
+`numpy_run` / `xla_run`): the numpy golden `reference.conv2d_forward`, or
+the same `F.conv2d` forward the fused step runs; its gradient twin is in
+gd_conv.py.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from typing import Any, Tuple
 import torch
 
 from veles_tpu_torch.ops import functional as fn
-from veles_tpu_torch.znicz.nn_units import Forward
+from veles_tpu_torch.ops import reference as ref
+from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, dev, host, \
+    register_unit
 
 
 class Conv(Forward):
@@ -81,5 +88,33 @@ class Conv(Forward):
             w_oihw=None if torch.is_grad_enabled() else self._weights_oihw(w))
 
 
+class ConvTanh(Conv):
+    activation = "tanh"
+
+
+class ConvRELU(Conv):
+    activation = "relu"
+
+
 class ConvStrictRELU(Conv):
     activation = "strictrelu"
+
+
+class ConvSigmoid(Conv):
+    activation = "sigmoid"
+
+
+@register_unit(Conv)
+class ConvUnit(ForwardUnit):
+    """y = act(conv2d(x, W) + b) of the layer, one firing per minibatch."""
+
+    def numpy_run(self) -> None:
+        c = self.layer
+        self.output.mem = ref.conv2d_forward(
+            host(self.input), self.weights.mem, self.bias.mem, c.stride,
+            c.padding, c.activation)
+
+    def torch_run(self) -> None:
+        c = self.layer
+        x = dev(self.input, self.device)
+        self.output.set_devmem(c.fused_apply(c.param_arrays(), x))

@@ -9,8 +9,13 @@ pass closes the epoch: one `history` record, then `complete` once
 `max_epochs` is reached or the error has not improved for
 `fail_iterations` epochs. It reads the loader's `minibatch_class`,
 `last_minibatch` and `class_lengths` and the evaluator's `n_err`.
-`complete` and `improved` are plain bools here (the JAX package's are
-gate objects of its Unit graph). At each closed epoch it fires the
+It is a unit of the granular graph (one firing per minibatch, after the
+evaluator), and the fused loop calls its `run()` after every minibatch.
+`complete` and `improved` are `mutable.Bool`s, as in the JAX package: in
+the granular graph `complete` blocks the loop's repeater and opens the
+end point, and with the loader's `not_train` it skips the gradient
+units; they are `BoolField`s, so a plain assignment sets the Bool and
+the gates composed from it stay live. At each closed epoch it fires the
 process's epoch hooks (`resilience/hooks.py`: heartbeats, epoch-keyed
 faults; JAX decision.py:149). With `nonfinite_guard` armed it raises
 `NonFiniteLossError` on a non-finite loss before it counts anything
@@ -24,23 +29,29 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
 from veles_tpu_torch.loader.base import TEST, TRAIN, VALIDATION
-from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.mutable import BoolField
 from veles_tpu_torch.resilience import NonFiniteLossError
 from veles_tpu_torch.resilience.hooks import fire_epoch
 
 
-class DecisionGD(Logger):
+class DecisionGD(AcceleratedUnit):
 
     #: raise NonFiniteLossError the moment the evaluator's loss is NaN or
     #: inf; armed per run by instance attribute, and a class attribute so
     #: that a pickle, which leaves the instance's out, never carries it
     nonfinite_guard = False
 
+    #: the stop rule's verdict: gates the loop (see the module docstring)
+    complete = BoolField()
+    #: this minibatch closed a class pass with a new best error
+    improved = BoolField()
+
     def __init__(self, loader, evaluator, max_epochs: Optional[int] = None,
-                 fail_iterations: int = 100,
+                 fail_iterations: int = 100, workflow=None,
                  name: Optional[str] = None) -> None:
-        self.name = name or type(self).__name__
+        super().__init__(workflow, name=name)
         self.loader = loader
         self.evaluator = evaluator
         self.max_epochs = max_epochs
@@ -56,11 +67,11 @@ class DecisionGD(Logger):
         self._epochs_since_improvement = 0
 
     def __getstate__(self):
-        d = dict(self.__dict__)
+        d = super().__getstate__()
         d.pop("nonfinite_guard", None)
         return d
 
-    def run(self) -> None:
+    def numpy_run(self) -> None:
         cls = int(self.loader.minibatch_class)
         if self.nonfinite_guard and not math.isfinite(
                 float(self.evaluator.loss)):
@@ -68,7 +79,7 @@ class DecisionGD(Logger):
                 f"non-finite loss {float(self.evaluator.loss)!r} at epoch "
                 f"{self.epoch_number} (class {cls} pass)")
         self._accum[cls] += float(self.evaluator.n_err)
-        self.improved = False
+        self.improved <<= False
         if not self.loader.last_minibatch:
             return
         # end of this class's pass
@@ -80,7 +91,7 @@ class DecisionGD(Logger):
             if (self.best_validation_err is None
                     or err < self.best_validation_err):
                 self.best_validation_err = err
-                self.improved = True
+                self.improved <<= True
                 self._epochs_since_improvement = 0
             else:
                 self._epochs_since_improvement += 1
@@ -103,6 +114,6 @@ class DecisionGD(Logger):
                  and self.epoch_number >= self.max_epochs)
                     or self._epochs_since_improvement
                     >= self.fail_iterations):
-                self.complete = True
+                self.complete <<= True
             # the process's epoch boundary: heartbeats, epoch-keyed faults
             fire_epoch(self.epoch_number)

@@ -1,27 +1,48 @@
 """Forward base unit of the port: an `nn.Module` holding a layer's
-parameters, filled on the host from the seeded numpy streams.
+parameters, filled on the host from the seeded numpy streams; the
+granular graph's node around it; and the gradient unit.
 
-The port's counterpart of `Forward` in `veles_tpu/znicz/nn_units.py`:
-`weights_filling` "uniform" draws from ±stddev·√3 (so its std matches a
-gaussian fill), `weights_stddev` None means LeCun 1/√fan_in, and the bias
-falls back to the weights' stddev. The draws come from `prng.get()` in the
-JAX package's order, so one seed gives bit-identical parameters.
+The port's counterpart of `veles_tpu/znicz/nn_units.py`. `Forward` is a
+layer: `weights_filling` "uniform" draws from ±stddev·√3 (so its std
+matches a gaussian fill), `weights_stddev` None means LeCun 1/√fan_in, and
+the bias falls back to the weights' stddev. The draws come from
+`prng.get()` in the JAX package's order, so one seed gives bit-identical
+parameters. Layouts at the boundary are the JAX package's (conv weights
+HWIO, FC weights (fan_in, units), activations NHWC). Parameters are
+trainable `nn.Parameter`s; serving runs them under
+`torch.inference_mode()`, the fused step (parallel/fused.py) through
+`fused_apply`.
 
-Layouts at the boundary are the JAX package's (conv weights HWIO, FC
-weights (fan_in, units), activations NHWC). Parameters are trainable
-`nn.Parameter`s; serving runs them under `torch.inference_mode()`.
+`ForwardUnit` is the layer's node in the granular Unit/Workflow graph
+(the JAX `Forward` as a unit): it holds the layer, not a copy of it —
+`weights` and `bias` are `memory.TensorView`s of the layer's parameters,
+so the granular units, the fused step and a snapshot share one set of
+weights, and a fused run after a granular one continues from its
+weights. `input` is linked to the upstream unit's output (the loader's
+`minibatch_data` for the first layer), `output` is an `Array`, and
+`input_sample_shape` is linked to the upstream `sample_shape`, so that
+`initialize` fills the layer's parameters in graph order, as the JAX
+units fill theirs. Each layer module registers its layer's node with
+`register_unit`; `unit_for` finds it.
 
-`GradientDescentBase` is the counterpart of the JAX package's gradient
-unit as the fused train step reads it: the holder of one layer's update
-hyperparameters (same names and defaults) and of its momentum
-velocities, which the step seeds itself from and writes back to. They
-are named as the JAX package names them: `vel_w` / `vel_b` for the leaves
-`weights` / `bias`, `vel_<name>` for every other leaf (`vel_wq`,
-`vel_pos`, `vel_w2`, ...; `_vel_attr` in veles_tpu/parallel/fused.py).
+`GradientDescentBase` is the gradient unit (the JAX package's, as a unit):
+the holder of one layer's update hyperparameters (same names and
+defaults), of `lr_scale` (which `lr_adjust.LearningRateAdjust` drives)
+and of its momentum velocities, and, in its subclasses (gd.py,
+gd_conv.py, gd_pooling.py, normalization.py, dropout.py), the granular
+backward: `err_output` in, `err_input` out, the update in place. The
+velocities are named as the JAX package names them: `vel_w` / `vel_b` for
+the leaves `weights` / `bias`, `vel_<name>` for every other leaf
+(`vel_wq`, `vel_pos`, `vel_w2`, ...; `_vel_attr` in
+veles_tpu/parallel/fused.py). They are tensors, None until a run makes
+them — the fused step seeds itself from them and writes them back, a
+granular update makes zeros where there are none — and
+`vel_array(name)` is their `Array` view. The granular update goes
+through the registry's `sgd_update` lowering (K1 on the card, the exact
+tree rule where `l1_decay` is not 0), `_sgd_host` is the numpy golden's.
 `register_gd` / `gd_for` pair each forward class with its gradient unit.
-The granular per-unit backward (`gd.py`, `gd_conv.py`, `gd_pooling.py`
-there, and the `jax.vjp` twins of the attention and sequence units)
-comes with a later slice.
+The gradient units of the attention and sequence layers keep no granular
+backward yet (their JAX twins are `jax.vjp` units): running one raises.
 """
 
 from __future__ import annotations
@@ -33,6 +54,9 @@ import torch
 from torch import nn
 
 from veles_tpu_torch import prng
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
+from veles_tpu_torch.memory import Array, TensorView, target_device
+from veles_tpu_torch.ops import optim, variants
 
 
 #: forward unit class -> its gradient unit class
@@ -56,6 +80,60 @@ def gd_for(forward_cls: type) -> type:
         if cls in MATCHED_GD:
             return MATCHED_GD[cls]
     raise KeyError(f"no GD unit registered for {forward_cls.__name__}")
+
+
+#: layer class -> its node class in the granular graph
+MATCHED_UNIT: Dict[type, type] = {}
+
+
+def register_unit(layer_cls: type):
+    """Class decorator pairing a granular node class with its layer."""
+
+    def deco(unit_cls: type) -> type:
+        MATCHED_UNIT[layer_cls] = unit_cls
+        return unit_cls
+
+    return deco
+
+
+def unit_for(layer_cls: type) -> type:
+    """The granular node class of a layer class, walking the MRO."""
+    for cls in layer_cls.__mro__:
+        if cls in MATCHED_UNIT:
+            return MATCHED_UNIT[cls]
+    raise KeyError(f"no granular unit registered for {layer_cls.__name__}")
+
+
+# -- the values a granular unit reads: Arrays, or the loader's arrays ---------
+
+
+def host(value) -> Optional[np.ndarray]:
+    """The host numpy view of an `Array`/`TensorView`, a tensor or an
+    ndarray (the loader's minibatch arrays)."""
+    if value is None or isinstance(value, np.ndarray):
+        return value
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return value.mem
+
+
+def dev(value, device) -> Optional[torch.Tensor]:
+    """`value` (as `host` takes it) as a tensor on `device`."""
+    if value is None:
+        return None
+    if isinstance(value, np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(value))
+        return t.to(target_device(device), non_blocking=False)
+    if isinstance(value, torch.Tensor):
+        return value.to(target_device(device))
+    return value.devmem(device)
+
+
+def shape_of(value) -> Optional[Tuple[int, ...]]:
+    if value is None:
+        return None
+    s = value.shape
+    return None if s is None else tuple(s)
 
 
 class Forward(nn.Module):
@@ -142,30 +220,97 @@ class Forward(nn.Module):
         return self.fused_apply(self.param_arrays(), x, train=False)
 
 
+@register_unit(Forward)
+class ForwardUnit(AcceleratedUnit):
+    """A layer's node in the granular graph. The layer classes' modules
+    subclass it with the layer's `numpy_run` (the goldens of
+    ops/reference.py) and `torch_run` (tensor operations and the port's
+    kernels on the unit's device); this base, the node of the layers
+    that train in the fused step only, runs neither."""
+
+    def __init__(self, workflow=None, layer: Optional[Forward] = None,
+                 **kwargs: Any) -> None:
+        if layer is None:
+            raise ValueError(f"{type(self).__name__} wraps a layer "
+                             "(layer=)")
+        kwargs.setdefault("name", layer.name)
+        super().__init__(workflow, **kwargs)
+        self.layer = layer
+        self.input = Array()
+        self.output = Array()
+        #: per-sample shape of `input` (linked upstream) and of `output`
+        self.input_sample_shape: Optional[Tuple[int, ...]] = None
+        self.sample_shape: Optional[Tuple[int, ...]] = None
+
+    @property
+    def weights(self) -> TensorView:
+        return TensorView(self.layer, "weights")
+
+    @property
+    def bias(self) -> TensorView:
+        return TensorView(self.layer, "bias")
+
+    def __getattr__(self, name: str) -> Any:
+        # every other parameter leaf of the layer (wq, pos, w2, ...) is a
+        # TensorView too
+        layer = self.__dict__.get("layer")
+        if layer is not None and not name.startswith("_") \
+                and name in layer.param_arrays():
+            return TensorView(layer, name)
+        return super().__getattr__(name)
+
+    def param_names(self) -> Tuple[str, ...]:
+        return tuple(self.layer.param_arrays())
+
+    def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
+        """Fill the layer's parameters on the unit's device (the layer
+        keeps parameters it already has) once the upstream sample shape
+        is known."""
+        if self.input_sample_shape is None:
+            return False
+        self.sample_shape = tuple(self.layer.initialize(
+            tuple(self.input_sample_shape), target_device(device)))
+        return super().initialize(device=device, **kwargs)
+
+    def _no_granular(self) -> None:
+        raise NotImplementedError(
+            f"{type(self.layer).__name__} has no granular unit yet: its "
+            "forward runs in the fused step only (a later slice of the "
+            "port brings it to the unit graph)")
+
+    def numpy_run(self) -> None:
+        self._no_granular()
+
+    def torch_run(self) -> None:
+        self._no_granular()
+
+
 #: the leaves whose velocities keep the reference's short names
 _VEL_ALIASES = {"weights": "vel_w", "bias": "vel_b"}
 
 
 @register_gd(Forward)
-class GradientDescentBase:
+class GradientDescentBase(AcceleratedUnit):
     """One layer's update hyperparameters, as the JAX package names them
     (nn_units.py:148-180 there): `learning_rate`, `gradient_moment`
     (momentum), `weights_decay` (L2), `l1_decay`, `learning_rate_bias`
     (the bias lr multiplier, 2 by default, the reference's convention),
     `optimizer` ("sgd", the reference rule, or "adam") with
-    `adam_beta1`, `adam_beta2` and `adam_eps`, plus one momentum velocity
-    per parameter leaf, under `vel_attr(name)` (None until a fused run
-    writes it back; an Adam layer's moments stay in the fused state and
-    travel through parallel/checkpoint.py, not through this unit)."""
+    `adam_beta1`, `adam_beta2` and `adam_eps`, `lr_scale`, plus one
+    momentum velocity per parameter leaf, under `vel_attr(name)` (None
+    until a run makes it; an Adam layer's moments stay in the fused state
+    and travel through parallel/checkpoint.py, not through this unit; the
+    granular backward keeps the reference's SGD rule, as the JAX units
+    do)."""
 
-    def __init__(self, learning_rate: float = 0.01,
+    def __init__(self, workflow=None, learning_rate: float = 0.01,
                  gradient_moment: float = 0.0,
                  weights_decay: float = 0.0, l1_decay: float = 0.0,
                  learning_rate_bias: float = 2.0,
                  optimizer: str = "sgd", adam_beta1: float = 0.9,
                  adam_beta2: float = 0.999, adam_eps: float = 1e-8,
-                 name: Optional[str] = None) -> None:
-        self.name = name or type(self).__name__
+                 **kwargs: Any) -> None:
+        super().__init__(workflow, **kwargs)
         self.learning_rate = learning_rate
         self.gradient_moment = gradient_moment
         self.weights_decay = weights_decay
@@ -176,8 +321,14 @@ class GradientDescentBase:
         self.adam_beta1 = adam_beta1
         self.adam_beta2 = adam_beta2
         self.adam_eps = adam_eps
+        #: the schedule's lr multiplier (lr_adjust.LearningRateAdjust)
+        self.lr_scale = 1.0
+        self.err_output = Array()
+        self.err_input = Array()
         self.vel_w: Optional[torch.Tensor] = None
         self.vel_b: Optional[torch.Tensor] = None
+        #: the parameter leaves this unit updates (set by link_forward)
+        self._pnames: Tuple[str, ...] = ()
 
     @staticmethod
     def vel_attr(name: str) -> str:
@@ -185,6 +336,108 @@ class GradientDescentBase:
         return _VEL_ALIASES.get(name, f"vel_{name}")
 
     def velocity(self, name: str) -> Optional[torch.Tensor]:
-        """The velocity of leaf `name`, or None before a fused run wrote
-        it back."""
+        """The velocity of leaf `name`, or None before a run made it."""
         return getattr(self, self.vel_attr(name), None)
+
+    def vel_array(self, name: str) -> TensorView:
+        """The `Array` view of leaf `name`'s velocity."""
+        return TensorView(self, self.vel_attr(name))
+
+    def link_forward(self, fwd: ForwardUnit) -> "GradientDescentBase":
+        """Wire the standard data links to the forward twin (parity: the
+        reference StandardWorkflow linked weights/bias/input/output); the
+        parameter leaves are linked once the twin has filled them
+        (`initialize`)."""
+        self.link_attrs(fwd, "input", "output")
+        self._fwd = fwd
+        self._link_params()
+        return self
+
+    def _link_params(self) -> None:
+        fwd = self.__dict__.get("_fwd")
+        if fwd is not None:
+            self._pnames = fwd.param_names()
+            if self._pnames:
+                self.link_attrs(fwd, *self._pnames)
+
+    def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
+        fwd = self.__dict__.get("_fwd")
+        if fwd is not None and not fwd.is_initialized:
+            return False
+        self._link_params()
+        return super().initialize(device=device, **kwargs)
+
+    # -- the update ------------------------------------------------------------
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The twin's parameter leaves as tensors (the layer's own
+        storage: an update in place is the layer's)."""
+        return {n: getattr(self, n).devmem() for n in self._pnames}
+
+    def _ensure_velocity(self) -> None:
+        """Zero velocities like the leaves where there are none (or where
+        they lie on another device than the leaves)."""
+        for n, p in self.params().items():
+            v = self.velocity(n)
+            if v is None or v.shape != p.shape:
+                setattr(self, self.vel_attr(n), torch.zeros_like(p))
+            elif v.device != p.device:
+                setattr(self, self.vel_attr(n), v.to(p.device))
+
+    def sgd_config(self) -> optim.SGDConfig:
+        return optim.SGDConfig(
+            lr=self.learning_rate, momentum=self.gradient_moment,
+            weight_decay=self.weights_decay, l1_decay=self.l1_decay,
+            lr_bias_mult=self.learning_rate_bias)
+
+    @torch.no_grad()
+    def _update(self, grads: Dict[str, torch.Tensor]) -> None:
+        """The torch backend's update of every leaf in place, through the
+        registry's `sgd_update` lowering (K1 on the card)."""
+        self._ensure_velocity()
+        vel = {n: self.velocity(n) for n in grads}
+        variants.resolve("sgd_update").apply(
+            self.params(), grads, vel, self.sgd_config(),
+            float(self.lr_scale))
+
+    def _sgd_host(self, p: np.ndarray, g: np.ndarray, v: np.ndarray,
+                  bias: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """The numpy golden's update of one leaf (JAX nn_units.py
+        `_sgd_host`)."""
+        lr = self.learning_rate * self.lr_scale
+        if bias:
+            lr *= self.learning_rate_bias
+        if self.weights_decay:
+            g = g + self.weights_decay * p
+        if self.l1_decay:
+            g = g + self.l1_decay * np.sign(p)
+        v_new = self.gradient_moment * v - lr * g
+        return p + v_new, v_new
+
+    def _update_host(self, grads: Dict[str, np.ndarray]) -> None:
+        """The numpy backend's update, each leaf written into the layer's
+        storage."""
+        self._ensure_velocity()
+        for n, g in grads.items():
+            p, v = getattr(self, n), self.vel_array(n)
+            new_p, new_v = self._sgd_host(p.mem, g, v.mem,
+                                          n == "bias")
+            p.mem = new_p
+            v.mem = new_v
+
+    def _no_granular(self) -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no granular backward yet: this "
+            "layer trains in the fused step only (a later slice of the "
+            "port brings it to the unit graph)")
+
+    def numpy_run(self) -> None:
+        self._no_granular()
+
+    def torch_run(self) -> None:
+        self._no_granular()
+
+    def __getstate__(self):
+        st = super().__getstate__()
+        st.pop("_fwd", None)
+        return st

@@ -7,14 +7,26 @@ window of n channels (odd n only). Its forward resolves the registry op
 the `lrn_maxpool` selection is a fused point and a max pooling follows,
 the fused forward lets this unit claim the pooling's work
 (parallel/fused.py).
+
+In the granular graph, `LRNormalizerUnit` runs the layer's forward (the
+golden `reference.lrn_forward`, or the registry's `lrn` lowering: K2 on
+the card) and `LRNormalizerBackward`, its gradient twin (JAX
+normalization.py:152-193), the closed-form backward (the golden
+`reference.lrn_backward`, or K3 on the card: `kernels.lrn_backward`,
+which raises on the card rather than take its plain version). The
+granular graph claims no pooling: its LRN and pooling units run
+separately.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from veles_tpu_torch.ops import kernels
+from veles_tpu_torch.ops import reference as ref
 from veles_tpu_torch.ops import variants
-from veles_tpu_torch.znicz.nn_units import Forward
+from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, \
+    GradientDescentBase, dev, host, register_gd, register_unit
 
 
 class LRNormalizerForward(Forward):
@@ -41,3 +53,47 @@ class LRNormalizerForward(Forward):
         v = variant or variants.resolve("lrn", unit=self)
         return v.apply(x, k=self.k, alpha=self.alpha, beta=self.beta,
                        n=self.n)
+
+
+@register_unit(LRNormalizerForward)
+class LRNormalizerUnit(ForwardUnit):
+    """The layer's forward, one firing per minibatch."""
+
+    def numpy_run(self) -> None:
+        u = self.layer
+        self.output.mem = ref.lrn_forward(host(self.input), u.k, u.alpha,
+                                          u.beta, u.n)
+
+    def torch_run(self) -> None:
+        u = self.layer
+        self.output.set_devmem(u.fused_apply(
+            {}, dev(self.input, self.device).contiguous()))
+
+
+@register_gd(LRNormalizerForward)
+class LRNormalizerBackward(GradientDescentBase):
+    """err_input = the LRN's gradient at `input` given `err_output`."""
+
+    def __init__(self, workflow=None, **kwargs: Any) -> None:
+        super().__init__(workflow, **kwargs)
+        self.k = 2.0
+        self.alpha = 1e-4
+        self.beta = 0.75
+        self.n = 5
+
+    def link_forward(self, fwd):
+        u = fwd.layer
+        self.k, self.alpha, self.beta, self.n = u.k, u.alpha, u.beta, u.n
+        return super().link_forward(fwd)
+
+    def numpy_run(self) -> None:
+        self.err_input.mem = ref.lrn_backward(
+            host(self.input), host(self.err_output), self.k, self.alpha,
+            self.beta, self.n)
+
+    def torch_run(self) -> None:
+        d = self.device
+        self.err_input.set_devmem(kernels.lrn_backward(
+            dev(self.input, d).contiguous(),
+            dev(self.err_output, d).contiguous(), self.k, self.alpha,
+            self.beta, self.n))

@@ -1,14 +1,31 @@
-"""StandardWorkflow: the chain built from a declarative layer list, and
-the fused training loop that drives it.
+"""StandardWorkflow: the unit graph built from a declarative layer list,
+its granular pulse loop, and the fused training loop that drives the
+same units.
 
-The port's counterpart of `veles_tpu/znicz/standard_workflow.py`: a loader,
-the forward units of `layers` (`{"type": <name>, ...kwargs}` dicts
-resolved through `LAYER_TYPES`), the softmax evaluator, the Decision and
-one gradient twin per forward unit holding its update hyperparameters
-(built in reverse order, as there). `initialize(device)` initializes the
-loader (its seeded train shuffle comes first, as in the JAX package) and
-then each forward unit in order, propagating sample shapes and filling
-parameters from the same numpy streams.
+The port's counterpart of `veles_tpu/znicz/standard_workflow.py`, a
+`Workflow`: a loader, the forward layers of `layers` (`{"type": <name>,
+...kwargs}` dicts resolved through `LAYER_TYPES`; `forwards` holds them,
+the `nn.Module`s the fused step and the server run) with one granular
+node per layer (`fwd_units`, nn_units.ForwardUnit), the softmax
+evaluator, the Decision and one gradient unit per layer (`gds`, built in
+reverse order, as there). The control wiring is the JAX package's
+(:66-155 there):
+
+    start → repeater → loader → fwd_units… → evaluator → decision
+      → gds… (reverse) → repeater;  decision → end_point
+
+with the gates of `_wire_gates` (:229-255 there): the gradient units skip
+non-train minibatches and every minibatch once the Decision is complete,
+the repeater is blocked once complete, and the end point is blocked
+until then. `initialize(device, backend)` initializes every unit in
+graph order — the loader (its seeded train shuffle) first, then each
+forward node, which fills its layer's parameters from the same numpy
+streams as the JAX units, on the backend's device: "torch" (the default;
+the card unless "cpu" is asked for) or "numpy" (the host goldens of
+ops/reference.py). `run()` pumps pulses until the Decision completes —
+the granular mode: one firing per unit per minibatch, the LRN units
+through K2 and K3 and every gradient unit's update through K1 on the
+card — and `run_epochs(n)` sets the Decision's `max_epochs` first.
 
 `run_fused` trains through the fused step (parallel/fused.py) in the JAX
 package's loop (`_run_with_step`, standard_workflow.py:419-736 there):
@@ -37,8 +54,11 @@ card where a fresh one is initialized from the seed streams.
 `nan@step=K` fault plan (`resilience/faults.py`) replaces the K-th train
 step's loss with NaN. `accum_steps=K` trains each minibatch through the
 step's `train_accum` (K microbatches, one update; JAX :449-465), the
-feed, the snapshots and the Decision unchanged. Telemetry, meshes and
-the granular Unit/Workflow graph come with later slices.
+feed, the snapshots and the Decision unchanged. The fused loop and the
+granular graph share the layers' parameters and the gradient units'
+velocities, so either continues from where the other stopped.
+Telemetry, meshes, snapshots of a granular run and the granular units of
+the attention and sequence layers come with later slices.
 """
 
 from __future__ import annotations
@@ -50,26 +70,35 @@ import numpy as np
 import torch
 from torch import nn
 
-from veles_tpu_torch.backends import DeviceLike, make_device
+from veles_tpu_torch.backends import Device, DeviceLike, make_backend, \
+    make_device
 from veles_tpu_torch.loader.base import TRAIN, Loader
-from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.units import Unit
+from veles_tpu_torch.workflow import Repeater, Workflow
 from veles_tpu_torch.znicz import all2all, attention, conv, dropout, \
     normalization, pooling, transformer
+# the gradient units register their pairs with the layers when imported
+from veles_tpu_torch.znicz import gd, gd_conv, gd_pooling  # noqa: F401
 from veles_tpu_torch.znicz.decision import DecisionGD
 from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
-from veles_tpu_torch.znicz.nn_units import Forward, gd_for
+from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, gd_for, \
+    unit_for
 
-#: layer-type name -> forward unit class
-#: (AlexNet's and the char-transformer's types, and the scaled-tanh layer
-#: of the JAX package's fused-step tests; its other activation flavors
-#: come with a later slice)
+#: layer-type name -> forward layer class (AlexNet's and the
+#: char-transformer's types and the activation flavors of the all2all and
+#: conv families)
 LAYER_TYPES: Dict[str, type] = {
     "all2all": all2all.All2All,
     "all2all_tanh": all2all.All2AllTanh,
+    "all2all_relu": all2all.All2AllRELU,
     "all2all_strictrelu": all2all.All2AllStrictRELU,
+    "all2all_sigmoid": all2all.All2AllSigmoid,
     "softmax": all2all.All2AllSoftmax,
     "conv": conv.Conv,
+    "conv_tanh": conv.ConvTanh,
+    "conv_relu": conv.ConvRELU,
     "conv_strictrelu": conv.ConvStrictRELU,
+    "conv_sigmoid": conv.ConvSigmoid,
     "norm": normalization.LRNormalizerForward,
     "lrn": normalization.LRNormalizerForward,
     "max_pooling": pooling.MaxPooling,
@@ -97,9 +126,10 @@ class AccumulatingStep:
         return self.step.train_accum(state, x, y, self.accum_steps, w)
 
 
-class StandardWorkflow(Logger):
-    """loader + declarative layer list -> forwards, evaluator, decision,
-    gradient twins and, with `snapshot_config`, a Snapshotter."""
+class StandardWorkflow(Workflow):
+    """loader + declarative layer list -> forwards and their granular
+    nodes, evaluator, decision, gradient units and, with
+    `snapshot_config`, a Snapshotter (run by the fused loop)."""
 
     def __init__(self, layers: Sequence[Dict[str, Any]] = (),
                  loader: Optional[Loader] = None, loss: str = "softmax",
@@ -107,17 +137,23 @@ class StandardWorkflow(Logger):
                  decision_config: Optional[Dict[str, Any]] = None,
                  gd_config: Optional[Dict[str, Any]] = None,
                  snapshot_config: Optional[Dict[str, Any]] = None,
-                 name: Optional[str] = None) -> None:
+                 name: Optional[str] = None, workflow=None) -> None:
         if loader is None:
             raise ValueError("StandardWorkflow needs a loader")
         if loss not in ("softmax", "mse"):
             raise ValueError(f"unknown loss {loss!r}")
-        self.name = name or type(self).__name__
+        super().__init__(workflow, name=name or type(self).__name__)
         self.layers_config = list(layers)
         self.loss = loss
         self.n_classes = n_classes
+        self.repeater = Repeater(self, name="repeater")
         self.loader = loader
-        units: List[Forward] = []
+        if loader.workflow is not self:
+            self.add_unit(loader)
+            loader.workflow = self
+
+        # -- forwards: the layers, and their nodes ------------------------
+        layers_: List[Forward] = []
         for spec in self.layers_config:
             spec = dict(spec)
             kind = spec.pop("type")
@@ -125,19 +161,68 @@ class StandardWorkflow(Logger):
                 raise ValueError(
                     f"unknown layer type {kind!r}; registered types: "
                     f"{sorted(LAYER_TYPES)}")
-            units.append(LAYER_TYPES[kind](**spec))
-        self.forwards = nn.ModuleList(units)
-        self.evaluator = EvaluatorSoftmax(n_classes=n_classes)
+            layers_.append(LAYER_TYPES[kind](**spec))
+        self.forwards = nn.ModuleList(layers_)
+        self.fwd_units: List[ForwardUnit] = []
+        prev: Unit = self.loader
+        prev_attr = "minibatch_data"
+        for layer in layers_:
+            u = unit_for(type(layer))(self, layer=layer)
+            u.link_attrs(prev, ("input", prev_attr),
+                         ("input_sample_shape", "sample_shape"))
+            if hasattr(u, "link_loader"):  # dropout reads minibatch_class
+                u.link_loader(self.loader)
+            self.fwd_units.append(u)
+            prev, prev_attr = u, "output"
+
+        # -- evaluator ------------------------------------------------------
+        self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+        self.evaluator.link_attrs(self.loader,
+                                  ("labels", "minibatch_labels"),
+                                  ("sample_weights", "minibatch_valid"))
+        self.evaluator.link_attrs(prev, ("input", prev_attr))
+
+        # -- decision -------------------------------------------------------
         self.decision = DecisionGD(self.loader, self.evaluator,
-                                   **(decision_config or {}))
-        self.gds = [gd_for(type(fwd))(**(gd_config or {}))
-                    for fwd in reversed(units)]
+                                   workflow=self, **(decision_config or {}))
+
+        # -- gradient chain (reverse order) ---------------------------------
+        self.gds: List[Unit] = []
+        err_src: Unit = self.evaluator
+        err_attr = "err_output"
+        for fwd in reversed(self.fwd_units):
+            g = gd_for(type(fwd.layer))(self, **(gd_config or {}))
+            g.link_forward(fwd)
+            g.link_attrs(err_src, ("err_output", err_attr))
+            self.gds.append(g)
+            err_src, err_attr = g, "err_input"
+
         self.snapshotter = None
         if snapshot_config is not None:
             from veles_tpu_torch.snapshotter import Snapshotter
             self.snapshotter = Snapshotter(
                 self, **snapshot_config).link_decision(self.decision)
-        self.device: Optional[torch.device] = None
+
+        # -- control wiring --------------------------------------------------
+        self.repeater.link_from(self.start_point)
+        self.loader.link_from(self.repeater)
+        prev_u: Unit = self.loader
+        for u in self.fwd_units:
+            u.link_from(prev_u)
+            prev_u = u
+        self.evaluator.link_from(prev_u)
+        self.decision.link_from(self.evaluator)
+        prev_u = self.decision
+        for g in self.gds:
+            g.link_from(prev_u)
+            prev_u = g
+        self.repeater.link_from(prev_u)
+        self.end_point.link_from(self.decision)
+        self._wire_gates()
+
+        #: the backend Device of the granular units (None until
+        #: initialize); `device` is its torch device, the fused step's
+        self.backend_device: Optional[Device] = None
         #: True for a workflow unpickled from a snapshot: initialized,
         #: its tensors on the host until `place` moves them
         self.restored = False
@@ -145,18 +230,33 @@ class StandardWorkflow(Logger):
         self.device_feed = None
         self.feed_stats: Optional[Dict[str, Any]] = None
 
+    def _wire_gates(self) -> None:
+        """(Re)build the derived gate Bools (JAX :229-255). Called from
+        __init__ and from initialize(): a pickle freezes derived Bools to
+        plain values, so a restored workflow derives them again."""
+        for g, fwd in zip(self.gds, reversed(self.fwd_units)):
+            g.link_forward(fwd)
+        # skip weight updates on test/validation minibatches; freeze the
+        # chain entirely once training completed
+        for g in self.gds:
+            g.gate_skip = self.loader.not_train | self.decision.complete
+        self.end_point.gate_block = ~self.decision.complete
+        # once complete, the loop-back pulse must die at the repeater
+        self.repeater.gate_block = self.decision.complete
+
     @property
     def is_initialized(self) -> bool:
         return self.device is not None
 
     def __getstate__(self):
-        d = dict(self.__dict__)
+        d = super().__getstate__()
         # the feed (pinned pool, side stream, events) and its counters
         # are the run's; the device is where the tensors were, not where
         # the pickle's host bytes come back
         d["device_feed"] = None
         d["feed_stats"] = None
         d["device"] = None
+        d["backend_device"] = None
         d["restored"] = True
         return d
 
@@ -179,18 +279,27 @@ class StandardWorkflow(Logger):
         elif device is not None and make_device(device) != self.device:
             self.to(device)
 
-    def initialize(self, device: DeviceLike = None) -> None:
-        """Initialize the loader, then each forward unit in order, with its
-        parameters on `device` (the card unless "cpu" is asked for)."""
-        dev = make_device(device)
-        self.loader.initialize()
-        shape: Tuple[int, ...] = tuple(self.loader.sample_shape)
-        for u in self.forwards:
-            shape = tuple(u.initialize(shape, dev))
-        self.device = dev
+    def initialize(self, device=None, backend: Optional[str] = None,
+                   **kwargs: Any) -> None:
+        """Initialize every unit in graph order: the loader, then each
+        forward node (filling its layer's parameters), the evaluator, the
+        Decision and the gradient units. `device` is a torch device or
+        its name (the card unless "cpu" is asked for) or a backend
+        `Device`; `backend` "torch" (the default) or "numpy" (the host
+        goldens, on the CPU) builds one from it."""
+        bdev = device if isinstance(device, Device) \
+            else make_backend(backend, device)
+        self._wire_gates()
+        try:
+            super().initialize(device=bdev, **kwargs)
+        except BaseException:
+            self.device = None
+            raise
+        self.backend_device = bdev
+        self.device = bdev.torch_device
 
     def to(self, device: DeviceLike) -> "StandardWorkflow":
-        """Move the parameters and the gradient twins' velocities to
+        """Move the parameters and the gradient units' velocities to
         `device` (raises where it is the card and CUDA is absent)."""
         dev = make_device(device)
         self.forwards.to(dev)
@@ -200,6 +309,41 @@ class StandardWorkflow(Logger):
                     setattr(g, k, v.to(dev))
         self.device = dev
         return self
+
+    # -- the granular loop ----------------------------------------------------
+
+    def run(self) -> None:
+        """Pump pulses until the Decision completes (the granular mode).
+        A loader offering the uint8 wire emits floats for the run: the
+        graph has no normalize prologue."""
+        if not self.is_initialized:
+            raise RuntimeError("initialize the workflow before run()")
+        if self.loss != "softmax":
+            raise NotImplementedError(
+                f"the granular graph evaluates a softmax head; loss "
+                f"{self.loss!r} comes with a later slice")
+        if self.snapshotter is not None:
+            self.warning("snapshots of a granular run come with a later "
+                         "slice of the port: this run writes none")
+        wire = self._wire_spec(uint8_wire=False)
+        prev_emit = getattr(self.loader, "emit", None)
+        if wire is not None:
+            self.loader.set_emit(wire["emit"])
+        try:
+            super().run()
+        finally:
+            if wire is not None:
+                self.loader.set_emit(prev_emit)
+
+    def run_epochs(self, n: Optional[int] = None, device=None,
+                   backend: Optional[str] = None) -> None:
+        """Initialize (if needed) and run until the Decision completes
+        (`n` sets its `max_epochs`)."""
+        if n is not None:
+            self.decision.max_epochs = n
+        if not self.is_initialized:
+            self.initialize(device=device, backend=backend)
+        self.run()
 
     def params_host(self) -> Tuple[Dict[str, np.ndarray], ...]:
         """One `{name: ndarray}` per forward unit — the format the JAX
