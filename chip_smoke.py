@@ -9,7 +9,7 @@
    BUILD lines: each compiled kernel function's registers, stack, local
    memory (spills land there) and static shared memory, its stack frame's
    spill stores and loads as ptxas reports them, the dynamic
-   shared memory K6 takes per block at each head width and K3 at
+   shared memory K6 and K7 take per block at each head width and K3 at
    AlexNet's two LRN widths, and K4's and K2's at AlexNet's two LRN
    inputs with the blocks of each instance an SM holds at its registers.
 3. KERNEL lines. Each kernel is held against its plain PyTorch version on
@@ -72,10 +72,10 @@
      autograd of that call for K7 (each checked first to agree with the
      plain version within the JAX package's tolerances, 2e-5 +
      2e-4*|plain| and 5e-5 + 5e-4*|plain|; the backend PyTorch dispatches
-     it to is printed). Before that, K6 and
-     K7 at every head width they are compiled for (8, 16, 32) on a
-     ragged S = 200, causal or not, KV forward or reversed, with and
-     without a dropout mask (FLASH lines).
+     it to is printed); also at 1 head of 64, (32, 4096, 1, 64). Before
+     that, K6 and K7 at every head width they are compiled for (8, 16,
+     32, 64) on a ragged S = 200, causal or not, KV forward or reversed,
+     with and without a dropout mask (FLASH lines).
    - The LRN kernels' bf16 instances (bf16 in device memory, f32
      arithmetic, each output rounded once): first at every small-check
      shape above (K4, K2 and K3, K5 bf16 lines), then at both AlexNet
@@ -198,9 +198,34 @@
    the same exact counts.
    TRAIN transformer n_heads=2: one epoch of the same at 2 heads of 32,
    with the same exact counts (K6 and K7 at head width 32; the unit's
-   variant printed); then an attention unit at 1 head of 64, a width
+   variant printed); then an attention unit at 1 head of 128, a width
    K6/K7 are not compiled for, must be refused on the card under "auto"
    (ValueError), with no fallback to the einsum.
+   TRAIN transformer n_heads=1: one epoch of the same at 1 head of 64
+   (K6 and K7 at head width 64), with the same exact counts.
+   SAMPLES: BASELINE configurations 1 and 2, MNIST (784 -> 100 -> 10)
+   and CIFAR-10 (conv 32 5x5 -> max pool -> LRN -> conv 32 5x5 -> avg
+   pool -> FC 64 -> softmax 10), each at its sample's own sizes and
+   defaults (10 epochs; MNIST 1000 train and 200 validation rows,
+   CIFAR-10 2000 and 400, minibatch 100, synthetic data) through the
+   CLI's function, `--fused` and granular (`-b torch`), counters zeroed
+   just before and read just after: fused, K1 once per leaf per train
+   step and, for CIFAR-10, K2 once per train and validation step and K3
+   once per train step (its LRN follows a max pool: no pair claims it);
+   granular, the unit firings' counts as in GRANULAR; nothing else, the
+   loss finite and the best validation error under a fifth of the
+   validation rows. Host seconds and the validation error per epoch are
+   printed. Then CIFAR-10's fused step, 3 steps on the card against the
+   same steps on the CPU from one seed, on batches of 2 rows without
+   near ties (as in 6 (c)), within 1e-7 + 1e-4*|cpu|; then a stack of
+   input_normalize, max-abs pooling, log activation, stochastic pooling
+   and tanh activation one granular epoch on the card: every unit fired,
+   its output on the card, and the validation confusion matrix's counts
+   sum to the validation rows. Before the runs, K2 and K3 are held
+   against their plain versions at CIFAR-10's LRN input, (100, 16, 16,
+   32), the shape both modes give them, within the KERNEL tolerance and
+   timed as in 3 (the KERNEL cifar10 lines; in the {"kernels"} line as
+   each entry's "cifar10_shape"). The phase's seconds are printed.
 6. Held on the card (TF32 off, as the step runs):
    (a) the first full-width AlexNet train step through the kernels against
        the same step with every kernel swapped for its plain version, from
@@ -281,6 +306,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ALEXNET = os.path.join(REPO, "veles_tpu_torch", "samples", "alexnet.py")
 CHAR_TRANSFORMER = os.path.join(REPO, "veles_tpu_torch", "samples",
                                 "char_transformer.py")
+#: the BASELINE configurations 1 and 2 (SAMPLES lines)
+SAMPLES = {"mnist": os.path.join(REPO, "veles_tpu_torch", "samples",
+                                 "mnist.py"),
+           "cifar10": os.path.join(REPO, "veles_tpu_torch", "samples",
+                                   "cifar10.py")}
+#: CIFAR-10's LRN input on the sample's path: minibatch 100, 32x32
+#: images through the 5x5 conv of 32 kernels (padding 2) and the 2x2
+#: max pool
+CIFAR_LRN_SHAPE = (100, 16, 16, 32)
+#: rows of CIFAR-10's card-against-CPU steps (SAMPLES cifar10 card vs
+#: cpu): few, so that a draw without near ties comes soon
+CIFAR_CHECK_ROWS = 2
 B = 64                  # the ring, and the forward kernels' batch
 TB = 128                # the training minibatch, and K3/K5's batch
 HW, N_CLASSES = 227, 1000
@@ -303,8 +340,11 @@ CT_SEQ = 4096
 CT_TRAIN_ARGS = [f"root.char_transformer.loader.seq_len={CT_SEQ}",
                  "root.char_transformer.loader.n_validation=1"]
 #: q, k, v of the transformer's attention, (B, S, H, D): the sample's 4
-#: heads of 16, and 2 heads of 32 (TRAIN transformer n_heads=2)
-ATT_SHAPES = ((32, CT_SEQ, 4, 16), (32, CT_SEQ, 2, 32))
+#: heads of 16, 2 heads of 32 (TRAIN transformer n_heads=2) and 1 of 64
+#: (TRAIN transformer n_heads=1)
+ATT_SHAPES = ((32, CT_SEQ, 4, 16), (32, CT_SEQ, 2, 32), (32, CT_SEQ, 1, 64))
+#: a head width K6 and K7 are not compiled for: refused on the card
+REFUSED_HEAD_DIM = 128
 #: the toy transformer of the card-against-CPU check (e)
 CT_TOY = {"embed": 16, "n_heads": 2, "ffn": 24, "loader.seq_len": 256,
           "loader.minibatch_size": 4, "loader.n_validation": 4}
@@ -399,16 +439,18 @@ def print_spills(kernels):
 
 
 def print_flash_smem(libs, kernels):
-    """BUILD line: the dynamic shared memory one K6 block takes at each
-    compiled head width, as the kernel's own source computes it
-    (cuobjdump reads only the static size)."""
-    lib = ctypes.CDLL(str(libs["flash_attention_forward"]))
-    smem = lib.flash_attention_forward_smem_bytes
-    smem.argtypes = [ctypes.c_int]
-    smem.restype = ctypes.c_int
-    sizes = ", ".join(f"D {d}: {smem(d)} B" for d in kernels.FLASH_HEAD_DIMS)
-    print(f"BUILD flash_attention_forward dynamic shared memory per block: "
-          f"{sizes}", flush=True)
+    """BUILD lines: the dynamic shared memory one K6 block and one K7
+    block take at each compiled head width, as the kernels' own sources
+    compute it (cuobjdump reads only the static size)."""
+    for name in ("flash_attention_forward", "flash_attention_backward"):
+        lib = ctypes.CDLL(str(libs[name]))
+        smem = getattr(lib, f"{name}_smem_bytes")
+        smem.argtypes = [ctypes.c_int]
+        smem.restype = ctypes.c_int
+        sizes = ", ".join(f"D {d}: {smem(d)} B"
+                          for d in kernels.FLASH_HEAD_DIMS)
+        print(f"BUILD {name} dynamic shared memory per block: {sizes}",
+              flush=True)
 
 
 def print_lrn_backward_smem(libs):
@@ -1462,14 +1504,15 @@ def transformer_train_phase(launcher, kernels, dev):
 def transformer_wide_head_phase(launcher, kernels, dev):
     """One epoch of the char-transformer at seq_len 4096 with 2 heads of
     32 through `launcher.train`: K6 and K7 at head width 32. Then the unit
-    at 1 head of 64, a width they are not compiled for, must be refused on
-    the card under "auto" (no fallback to the einsum)."""
+    at 1 head of 128, a width they are not compiled for, must be refused
+    on the card under "auto" (no fallback to the einsum)."""
     from veles_tpu_torch.znicz.attention import MultiHeadAttention
     counts = transformer_run(launcher, kernels, dev, "transformer n_heads=2",
                              ["root.char_transformer.n_heads=2"], 1)
+    d = REFUSED_HEAD_DIM
     wide = MultiHeadAttention(n_heads=1, use_flash="auto")
-    wide.initialize((CT_SEQ, 64), dev)
-    x = torch.randn(1, CT_SEQ, 64, device=dev)
+    wide.initialize((CT_SEQ, d), dev)
+    x = torch.randn(1, CT_SEQ, d, device=dev)
     try:
         wide.fused_apply(wide.param_arrays(), x)
     except ValueError as e:
@@ -1480,6 +1523,14 @@ def transformer_wide_head_phase(launcher, kernels, dev):
         raise AssertionError(f"attention at head width {wide.head_dim} ran "
                              f"on the card")
     return counts
+
+
+def transformer_one_head_phase(launcher, kernels, dev):
+    """One epoch (one train and one validation step) of the
+    char-transformer at seq_len 4096 with 1 head of 64 through
+    `launcher.train`: K6 and K7 at head width 64, exact counts."""
+    return transformer_run(launcher, kernels, dev, "transformer n_heads=1",
+                           ["root.char_transformer.n_heads=1"], 1)
 
 
 @contextlib.contextmanager
@@ -3990,6 +4041,295 @@ def granular_phase(launcher, kernels, dev):
     return counts, rec
 
 
+@contextlib.contextmanager
+def epoch_marks():
+    """Record the host clock at every Decision run that closes an epoch
+    in the block: yields the list of (perf_counter, history record)."""
+    from veles_tpu_torch.znicz.decision import DecisionGD
+    inner = DecisionGD.run
+    marks = []
+
+    def run(self):
+        n = len(self.history)
+        inner(self)
+        if len(self.history) > n:
+            marks.append((time.perf_counter(), self.history[-1]))
+
+    DecisionGD.run = run
+    try:
+        yield marks
+    finally:
+        DecisionGD.run = inner
+
+
+def sample_want(wf, fused: bool) -> dict:
+    """The launches a sample's run must have made. Granular: the unit
+    firings' (`granular_want`). Fused: K1 once per leaf per train step, K2
+    once per LRN layer per train and validation step, K3 once per LRN
+    layer per train step (CIFAR-10's LRN follows a max pool, so no pair
+    claims it), nothing else."""
+    if not fused:
+        return granular_want(wf)
+    from veles_tpu_torch.znicz.normalization import LRNormalizerForward
+    loader, epochs = wf.loader, wf.decision.epoch_number
+    mb = loader.minibatch_size
+    train = epochs * -(-loader.class_lengths[2] // mb)
+    valid = epochs * -(-loader.class_lengths[1] // mb)
+    lrn = sum(isinstance(u, LRNormalizerForward) for u in wf.forwards)
+    want = {"sgd_update": train * sum(len(u.param_arrays())
+                                      for u in wf.forwards)}
+    if lrn:
+        want["lrn_forward"] = lrn * (train + valid)
+        want["lrn_backward"] = lrn * train
+    return want
+
+
+def sample_run(launcher, kernels, dev, name: str, fused: bool):
+    """One sample trained through `launcher.train` (the CLI's function)
+    at its own sizes and defaults, `--fused` or granular on the torch
+    backend, counters zeroed just before and read just after: the
+    launches must be exactly `sample_want`'s, the loss finite, and the
+    best validation error under a fifth of the validation rows. Prints
+    host seconds and the validation error per epoch."""
+    mode = "fused" if fused else "granular"
+    argv = [SAMPLES[name], "-r", "1234",
+            *(["--fused"] if fused else ["-b", "torch"])]
+    with epoch_marks() as marks:
+        t0 = time.perf_counter()
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        wf = launcher.train(argv)
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    want = sample_want(wf, fused)
+    check_counts(f"SAMPLES {name} {mode}", counts, want)
+    if wf.device != dev:
+        raise AssertionError(f"SAMPLES {name} {mode}: trained on "
+                             f"{wf.device}")
+    loss = wf.evaluator.loss
+    if not np.isfinite(loss):
+        raise AssertionError(f"SAMPLES {name} {mode}: non-finite loss "
+                             f"{loss}")
+    n_valid = wf.loader.class_lengths[1]
+    best = wf.decision.best_validation_err
+    ticks = [t0] + [t for t, _ in marks]
+    epoch_s = [ticks[i + 1] - ticks[i] for i in range(len(marks))]
+    valid_err = [rec["valid_err"] for _, rec in marks]
+    print(f"SAMPLES {name} {mode}: {wf.decision.epoch_number} epochs of "
+          f"{wf.loader.class_lengths[2]} train and {n_valid} validation "
+          f"rows (minibatch {wf.loader.minibatch_size}) in "
+          f"{end - t0:.2f} s of host time; host s per epoch "
+          + ", ".join(f"{t:.3f}" for t in epoch_s)
+          + "; validation errors per epoch "
+          + ", ".join(f"{e:g}" for e in valid_err)
+          + f"; best {best}", flush=True)
+    print(f"SAMPLES {name} {mode}: launches {counts} = expected {want}",
+          flush=True)
+    if best is None or best >= 0.2 * n_valid:
+        raise AssertionError(f"SAMPLES {name} {mode}: best validation "
+                             f"error {best} of {n_valid} rows")
+    rec = {"launches": counts, "epoch_host_s": epoch_s,
+           "valid_err": valid_err, "best_valid_err": best,
+           "host_s": end - t0}
+    del wf
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def cifar_card_vs_cpu(dev):
+    """3 fused steps of CIFAR-10 (the sample's layers and widths, dropout
+    free) on the card against the same steps on the CPU from one seed,
+    every leaf and velocity within TRAIN_ATOL + TRAIN_RTOL*|cpu|, on
+    batches of CIFAR_CHECK_ROWS rows without near ties."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import cifar10
+    steps, states = {}, {}
+    for d in ("cpu", dev):
+        prng.seed_all(1234)
+        wf = cifar10.create_workflow()
+        wf.initialize(d)
+        steps[d] = wf.build_fused_step()
+        states[d] = steps[d].init_state()
+    compare_states("SAMPLES cifar10 initial state", states[dev],
+                   states["cpu"], 0.0, 0.0)
+    rs = np.random.RandomState(4)
+    worst = 0.0
+    for i in range(3):
+        for draw in range(200):
+            x = rs.randn(CIFAR_CHECK_ROWS, 32, 32, 3).astype(np.float32)
+            y = rs.randint(0, 10, CIFAR_CHECK_ROWS)
+            if not near_ties(steps["cpu"], states["cpu"], x):
+                break
+        else:
+            raise AssertionError("SAMPLES cifar10 card vs cpu: 200 "
+                                 "batches in a row with near ties")
+        out = {}
+        for d in ("cpu", dev):
+            states[d], (loss, n_err) = steps[d].train(states[d], x, y)
+            out[d] = (float(loss), int(n_err))
+        check_loss(f"SAMPLES cifar10 step {i} card vs cpu", out[dev][0],
+                   out["cpu"][0])
+        if out[dev][1] != out["cpu"][1]:
+            raise AssertionError(f"SAMPLES cifar10 step {i}: n_err "
+                                 f"{out[dev][1]} != {out['cpu'][1]}")
+        err = compare_states(f"SAMPLES cifar10 step {i} card vs cpu",
+                             states[dev], states["cpu"])
+        worst = max(worst, err)
+        print(f"SAMPLES cifar10 fused step {i} (batch draw {draw}) card vs "
+              f"cpu: loss {out[dev][0]} vs {out['cpu'][0]}, n_err "
+              f"{out[dev][1]} vs {out['cpu'][1]}, max abs err over every "
+              f"leaf and velocity {err:.3e}", flush=True)
+    return worst
+
+
+#: the unit families of the slice that neither sample holds, in one graph
+#: (the JAX package's tests/test_conv_units.py style)
+STACK_LAYERS = [
+    {"type": "input_normalize", "scale": 0.5, "offset": 0.0},
+    {"type": "conv_strictrelu", "n_kernels": 8, "kx": 3, "ky": 3,
+     "padding": (1, 1), "weights_stddev": 0.1},
+    {"type": "maxabs_pooling", "ksize": (2, 2)},
+    {"type": "activation_log"},
+    {"type": "conv_relu", "n_kernels": 8, "kx": 3, "ky": 3,
+     "weights_stddev": 0.1},
+    {"type": "stochastic_pooling", "ksize": (2, 2)},
+    {"type": "activation_tanh"},
+    {"type": "softmax", "output_sample_shape": 4, "weights_stddev": 0.05},
+]
+
+
+def stack_phase(dev):
+    """The max-abs and stochastic pooling, log and tanh activation and
+    input normalization units in one graph, one granular epoch on the
+    card (torch backend) with the validation confusion matrix kept: every
+    unit fired on the card, and the matrix's counts sum to the validation
+    rows."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.synthetic import SyntheticClassifierLoader
+    from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+    prng.seed_all(1234)
+    loader = SyntheticClassifierLoader(
+        n_classes=4, sample_shape=(12, 12, 1), n_validation=80,
+        n_train=240, minibatch_size=40, noise=0.5)
+    wf = StandardWorkflow(
+        layers=STACK_LAYERS, loader=loader, loss="softmax", n_classes=4,
+        decision_config={"max_epochs": 1, "fail_iterations": 50},
+        gd_config={"learning_rate": 0.05, "gradient_moment": 0.9},
+        plot_config={"confusion": True}, name="ChipStack")
+    t0 = time.perf_counter()
+    wf.initialize(device=dev, backend="torch")
+    wf.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for u in list(wf.fwd_units) + list(wf.gds):
+        if u.run_count <= 0:
+            raise AssertionError(f"SAMPLES stack: {u.name} never ran")
+    if wf.device != dev or wf.backend_device.backend_name != "torch":
+        raise AssertionError(f"SAMPLES stack: ran on {wf.backend_device}")
+    for u in wf.fwd_units:
+        # where the unit's torch_run left its output (devmem() would
+        # move it)
+        where = u.output._dev.device
+        if where != dev:
+            raise AssertionError(f"SAMPLES stack: {u.name}'s output on "
+                                 f"{where}")
+    conf = wf.evaluator.confusion_matrix.mem
+    n_valid = wf.loader.class_lengths[1]
+    if int(conf.sum()) != n_valid:
+        raise AssertionError(f"SAMPLES stack: confusion counts "
+                             f"{int(conf.sum())} != {n_valid} validation "
+                             f"rows")
+    print(f"SAMPLES stack (input_normalize, maxabs_pooling, activation_log, "
+          f"stochastic_pooling, activation_tanh) granular on {dev}: "
+          f"{secs:.2f} s; unit firings "
+          + ", ".join(f"{u.name} x{u.run_count}" for u in wf.fwd_units)
+          + f"; validation error {wf.decision.epoch_n_err[1]}; confusion "
+          f"matrix {conf.tolist()} sums to the {n_valid} validation rows",
+          flush=True)
+    return {"seconds": secs, "confusion": conf.tolist()}
+
+
+def sample_lrn_checks(kernels, dev, bw, flops):
+    """K2 and K3 against their plain versions at CIFAR_LRN_SHAPE, the
+    shape the CIFAR-10 sample gives them in both modes (AlexNet's LRN
+    constants, the `lrn` layer's defaults), within KERNEL_RTOL/ATOL, and
+    timed as the KERNEL lines time them. Returns a row per kernel."""
+    timer = ColdTimer(dev)
+    rs = np.random.RandomState(5)
+    shape = CIFAR_LRN_SHAPE
+    # the LRN follows a strict-ReLU conv and a max pool: post-ReLU values
+    x = torch.from_numpy(np.maximum(rs.randn(*shape), 0)
+                         .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
+    nbytes = x.numel() * 4
+    x_nchw = x.permute(0, 3, 1, 2)
+    leaf = x.clone().requires_grad_(True)
+    y = F.local_response_norm(leaf.permute(0, 3, 1, 2), size=N,
+                              alpha=ALPHA * N, beta=BETA, k=K)
+    g_nchw = g.permute(0, 3, 1, 2)
+    cases = {
+        "lrn_forward": (
+            lambda: kernels.lrn_forward(x, K, ALPHA, BETA, N),
+            lambda: kernels.lrn_forward_plain(x, K, ALPHA, BETA, N),
+            lambda: F.local_response_norm(x_nchw, size=N, alpha=ALPHA * N,
+                                          beta=BETA, k=K).permute(0, 2, 3,
+                                                                  1),
+            "F.local_response_norm", 2 * nbytes / bw,
+            lrn_ops(x.numel()) / flops),
+        "lrn_backward": (
+            lambda: kernels.lrn_backward(x, g, K, ALPHA, BETA, N),
+            lambda: kernels.lrn_backward_plain(x, g, K, ALPHA, BETA, N),
+            lambda: torch.autograd.grad(y, leaf, g_nchw,
+                                        retain_graph=True)[0],
+            "autograd of F.local_response_norm", 3 * nbytes / bw,
+            lrn_grad_ops(x.numel()) / flops)}
+    rows = {}
+    for name, (kern, plain, lib, lib_name, t_bytes, t_ops) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = check_close(f"lrn {name} cifar10", got, want, KERNEL_RTOL,
+                          KERNEL_ATOL)
+        same = bool(torch.equal(got, want))
+        lib_err = check_close(f"{lib_name} cifar10", lib(), want, 1e-4,
+                              1e-5)
+        rows[name] = {
+            "shape": list(shape), "max_abs_err": err, "bit_equal": same,
+            "ms": timer(kern), "plain_ms": timer(plain),
+            "library_ms": timer(lib), "library": lib_name,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        r = rows[name]
+        print(f"KERNEL {name} cifar10 {r['shape']}: ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) max_abs_err {err:.3e}, "
+              f"{'bit-equal to' if same else 'other bits than'} the plain "
+              f"version; library = {lib_name}, max abs err against the "
+              f"plain version {lib_err:.3e}", flush=True)
+    del x, g, x_nchw, leaf, y, g_nchw
+    return rows
+
+
+def samples_phase(launcher, kernels, dev, bw, flops):
+    """SAMPLES: MNIST and CIFAR-10 at their sample sizes in both modes,
+    CIFAR-10's fused step card against CPU, and the unit stack. Returns
+    (launches by path, record)."""
+    t0 = time.perf_counter()
+    launches, rec = {}, {"lrn_kernels": sample_lrn_checks(kernels, dev, bw,
+                                                          flops)}
+    for name in SAMPLES:
+        for fused in (True, False):
+            mode = "fused" if fused else "granular"
+            launches[f"{name}_{mode}"], rec[f"{name}_{mode}"] = sample_run(
+                launcher, kernels, dev, name, fused)
+    rec["cifar10_card_vs_cpu"] = cifar_card_vs_cpu(dev)
+    rec["stack"] = stack_phase(dev)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"SAMPLES phase: {rec['seconds']:.2f} s", flush=True)
+    return launches, rec
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="Drive the port on one card.")
@@ -4058,6 +4398,11 @@ def main(argv=None) -> int:
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
         launcher, kernels, dev)
+    by_path["train_transformer_d64"] = transformer_one_head_phase(
+        launcher, kernels, dev)
+    sample_launches, samples = samples_phase(launcher, kernels, dev, bw,
+                                              flops)
+    by_path.update({f"samples_{k}": c for k, c in sample_launches.items()})
     by_path["train_transformer_bf16"] = transformer_bf16_phase(
         launcher, kernels, dev)
     from veles_tpu_torch.ops import variants
@@ -4105,8 +4450,9 @@ def main(argv=None) -> int:
             # AlexNet shape, and K1 once per leaf: the times below are the
             # sums over the shapes (K2, K4 at batch 64; K3, K5 and the
             # bf16 instances at 128; K6,
-            # K7 once at each of the transformer's head widths, 16 and 32,
-            # one call per train step of each TRAIN transformer run)
+            # K7 once at each of the transformer's head widths, 16, 32
+            # and 64, one call per train step of each TRAIN transformer
+            # run)
             "ms": sum(r["ms"] for r in per_shape),
             "plain_ms": sum(r["plain_ms"] for r in per_shape),
             "bound_ms": sum(r["bound_ms"] for r in per_shape),
@@ -4122,6 +4468,13 @@ def main(argv=None) -> int:
             # like ms, where the kernel has them
             if all(key in r for r in per_shape):
                 entries[-1][key] = sum(r[key] for r in per_shape)
+        if name in samples["lrn_kernels"]:
+            # K2 and K3 at CIFAR-10's LRN input, held and timed apart from
+            # AlexNet's shapes (not in the sums above)
+            r = samples["lrn_kernels"][name]
+            entries[-1]["cifar10_shape"] = r
+            entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"],
+                                             r["max_abs_err"])
         if "bound_f32_ms" in per_shape[0]:
             # K6's and K7's bounds at the tensor cores' TF32 rate, and
             # beside them in f32 on the CUDA cores
@@ -4133,7 +4486,7 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
                    "checks": checks, "k5_other_geometry": k5_other,
                    "feed": feed, "resume": resume, "local_step": local,
-                   "granular": granular},
+                   "granular": granular, "samples": samples},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

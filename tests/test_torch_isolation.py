@@ -154,6 +154,32 @@ def test_granular_modules_stand_alone(module, imports_with_jax_blocked):
         imports_with_jax_blocked[module]
 
 
+#: the modules the samples slice (MNIST, CIFAR-10 and the unit families
+#: around them) added or extended
+SAMPLES_MODULES = ["veles_tpu_torch.znicz.activation",
+                   "veles_tpu_torch.znicz.pooling",
+                   "veles_tpu_torch.znicz.gd_pooling",
+                   "veles_tpu_torch.znicz.normalization",
+                   "veles_tpu_torch.znicz.evaluator",
+                   "veles_tpu_torch.ops.functional",
+                   "veles_tpu_torch.parallel.fused",
+                   "veles_tpu_torch.loader.fullbatch",
+                   "veles_tpu_torch.loader.synthetic",
+                   "veles_tpu_torch.samples.mnist",
+                   "veles_tpu_torch.samples.mnist_simple",
+                   "veles_tpu_torch.samples.wine",
+                   "veles_tpu_torch.samples.cifar10"]
+
+
+@pytest.mark.parametrize("module", SAMPLES_MODULES)
+def test_samples_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_with_jax_blocked(module, imports_with_jax_blocked):
     assert imports_with_jax_blocked[module] is None, \

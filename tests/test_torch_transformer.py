@@ -203,13 +203,13 @@ def test_flash_gate_sends_head_widths_the_kernels_lack_to_mha(n_heads,
                                                               use_flash):
     """No head width goes to `mha` for want of a kernel: at S = 4096 the
     gate takes the kernel at 4 heads of 16, 2 of 32 and 1 of 64 alike,
-    under "auto" and "on". K6/K7 are compiled for 16 and 32; on the card
-    their wrappers refuse 64 (no fallback). The gate reads the shape
-    only, so the CPU sees the card's routing."""
+    under "auto" and "on". K6/K7 are compiled for 16, 32 and 64; on the
+    card their wrappers refuse any other width (no fallback). The gate
+    reads the shape only, so the CPU sees the card's routing."""
     unit = MultiHeadAttention(n_heads=n_heads, use_flash=use_flash)
     unit.initialize((4096, 64), "cpu")
     assert unit._flash_ok(4096)
-    assert (unit.head_dim in kernels.FLASH_HEAD_DIMS) == (n_heads != 1)
+    assert unit.head_dim in kernels.FLASH_HEAD_DIMS
     assert unit.variant_effective() == "kernel"
 
 

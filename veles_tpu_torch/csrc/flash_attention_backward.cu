@@ -53,10 +53,11 @@
 //   landed tile is split once per block into hi and lo planes whose rows
 //   are padded to D + 4 floats: the two read patterns, (row g, col t) for
 //   Q.K^T and (row 2t or 2t+1, col g) for the second products, then hit
-//   32 distinct banks at D = 8, 16 and 32. The stages and planes are
-//   dynamic shared memory (68 KB at D = 32, past the 48 KB of a static
-//   array). The tiles, their staging and split, the resident fragments
-//   and the permutation below are flash_common.cuh's, shared with K6.
+//   32 distinct banks at D = 8, 16, 32 and 64. The stages and planes are
+//   dynamic shared memory (68 KB at D = 32; at D = 64, 132 KB and 64 KB
+//   of resident arrays: past the 48 KB of a static array). The tiles,
+//   their staging and split, the resident fragments and the permutation
+//   below are flash_common.cuh's, shared with K6.
 // - Per 8 streamed rows j (one n-tile), a warp computes s and dP for its
 //   16 rows (D/8 k-steps x 3 mma each), p = exp2(s*scale*log2e -
 //   lse*log2e), dS, and then takes the second products over those same 8
@@ -73,7 +74,11 @@
 //   key >= S or query >= S. (Zero-filled rows do not make p zero: q = 0
 //   and lse = 0 give p = 1.) A warp's other tiles run a copy of the loop
 //   with no test at all (dq_tile / dkv_tile<false>).
-// Any S; D in {8, 16, 32}, the head widths the port's workflows run.
+// Any S; D in {8, 16, 32, 64}, the head widths the port's workflows run.
+// At D = 64 the resident fragments (Q and dO, or K and V: 128 words a
+// thread) move to shared memory behind the tiles (RowPlace below): in
+// registers they would leave the dK/dV launch's 128 words of
+// accumulators no room.
 #include "flash_common.cuh"
 
 namespace {
@@ -89,11 +94,15 @@ using flash::kUnits;
 using flash::kWarpRows;
 using flash::load_a;
 using flash::mma_3xtf32;
-using flash::Resident;
 using flash::row_blocks;
 using flash::split_tile;
 using flash::Tiles;
 using flash::zero;
+
+// Where the two resident arrays live: registers up to D = 32, shared
+// memory at D = 64 (see the header).
+template <int D>
+using RowPlace = flash::ResidentPlace<D, (D >= 64)>;
 
 // Start copying lse and D of rows [r0, r0 + kTile) into dst[0] and dst[1]
 // (one 4-byte copy per thread), rows at or beyond S zero-filled.
@@ -113,23 +122,25 @@ __device__ __forceinline__ void issue_scalars(float (&dst)[2][kTile],
 // 8j .. 8j+7 of the planes (U = plane 0, W = plane 1); element e pairs
 // row g + 8*(e >> 1) with streamed row 8j + 2t + (e & 1). The two chains
 // of mma are interleaved.
-template <int D>
+template <int D, typename R>
 __device__ __forceinline__ void scores(float (&s)[4], float (&dp)[4],
-                                       const Resident<D>& x,
-                                       const Resident<D>& y,
+                                       const R& x, const R& y,
                                        const Tiles<D>& sm, int j, int g,
                                        int t) {
   constexpr int kPitch = Tiles<D>::kPitch;
 #pragma unroll
   for (int e = 0; e < 4; ++e) s[e] = dp[e] = 0.f;
   const int at = (8 * j + g) * kPitch + t;
-#pragma unroll
+#pragma unroll(R::kUnroll)
   for (int kk = 0; kk < D / 8; ++kk) {
     const int b0 = at + 8 * kk, b1 = b0 + 4;
-    mma_3xtf32(s, x.hi[kk], x.lo[kk], sm.hi[0][b0], sm.hi[0][b1],
-               sm.lo[0][b0], sm.lo[0][b1]);
-    mma_3xtf32(dp, y.hi[kk], y.lo[kk], sm.hi[1][b0], sm.hi[1][b1],
-               sm.lo[1][b0], sm.lo[1][b1]);
+    uint32_t x_hi[4], x_lo[4], y_hi[4], y_lo[4];
+    x.frag(kk, x_hi, x_lo);
+    y.frag(kk, y_hi, y_lo);
+    mma_3xtf32(s, x_hi, x_lo, sm.hi[0][b0], sm.hi[0][b1], sm.lo[0][b0],
+               sm.lo[0][b1]);
+    mma_3xtf32(dp, y_hi, y_lo, sm.hi[1][b0], sm.hi[1][b1], sm.lo[1][b0],
+               sm.lo[1][b1]);
   }
 }
 
@@ -158,16 +169,15 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out,
 // (dS without its factor `scale`) over the tile's keys from k0. kEdge: the
 // tile straddles the diagonal or runs past S, so keys above the diagonal
 // are skipped by n-tile and p is masked by index; otherwise no test runs.
-template <bool kEdge, int D>
+template <bool kEdge, int D, typename R>
 __device__ __forceinline__ void dq_tile(float (&part)[D / 8][4],
-                                        const Resident<D>& qa,
-                                        const Resident<D>& oa,
+                                        const R& qa, const R& oa,
                                         const Tiles<D>& sm,
                                         const float (&l2)[2],
                                         const float (&dd)[2], float sl2,
                                         int r0, int k0, int s_len,
                                         bool causal, int g, int t) {
-#pragma unroll
+#pragma unroll(R::kTileUnroll)
   for (int j = 0; j < kUnits; ++j) {
     // 8 keys wholly above the warp's diagonal: p = 0 for all of them
     if (kEdge && causal && k0 + 8 * j > r0 + kWarpRows - 1) break;
@@ -218,7 +228,9 @@ __global__ void __launch_bounds__(kBlockThreads)
   if (ntiles > 1) issue_tile<D>(sm, 1, kb, vb, kTile, kend);
   flash::cp_async_commit();
 
-  Resident<D> qa, oa;
+  typename RowPlace<D>::Type qa(
+      flash::resident_slot<D>(flash_smem, warp, 2, 0)),
+      oa(flash::resident_slot<D>(flash_smem, warp, 2, 1));
   load_a<D>(qa, q + base * D, r0, s_len, g, t);
   load_a<D>(oa, dout + base * D, r0, s_len, g, t);
   // per C-fragment row (g, g + 8): lse * log2(e) and D
@@ -263,11 +275,10 @@ __global__ void __launch_bounds__(kBlockThreads)
 // One warp's work on one landed Q/dO tile of the dK/dV launch:
 // dv_part += P^T.dO and dk_part += dS^T.Q (dS without its factor `scale`)
 // over the tile's queries from c0; kEdge as in dq_tile.
-template <bool kEdge, int D>
+template <bool kEdge, int D, typename R>
 __device__ __forceinline__ void dkv_tile(float (&dk_part)[D / 8][4],
                                          float (&dv_part)[D / 8][4],
-                                         const Resident<D>& ka,
-                                         const Resident<D>& va,
+                                         const R& ka, const R& va,
                                          const Tiles<D>& sm,
                                          const float* l2s, const float* dds,
                                          float sl2, int r0, int c0, int s_len,
@@ -335,7 +346,9 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
   flash::cp_async_commit();
 
-  Resident<D> ka, va;
+  typename RowPlace<D>::Type ka(
+      flash::resident_slot<D>(flash_smem, warp, 2, 0)),
+      va(flash::resident_slot<D>(flash_smem, warp, 2, 1));
   load_a<D>(ka, k + base * D, r0, s_len, g, t);
   load_a<D>(va, v + base * D, r0, s_len, g, t);
   const float sl2 = scale * kLog2e;
@@ -380,11 +393,19 @@ __global__ void __launch_bounds__(kBlockThreads)
   store_rows<D>(dv + base * D, dv_acc, 1.f, r0, s_len, g, t);
 }
 
+// The dynamic shared memory one block of either launch takes at head
+// width D: the streamed tiles, and the resident arrays where RowPlace puts
+// them in shared memory.
+template <int D>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(Tiles<D>)) + RowPlace<D>::bytes(2);
+}
+
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* di, float* dq, float* dk, float* dv,
            int64_t bh, int64_t s, float scale, int causal, cudaStream_t st) {
-  constexpr int kSmem = sizeof(Tiles<D>);
+  constexpr int kSmem = smem_bytes<D>();
   if (kSmem > 48 * 1024) {  // above the default a block may ask for
     cudaError_t err = cudaFuncSetAttribute(
         flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -431,7 +452,27 @@ extern "C" int flash_attention_backward_f32(
     case 32:
       return launch<32>(q, k, v, dout, lse, di, dq, dk, dv, bh, s, scale,
                         causal, st);
+    case 64:
+      return launch<64>(q, k, v, dout, lse, di, dq, dk, dv, bh, s, scale,
+                        causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory one block of either launch takes at head
+// width d, in bytes (-1 for a width it is not compiled for).
+extern "C" int flash_attention_backward_smem_bytes(int d) {
+  switch (d) {
+    case 8:
+      return smem_bytes<8>();
+    case 16:
+      return smem_bytes<16>();
+    case 32:
+      return smem_bytes<32>();
+    case 64:
+      return smem_bytes<64>();
+    default:
+      return -1;
   }
 }

@@ -66,7 +66,7 @@
 //   only masked keys keeps m = -1e30 and its rescale factor is 2^0 = 1,
 //   never NaN, in either `kv_order`. A warp's other tiles run a copy of
 //   the loop with no test at all (fwd_tile<false>).
-// Any S; D in {8, 16, 32}, the head widths the port's workflows run.
+// Any S; D in {8, 16, 32, 64}, the head widths the port's workflows run.
 #include <math.h>
 
 #include "flash_common.cuh"
@@ -231,6 +231,8 @@ __global__ void __launch_bounds__(kBlockThreads)
   if (ntiles > 1) issue_tile<D>(sm, 1, kb, vb, first_key(1), kend);
   flash::cp_async_commit();
 
+  // Q stays in registers at every width (at D = 64 a thread holds 64
+  // words of Q beside 96 of accumulators and scores; 0 spill)
   Resident<D> qa;
   load_a<D>(qa, q + base * D, r0, s_len, g, t, sl2);
   float acc[D / 8][4];
@@ -331,6 +333,9 @@ extern "C" int flash_attention_forward_f32(const float* q, const float* k,
     case 32:
       return launch<32>(q, k, v, mask, o, lse, bh, s, scale, causal,
                         reverse_kv, st);
+    case 64:
+      return launch<64>(q, k, v, mask, o, lse, bh, s, scale, causal,
+                        reverse_kv, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -346,6 +351,8 @@ extern "C" int flash_attention_forward_smem_bytes(int d) {
       return smem_bytes<16>();
     case 32:
       return smem_bytes<32>();
+    case 64:
+      return smem_bytes<64>();
     default:
       return -1;
   }

@@ -141,10 +141,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // Shared memory of one block's two streamed arrays (K and V, or Q and dO):
 // two raw stages that cp.async fills, and the landed tile's TF32 hi and lo
 // planes, rows padded to D + 4 (20 KB at D = 8, 36 KB at D = 16, 68 KB at
-// D = 32): the block's dynamic shared memory. The padding makes the two
-// read patterns, (row g, col t) for Q.K^T-like products and (row 2t or
-// 2t+1, col g) for the products that take a C fragment as A, hit 32
-// distinct banks at D = 8, 16 and 32.
+// D = 32, 132 KB at D = 64): the block's dynamic shared memory. The
+// padding makes the two read patterns, (row g, col t) for Q.K^T-like
+// products and (row 2t or 2t+1, col g) for the products that take a C
+// fragment as A, hit 32 distinct banks at D = 8, 16, 32 and 64: at
+// D = 32 and 64 the pitch is 4 (mod 32) words (36, 68), so row g col t
+// falls in bank 4g + t and row 2t (+1) col g in bank 8t + g (+ 4), eight
+// rows by four columns and four row pairs by eight columns covering the
+// 32 banks once.
 template <int D>
 struct Tiles {
   static constexpr int kPitch = D + 4;
@@ -192,30 +196,146 @@ __device__ __forceinline__ void split_tile(Tiles<D>& sm, int stage) {
 }
 
 // One warp's 16 resident rows as m16n8k8 A fragments, hi and lo, one per
-// 8-wide k slab.
+// 8-wide k slab, in registers: D/4 words a thread. `frag` hands out k
+// slab kk (a copy the compiler folds away), `put` stores it. K6 builds
+// it bare; K7 builds it, like SmemResident, from a shared-memory slot,
+// which it does not use.
 template <int D>
 struct Resident {
+  // k slabs a product's loop unrolls: all (a register array needs
+  // constant indices); n-tiles K7's dQ tile loop unrolls: all
+  static constexpr int kUnroll = D / 8;
+  static constexpr int kTileUnroll = kUnits;
   uint32_t hi[D / 8][4];
   uint32_t lo[D / 8][4];
+
+  Resident() = default;
+  __device__ __forceinline__ explicit Resident(uint4*) {}
+
+  __device__ __forceinline__ void frag(int kk, uint32_t (&h)[4],
+                                       uint32_t (&l)[4]) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = hi[kk][e];
+      l[e] = lo[kk][e];
+    }
+  }
+  __device__ __forceinline__ void put(int kk, const uint32_t (&h)[4],
+                                      const uint32_t (&l)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[kk][e] = h[e];
+      lo[kk][e] = l[e];
+    }
+  }
 };
+
+// A 16-byte shared-memory load the compiler may neither merge with
+// another nor hoist out of a loop (`asm volatile`): SmemResident's
+// fragments are read anew at every use, or ptxas would keep them all in
+// registers again. The "memory" clobber orders it after every earlier
+// store in the compiler's view (st_shared_v4's among them), so the
+// ordering does not rest on a barrier that happens to lie between.
+__device__ __forceinline__ uint4 ld_shared_v4(const uint4* p) {
+  uint4 v;
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// Its store: SmemResident::put's words, written through asm as they are
+// read.
+__device__ __forceinline__ void st_shared_v4(uint4* p, uint4 v) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};"
+               :
+               : "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The same fragments kept in shared memory, for the instances whose
+// register fragments would spill (D = 64: the backward holds two resident
+// arrays, 128 words a thread, beside 128 words of accumulators). A lane
+// reads back only the words it wrote, so no barrier is needed; each k
+// slab is one 16-byte word per lane and plane, [kk][lane], so a warp's
+// read is 512 contiguous bytes (conflict-free). `SmemResident` is a view:
+// `base` points at this array's slot of kWords 16-byte words.
+template <int D>
+struct SmemResident {
+  static constexpr int kWords = 2 * (D / 8) * 32;  // uint4 words a slot
+  // k slabs a product's loop unrolls: 2, so that the compiler cannot
+  // gather a whole product's loads (fragments and B words) up front;
+  // n-tiles K7's dQ tile loop unrolls: 2 (fully unrolled, ptxas held
+  // that launch at 128 registers and spilled)
+  static constexpr int kUnroll = 2;
+  static constexpr int kTileUnroll = 2;
+  uint4* base;
+  int lane;
+
+  __device__ __forceinline__ explicit SmemResident(uint4* slot)
+      : base(slot), lane(threadIdx.x & 31) {}
+  __device__ __forceinline__ void frag(int kk, uint32_t (&h)[4],
+                                       uint32_t (&l)[4]) const {
+    const uint4 a = ld_shared_v4(base + kk * 32 + lane);
+    const uint4 b = ld_shared_v4(base + (D / 8 + kk) * 32 + lane);
+    h[0] = a.x, h[1] = a.y, h[2] = a.z, h[3] = a.w;
+    l[0] = b.x, l[1] = b.y, l[2] = b.z, l[3] = b.w;
+  }
+  __device__ __forceinline__ void put(int kk, const uint32_t (&h)[4],
+                                      const uint32_t (&l)[4]) {
+    st_shared_v4(base + kk * 32 + lane, make_uint4(h[0], h[1], h[2], h[3]));
+    st_shared_v4(base + (D / 8 + kk) * 32 + lane,
+                 make_uint4(l[0], l[1], l[2], l[3]));
+  }
+};
+
+// Where a kernel keeps `slots` resident arrays per warp: registers
+// (Resident), or shared memory (SmemResident) behind the block's Tiles,
+// which then takes smem_resident_bytes more; slot(...) is a warp's array.
+template <int D, bool kInSmem>
+struct ResidentPlace {
+  using Type = Resident<D>;
+  static constexpr int bytes(int) { return 0; }
+};
+template <int D>
+struct ResidentPlace<D, true> {
+  using Type = SmemResident<D>;
+  static constexpr int bytes(int slots) {
+    return kWarps * slots * SmemResident<D>::kWords * 16;
+  }
+};
+
+// A warp's `i`-th of `slots` shared-memory resident arrays, behind the
+// block's Tiles in its dynamic shared memory.
+template <int D>
+__device__ __forceinline__ uint4* resident_slot(float4* smem, int warp,
+                                                int slots, int i) {
+  return reinterpret_cast<uint4*>(reinterpret_cast<char*>(smem) +
+                                  sizeof(Tiles<D>)) +
+         (warp * slots + i) * SmemResident<D>::kWords;
+}
 
 // The 16 rows from r0 of a (rows, D) array, each element times `mult`
 // before its split; rows at or beyond S read as 0.
-template <int D>
-__device__ __forceinline__ void load_a(Resident<D>& a,
-                                       const float* __restrict__ x, int r0,
-                                       int s_len, int g, int t,
+template <int D, typename R>
+__device__ __forceinline__ void load_a(R& a, const float* __restrict__ x,
+                                       int r0, int s_len, int g, int t,
                                        float mult = 1.f) {
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t h[4], l[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + g + 8 * (e & 1);
       const int col = 8 * kk + t + 4 * (e >> 1);
       const float v =
           row < s_len ? __ldg(x + static_cast<int64_t>(row) * D + col) : 0.f;
-      split_tf32(v * mult, a.hi[kk][e], a.lo[kk][e]);
+      split_tf32(v * mult, h[e], l[e]);
     }
+    a.put(kk, h, l);
   }
 }
 

@@ -18,6 +18,15 @@ class FullBatchLoader(Loader):
     data = None     # (total, ...sample shape)
     labels = None   # (total,) int labels
 
+    def load_data(self) -> None:
+        """The arrays a caller bound before `initialize` are the data
+        (the samples' on-disk readers bind them when they build the
+        loader)."""
+        if self.data is None:
+            raise NotImplementedError(
+                f"{type(self).__name__}: bind_arrays() before initialize, "
+                "or override load_data")
+
     def bind_arrays(self, data: np.ndarray, labels: np.ndarray,
                     n_test: int, n_validation: int, n_train: int) -> None:
         if len(data) != n_test + n_validation + n_train:

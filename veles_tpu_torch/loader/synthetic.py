@@ -39,19 +39,22 @@ def make_classification(n_per_class: Tuple[int, int, int], n_classes: int,
 
 
 class SyntheticClassifierLoader(FullBatchLoader):
-    """FullBatchLoader over make_classification data."""
+    """FullBatchLoader over make_classification data; `autoencoder`
+    makes the targets the inputs (MSE reconstruction workflows)."""
 
     def __init__(self, n_classes: int = 10,
                  sample_shape: Tuple[int, ...] = (28, 28),
                  n_test: int = 0, n_validation: int = 200,
                  n_train: int = 1000, noise: float = 0.35,
-                 data_seed: int = 4242, **kwargs) -> None:
+                 data_seed: int = 4242, autoencoder: bool = False,
+                 **kwargs) -> None:
         super().__init__(**kwargs)
         self.n_classes = n_classes
         self.sample_shape = tuple(sample_shape)
         self.split = (n_test, n_validation, n_train)
         self.noise = noise
         self.data_seed = data_seed
+        self.autoencoder = autoencoder
 
     def load_data(self) -> None:
         # the split sizes fix the index bookkeeping; the samples come on
@@ -63,5 +66,6 @@ class SyntheticClassifierLoader(FullBatchLoader):
             data, labels = make_classification(
                 self.split, self.n_classes, self.sample_shape, self.noise,
                 self.data_seed)
-            self.bind_arrays(data, labels, *self.split)
+            self.bind_arrays(data, data.copy() if self.autoencoder
+                             else labels, *self.split)
         super().fill_minibatch(indices)

@@ -34,10 +34,11 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
     """The port's activations: "linear", "tanh" = the reference's scaled
     1.7159·tanh(0.6666·x), "relu" = the reference's smooth RELU
     ln(1 + eˣ) (softplus), "strictrelu" = max(x, 0) (NaN propagates, as
-    in jnp.maximum) and "sigmoid". The log activation comes with a later
-    slice."""
+    in jnp.maximum), "sigmoid" and "log" = asinh(x)."""
     if name == "linear":
         return x
+    if name == "log":
+        return torch.asinh(x)
     if name == "relu":
         return F.softplus(x)
     if name == "sigmoid":
@@ -60,11 +61,17 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
-def act_backward(name: str, y: torch.Tensor,
-                 err: torch.Tensor) -> torch.Tensor:
+def act_backward(name: str, y: torch.Tensor, err: torch.Tensor,
+                 x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dL/dx from dL/dy (`err`) and the forward OUTPUT y, the reference's
-    memory model (pre-activations are never kept): xla.py / reference.py
+    memory model (pre-activations are never kept), and the input `x`
+    where the derivative needs it (the log flavor): xla.py / reference.py
     act_backward, the granular gradient units' rule."""
+    if name == "log":
+        if x is None:
+            raise ValueError("the log activation's backward needs its "
+                             "input x")
+        return err / torch.sqrt(x * x + 1.0)
     if name == "linear":
         return err
     if name == "tanh":
@@ -171,7 +178,7 @@ def maxpool_forward(x: torch.Tensor, ksize: Tuple[int, int],
 
 
 def maxpool_forward_with_idx(x: torch.Tensor, ksize: Tuple[int, int],
-                             stride: Tuple[int, int]
+                             stride: Tuple[int, int], use_abs: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ceil-mode max pooling of NHWC `x` that also records each window's
     winner as a flat offset into x: the rule of the JAX package's
@@ -179,16 +186,15 @@ def maxpool_forward_with_idx(x: torch.Tensor, ksize: Tuple[int, int],
     maximum in row-major window order (dy, then dx), where the padded
     slots never win. After a ReLU windows tie constantly (all zeros), so
     the rule is computed here, not taken from `F.max_pool2d`'s indices,
-    which promise no order. Offsets are int64, ((n·H + i·sy + dy)·W +
-    j·sx + dx)·C + c (xla.py `_flat_offsets`)."""
+    which promise no order. `use_abs` (MaxAbsPooling) ranks by |x| and
+    keeps the winner's signed value, gathered from x, so autograd routes
+    the gradient to the winner (the JAX fused step's max-abs lowering).
+    Offsets are int64, ((n·H + i·sy + dy)·W + j·sx + dx)·C + c (xla.py
+    `_flat_offsets`)."""
     ky, kx = ksize
-    sy, sx = stride
     nb, h, w, c = x.shape
-    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
-    hp, wp = (oh - 1) * sy + ky, (ow - 1) * sx + kx
-    xp = F.pad(x, (0, 0, 0, wp - w, 0, hp - h), value=float("-inf"))
-    taps = [xp[:, dy:dy + (oh - 1) * sy + 1:sy, dx:dx + (ow - 1) * sx + 1:sx]
-            for dy in range(ky) for dx in range(kx)]
+    taps = _pool_taps(x.abs() if use_abs else x, ksize, stride,
+                      float("-inf"))
     y = taps[0]
     for t in taps[1:]:
         y = torch.maximum(y, t)
@@ -197,24 +203,159 @@ def maxpool_forward_with_idx(x: torch.Tensor, ksize: Tuple[int, int],
     choice = torch.zeros(y.shape, dtype=torch.int64, device=x.device)
     for lin in reversed(range(len(taps))):
         choice = torch.where(taps[lin] == y, lin, choice)
-    dy, dx = choice // kx, choice % kx
-    ar = functools.partial(torch.arange, device=x.device)
-    ii = ar(oh)[None, :, None, None] * sy + dy
-    jj = ar(ow)[None, None, :, None] * sx + dx
-    nn_ = ar(nb)[:, None, None, None]
-    cc = ar(c)[None, None, None, :]
-    return y.contiguous(), ((nn_ * h + ii) * w + jj) * c + cc
+    oh, ow = y.shape[1], y.shape[2]
+    idx = _flat_offsets(choice, nb, h, w, c, oh, ow, stride, kx, x.device)
+    if use_abs:
+        return x.reshape(-1)[idx], idx
+    return y.contiguous(), idx
 
 
 def pool_scatter(err_y: torch.Tensor, idx: torch.Tensor,
                  x_shape: Tuple[int, ...]) -> torch.Tensor:
-    """The max pooling's backward (xla.py pool_scatter): each window's
-    gradient added at its recorded winner; overlapping windows that share
-    a winner sum."""
-    flat = torch.zeros(math.prod(x_shape), dtype=err_y.dtype,
-                       device=err_y.device)
-    flat.index_add_(0, idx.reshape(-1), err_y.reshape(-1))
+    """The backward of the pooling flavors that record winners (max,
+    max-abs, stochastic; xla.py pool_scatter): each window's gradient
+    added at its recorded winner, overlapping windows that share a winner
+    summing; out-of-range sentinel offsets (x.size: a stochastic window
+    with nothing positive) drop, as `mode="drop"` drops them there."""
+    size = math.prod(x_shape)
+    idx, err = idx.reshape(-1), err_y.reshape(-1)
+    live = idx < size
+    flat = torch.zeros(size, dtype=err_y.dtype, device=err_y.device)
+    flat.index_add_(0, torch.where(live, idx, 0),
+                    torch.where(live, err, torch.zeros_like(err)))
     return flat.reshape(x_shape)
+
+
+def _pool_taps(x: torch.Tensor, ksize: Tuple[int, int],
+               stride: Tuple[int, int], fill: float):
+    """The ky·kx strided views of NHWC `x` padded with `fill` to whole
+    windows at the bottom/right edge, in row-major window order (dy,
+    then dx), each (N, OH, OW, C)."""
+    ky, kx = ksize
+    sy, sx = stride
+    _, h, w, _ = x.shape
+    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
+    hp, wp = (oh - 1) * sy + ky, (ow - 1) * sx + kx
+    xp = F.pad(x, (0, 0, 0, wp - w, 0, hp - h), value=fill)
+    return [xp[:, dy:dy + (oh - 1) * sy + 1:sy, dx:dx + (ow - 1) * sx + 1:sx]
+            for dy in range(ky) for dx in range(kx)]
+
+
+def _window_counts(h: int, w: int, ksize: Tuple[int, int],
+                   stride: Tuple[int, int], device) -> torch.Tensor:
+    """(OH, OW, 1) real pixels in each ceil-mode window (edge windows
+    truncate), as f32."""
+    ky, kx = ksize
+    sy, sx = stride
+    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
+    rows = torch.clamp(h - torch.arange(oh, device=device) * sy, max=ky)
+    cols = torch.clamp(w - torch.arange(ow, device=device) * sx, max=kx)
+    return (rows[:, None] * cols[None, :]).to(torch.float32)[..., None]
+
+
+def avgpool_forward(x: torch.Tensor, ksize: Tuple[int, int],
+                    stride: Tuple[int, int]) -> torch.Tensor:
+    """Ceil-mode average pooling of NHWC `x`: each window's sum over its
+    real pixels divided by their count, so edge windows average only what
+    they cover (xla.py avgpool_forward; golden reference.avgpool_forward).
+    Differentiable: the fused step's backward is its autograd."""
+    _, h, w, _ = x.shape
+    taps = _pool_taps(x, ksize, stride, 0.0)
+    ssum = taps[0]
+    for t in taps[1:]:
+        ssum = ssum + t
+    return ssum / _window_counts(h, w, ksize, stride, x.device).to(x.dtype)
+
+
+def avgpool_backward(err_y: torch.Tensor, x_shape: Tuple[int, ...],
+                     ksize: Tuple[int, int],
+                     stride: Tuple[int, int]) -> torch.Tensor:
+    """The average pooling's backward (golden reference.avgpool_backward):
+    each window's error divided by its pixel count and added to every
+    pixel it covers; overlapping windows sum."""
+    ky, kx = ksize
+    sy, sx = stride
+    nb, h, w, c = x_shape
+    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
+    hp, wp = (oh - 1) * sy + ky, (ow - 1) * sx + kx
+    g = err_y / _window_counts(h, w, ksize, stride,
+                               err_y.device).to(err_y.dtype)
+    out = torch.zeros((nb, hp, wp, c), dtype=err_y.dtype,
+                      device=err_y.device)
+    for dy in range(ky):
+        for dx in range(kx):
+            out[:, dy:dy + (oh - 1) * sy + 1:sy,
+                dx:dx + (ow - 1) * sx + 1:sx] += g
+    return out[:, :h, :w, :].contiguous()
+
+
+def stochastic_pool_forward_with_idx(
+        x: torch.Tensor, ksize: Tuple[int, int], stride: Tuple[int, int],
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stochastic pooling (Zeiler & Fergus; xla.py
+    stochastic_pool_forward_with_idx): each ceil-mode window picks one of
+    its elements with probability proportional to its positive part, by
+    Gumbel-max over log-probabilities (padded slots and non-positive
+    elements have probability 0). A window with nothing positive gives 0
+    and the sentinel offset x.numel(), which `pool_scatter` drops.
+    `noise` (N, OH, OW, C, ky·kx), window order (dy, then dx) last, is the
+    Gumbel draw — a test hands in the JAX function's own
+    `jax.random.gumbel` — else −log(−log u), u uniform in (0, 1) from
+    `generator` (jax.random.gumbel's distribution, not its bits).
+    Returns (y, flat winner offsets into x, int64)."""
+    ky, kx = ksize
+    sy, sx = stride
+    nb, h, w, c = x.shape
+    p = torch.stack(_pool_taps(x, ksize, stride, 0.0), dim=-1)
+    oh, ow = p.shape[1], p.shape[2]
+    pos = torch.clamp(p, min=0.0)
+    tot = pos.sum(-1, keepdim=True)
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    probs = torch.where(tot > 0, pos / torch.clamp(tot, min=1e-30), zero)
+    if noise is None:
+        if generator is None:
+            raise ValueError("stochastic pooling needs a generator or the "
+                             "noise")
+        u = torch.rand(p.shape, generator=generator, device=x.device)
+        tiny = torch.finfo(torch.float32).tiny
+        noise = (-torch.log(-torch.log(torch.clamp(u, min=tiny)))
+                 ).to(p.dtype)
+    logp = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)),
+                       torch.full((), float("-inf"), dtype=p.dtype,
+                                  device=p.device))
+    choice = _first_argmax(logp + noise)
+    picked = p.gather(-1, choice[..., None])[..., 0]
+    alive = tot[..., 0] > 0
+    y = torch.where(alive, picked, zero)
+    idx = _flat_offsets(choice, nb, h, w, c, oh, ow, stride, kx, x.device)
+    return y, torch.where(alive, idx, x.numel())
+
+
+def _first_argmax(a: torch.Tensor) -> torch.Tensor:
+    """Index of the FIRST maximum along the last axis (jnp.argmax's
+    rule; torch.argmax promises no tie order). A row of −inf gives 0."""
+    m = a.max(dim=-1, keepdim=True).values
+    n = a.shape[-1]
+    lin = torch.arange(n, device=a.device).expand(a.shape)
+    return torch.where(a == m, lin, n).min(dim=-1).values.clamp(max=n - 1)
+
+
+def _flat_offsets(choice: torch.Tensor, nb: int, h: int, w: int, c: int,
+                  oh: int, ow: int, stride: Tuple[int, int], kx: int,
+                  device) -> torch.Tensor:
+    """Flat offsets into an (N, H, W, C) input of each window's winner
+    `choice` (its index in window order): ((n·H + i·sy + dy)·W + j·sx +
+    dx)·C + c, xla.py `_flat_offsets`."""
+    sy, sx = stride
+    dy, dx = choice // kx, choice % kx
+    ar = functools.partial(torch.arange, device=device)
+    ii = ar(oh)[None, :, None, None] * sy + dy
+    jj = ar(ow)[None, None, :, None] * sx + dx
+    nn_ = ar(nb)[:, None, None, None]
+    cc = ar(c)[None, None, None, :]
+    return ((nn_ * h + ii) * w + jj) * c + cc
 
 
 # ---------------------------------------------------------------------------
@@ -356,25 +497,58 @@ def ce_loss_from_logits(logits: torch.Tensor, labels: torch.Tensor,
     return -(picked * w).sum() / torch.clamp(d, min=1e-9)
 
 
+def confusion(labels: torch.Tensor, pred: torch.Tensor, n_classes: int,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(C, C) int64 confusion counts, true class by row and predicted by
+    column; a row of weight 0 (the Loader's pad mask) counts nothing
+    (xla.py softmax_ce's `confusion`, exact integers)."""
+    inc = (torch.ones_like(labels, dtype=torch.int64) if weights is None
+           else (weights > 0).to(torch.int64))
+    flat = labels.long() * n_classes + pred.long()
+    out = torch.zeros(n_classes * n_classes, dtype=torch.int64,
+                      device=labels.device)
+    out.index_add_(0, flat.reshape(-1), inc.reshape(-1))
+    return out.reshape(n_classes, n_classes)
+
+
 def softmax_ce(probs: torch.Tensor, labels: torch.Tensor, n_classes: int,
                weights: Optional[torch.Tensor] = None):
     """The granular softmax evaluator's metrics (xla.py softmax_ce): from
-    probabilities and integer labels, (loss, err wrt the logits, n_err).
-    `weights` (N,) are the Loader's pad mask: zero-weight rows add to no
-    metric and get no gradient; err is (probs − onehot)·w / Σw. The
-    confusion matrix of the JAX function comes with a later slice."""
+    probabilities and integer labels, (loss, err wrt the logits, n_err,
+    confusion). `weights` (N,) are the Loader's pad mask: zero-weight rows
+    add to no metric and get no gradient; err is (probs − onehot)·w /
+    Σw."""
     onehot = F.one_hot(labels.long(), n_classes).to(probs.dtype)
     eps = torch.finfo(probs.dtype).tiny
     picked = probs.gather(1, labels.long()[:, None])[:, 0]
     logs = -torch.log(torch.clamp(picked, min=eps))
-    wrong = probs.argmax(dim=1) != labels
+    pred = probs.argmax(dim=1)
+    wrong = pred != labels
+    conf = confusion(labels, pred, n_classes, weights)
     if weights is None:
         return (logs.mean(), (probs - onehot) / probs.shape[0],
-                wrong.sum())
+                wrong.sum(), conf)
     w = weights.to(probs.dtype)
     wsum = torch.clamp(w.sum(), min=eps)
     return ((logs * w).sum() / wsum, (probs - onehot) * w[:, None] / wsum,
-            (wrong & (w > 0)).sum())
+            (wrong & (w > 0)).sum(), conf)
+
+
+def mse(y: torch.Tensor, target: torch.Tensor,
+        weights: Optional[torch.Tensor] = None,
+        denom: Optional[torch.Tensor] = None):
+    """(the MSE evaluator's loss, err wrt y), xla.py mse: the per-sample
+    summed squared error over the batch, Σ w·(y − t)² / max(denom, 1e-9)
+    with denom defaulting to Σ w (the plain sum over N without weights),
+    and its derivative 2·(y − t)·w / denom."""
+    n = y.shape[0]
+    diff = y - target
+    if weights is None:
+        return (diff * diff).sum() / n, 2.0 * diff / n
+    wb = weights.to(y.dtype).reshape((n,) + (1,) * (y.dim() - 1))
+    d = weights.to(y.dtype).sum() if denom is None else denom
+    d = torch.clamp(d, min=1e-9)
+    return (wb * diff * diff).sum() / d, 2.0 * diff * wb / d
 
 
 def dropout_mask(shape, drop_prob: float, generator: torch.Generator,

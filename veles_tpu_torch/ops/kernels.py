@@ -511,10 +511,10 @@ def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
 # ---------------------------------------------------------------------------
 
 #: head widths K6 and K7 are compiled for: those the port's workflows run
-#: (the char-transformer's 16, or 32 at 2 heads; the toy transformer's 8);
-#: the wrappers refuse any other on the card, and a configuration with
-#: another width adds its instance to both .cu switches
-FLASH_HEAD_DIMS = (8, 16, 32)
+#: (the char-transformer's 16, 32 at 2 heads and 64 at 1; the toy
+#: transformer's 8); the wrappers refuse any other on the card, and a
+#: configuration with another width adds its instance to both .cu switches
+FLASH_HEAD_DIMS = (8, 16, 32, 64)
 KV_ORDERS = ("fwd", "rev")
 #: score elements the plain versions hold at once (2^26 f32 = 256 MB): at
 #: S = 4096 four heads, never the whole (B·H, S, S) tensor

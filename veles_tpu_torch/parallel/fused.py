@@ -8,7 +8,11 @@ The port's counterpart of `FusedTrainStep` in
 `fusion_pairs`, `_apply_fused_pair`), which the server serves from;
 `FusedTrainStep` adds the loss, the backward and the update (`init_state`,
 `train`, `train_accum`, `train_repeat`, `train_many`, `evaluate`,
-`write_back`, `variant_table`). The JAX package
+`confusion`, `write_back`, `variant_table`). The loss is the workflow's:
+the softmax cross-entropy from the last layer's logits, or the MSE of
+its output against the loader's targets (`ops.functional.mse`, the JAX
+step's `ox.mse(out, y, weights=w, denom=denom)`, fused.py:805 there),
+whose `n_err` is the loss itself. The JAX package
 resolves lowerings when it traces; PyTorch runs eagerly, so both resolve
 them once, when built, into a fixed plan — a server keeps serving, and a
 step keeps training, what it was built with whatever the registry selects
@@ -51,7 +55,9 @@ Differences from the JAX step: the step updates its state in place (the
 JAX step returns a new one); its dropout masks come from the PRNG
 registry's device stream (`prng.RandomGenerator.device_stream`, one
 `torch.Generator` per device type that advances across steps and
-builds) instead of the state's key; the backward
+builds) instead of the state's key, and every unit that draws
+(`fused_needs_gen`: dropout, stochastic pooling) draws from it in turn
+where the JAX step folds the unit's index into the key; the backward
 is `torch.autograd.grad` over the parameter leaves, through the kernels'
 autograd functions (ops/kernels.py). Velocities follow the JAX package's
 names (`vel_w` / `vel_b` for weights / bias, `vel_<name>` otherwise;
@@ -78,17 +84,26 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def apply_input_normalize(spec: Optional[Dict[str, Any]],
-                          x: torch.Tensor) -> torch.Tensor:
-    """The uint8 wire's prologue: x to f32, `* scale + offset`, `- mean`
-    (a multiplication by the scale, as the JAX function does), in f32.
-    No-op when `spec` is None."""
+                          x: torch.Tensor,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """The uint8 wire's prologue and the InputNormalize layer's affine:
+    x to `dtype` (f32 when None), `* scale + offset`, `- mean` (a
+    multiplication by the scale, as the JAX function does). Below f32
+    (the layer behind the fused step's bf16 entry cast) the constants are
+    rounded to `dtype` first, as the JAX layer's `jnp.asarray(c, dt)`
+    rounds them. No-op when `spec` is None."""
     if spec is None:
         return x
-    x = x.to(torch.float32) * spec.get("scale", 1.0) \
-        + spec.get("offset", 0.0)
+    dt = torch.float32 if dtype is None else dtype
+    scale, offset = spec.get("scale", 1.0), spec.get("offset", 0.0)
+    if dt != torch.float32:
+        scale, offset = (torch.tensor(c, dtype=dt, device=x.device)
+                         for c in (scale, offset))
+    x = x.to(dt) * scale + offset
     mean = spec.get("mean")
     if mean is not None:
-        x = x - torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+        x = x - torch.as_tensor(mean, dtype=dt, device=x.device)
     return x
 
 
@@ -152,15 +167,16 @@ class FusedForward:
 
     def _pair_fusion(self, u, nxt):
         """The FUSED variant claiming the adjacent (u, nxt) pair, or None
-        (a composed selection, or a per-layer override on either
-        side)."""
+        (a composed selection, a per-layer override on either side, or a
+        max-abs pooling, which never fuses)."""
         if nxt is None:
             return None
         if getattr(u, "variant_override", None) is not None \
                 or getattr(nxt, "variant_override", None) is not None:
             return None
         if getattr(u, "variant_op", None) == "lrn" \
-                and getattr(nxt, "variant_op", None) == "maxpool":
+                and getattr(nxt, "variant_op", None) == "maxpool" \
+                and not getattr(nxt, "use_abs", False):
             v = variants.resolve("lrn_maxpool")
             return v if v.fused else None
         return None
@@ -279,9 +295,9 @@ def pair_gd_configs(workflow):
 
 
 class FusedTrainStep:
-    """One training step of a StandardWorkflow: forward, softmax
-    cross-entropy, backward, update (SGD or Adam per layer), on the
-    workflow's device.
+    """One training step of a StandardWorkflow: forward, loss (softmax
+    cross-entropy or MSE), backward, update (SGD or Adam per layer), on
+    the workflow's device.
 
     state = {"params": tuple of {name: leaf} (one per forward unit),
              "vel":    per unit, the SGD velocities {name: tensor}, or
@@ -292,11 +308,10 @@ class FusedTrainStep:
 
     def __init__(self, workflow, compute_dtype: Optional[str] = None,
                  input_normalize: Optional[Dict[str, Any]] = None) -> None:
-        if workflow.loss != "softmax":
-            raise NotImplementedError(
-                f"the fused step trains a softmax head; loss "
-                f"{workflow.loss!r} comes with a later slice")
-        if not getattr(workflow.forwards[-1], "fused_emits_logits", False):
+        #: "softmax" or "mse" (StandardWorkflow admits no other)
+        self.loss_kind = workflow.loss
+        if self.loss_kind == "softmax" and not getattr(
+                workflow.forwards[-1], "fused_emits_logits", False):
             raise ValueError(
                 "fused softmax loss needs a final layer that emits logits "
                 "(All2AllSoftmax, SeqSoftmax) for log-softmax CE")
@@ -362,18 +377,23 @@ class FusedTrainStep:
     def _batch(self, x, y, w):
         """The batch as tensors on the step's device: tensors already
         there (the device feed's) are taken as they are; host arrays are
-        uploaded. x stays uint8 where the prologue normalizes it."""
+        uploaded. x stays uint8 where the prologue normalizes it; y is
+        integer labels for the softmax loss, f32 targets for the MSE."""
         x = torch.as_tensor(x, device=self.device)
         if self.input_normalize is None:
             x = x.to(torch.float32)
-        y = torch.as_tensor(y, device=self.device).long()
+        y = torch.as_tensor(y, device=self.device)
+        y = y.long() if self.loss_kind == "softmax" else \
+            y.to(torch.float32)
         w = (torch.ones(x.shape[0], device=self.device) if w is None else
              torch.as_tensor(w, dtype=torch.float32, device=self.device))
         return x, y, w
 
-    @staticmethod
-    def _loss_metrics(out, y, w, wsum=None):
-        """(weighted mean cross-entropy, misclassified valid labels): the
+    def _loss_metrics(self, out, y, w, wsum=None):
+        """(loss, n_err) of one batch. The MSE: the per-sample summed
+        squared error over the valid rows (denominator the weight sum, or
+        `wsum`), n_err the loss itself. The softmax head: (weighted mean
+        cross-entropy, misclassified valid labels): the
         pad mask's zero rows drop out of both, and of the gradient. The
         JAX step's rule (fused.py:781-801 there): the (N,) sample weights
         cover (N,) classifier labels, (N, S) per-token labels, or flat
@@ -382,6 +402,10 @@ class FusedTrainStep:
         the tokens per sample. `wsum` overrides that weight sum: gradient
         accumulation passes the full batch's, so the microbatches' losses
         and gradients sum to the full batch's mean."""
+        if self.loss_kind == "mse":
+            loss, _ = fn.mse(out, y.reshape(out.shape), weights=w,
+                             denom=w.sum() if wsum is None else wsum)
+            return loss, loss.detach()
         if y.dim() == w.dim() and y.shape[0] != w.shape[0] \
                 and y.shape[0] % w.shape[0] == 0:
             wt = w.repeat_interleave(y.shape[0] // w.shape[0])
@@ -515,6 +539,24 @@ class FusedTrainStep:
         with torch.inference_mode():
             out = self.fwd._forward(state["params"], x)
             return self._loss_metrics(out, y, w)
+
+    def confusion(self, state, x, y, n_classes: int, w=None):
+        """(C, C) int64 confusion counts, true class by row and predicted
+        by column, of one minibatch's rows of weight > 0 (the pad mask),
+        from a forward-only pass on the device (no host sync): the fused
+        loop's companion of the granular evaluator's matrix (JAX
+        fused.py:1363). None for a head that is not one label per sample
+        (the MSE, a per-token head)."""
+        if self.loss_kind != "softmax":
+            return None
+        x, y, w = self._batch(x, y, w)
+        if y.numel() != x.shape[0]:
+            return None
+        with torch.inference_mode():
+            out = self.fwd._forward(state["params"], x)
+            if out.dim() != 2:
+                return None
+            return fn.confusion(y, out.argmax(dim=-1), n_classes, w)
 
     def variant_table(self) -> Dict[str, str]:
         """{op: variant-name} this step runs: the forward's, and the SGD

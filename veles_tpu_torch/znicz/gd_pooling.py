@@ -1,14 +1,21 @@
-"""Gradient unit of the max pooling layer.
+"""Gradient units of the pooling layers.
 
-The port's counterpart of `GDMaxPooling` in `veles_tpu/znicz/gd_pooling.py`
-(:51-76 there; parity: reference `veles/znicz/gd_pooling.py`): no
-parameters, only the error's routing. Each window's error is added at the
-flat winner offset its forward recorded (`input_offset`): the golden
-`reference.stochastic_pool_backward` (the JAX numpy path's scatter, which
-drops out-of-range sentinel offsets), or `functional.pool_scatter` on the
-unit's device. Windows that overlap (AlexNet's 3×3/2) and share a winner
-add there. The max-abs, average and stochastic flavors come with their
-forwards.
+The port's counterparts of `GDMaxPooling`, `GDMaxAbsPooling`,
+`GDStochasticPooling` and `GDAvgPooling` in
+`veles_tpu/znicz/gd_pooling.py` (:73-108 there; parity: reference
+`veles/znicz/gd_pooling.py`): no parameters, only the error's routing.
+`GDMaxPooling` serves the three flavors that record winners (the
+max-abs layer is a max pooling).
+
+- The flavors whose forward records winners (max, max-abs, stochastic)
+  add each window's error at the flat winner offset in `input_offset`:
+  the golden `reference.stochastic_pool_backward` (the JAX numpy path's
+  scatter, which drops out-of-range sentinel offsets), or
+  `functional.pool_scatter` on the unit's device, which drops them too.
+  Windows that overlap (AlexNet's 3×3/2) and share a winner add there.
+- Average pooling spreads each window's error over the pixels it covers,
+  divided by their count: the golden `reference.avgpool_backward`, or
+  `functional.avgpool_backward`.
 """
 
 from __future__ import annotations
@@ -22,9 +29,8 @@ from veles_tpu_torch.znicz.nn_units import GradientDescentBase, dev, host, \
     register_gd, shape_of
 
 
-@register_gd(pooling.MaxPooling)
-class GDMaxPooling(GradientDescentBase):
-    """err_input = err_output scattered to the recorded winners."""
+class GDPoolingBase(GradientDescentBase):
+    """No parameters: the twin's geometry, captured in link_forward."""
 
     def __init__(self, workflow=None, **kwargs: Any) -> None:
         super().__init__(workflow, **kwargs)
@@ -34,6 +40,16 @@ class GDMaxPooling(GradientDescentBase):
     def link_forward(self, fwd):
         self.ksize = fwd.layer.ksize
         self.stride = fwd.layer.stride
+        return super().link_forward(fwd)
+
+
+@register_gd(pooling.MaxPooling)
+@register_gd(pooling.StochasticPooling)
+class GDMaxPooling(GDPoolingBase):
+    """err_input = err_output scattered to the recorded winners (the max,
+    max-abs and stochastic flavors)."""
+
+    def link_forward(self, fwd):
         super().link_forward(fwd)
         self.link_attrs(fwd, "input_offset")
         return self
@@ -48,3 +64,19 @@ class GDMaxPooling(GradientDescentBase):
         self.err_input.set_devmem(fn.pool_scatter(
             dev(self.err_output, d), self.input_offset.devmem(d),
             shape_of(self.input)))
+
+
+@register_gd(pooling.AvgPooling)
+class GDAvgPooling(GDPoolingBase):
+    """err_input = each window's error over its pixel count, spread over
+    the window."""
+
+    def numpy_run(self) -> None:
+        self.err_input.mem = ref.avgpool_backward(
+            host(self.err_output), shape_of(self.input), self.ksize,
+            self.stride)
+
+    def torch_run(self) -> None:
+        self.err_input.set_devmem(fn.avgpool_backward(
+            dev(self.err_output, self.device), shape_of(self.input),
+            self.ksize, self.stride))

@@ -6,9 +6,14 @@ The port's counterpart of `veles_tpu/znicz/standard_workflow.py`, a
 `Workflow`: a loader, the forward layers of `layers` (`{"type": <name>,
 ...kwargs}` dicts resolved through `LAYER_TYPES`; `forwards` holds them,
 the `nn.Module`s the fused step and the server run) with one granular
-node per layer (`fwd_units`, nn_units.ForwardUnit), the softmax
-evaluator, the Decision and one gradient unit per layer (`gds`, built in
-reverse order, as there). The control wiring is the JAX package's
+node per layer (`fwd_units`, nn_units.ForwardUnit), the evaluator of the
+`loss` (softmax: `EvaluatorSoftmax` on the labels; "mse":
+`EvaluatorMSE` on the loader's targets, JAX :91-96), the Decision and one
+gradient unit per layer (`gds`, built in reverse order, as there).
+`plot_config={"confusion": True}` keeps the softmax evaluator's
+confusion matrix of each validation pass, in both modes (JAX :177-183;
+the port draws no plots, so the matrix stays in
+`evaluator.confusion_matrix`). The control wiring is the JAX package's
 (:66-155 there):
 
     start → repeater → loader → fwd_units… → evaluator → decision
@@ -72,21 +77,21 @@ from torch import nn
 
 from veles_tpu_torch.backends import Device, DeviceLike, make_backend, \
     make_device
-from veles_tpu_torch.loader.base import TRAIN, Loader
+from veles_tpu_torch.loader.base import TRAIN, VALIDATION, Loader
 from veles_tpu_torch.units import Unit
 from veles_tpu_torch.workflow import Repeater, Workflow
-from veles_tpu_torch.znicz import all2all, attention, conv, dropout, \
-    normalization, pooling, transformer
+from veles_tpu_torch.znicz import activation, all2all, attention, conv, \
+    dropout, normalization, pooling, transformer
 # the gradient units register their pairs with the layers when imported
 from veles_tpu_torch.znicz import gd, gd_conv, gd_pooling  # noqa: F401
 from veles_tpu_torch.znicz.decision import DecisionGD
-from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
+from veles_tpu_torch.znicz.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, gd_for, \
     unit_for
 
-#: layer-type name -> forward layer class (AlexNet's and the
-#: char-transformer's types and the activation flavors of the all2all and
-#: conv families)
+#: layer-type name -> forward layer class (the JAX package's types of
+#: the all2all, conv, pooling, normalization, activation, dropout and
+#: attention families)
 LAYER_TYPES: Dict[str, type] = {
     "all2all": all2all.All2All,
     "all2all_tanh": all2all.All2AllTanh,
@@ -101,7 +106,16 @@ LAYER_TYPES: Dict[str, type] = {
     "conv_sigmoid": conv.ConvSigmoid,
     "norm": normalization.LRNormalizerForward,
     "lrn": normalization.LRNormalizerForward,
+    "input_normalize": normalization.InputNormalize,
     "max_pooling": pooling.MaxPooling,
+    "maxabs_pooling": pooling.MaxAbsPooling,
+    "avg_pooling": pooling.AvgPooling,
+    "stochastic_pooling": pooling.StochasticPooling,
+    "activation_tanh": activation.ActivationTanh,
+    "activation_relu": activation.ActivationRELU,
+    "activation_strictrelu": activation.ActivationStrictRELU,
+    "activation_sigmoid": activation.ActivationSigmoid,
+    "activation_log": activation.ActivationLog,
     "dropout": dropout.DropoutForward,
     "attention": attention.MultiHeadAttention,
     "seq_linear": transformer.SeqLinear,
@@ -137,6 +151,7 @@ class StandardWorkflow(Workflow):
                  decision_config: Optional[Dict[str, Any]] = None,
                  gd_config: Optional[Dict[str, Any]] = None,
                  snapshot_config: Optional[Dict[str, Any]] = None,
+                 plot_config: Optional[Dict[str, Any]] = None,
                  name: Optional[str] = None, workflow=None) -> None:
         if loader is None:
             raise ValueError("StandardWorkflow needs a loader")
@@ -176,9 +191,19 @@ class StandardWorkflow(Workflow):
             prev, prev_attr = u, "output"
 
         # -- evaluator ------------------------------------------------------
-        self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+        if loss == "softmax":
+            self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+            self.evaluator.link_attrs(self.loader,
+                                      ("labels", "minibatch_labels"),
+                                      "minibatch_class")
+            if (plot_config or {}).get("confusion"):
+                # each validation pass's matrix (the JAX plot's)
+                self.evaluator.confusion_split = VALIDATION
+        else:
+            self.evaluator = EvaluatorMSE(self)
+            self.evaluator.link_attrs(self.loader,
+                                      ("target", "minibatch_labels"))
         self.evaluator.link_attrs(self.loader,
-                                  ("labels", "minibatch_labels"),
                                   ("sample_weights", "minibatch_valid"))
         self.evaluator.link_attrs(prev, ("input", prev_attr))
 
@@ -318,10 +343,6 @@ class StandardWorkflow(Workflow):
         graph has no normalize prologue."""
         if not self.is_initialized:
             raise RuntimeError("initialize the workflow before run()")
-        if self.loss != "softmax":
-            raise NotImplementedError(
-                f"the granular graph evaluates a softmax head; loss "
-                f"{self.loss!r} comes with a later slice")
         if self.snapshotter is not None:
             self.warning("snapshots of a granular run come with a later "
                          "slice of the port: this run writes none")
@@ -378,8 +399,11 @@ class StandardWorkflow(Workflow):
         `uint8_wire=False` pins the host-normalized float wire: a loader
         constructed with emit="uint8" switches to float emission for the
         run, since raw bytes without a prologue would train on 0..255.
-        (The JAX package returns None first where the graph holds its own
-        `input_normalize` layer; the port has no such unit yet.)"""
+        None where the graph holds its own `input_normalize` layer: it
+        normalizes on the card already (JAX :326-339)."""
+        if any(isinstance(u, normalization.InputNormalize)
+               for u in self.forwards):
+            return None
         if not uint8_wire:
             if getattr(self.loader, "emit", None) == "uint8" \
                     and hasattr(self.loader, "set_emit"):
@@ -453,8 +477,12 @@ class StandardWorkflow(Workflow):
         self.device_feed = feed
         # the loader gathers straight into the feed's pinned buffers
         loader.out_alloc = getattr(feed.put, "empty", None)
-        acc_loss = acc_err = None
+        acc_loss = acc_err = acc_conf = None
         acc_w = 0.0
+        # the confusion companion runs on the passes of the evaluator's
+        # split (JAX :586-601), its counts summed on the device
+        conf_split = (getattr(ev, "confusion_split", None)
+                      if getattr(ev, "compute_confusion", False) else None)
         try:
             while not dec.complete:
                 b = feed.next()
@@ -464,6 +492,12 @@ class StandardWorkflow(Workflow):
                         loss = float("nan")   # a deterministic divergence
                 else:
                     loss, n_err = step.evaluate(state, b.x, b.y, b.w)
+                    if b.minibatch_class == conf_split:
+                        m = step.confusion(state, b.x, b.y, ev.n_classes,
+                                           b.w)
+                        if m is not None:
+                            acc_conf = m if acc_conf is None \
+                                else acc_conf + m
                 bw = float(b.w_host.sum())
                 acc_loss = loss * bw if acc_loss is None \
                     else acc_loss + loss * bw
@@ -475,9 +509,14 @@ class StandardWorkflow(Workflow):
                     # card
                     t_sync = time.perf_counter()
                     ev.loss = float(acc_loss) / max(acc_w, 1.0)
-                    ev.n_err = int(acc_err)
+                    ev.n_err = (int(acc_err) if self.loss == "softmax"
+                                else float(acc_err))
+                    if acc_conf is not None:
+                        # the split's latest pass, as the granular
+                        # evaluator keeps it
+                        ev.confusion_matrix.mem = acc_conf.cpu().numpy()
                     feed.note_device_sync(time.perf_counter() - t_sync)
-                    acc_loss = acc_err = None
+                    acc_loss = acc_err = acc_conf = None
                     acc_w = 0.0
                 else:
                     ev.loss = 0.0
