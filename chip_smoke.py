@@ -88,6 +88,15 @@
      each held first within 2^-6 + 2^-4*|plain| of the plain version
      (each of the library's operations rounds to bf16). Bounds: one read
      of each bf16 input and one write of each output.
+   CONV_STEM: the `conv_stem` op at AlexNet's conv1 (batch 128,
+   227x227x3, 96 kernels 11x11 at stride 4, linear: behind the strict
+   ReLU a few outputs within an ulp of zero route their gradients apart),
+   f32 with TF32 off and then bf16: `s2d` (the space-to-depth rewrite) held
+   against `direct` (cuDNN at stride 4), the forward and the weight and
+   bias gradients (f32: the forward within 1e-5 + 1e-5*|direct|, each
+   gradient within 1e-5*|direct| + 1e-5 of its largest magnitude; bf16:
+   2^-7 of each and of the largest), and both timed in turns, forward
+   and forward + backward (CUDA events, median of 25).
 4. SERVE: serve the full-width AlexNet (227x227x3, fc 4096, 1000 classes,
    ring of 64) through the same function the CLI uses, under
    lrn_maxpool=fused and again under composed, with one seed. POST 1, 8
@@ -186,6 +195,42 @@
    against the granular end state and reported, not gated (float noise
    can flip a max-pool near tie, as in 6 (c)); the fused step's
    synchronized host ms per train step print beside the granular cycles.
+   GRANULAR transformer: the char-transformer at its own widths (embed
+   64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
+   4096, 2 epochs through the granular graph (`launcher.train` without
+   --fused, the torch backend; one train minibatch of the sample text's 3
+   windows and one validation window an epoch); counters zeroed just
+   before and read just after must equal what the firings predict — K6
+   once per attention forward firing and once more in each attention
+   gradient unit's vjp, K7 once per vjp, K1 once per leaf (13) per
+   gradient-unit firing (the last train minibatch's update is skipped
+   once the Decision completes: 5, 1 and 13 in all) — nothing else, the
+   loss finite; host ms per pulse cycle and each unit's mean run_time
+   printed. Then, over a text of 32 train windows and one validation
+   window, 3 granular epochs (2 updates, the second from non-zero
+   velocities): each granular update equals the fused step's from the
+   same state on the same batch, every parameter and velocity within
+   TRAIN_ATOL + TRAIN_RTOL*|fused|, the fused step's synchronized host
+   ms per train step printed beside the granular cycles.
+   GRANULAR RESUME: the full-width AlexNet (synthetic loader of 1280
+   train and 128 validation images, dropout 0.5) 3 granular epochs
+   through `launcher.train` from a workflow file this script writes,
+   which rebuilds the sample's workflow with snapshot_config (codec none,
+   keep_last 2) and asks PyTorch for its deterministic algorithms
+   (cuDNN's gradients and the max-pool backward's index_add_ are not
+   bit-stable from one run to the next otherwise; the mode is restored
+   after the phase): (a) the uninterrupted run (its launches its
+   firings'),
+   against the same argv cut at 2 epochs and resumed from its newest
+   snapshot with -s, which must hold an epoch counter past 0 (epoch 2's
+   validation pass): the same bits in every parameter and velocity, the
+   history, best_validation_err, the epoch counter and the loss; the
+   resumed run's counts (zeroed just before it, read just after) exactly
+   its own firings' K2, K3 and K1; each run's snapshot export and import
+   seconds and bytes printed; (b) `python -m veles_tpu_torch ...
+   --supervise` without --fused, VELES_FAULT_PLAN=kill@epoch=2, in a
+   child: exit 0, one restart from a snapshot, the final TRAINED line
+   (a)'s uninterrupted run's.
    TRAIN transformer: train the char-transformer at its own widths (embed
    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
    4096 for 2 epochs through the same function (1 validation window, so
@@ -2499,6 +2544,10 @@ FEED_WIRES = (("memmap uint8", False, True), ("memmap f32", True, True),
 WIRE_RTOL, WIRE_ATOL = 1e-4, 1e-5
 #: the overlap profile's window: train steps of the second epoch
 FEED_PROFILE_FROM, FEED_PROFILE_STEPS = 11, 8
+#: the queued upload after that window: a spin kernel of this many SM
+#: cycles (about 20 ms at an H100's 1.98 GHz, longer at lower clocks) on
+#: the compute stream, then one batch-sized uint8 upload
+FEED_SPIN_CYCLES = 40_000_000
 
 
 def pack_feed_data(out_dir: str, seed: int) -> str:
@@ -2691,7 +2740,9 @@ def feed_profile(data_dir: str, seed: int) -> dict:
     """Run wire (a) at feed_ahead=1 under torch.profiler over
     FEED_PROFILE_STEPS train steps of the second epoch, in a child process
     (only a process's first profiler session records memcpys here), and
-    read the HtoD copies' streams and overlap with the step's kernels."""
+    read the HtoD copies' streams and overlap with the step's kernels;
+    then, in the same session, queued_upload's copy against the spin
+    kernel queued before it."""
     r = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--feed-profile",
          data_dir, "--seed", str(seed)], cwd=REPO, capture_output=True,
@@ -2720,9 +2771,25 @@ def feed_profile(data_dir: str, seed: int) -> dict:
             or s["batch_copies_without_issue_record"]:
         raise AssertionError(f"FEED profile: a batch copy waited for the "
                              f"compute stream's queued work: {s}")
-    if not s["batch_overlap_ms"] > 0:
+    # the loop's copies can overlap only the compute work queued when
+    # they are issued: none is where the host fell behind the card
+    if s["batch_copies_issued_with_work_pending"] \
+            and not s["batch_overlap_ms"] > 0:
         raise AssertionError(f"FEED profile: no batch copy overlaps a "
                              f"kernel of the step: {s}")
+    q = s["queued_upload"]
+    print(f"FEED queued upload (a {q and q['spin_ms']} ms spin kernel "
+          f"on the compute stream, then one batch upload): "
+          + json.dumps(q), flush=True)
+    if q is None or q["copy"] is None:
+        raise AssertionError(f"FEED profile: no spin kernel or no copy of "
+                             f"the queued upload: {q}")
+    if "Pinned" not in q["copy"] or q["stream"] == q["spin_stream"] \
+            or not q["overlap_ms"] > 0 \
+            or not q["start_after_spin_start_ms"] < q["spin_ms"]:
+        raise AssertionError(f"FEED profile: the upload issued behind a "
+                             f"queued spin kernel did not run under it "
+                             f"from a pinned buffer on a side stream: {q}")
     return s
 
 
@@ -2735,13 +2802,27 @@ def feed_overlap(events):
     after the call began: each row's `issue_call_ms` and
     `start_after_issue_ms`): compute work that ended before then was not
     pending when the copy was queued, and a copy that began after that
-    work did not wait for it."""
+    work did not wait for it. queued_upload's copy and spin kernel are
+    read apart (queued_copy), under "queued_upload"."""
     gpu = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     # the runtime call that issued each kernel and copy
     calls = {e["args"]["correlation"]: e for e in events
              if e.get("cat") == "cuda_runtime"
              and "correlation" in e.get("args", {})}
+    # queued_upload's events (from its spin kernel's launch on, the card
+    # drained before it) are read apart from the training loop's
+    spins = [e for e in gpu if e["cat"] == "kernel"
+             and "spin_kernel" in e["name"]]
+    upload = None
+    if spins:
+        spin = spins[-1]
+        call = calls.get(spin["args"].get("correlation"))
+        cut = min(spin["ts"], call["ts"] if call is not None
+                  else spin["ts"])
+        tail = [e for e in gpu if e["ts"] >= cut]
+        gpu = [e for e in gpu if e["ts"] < cut]
+        upload = queued_copy(spin, tail)
     issued = {c: e["ts"] for c, e in calls.items()}
     kern = [e for e in gpu if e["cat"] == "kernel"]
     streams: dict = {}
@@ -2819,7 +2900,45 @@ def feed_overlap(events):
         [min(after), max(after)] if after else None
     summary["copy_call_ms"] = [min(call_ms), max(call_ms)] if call_ms \
         else None
+    summary["queued_upload"] = upload
     return summary, gpu
+
+
+def queued_copy(spin, tail) -> dict:
+    """queued_upload's batch copy against the spin kernel queued before
+    it: its stream, whether pinned, when it began after the spin began,
+    and how much of it ran under the spin."""
+    a, b = spin["ts"], spin["ts"] + spin["dur"]
+    htod = [e for e in tail if e["cat"] == "gpu_memcpy"
+            and "HtoD" in e["name"]]
+    if not htod:
+        return {"spin_ms": (b - a) / 1e3, "copy": None}
+    e = max(htod, key=lambda e: e.get("args", {}).get("bytes", 0))
+    t0, t1 = e["ts"], e["ts"] + e["dur"]
+    return {"spin_ms": (b - a) / 1e3,
+            "spin_stream": spin["args"].get("stream"),
+            "copy": e["name"], "stream": e["args"].get("stream"),
+            "bytes": e["args"].get("bytes"), "ms": e["dur"] / 1e3,
+            "start_after_spin_start_ms": (t0 - a) / 1e3,
+            "overlap_ms": max(0.0, min(t1, b) - max(t0, a)) / 1e3}
+
+
+def queued_upload(dev) -> None:
+    """After the training loop's window: the card drained, one
+    batch-sized uint8 upload through a fresh `PinnedStreamPut`, issued
+    right behind a spin kernel of FEED_SPIN_CYCLES on the compute stream.
+    Whether the loop's own copies find compute work queued depends on
+    the host keeping ahead of the card; this one always does, so its
+    copy runs under the spin unless the upload waits for the compute
+    stream (feed_overlap reads it)."""
+    from veles_tpu_torch.loader.device_feed import PinnedStreamPut
+    torch.cuda.synchronize()
+    put = PinnedStreamPut(dev)
+    x = put.empty((TB, HW, HW, 3), np.uint8)
+    x.fill(1)
+    torch.cuda._sleep(FEED_SPIN_CYCLES)
+    put((x,))
+    torch.cuda.synchronize()
 
 
 def feed_profile_main(data_dir: str, seed: int) -> int:
@@ -2836,7 +2955,7 @@ def feed_profile_main(data_dir: str, seed: int) -> int:
     prof = profile(activities=[ProfilerActivity.CUDA])
 
     def stop():
-        torch.cuda.synchronize()
+        queued_upload(torch.device("cuda", torch.cuda.current_device()))
         prof.stop()
 
     last = FEED_PROFILE_FROM + FEED_PROFILE_STEPS - 1
@@ -3842,18 +3961,23 @@ def loader_pulses():
         Loader.run = inner
 
 
-def granular_want(wf) -> dict:
+def granular_want(wf, since=None) -> dict:
     """The launches the unit firings predict: K2 once per LRN forward
     firing, K3 once per LRN backward firing, K1 once per parameter leaf
-    per gradient-unit firing; nothing else."""
+    per gradient-unit firing; nothing else. `since`: the units' run
+    counts (by index in `wf.units`) before the firings to count."""
     from veles_tpu_torch.znicz.normalization import (LRNormalizerBackward,
                                                      LRNormalizerUnit)
+    before = since or [0] * len(wf.units)
+
+    def fired(u):
+        return u.run_count - before[wf.units.index(u)]
     return {
-        "lrn_forward": sum(u.run_count for u in wf.fwd_units
+        "lrn_forward": sum(fired(u) for u in wf.fwd_units
                            if isinstance(u, LRNormalizerUnit)),
-        "lrn_backward": sum(g.run_count for g in wf.gds
+        "lrn_backward": sum(fired(g) for g in wf.gds
                             if isinstance(g, LRNormalizerBackward)),
-        "sgd_update": sum(len(g._pnames) * g.run_count for g in wf.gds)}
+        "sgd_update": sum(len(g._pnames) * fired(g) for g in wf.gds)}
 
 
 def granular_state(wf):
@@ -4039,6 +4163,514 @@ def granular_phase(launcher, kernels, dev):
     with alexnet_config_kept():
         rec["vs_fused"] = granular_equals_fused(dev)
     return counts, rec
+
+
+# ---------------------------------------------------------------------------
+# CONV_STEM, GRANULAR transformer, GRANULAR RESUME
+# ---------------------------------------------------------------------------
+
+#: AlexNet's conv1: x (128, 227, 227, 3), 96 kernels of 11x11 at stride 4
+STEM_X, STEM_W, STEM_STRIDE = (TB, HW, HW, 3), (11, 11, 3, 96), 4
+#: s2d against direct in f32: the forward within STEM_RTOL, STEM_ATOL (the
+#: JAX package's s2d test), a gradient within STEM_RTOL and STEM_ATOL of
+#: its largest magnitude (a weight gradient sums N*OH*OW = 387,200
+#: products here, in another order in each lowering); in bf16 each value
+#: within STEM_BF16 relative and STEM_BF16 of the largest magnitude (two
+#: bf16 roundings of sums taken in another order)
+STEM_RTOL, STEM_ATOL, STEM_BF16 = 1e-5, 1e-5, 2.0 ** -7
+STEM_REPS = 25
+
+
+def time_turns(fns, reps=STEM_REPS):
+    """Median device ms of each callable, by CUDA events, the callables
+    run in turns (each once per round, `reps` rounds after a warm-up
+    round)."""
+    for f in fns.values():
+        f()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, f in fns.items():
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            f()
+            e.record()
+            times[k].append((s, e))
+    torch.cuda.synchronize()
+    return {k: float(np.median([s.elapsed_time(e) for s, e in v]))
+            for k, v in times.items()}
+
+
+def conv_stem_phase(dev):
+    """CONV_STEM: the `conv_stem` op's two lowerings at AlexNet's conv1
+    (batch 128, 227x227x3, 96 kernels 11x11/4), f32 with TF32 off and
+    then bf16: `s2d`'s forward and its weight and bias gradients held
+    against `direct`'s on the same inputs and upstream gradient, then
+    both timed in turns (forward, and forward + backward), median of 25
+    by CUDA events. The activation is linear: behind conv1's strict ReLU
+    the two lowerings' outputs, a few ulps apart, put some outputs within
+    1e-6 of zero on either side of it, whose gradients (about 1 each)
+    then route differently (the ReLU's discontinuity, not the
+    lowering's). Returns the record."""
+    from veles_tpu_torch.backends import full_f32
+    from veles_tpu_torch.ops import variants
+    rs = np.random.RandomState(17)
+    x32 = torch.from_numpy(rs.randn(*STEM_X).astype(np.float32)).to(dev)
+    w32 = torch.from_numpy(
+        (rs.randn(*STEM_W) * 0.01).astype(np.float32)).to(dev)
+    b32 = torch.from_numpy(rs.randn(STEM_W[-1]).astype(np.float32)
+                           * 0.1).to(dev)
+    oh = (HW - STEM_W[0]) // STEM_STRIDE + 1
+    g32 = torch.from_numpy(rs.randn(TB, oh, oh, STEM_W[-1]).astype(
+        np.float32)).to(dev)
+    stride = (STEM_STRIDE, STEM_STRIDE)
+    rec = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, w, b, g = (t.to(dtype) for t in (x32, w32, b32, g32))
+
+        def run(name, backward, x=x, w=w, b=b, g=g):
+            v = variants.get("conv_stem", name)
+            wt = w.detach().requires_grad_(backward)
+            bt = b.detach().requires_grad_(backward)
+            with full_f32(dev), torch.set_grad_enabled(backward):
+                y = v.apply(x, wt, bt, stride, (0, 0), "linear")
+                if not backward:
+                    return y, None, None
+                dw, db = torch.autograd.grad(y, [wt, bt], g)
+            return y.detach(), dw, db
+
+        got = run("s2d", True)
+        want = run("direct", True)
+        errs = {}
+        for name, a, e in zip(("y", "dw", "db"), got, want):
+            a, e = a.float(), e.float()
+            top = float(e.abs().max())
+            if dtype == torch.float32:
+                rtol = STEM_RTOL
+                atol = STEM_ATOL if name == "y" else STEM_ATOL * top
+            else:
+                rtol, atol = STEM_BF16, STEM_BF16 * top
+            check_close(f"CONV_STEM {label} s2d vs direct {name}", a, e,
+                        rtol, atol)
+            errs[name] = float((a - e).abs().max())
+        ms = time_turns({
+            "direct": lambda: run("direct", False),
+            "s2d": lambda: run("s2d", False),
+            "direct_fwd_bwd": lambda: run("direct", True),
+            "s2d_fwd_bwd": lambda: run("s2d", True)})
+        print(f"CONV_STEM {label} AlexNet conv1 {STEM_X} * {STEM_W} / "
+              f"{STEM_STRIDE}: s2d vs direct max abs err {errs} (f32: "
+              f"{STEM_RTOL}*|direct| + {STEM_ATOL}, of the largest "
+              f"gradient for dw, db; bf16: {STEM_BF16} of each and of the "
+              f"largest); device ms (median of {STEM_REPS}, in turns): "
+              f"forward direct {ms['direct']:.4f}, s2d {ms['s2d']:.4f}; "
+              f"forward + backward direct {ms['direct_fwd_bwd']:.4f}, "
+              f"s2d {ms['s2d_fwd_bwd']:.4f}", flush=True)
+        rec[label] = {"max_abs_err": errs, "ms": ms}
+        del got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: the granular char-transformer's runs: the CLI's 2 epochs (one train
+#: minibatch of 3 windows and one validation window each, the sample's
+#: text), and GT_CHECK_EPOCHS over a text of 32 train windows and one
+#: validation window for the granular-against-fused check (2 updates,
+#: the second from non-zero velocities)
+GT_EPOCHS, GT_CHECK_EPOCHS = 2, 3
+
+
+def granular_transformer_want(wf) -> dict:
+    """The launches the firings predict: K6 once per attention forward
+    firing and once per vjp (each attention gradient-unit firing), K7 once
+    per vjp, K1 once per leaf per gradient-unit firing; nothing else."""
+    from veles_tpu_torch.znicz.attention import AttentionUnit, \
+        GDMultiHeadAttention
+    vjp = sum(g.run_count for g in wf.gds
+              if isinstance(g, GDMultiHeadAttention))
+    return {"flash_attention_forward": vjp + sum(
+                u.run_count for u in wf.fwd_units
+                if isinstance(u, AttentionUnit)),
+            "flash_attention_backward": vjp,
+            "sgd_update": sum(len(g._pnames) * g.run_count
+                              for g in wf.gds)}
+
+
+def granular_transformer_equals_fused(dev):
+    """The full-width char-transformer at seq_len 4096 over a text of 32
+    train windows and one validation window, GT_CHECK_EPOCHS granular
+    epochs (torch backend), the state captured at each loader firing:
+    each update the granular units made must equal the fused step's from
+    the same state on the same batch, every parameter and velocity within
+    TRAIN_ATOL + TRAIN_RTOL*|fused|. Prints the fused step's synchronized
+    host ms per train step."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import TRAIN, Loader
+    from veles_tpu_torch.loader.text import synthetic_text
+    from veles_tpu_torch.samples import char_transformer
+    mb = ATT_SHAPES[0][0]
+
+    def build():
+        prng.seed_all(1234)
+        with ct_config({"loader.seq_len": CT_SEQ,
+                        "loader.n_validation": 1,
+                        "loader.minibatch_size": mb,
+                        "decision.max_epochs": GT_CHECK_EPOCHS}):
+            wf = char_transformer.create_workflow(
+                text=synthetic_text((mb + 1) * CT_SEQ + 1))
+        wf.initialize(device=dev)
+        return wf
+
+    g = build()
+    train = []
+    with loader_pulses() as pulses:
+        inner = Loader.run
+
+        def capture(self):
+            before = granular_state(g)
+            inner(self)
+            if self.minibatch_class == TRAIN:
+                train.append((before, self.minibatch_data.copy(),
+                              self.minibatch_labels.copy(),
+                              self.minibatch_valid.copy()))
+        Loader.run = capture
+        try:
+            g.run()
+        finally:
+            Loader.run = inner
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    end = granular_state(g)
+    updates = g.gds[0].run_count
+    del g
+    # each pulse cycle, from one loader firing to the next (it holds the
+    # next state's capture, a copy of 13 small leaves)
+    marks = [t for t, _ in pulses] + [t_end]
+    cycles = [(cls, 1e3 * (marks[i + 1] - marks[i]))
+              for i, (_, cls) in enumerate(pulses)]
+    f = build()
+    step = f.build_fused_step()
+    state = step.init_state()
+    worst, fused_ms = 0.0, []
+    for k in range(updates):
+        before, x, y, w = train[k]
+        after = train[k + 1][0] if k + 1 < len(train) else end
+        load_state(state, before)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, (loss, _) = step.train(state, x, y, w)
+        float(loss)
+        fused_ms.append(1e3 * (time.perf_counter() - t0))
+        worst = max(worst, compare_granular(
+            f"GRANULAR transformer update {k}", state, after)[0])
+    if updates != GT_CHECK_EPOCHS - 1:
+        raise AssertionError(f"GRANULAR transformer: {updates} granular "
+                             f"updates in {GT_CHECK_EPOCHS} epochs")
+    print(f"GRANULAR transformer: each of {updates} granular updates "
+          f"equals the fused step's from the same state on the same batch "
+          f"of {mb} windows within {TRAIN_ATOL} + {TRAIN_RTOL}*|fused| "
+          f"(max abs err {worst:.3e}); fused host ms per train step "
+          f"(synchronized) " + ", ".join(f"{ms:.1f}" for ms in fused_ms)
+          + "; the granular run's host ms per pulse cycle (class: 1 "
+          "validation, 2 train; a cycle's end holds the next state's "
+          "capture) " + ", ".join(f"{c}:{ms:.1f}" for c, ms in cycles),
+          flush=True)
+    del f, step, state, train, end
+    torch.cuda.empty_cache()
+    return {"updates": updates, "max_abs_err": worst,
+            "fused_host_ms": fused_ms, "granular_cycles_ms": cycles}
+
+
+def granular_transformer_phase(launcher, kernels, dev):
+    """GRANULAR transformer: the char-transformer at its own widths (embed
+    64, 4 heads of 16, ffn 128, vocabulary 18, minibatch 32) at seq_len
+    4096 for GT_EPOCHS epochs through the granular graph — `launcher.train`
+    without --fused, on the torch backend: counters zeroed just before and
+    read just after must equal the firings' (granular_transformer_want),
+    nothing else launched, the loss finite. Prints each minibatch's host
+    ms of its pulse cycle and each unit's mean run_time; then
+    `granular_transformer_equals_fused`. Returns (counts, record)."""
+    from veles_tpu_torch.config import root
+    saved = root.char_transformer.to_dict()
+    try:
+        with loader_pulses() as pulses:
+            t0 = time.perf_counter()
+            # -- the main path: counts zeroed just before, read just after
+            kernels.reset_launch_counts()
+            wf = launcher.train([
+                CHAR_TRANSFORMER, "-r", "1234", *CT_TRAIN_ARGS,
+                f"root.char_transformer.decision.max_epochs={GT_EPOCHS}"])
+            counts = kernels.launch_counts()
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+    finally:
+        root.char_transformer.update(saved)
+    if wf.device != dev or wf.backend_device.backend_name != "torch":
+        raise AssertionError(f"granular run on {wf.backend_device}")
+    att = wf.forwards[1]
+    variant = att.variant_effective()
+    want = granular_transformer_want(wf)
+    print(f"GRANULAR transformer: {wf.decision.epoch_number} epochs at "
+          f"S={wf.loader.seq_len}, {att.n_heads} heads of {att.head_dim}, "
+          f"attention variant {variant}; launches {counts} = the "
+          f"firings' {want}", flush=True)
+    check_counts("GRANULAR transformer", counts, want)
+    if variant != "kernel" or wf.decision.epoch_number != GT_EPOCHS \
+            or not want["flash_attention_backward"]:
+        raise AssertionError(f"GRANULAR transformer: variant {variant}, "
+                             f"{wf.decision.epoch_number} epochs, {want}")
+    loss = wf.evaluator.loss
+    if not np.isfinite(loss):
+        raise AssertionError(f"GRANULAR transformer: non-finite loss {loss}")
+    marks = [t for t, _ in pulses] + [end]
+    cycles = [(cls, 1e3 * (marks[i + 1] - marks[i]))
+              for i, (_, cls) in enumerate(pulses)]
+    print(f"GRANULAR transformer: {end - t0:.2f} s of host time; host ms "
+          f"per pulse cycle (class: 1 validation, 2 train) "
+          + ", ".join(f"{cls}:{ms:.1f}" for cls, ms in cycles)
+          + f"; loss {loss}; history {wf.decision.history}", flush=True)
+    print("GRANULAR transformer unit mean run_time ms: " + ", ".join(
+        f"{u.name} {1e3 * u.run_time / u.run_count:.2f} (x{u.run_count})"
+        for u in wf.units if u.run_count), flush=True)
+    rec = {"launches": counts, "want": want, "cycles_ms": cycles,
+           "loss": loss, "history": wf.decision.history,
+           "units": {f"{i}:{u.name}": [u.run_count, u.run_time]
+                     for i, u in enumerate(wf.units)}}
+    del wf
+    torch.cuda.empty_cache()
+    rec["vs_fused"] = granular_transformer_equals_fused(dev)
+    return counts, rec
+
+
+#: GRANULAR RESUME: the full-width AlexNet (synthetic loader, dropout 0.5)
+#: through the granular graph, GR_EPOCHS uninterrupted against GR_CUT and
+#: resumed with -s; snapshots uncompressed (codec none), keep_last 2; 1280
+#: train images (10 minibatches an epoch, as RESUME's), so that epoch
+#: GR_CUT's validation pass improves and its snapshot follows updates
+GR_EPOCHS, GR_CUT, GR_FAULT = 3, 2, "kill@epoch=2"
+GR_ARGS = ["root.alexnet.loader.n_train=1280"]
+GRANULAR_RESUME_WORKFLOW = '''
+import torch
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.samples import alexnet
+from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+
+root.gresume.snapshot_dir = "."
+root.gresume.init = "reference"
+# bit for bit from one run to the next on the card: cuDNN's weight and
+# data gradients and the max-pool backward's index_add_ (atomics) take
+# PyTorch's deterministic algorithms
+torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def create_workflow():
+    wf = alexnet.create_workflow(init=root.gresume.init)
+    return StandardWorkflow(
+        layers=wf.layers_config, loader=wf.loader, loss=wf.loss,
+        n_classes=wf.n_classes,
+        decision_config=root.alexnet.decision.to_dict(),
+        gd_config=root.alexnet.gd.to_dict(),
+        snapshot_config={"directory": root.gresume.snapshot_dir,
+                         "prefix": "alexnet", "compression": "",
+                         "keep_last": 2},
+        name="AlexNetWorkflow")
+
+
+def run(load, main):
+    wf, restored = load(create_workflow)
+    if restored:
+        wf.decision.max_epochs = root.alexnet.decision.max_epochs
+        wf.decision.complete = False
+    main()
+'''
+
+
+def granular_resume_argv(wf_file, snap_dir, epochs):
+    return [wf_file, "-r", "1234", "root.alexnet.loader.data_path=",
+            f"root.alexnet.decision.max_epochs={epochs}",
+            f"root.gresume.snapshot_dir={snap_dir}", *GR_ARGS, *TRAIN_ARGS]
+
+
+@contextlib.contextmanager
+def imported_counts():
+    """Every workflow Snapshotter.import_ restores in the block, as it was
+    restored: its units' run counts and its epoch counter."""
+    from veles_tpu_torch.snapshotter import Snapshotter
+    inner = Snapshotter.import_
+    seen = []
+
+    def import_(path, restore_prng=True):
+        wf = inner(path, restore_prng)
+        seen.append({"run_counts": [u.run_count for u in wf.units],
+                     "epoch": wf.decision.epoch_number})
+        return wf
+
+    Snapshotter.import_ = staticmethod(import_)
+    try:
+        yield seen
+    finally:
+        Snapshotter.import_ = staticmethod(inner)
+
+
+def granular_resume_run(launcher, kernels, label, argv):
+    """One GRANULAR RESUME run through `launcher.train(argv)` without
+    --fused: counts zeroed just before and read just after, the snapshot
+    clock. Returns (workflow, record)."""
+    with snapshot_clock() as snaps, imported_counts() as restored:
+        t0 = time.perf_counter()
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        wf = launcher.train(argv)
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec = {"label": label, "launches": counts, "wall_s": wall,
+           "exports": snaps["export"], "imports": snaps["import"],
+           "line": trained_line(wf),
+           "restored": restored[0] if restored else None}
+    print(f"GRANULAR RESUME {label}: {wall:.2f} s of host time; snapshot "
+          f"exports (s, bytes) {snaps['export']}; imports (s, bytes) "
+          f"{snaps['import']}; launches {counts}; {rec['line']}",
+          flush=True)
+    return wf, rec
+
+
+def granular_resume_phase(launcher, kernels, dev):
+    """GRANULAR RESUME: (a) the full-width AlexNet (dropout 0.5, synthetic
+    loader) GR_EPOCHS granular epochs with snapshot_config (codec none)
+    against the same run cut at GR_CUT epochs and resumed from its newest
+    snapshot with -s: the same bits in every parameter and velocity, the
+    history, best_validation_err, the epoch counter and the loss; the
+    resumed run's launches exactly its firings' (K2, K3, K1); (b)
+    `--supervise` of the same command line under GR_FAULT in a child: exit
+    0, one restart from a snapshot, the final TRAINED line (a)'s
+    uninterrupted run's. Returns (launches by path, record)."""
+    from veles_tpu_torch.snapshotter import Snapshotter
+    work = tempfile.mkdtemp(prefix="veles_gresume_")
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        with alexnet_config_kept():
+            wf_file = os.path.join(work, "alexnet_granular.py")
+            with open(wf_file, "w") as f:
+                f.write(GRANULAR_RESUME_WORKFLOW)
+            dirs = {k: os.path.join(work, k) for k in ("whole", "cut",
+                                                      "sup")}
+            whole, rec_whole = granular_resume_run(
+                launcher, kernels, "(a) uninterrupted",
+                granular_resume_argv(wf_file, dirs["whole"], GR_EPOCHS))
+            check_counts("GRANULAR RESUME (a) uninterrupted",
+                         rec_whole["launches"], granular_want(whole))
+            want, want_line = trained_state(whole), rec_whole["line"]
+            want_meta = (whole.decision.history, whole.decision.epoch_number,
+                         whole.decision.best_validation_err,
+                         whole.evaluator.loss)
+            del whole
+            torch.cuda.empty_cache()
+            cut, rec_cut = granular_resume_run(
+                launcher, kernels, f"(a) {GR_CUT} epochs",
+                granular_resume_argv(wf_file, dirs["cut"], GR_CUT))
+            del cut
+            snap = Snapshotter.latest(dirs["cut"], prefix="alexnet")
+            if snap is None or not Snapshotter.verify(snap):
+                raise AssertionError(f"GRANULAR RESUME (a): no verified "
+                                     f"snapshot in {os.listdir(dirs['cut'])}")
+            resumed, rec = granular_resume_run(
+                launcher, kernels, "(a) resumed",
+                granular_resume_argv(wf_file, dirs["cut"], GR_EPOCHS)
+                + ["-s", snap])
+            restored_epoch = rec["restored"]["epoch"]
+            # a snapshot taken after train minibatches (the trained
+            # weights, velocities, a dropout stream past its seed's
+            # position), the resumed run's launches its own firings'
+            if restored_epoch < 1:
+                raise AssertionError(f"GRANULAR RESUME (a): "
+                                     f"{os.path.basename(snap)} holds epoch "
+                                     f"{restored_epoch}, before any update")
+            delta = granular_want(resumed, rec["restored"]["run_counts"])
+            check_counts("GRANULAR RESUME (a) resumed", rec["launches"],
+                         delta)
+            if not delta["sgd_update"]:
+                raise AssertionError("GRANULAR RESUME (a): the resumed run "
+                                     "trained nothing")
+            got = trained_state(resumed)
+            got_meta = (resumed.decision.history,
+                        resumed.decision.epoch_number,
+                        resumed.decision.best_validation_err,
+                        resumed.evaluator.loss)
+            if resumed.device != dev:
+                raise AssertionError(f"GRANULAR RESUME (a): resumed on "
+                                     f"{resumed.device}")
+            same = same_bits(got, want) and got_meta == want_meta
+            print(f"GRANULAR RESUME (a) resumed from "
+                  f"{os.path.basename(snap)} ({os.path.getsize(snap)} "
+                  f"bytes, sidecar verified; epoch counter "
+                  f"{restored_epoch}) "
+                  f"against the uninterrupted run: the same bits in "
+                  f"{len(got)} parameters and velocities, history, "
+                  f"best_validation_err, epoch counter and loss: {same}; "
+                  f"launches {rec['launches']} = its firings' {delta}",
+                  flush=True)
+            if not same:
+                diff = [(i, float((a - b).abs().max()))
+                        for i, (a, b) in enumerate(zip(got, want))
+                        if not torch.equal(a, b)]
+                raise AssertionError(f"GRANULAR RESUME (a): the resumed run "
+                                     f"differs: {got_meta} against "
+                                     f"{want_meta}; tensors (index, max "
+                                     f"abs diff) {diff}")
+            del resumed, got, want
+            torch.cuda.empty_cache()
+            report = os.path.join(work, "supervise_report.json")
+            env = dict(os.environ, PYTHONPATH=REPO,
+                       VELES_FAULT_PLAN=GR_FAULT)
+            env.pop("VELES_FAULT_STATE", None)
+            cmd = [sys.executable, "-m", "veles_tpu_torch",
+                   *granular_resume_argv(wf_file, dirs["sup"], GR_EPOCHS),
+                   "--supervise", "--snapshot-dir", dirs["sup"],
+                   "--snapshot-prefix", "alexnet", "--supervise-report",
+                   report]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0 or not os.path.exists(report):
+                raise AssertionError(f"GRANULAR RESUME (b): the supervisor "
+                                     f"exited {r.returncode}:\n"
+                                     f"{r.stdout[-3000:]}\n"
+                                     f"{r.stderr[-5000:]}")
+            with open(report) as f:
+                attempts = json.load(f)["attempts"]
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("TRAINED")]
+            print(f"GRANULAR RESUME (b) --supervise (granular) under "
+                  f"{GR_FAULT}: exit 0 in {wall:.2f} s; attempts "
+                  + "; ".join(f"{a['attempt']}: {a['reason']} "
+                              f"{a['exit_codes']} at epoch "
+                              f"{a['epoch_reached']} from "
+                              f"{os.path.basename(a['snapshot'] or '-')}"
+                              for a in attempts), flush=True)
+            print(f"GRANULAR RESUME (b) "
+                  f"{lines[-1] if lines else '<no TRAINED line>'}",
+                  flush=True)
+            if len(attempts) != 2 or attempts[0]["exit_codes"] != [-9] \
+                    or not attempts[1]["snapshot"] \
+                    or attempts[1]["reason"] != "ok":
+                raise AssertionError(f"GRANULAR RESUME (b): attempts "
+                                     f"{attempts}:\n{r.stderr[-3000:]}")
+            if lines[-1:] != [want_line]:
+                raise AssertionError(f"GRANULAR RESUME (b): {lines[-1:]} is "
+                                     f"not the uninterrupted run's "
+                                     f"{want_line}")
+        record = {"uninterrupted": rec_whole, "cut": rec_cut,
+                  "resumed": rec, "snapshot_bytes": os.path.getsize(snap),
+                  "supervised": {"attempts": attempts, "wall_s": wall,
+                                 "line": lines[-1]}}
+        return {"granular_resume": rec["launches"]}, record
+    finally:
+        # the workflow file's deterministic mode stays with this phase
+        torch.use_deterministic_algorithms(deterministic)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 @contextlib.contextmanager
@@ -4374,6 +5006,7 @@ def main(argv=None) -> int:
     rows.update(backward_rows)
     rows.update(flash_kernel_phase(kernels, dev, bw, flops, tf32))
     rows.update(bf16_kernel_phase(kernels, dev, bw, flops))
+    conv_stem = conv_stem_phase(dev)
     by_path = {"serve": serve_phase(launcher, kernels, dev)}
     for setting, counts in train_phase(launcher, kernels, dev).items():
         by_path[f"train_{setting}"] = counts
@@ -4394,6 +5027,11 @@ def main(argv=None) -> int:
     by_path.update(resume_launches)
     by_path.update(local_launches)
     by_path["granular"], granular = granular_phase(launcher, kernels, dev)
+    by_path["granular_transformer"], granular_transformer = \
+        granular_transformer_phase(launcher, kernels, dev)
+    granular_resume_launches, granular_resume = granular_resume_phase(
+        launcher, kernels, dev)
+    by_path.update(granular_resume_launches)
     by_path["train_transformer"] = transformer_train_phase(launcher,
                                                            kernels, dev)
     by_path["train_transformer_d32"] = transformer_wide_head_phase(
@@ -4486,7 +5124,10 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kernels": entries, "launches": by_path,
                    "checks": checks, "k5_other_geometry": k5_other,
                    "feed": feed, "resume": resume, "local_step": local,
-                   "granular": granular, "samples": samples},
+                   "granular": granular,
+                   "granular_transformer": granular_transformer,
+                   "granular_resume": granular_resume,
+                   "conv_stem": conv_stem, "samples": samples},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

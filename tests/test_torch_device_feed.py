@@ -447,3 +447,37 @@ def test_chip_smoke_judges_pending_work_when_the_copy_is_queued(
     assert row["pending_at_call_start"] == 2
     assert row["issue_call_ms"] == pytest.approx(call_dur / 1e3)
     assert row["start_after_issue_ms"] == pytest.approx(0.017)
+
+
+@pytest.mark.parametrize("copy_start, overlap", [
+    (110, 0.004),       # ran under the spin queued before it
+    (1100, 0.0),        # waited for the spin to end
+])
+def test_chip_smoke_reads_the_queued_upload_apart(copy_start, overlap):
+    """The queued upload (a spin kernel on the compute stream, then one
+    batch copy) after the profiled window is read apart from the
+    training loop's copies: its copy against the spin alone."""
+    import chip_smoke
+
+    ev = _trace(6)
+    ev.append({"ph": "X", "cat": "kernel", "ts": 100, "dur": 1000,
+               "name": "at::cuda::(anonymous namespace)::spin_kernel(long)",
+               "args": {"stream": 7, "correlation": 200}})
+    ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+               "ts": 98, "dur": 1, "args": {"correlation": 200}})
+    ev.append({"ph": "X", "cat": "gpu_memcpy",
+               "name": "Memcpy HtoD (Pinned -> Device)", "ts": copy_start,
+               "dur": 4, "args": {"stream": 17, "correlation": 201,
+                                  "bytes": 19787136}})
+    ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
+               "ts": 105, "dur": 1, "args": {"correlation": 201}})
+    s, gpu = chip_smoke.feed_overlap(ev)
+    assert s["batch_copies"] == 1 and s["htod_copies"] == 1
+    assert s["kernel_streams"] == {7: 2} and len(gpu) == 3
+    assert s["batch_overlap_ms"] == pytest.approx(0.004)
+    q = s["queued_upload"]
+    assert q["spin_ms"] == pytest.approx(1.0)
+    assert (q["stream"], q["spin_stream"]) == (17, 7)
+    assert q["start_after_spin_start_ms"] == pytest.approx(
+        (copy_start - 100) / 1e3)
+    assert q["overlap_ms"] == pytest.approx(overlap)

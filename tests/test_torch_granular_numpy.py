@@ -15,9 +15,10 @@ command line, held against the JAX package.
   run's (numpy backend, bit for bit; the torch backend on the CPU, whose
   update is K1's plain version there, to rtol 1e-4, atol 1e-6).
 - The command line: the toy AlexNet trains through the graph without
-  `--fused` on `--device cpu` under both backends, and `-s`,
-  `--snapshot-dir`, `--supervise`, `--accum` and `--feed-ahead` without
-  `--fused` exit 2 naming what to do.
+  `--fused` on `--device cpu` under both backends; without `--fused` it
+  also takes `-s` (a snapshot of the toy workflow, restored and
+  trained), `--snapshot-dir` and `--supervise` (a supervised granular
+  child), while `--accum` and `--feed-ahead` exit 2 naming what to do.
 """
 
 import os
@@ -223,14 +224,42 @@ def test_cli_trains_through_the_granular_graph(backend):
     assert "'epoch': 1" in line and "'train_err'" in line
 
 
+@pytest.mark.parametrize("flag", ["-s", "--snapshot-dir", "--supervise"])
+def test_cli_takes_the_snapshot_flags_without_fused(tmp_path, flag):
+    if flag == "-s":
+        from veles_tpu_torch.snapshotter import Snapshotter
+        saved = root.alexnet.to_dict()
+        try:
+            root.alexnet.decision.max_epochs = 1
+            prng.seed_all(1)
+            wf = alexnet.create_workflow(
+                minibatch_size=4, input_hw=67, n_classes=16,
+                width_mult=0.125, fc_width=64, n_train=8, n_validation=4)
+            wf.initialize(device="cpu")
+            extra = ["-s", Snapshotter(wf, directory=str(tmp_path),
+                                       prefix="cli").export()]
+        finally:
+            root.alexnet = saved
+    elif flag == "--snapshot-dir":
+        extra = ["--snapshot-dir", str(tmp_path)]
+    else:
+        extra = ["--supervise", "--snapshot-dir", str(tmp_path),
+                 "--stall-timeout", "0"]
+    r = _cli("--device", "cpu", "-r", "1", *extra, *CLI_TOY,
+             "root.alexnet.decision.max_epochs=1")
+    assert r.returncode == 0, r.stderr[-2000:]
+    line = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("TRAINED")][-1]
+    assert line.startswith("TRAINED 1 epochs: loss "), line
+    assert "'train_err'" in line
+
+
 @pytest.mark.parametrize("flags, says", [
-    (["-s", "x.pickle.gz"], "later slice"),
-    (["--snapshot-dir", "."], "later slice"),
-    (["--supervise"], "later slice"),
     (["--accum", "2"], "combine with --fused"),
     (["--feed-ahead", "1"], "combine it with --fused"),
     (["--serve", "0", "-b", "numpy"], "without --fused and --serve"),
-])
+], ids=["flags3-combine with --fused", "flags4-combine it with --fused",
+        "flags5-without --fused and --serve"])
 def test_cli_refuses_what_the_granular_graph_does_not_take(flags, says):
     r = _cli("--device", "cpu", *flags, *CLI_TOY, timeout=120)
     assert r.returncode == 2, (r.returncode, r.stderr[-2000:])

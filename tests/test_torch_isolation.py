@@ -180,6 +180,30 @@ def test_samples_modules_stand_alone(module, imports_with_jax_blocked):
         imports_with_jax_blocked[module]
 
 
+#: the modules the granular char-transformer, the granular snapshots and
+#: resume, and the conv_stem lowering added or extended
+GRANULAR_TRANSFORMER_MODULES = [
+    "veles_tpu_torch.znicz.nn_units", "veles_tpu_torch.znicz.attention",
+    "veles_tpu_torch.znicz.transformer", "veles_tpu_torch.znicz.conv",
+    "veles_tpu_torch.znicz.evaluator",
+    "veles_tpu_torch.znicz.standard_workflow",
+    "veles_tpu_torch.ops.functional", "veles_tpu_torch.ops.variants",
+    "veles_tpu_torch.loader.base", "veles_tpu_torch.loader.synthetic",
+    "veles_tpu_torch.samples.char_transformer",
+    "veles_tpu_torch.snapshotter", "veles_tpu_torch.launcher",
+    "veles_tpu_torch.resilience.supervisor", "veles_tpu_torch.convert"]
+
+
+@pytest.mark.parametrize("module", GRANULAR_TRANSFORMER_MODULES)
+def test_granular_transformer_modules_stand_alone(module,
+                                                  imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_with_jax_blocked(module, imports_with_jax_blocked):
     assert imports_with_jax_blocked[module] is None, \

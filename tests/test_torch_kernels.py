@@ -164,7 +164,8 @@ def test_registry_resolution_and_device_gating():
     assert {op: sorted(spec.variants) for op, spec in variants._OPS.items()} \
         == {"lrn": ["kernel"], "lrn_maxpool": ["composed", "fused"],
             "sgd_update": ["kernel", "tree"],
-            "flash_attn": ["kernel", "mha"]}
+            "flash_attn": ["kernel", "mha"],
+            "conv_stem": ["direct", "s2d"]}
     with pytest.raises(KeyError):
         variants.get("lrn", "plain")
     composed = variants.get("lrn_maxpool", "composed")

@@ -8,6 +8,12 @@ only when its kernel search (ops/templates.py) selects one. The port has
 no search yet, so its default keeps K4 and K5 on the main path; the
 registry entry's doc says so. Both lowerings meet the same golden
 (tests/test_torch_kernels.py, tests/test_torch_train_step.py).
+
+`conv_stem`: the port defaults to `direct` (cuDNN at the layer's
+stride); the JAX package defaults to `s2d` (veles_tpu/ops/variants.py:
+339-363), the space-to-depth rewrite its TPU measurement chose. Both
+lowerings compute the same convolution (tests/test_torch_conv_stem.py);
+on the card the choice waits for a benchmark cell.
 """
 
 from veles_tpu.ops import variants as jvariants
@@ -27,3 +33,17 @@ def test_lrn_maxpool_default_is_fused_where_the_reference_composes():
             variants.select("lrn_maxpool", prev)
     doc = variants._OPS["lrn_maxpool"].doc
     assert "composed" in doc and "veles_tpu/ops/variants.py" in doc
+
+
+def test_conv_stem_default_is_direct_where_the_reference_packs():
+    assert variants._OPS["conv_stem"].default == "direct"
+    assert jvariants._OPS["conv_stem"].default == "s2d"
+    prev = variants.selected("conv_stem")
+    variants.clear_selection("conv_stem")
+    try:
+        assert variants.resolve("conv_stem").name == "direct"
+    finally:
+        if prev is not None:
+            variants.select("conv_stem", prev)
+    doc = variants._OPS["conv_stem"].doc
+    assert "s2d" in doc and "veles_tpu/ops/variants.py" in doc

@@ -21,9 +21,13 @@ comparisons.
 
 `granular_from_jax(jax_workflow, workflow)` carries a JAX granular
 workflow's units into the port's initialized workflow of the same layer
-list: each forward unit's parameter `Array`s (`weights`, `bias`) into the
-layer's tensors, each gradient unit's velocities (`vel_w`, `vel_b`) and
-`lr_scale`, the evaluator's last metrics, the Decision's counters and
+list: each forward unit's parameter `Array`s (`weights`, `bias`, ...)
+into the layer's tensors, each gradient unit's velocities and
+`lr_scale` — a JAX VJP twin (the attention and sequence layers' `jax.vjp`
+units) keeps `vel_<leaf>` for every leaf, `vel_weights` and `vel_bias`
+included, where the port's units keep one naming, `vel_w` / `vel_b` /
+`vel_<leaf>` (`_jax_velocity`, after veles_tpu/parallel/fused.py
+`_vel_attr`) — the evaluator's last metrics, the Decision's counters and
 the loader's schedule, cursor and shuffled indices, so the port's graph
 continues the JAX run (the shuffle stream itself is the PRNG
 registry's). It
@@ -167,6 +171,18 @@ _DECISION_STATE = ("epoch_number", "epoch_n_err", "best_validation_err",
 _LOADER_STATE = ("epoch_number", "_cursor", "_schedule")
 
 
+def _jax_velocity(jg, name: str, port_attr: str):
+    """The JAX gradient unit's velocity Array of leaf `name`, or None
+    where it has none yet: `vel_<name>` (a VJP twin's, every leaf), else
+    the port's attribute, the reference's short name for `weights` and
+    `bias` (`vel_w` / `vel_b`)."""
+    for attr in (f"vel_{name}", port_attr):
+        jv = getattr(jg, attr, None)
+        if jv is not None and jv:
+            return jv
+    return None
+
+
 def granular_from_jax(jax_workflow, workflow) -> None:
     jf, pf = list(jax_workflow.forwards), list(workflow.forwards)
     if len(jf) != len(pf):
@@ -177,8 +193,8 @@ def granular_from_jax(jax_workflow, workflow) -> None:
     _load_into(workflow, params_from_jax(params, workflow.device))
     for i, (jg, pg) in enumerate(zip(jax_workflow.gds, workflow.gds)):
         for name in pg._pnames:
-            jv = getattr(jg, pg.vel_attr(name), None)
-            if jv is None or not jv:
+            jv = _jax_velocity(jg, name, pg.vel_attr(name))
+            if jv is None:
                 continue
             v = np.asarray(jv.mem, np.float32)
             p = getattr(pg, name).devmem()

@@ -5,7 +5,7 @@ a snapshot, then train or serve it, optionally under the supervisor.
 [-b torch|numpy] [-s SNAPSHOT] [--device cpu] [-r SEED]
 [--lrn-maxpool fused|composed] [--feed-ahead N] [--accum K]
 [--nonfinite-guard] [--serve-ring N] [root.x=y ...]`,
-and with `--fused` also `--supervise [--max-restarts N]
+and in either training mode also `--supervise [--max-restarts N]
 [--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
 [--supervise-report PATH]` — the port's counterpart of
 `veles_tpu/__main__.py` and of `veles_tpu/launcher.py`'s training and
@@ -21,10 +21,11 @@ with neither flag, trains it through the granular Unit/Workflow graph
 firing on its backend: `-b torch` (the default, the counterpart of the
 JAX package's `xla`) runs each unit's `torch_run` on the card, or on the
 CPU under `--device cpu`; `-b numpy` runs each unit's `numpy_run`, the
-host goldens. `--nonfinite-guard` arms the Decision in either training
-mode. Snapshots and resume of a granular run (`-s`, `--snapshot-dir`),
-its supervisor (`--supervise`), and `--accum` and `--feed-ahead`, which
-tune the fused step and its device feed, are refused without `--fused`.
+host goldens. `--nonfinite-guard`, `-s` and `--supervise` work in
+either training mode: a workflow restored for the granular graph moves
+to the backend's device and continues at the pulse after its
+snapshot's. `--accum` and `--feed-ahead`, which tune the fused step and
+its device feed, are refused without `--fused`.
 
 `--supervise` makes this process the supervisor
 (`resilience/supervisor.py`) of a child running the same command line
@@ -104,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "back one snapshot before retrying)")
     # the supervisor's own flags: one group, which supervisor_flags()
     # reads to strip them from the child's command line
-    sup = p.add_argument_group("supervisor (--fused --supervise)")
+    sup = p.add_argument_group("supervisor (--supervise)")
     p.supervisor_actions = [
         sup.add_argument("--supervise", action="store_true",
                          help="run under the supervisor: this process "
@@ -147,12 +148,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: what the granular graph does not take yet, and why (the refusals of
-#: parse_args without --fused and --serve)
-_LATER_SLICE = ("snapshots and resume of the granular graph come with a "
-                "later slice of the port")
-
-
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse `argv`: at most one of --fused and --serve, and the flags
     each mode takes (exit 2 else)."""
@@ -176,18 +171,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error(f"--accum needs K >= 1 (got {args.accum})")
     if args.accum and args.accum > 1 and not args.fused:
         p.error("--accum applies to the fused step: combine with --fused")
-    if args.supervise and not args.fused:
-        p.error("--supervise supervises a training run: combine it with "
-                f"--fused ({_LATER_SLICE})")
+    if args.supervise and args.serve is not None:
+        p.error("--supervise supervises a training run: give it with "
+                "--fused or without --serve")
     if args.nonfinite_guard and args.serve is not None:
         p.error("--nonfinite-guard guards a training run: give it with "
                 "--fused or without --serve")
-    if granular and args.snapshot:
-        p.error(f"-s/--snapshot restores a fused run: {_LATER_SLICE}; "
-                "combine it with --fused or --serve")
-    if args.snapshot_dir is not None and not args.fused:
-        p.error(f"--snapshot-dir is the supervisor's: combine it with "
-                f"--fused --supervise ({_LATER_SLICE})")
+    if args.snapshot_dir is not None and args.serve is not None:
+        p.error("--snapshot-dir is the supervisor's: give it with a "
+                "training run")
     return args
 
 

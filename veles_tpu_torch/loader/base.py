@@ -129,19 +129,28 @@ class Loader(AcceleratedUnit, IDistributable):
         pristine = d.pop("_emit_pristine", None)
         if pristine is not None:
             d["emit"] = pristine
+        d["_restored"] = True
         return d
 
     # -- lifecycle -----------------------------------------------------------
 
     def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
+        """Load the data; a fresh loader then lays out its indices and
+        draws its first epoch's shuffle, a restored one (a snapshot's)
+        keeps the schedule, cursor and shuffle it carries, which another
+        draw or a cursor reset would fork from the uninterrupted run
+        (JAX loader/base.py:125-158)."""
         self.load_data()
-        offset = 0
-        for cls in (TEST, VALIDATION, TRAIN):
-            n = self.class_lengths[cls]
-            self._indices_per_class[cls] = np.arange(
-                offset, offset + n, dtype=np.int64)
-            offset += n
-        self._start_epoch()
+        restored = self.__dict__.pop("_restored", False) \
+            and bool(self._schedule)
+        if not restored:
+            offset = 0
+            for cls in (TEST, VALIDATION, TRAIN):
+                n = self.class_lengths[cls]
+                self._indices_per_class[cls] = np.arange(
+                    offset, offset + n, dtype=np.int64)
+                offset += n
+            self._start_epoch()
         return super().initialize(device=device, **kwargs)
 
     def _start_epoch(self) -> None:
@@ -223,8 +232,9 @@ class PrefetchingLoader(Loader):
 
     def initialize(self, device=None, **kwargs: Any) -> Optional[bool]:
         # the "hflip" stream's one draw comes before the shuffle, as in
-        # the JAX package, so the stream registers at the same index
-        if self.hflip:
+        # the JAX package, so the stream registers at the same index; a
+        # restored loader keeps its seed (the pickled stream is past it)
+        if self.hflip and not self.__dict__.get("_restored"):
             self._hflip_seed = int(prng.get("hflip").randint(0, 2 ** 31))
         return super().initialize(device=device, **kwargs)
 

@@ -4,7 +4,8 @@ The port's counterpart of `veles_tpu/loader/synthetic.py`: the same seed
 gives the same samples as `SyntheticClassifierLoader` there. The samples
 are made at the first minibatch rather than at `initialize`: a server only
 needs `sample_shape`, and the full-size AlexNet split is ~400 MB of
-floats it would never read.
+floats it would never read; for the same reason a pickle (a snapshot)
+leaves them out, and the restored loader makes them again.
 """
 
 from __future__ import annotations
@@ -60,6 +61,14 @@ class SyntheticClassifierLoader(FullBatchLoader):
         # the split sizes fix the index bookkeeping; the samples come on
         # first use (see the module docstring)
         self.class_lengths = list(self.split)
+
+    def __getstate__(self):
+        d = super().__getstate__()
+        # made again from the seed at the first minibatch after a restore:
+        # a snapshot holds no copy of the samples
+        d.pop("data", None)
+        d.pop("labels", None)
+        return d
 
     def fill_minibatch(self, indices: np.ndarray) -> None:
         if self.data is None:

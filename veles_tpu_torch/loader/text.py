@@ -24,8 +24,10 @@ def synthetic_text(n_chars: int = 20000, seed: int = 97) -> str:
     words = ["the", "cat", "sat", "on", "mat", "dog", "ran", "far",
              "sun", "set", "red", "fox", "big", "box"]
     out = []
-    while sum(len(w) + 1 for w in out) < n_chars:
+    total = 0   # sum(len(w) + 1 for w in out), kept as it grows
+    while total < n_chars:
         out.append(words[rng.randint(len(words))])
+        total += len(out[-1]) + 1
     return " ".join(out)[:n_chars]
 
 

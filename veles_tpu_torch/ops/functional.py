@@ -126,21 +126,63 @@ def conv2d_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    stride: Tuple[int, int] = (1, 1),
                    padding: Tuple[int, int] = (0, 0),
                    activation: str = "linear",
-                   w_oihw: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   w_oihw: Optional[torch.Tensor] = None,
+                   s2d: bool = False) -> torch.Tensor:
     """act(conv2d(x, W) + b) with symmetric (ph, ph), (pw, pw) padding and
     the bias added before the activation (xla.py conv2d_forward).
     `w_oihw` is `conv_weight_oihw(w)` when the caller caches it. In f32
     cuDNN adds the bias inside the convolution; a sub-f32 (bf16)
     convolution is rounded before the bias is added, as XLA's conv
-    followed by `+ b` rounds it in the JAX package."""
-    if w_oihw is None:
-        w_oihw = conv_weight_oihw(w)
+    followed by `+ b` rounds it in the JAX package. `s2d` with a square
+    stride > 1 runs the convolution as `conv2d_space_to_depth` (the
+    cached `w_oihw` is then not used)."""
     narrow = x.element_size() < 4
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, None if narrow else b,
-                 tuple(stride), tuple(padding)).permute(0, 2, 3, 1)
+    if s2d and stride[0] == stride[1] and stride[0] > 1:
+        y = conv2d_space_to_depth(x, w, stride[0], tuple(padding),
+                                  None if narrow else b)
+    else:
+        if w_oihw is None:
+            w_oihw = conv_weight_oihw(w)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, None if narrow else b,
+                     tuple(stride), tuple(padding)).permute(0, 2, 3, 1)
     if narrow:
         y = y + b
     return act_forward(activation, y.contiguous())
+
+
+def conv2d_space_to_depth(x: torch.Tensor, w: torch.Tensor, b_: int,
+                          padding: Tuple[int, int],
+                          bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The stride-`b_` convolution of NHWC `x` by HWIO `w` rewritten as a
+    stride-1 convolution on space-to-depth packed operands (xla.py
+    conv2d_space_to_depth): x padded by `padding`, then with zeros so
+    every tap of the kernel padded to multiples of `b_` (zero taps) lies
+    inside; both pixel-unshuffled into b_·b_·C channels in (row, column,
+    channel) order; `F.conv2d` at stride 1, `bias` added inside it. The
+    same sums as the direct convolution in another order; a thin-channel
+    stem (AlexNet's cin 3 at stride 4) becomes 48 channels over a 4x
+    smaller extent. Returns (N, OH, OW, O), NHWC."""
+    n, h, wd, c = x.shape
+    kh, kw, _, co = w.shape
+    ph, pw = padding
+    h, wd = h + 2 * ph, wd + 2 * pw
+    oh = (h - kh) // b_ + 1
+    ow = (wd - kw) // b_ + 1
+    kh2, kw2 = -(-kh // b_) * b_, -(-kw // b_) * b_
+    need_h, need_w = (oh - 1) * b_ + kh2, (ow - 1) * b_ + kw2
+    # (left, right, top, bottom) of W, then H; C untouched
+    x = F.pad(x, (0, 0, pw, pw + max(0, need_w - wd), ph,
+                  ph + max(0, need_h - h)))
+    w = F.pad(w, (0, 0, 0, 0, 0, kw2 - kw, 0, kh2 - kh))
+    hb, wb = need_h // b_, need_w // b_
+    xs = x[:, :hb * b_, :wb * b_, :].reshape(n, hb, b_, wb, b_, c)
+    xs = xs.permute(0, 1, 3, 2, 4, 5).reshape(n, hb, wb, b_ * b_ * c)
+    ws = w.reshape(kh2 // b_, b_, kw2 // b_, b_, c, co)
+    ws = ws.permute(0, 2, 1, 3, 4, 5).reshape(kh2 // b_, kw2 // b_,
+                                              b_ * b_ * c, co)
+    y = F.conv2d(xs.permute(0, 3, 1, 2), conv_weight_oihw(ws), bias)
+    return y.permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Lowering-variant registry of the port: the ops `lrn`, `lrn_maxpool`,
-`sgd_update` and `flash_attn` and their candidate lowerings.
+`sgd_update`, `flash_attn` and `conv_stem` and their candidate
+lowerings.
 
 The port's counterpart of `veles_tpu/ops/variants.py`, with the same
 `select` / `resolve` precedence (variants.py:152-232 there): a unit's
@@ -23,6 +24,12 @@ plain version on a CPU tensor by itself, so no entry is device-gated.
   einsum golden of ops/attention.py, the counterpart of `xla_mha`). The
   attention unit consults it only where its gate sends a sequence to the
   blocked kernel (znicz/attention.py).
+- `conv_stem`: `direct` (the default, `F.conv2d` at the layer's stride)
+  and `s2d` (the space-to-depth rewrite, `functional.
+  conv2d_space_to_depth`), the JAX package's two hand-written points; its
+  generated pack x acc x epi search waits for the kernel search. Where the
+  JAX package defaults to `s2d` (its TPU measurement), the port keeps
+  `direct` until a measurement on the card decides.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
-from veles_tpu_torch.ops import attention, kernels, optim
+from veles_tpu_torch.ops import attention, functional, kernels, optim
 
 
 @dataclass(frozen=True)
@@ -206,3 +213,31 @@ register(Variant("flash_attn", "kernel", _flash_kernel,
 register(Variant("flash_attn", "mha", attention.mha_forward,
                  doc="the einsum golden (ops/attention.py mha_forward): "
                      "an (S, S) score tensor per head"))
+
+
+# -- conv_stem: apply(x, w, b, stride, padding, activation) -> y ------------
+#    A Conv with s2d="auto" consults it where its stride is square and > 1
+#    and its input has fewer than 8 channels (znicz/conv.py).
+
+
+def _conv_direct(x, w, b, stride, padding, activation):
+    return functional.conv2d_forward(x, w, b, stride, padding, activation)
+
+
+def _conv_s2d(x, w, b, stride, padding, activation):
+    return functional.conv2d_forward(x, w, b, stride, padding, activation,
+                                     s2d=True)
+
+
+register_op(
+    "conv_stem", default="direct",
+    doc="strided thin-channel (cin < 8) entry convolution. The default "
+        "differs from the JAX package's, which is s2d "
+        "(veles_tpu/ops/variants.py:339-363, chosen by its TPU "
+        "measurement); on the card the choice waits for a benchmark cell")
+register(Variant("conv_stem", "direct", _conv_direct,
+                 doc="F.conv2d at the layer's stride (cuDNN)"))
+register(Variant("conv_stem", "s2d", _conv_s2d,
+                 doc="space-to-depth repack (functional."
+                     "conv2d_space_to_depth): a stride-1 F.conv2d over "
+                     "b*b*C channels, the same sums in another order"))

@@ -1,9 +1,10 @@
 """Training supervisor: automated crash and hang recovery from snapshots.
 
 The port's copy of `veles_tpu/resilience/supervisor.py`, for one host.
-`python -m veles_tpu_torch WORKFLOW.py --fused --supervise …` makes
+`python -m veles_tpu_torch WORKFLOW.py [--fused] --supervise …` makes
 this process a light parent that spawns the training run (its own
-command line without the supervisor's flags) and restarts it:
+command line without the supervisor's flags), through the fused step
+or the granular graph, and restarts it:
 
     spawn ──▶ monitor ──▶ the child exits 0 ──▶ report, exit 0
                 │
@@ -20,7 +21,8 @@ command line without the supervisor's flags) and restarts it:
 
 Liveness is a heartbeat FILE (`VELES_HEARTBEAT_FILE`): the
 launcher writes it at startup and at every epoch boundary (an atomic
-JSON write carrying the epoch counter and the device feed's counters),
+JSON write carrying the epoch counter and, in a fused run, the device
+feed's counters),
 so the supervisor detects both "process is gone" and "process is alive
 but stuck", and tells "restarted but not advancing" from progress. A
 fault fired in one attempt is recorded in `VELES_FAULT_STATE` and does

@@ -7,11 +7,14 @@ the same `root.char_transformer` defaults and layer list: one-hot chars
 embed 64, 4 heads, ffn 128, minibatch 32, SGD lr 0.2 with momentum 0.9.
 
 Train it: `python -m veles_tpu_torch
-veles_tpu_torch/samples/char_transformer.py --fused [--device cpu]
-[-r SEED] [root.char_transformer.loader.seq_len=4096 ...]`. At the
-default seq_len 32 the attention runs the einsum `mha` path; at
-seq_len 4096 (S >= 4096, S % 128 == 0, the attention unit's flash gate)
-it runs K6 forward and K7 backward. The sequence-parallel modes
+veles_tpu_torch/samples/char_transformer.py [--fused] [--device cpu]
+[-r SEED] [root.char_transformer.loader.seq_len=4096 ...]`, through the
+fused step with `--fused`, else through the granular Unit/Workflow graph
+(`-b torch`, the default, or `-b numpy`). At the default seq_len 32 the
+attention runs the einsum `mha` path; at seq_len 4096 (S >= 4096,
+S % 128 == 0, the attention unit's flash gate) it runs K6 forward and K7
+backward, in the granular graph K6 in the attention unit's firing and K6
+and K7 in its gradient unit's vjp. The sequence-parallel modes
 (`parallel_mode` "ring" / "ulysses") and the mixture-of-experts FFN
 (`moe_experts` > 0) come with the many-GPU slice.
 """

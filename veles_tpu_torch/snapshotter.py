@@ -24,6 +24,14 @@ contract is the JAX package's:
   (bookkeeping only, no file);
 - `import_(path, restore_prng=True)`.
 
+The Snapshotter is a unit (JAX standard_workflow.py:125-156): in the
+granular graph StandardWorkflow links it after the Decision, at the end
+of the pulse's gradient chain, and `link_decision` gates it on the
+Decision's `improved` (`gate_skip`, re-derived on restore as the other
+gates are), so it pickles a pulse whose updates have all run, the
+loader's cursor at the next minibatch; the fused loop calls `run()`
+itself where the Decision marks an improvement.
+
 Every torch tensor leaves as host bytes (`_SnapshotPickler`), whatever
 device it lay on, and comes back as a CPU tensor of the same dtype,
 shape and bits, so a snapshot written on the card loads in a process
@@ -52,7 +60,7 @@ import sys
 import time
 from typing import Any, List, Optional
 
-from veles_tpu_torch.logger import Logger
+from veles_tpu_torch.units import Unit
 
 #: the format marker of the port's snapshots
 FORMAT = "__veles_torch_snapshot__"
@@ -132,17 +140,22 @@ class _SnapshotPickler(pickle.Pickler):
                                  obj.requires_grad)
 
 
-class Snapshotter(Logger):
+class Snapshotter(Unit):
     """Pickle the owning workflow (compressed) with the global PRNG
-    registry; `run()` is called by the training loop where the Decision
-    marks an improvement."""
+    registry: a unit of the granular graph, gated on the Decision's
+    improvement; the fused loop calls `run()` where the Decision marks
+    one."""
 
     def __init__(self, workflow=None, prefix: str = "wf",
                  directory: str = ".", compression: str = "gz",
                  interval: int = 1, time_interval: float = 0.0,
                  keep_last: int = 0) -> None:
         _open_codec(compression)
+        super().__init__(None, name="snapshotter")
+        # any object may be pickled; a workflow also adopts the unit
         self.workflow = workflow
+        if hasattr(workflow, "add_unit"):
+            workflow.add_unit(self)
         self.prefix = prefix
         self.directory = directory
         self.compression = compression
@@ -169,15 +182,17 @@ class Snapshotter(Logger):
         return self.suffix or time.strftime("%Y%m%d_%H%M%S")
 
     def link_decision(self, decision) -> "Snapshotter":
-        """Stamp filenames with `decision`'s best validation error (the
-        training loop gates the calls on its `improved`)."""
+        """Gate on `decision`'s `improved` and stamp filenames with its
+        best validation error."""
+        self.gate_skip = ~decision.improved
         self._decision = decision
         return self
 
     # -- lifecycle -----------------------------------------------------------
 
-    def initialize(self) -> None:
+    def initialize(self, **kwargs: Any) -> None:
         os.makedirs(self.directory, exist_ok=True)
+        return super().initialize(**kwargs)
 
     def run(self) -> None:
         self._skipped += 1
@@ -212,7 +227,7 @@ class Snapshotter(Logger):
                         pass
 
     def __getstate__(self):
-        d = dict(self.__dict__)
+        d = super().__getstate__()
         # re-linked by the workflow on restore
         d["_decision"] = None
         # runtime bookkeeping is process-local (paths, rate-limit

@@ -17,6 +17,14 @@ version. (The JAX package's "auto" also asks for a TPU, since its kernel
 runs nowhere else.) `variant_effective()` reports what a call at the
 unit's sequence length runs: `mha` where the gate keeps the kernel out.
 
+`AttentionUnit` is the layer's node in the granular graph (JAX
+attention.py:187-244) and `GDMultiHeadAttention` its gradient twin, the
+vjp of the same forward (nn_units.GradientDescentVJP): on the torch
+backend both follow the flash gate (K6 in the forward firing, K6 and K7
+in the twin's differentiation); on the numpy backend `allow_flash=False`
+keeps them on the einsum golden, as the JAX unit's `numpy_run` does, so
+the host path stays a reference independent of the kernels.
+
 Ring and Ulysses attention (`parallel_mode` "ring" / "ulysses") and
 megatron tensor parallelism shard over several cards and come with the
 many-GPU slice.
@@ -28,7 +36,8 @@ from typing import Any, Dict, Optional
 
 from veles_tpu_torch.ops import attention, variants
 from veles_tpu_torch.ops import functional as fn
-from veles_tpu_torch.znicz.nn_units import Forward
+from veles_tpu_torch.znicz.nn_units import Forward, GradientDescentVJP, \
+    VJPForwardUnit, register_gd, register_unit
 
 FLASH_MIN_SEQ = 4096
 FLASH_SEQ_MULTIPLE = 128
@@ -106,13 +115,18 @@ class MultiHeadAttention(Forward):
     def fused_apply(self, params, x, *, train=False, variant=None):
         """`variant`: the `flash_attn` lowering a fused forward resolved at
         build time, taken where the gate admits S; None resolves it now."""
+        return self.apply_model(params, x, variant=variant)
+
+    def apply_model(self, params, x, allow_flash=True, variant=None):
+        """The forward; `allow_flash=False` runs the einsum golden
+        whatever the gate says (the numpy backend's)."""
         n, s, _ = x.shape
         d = self.head_dim
         h = params["wq"].shape[1] // d
         q = fn.matmul(x, params["wq"]).reshape(n, s, h, d)
         k = fn.matmul(x, params["wk"]).reshape(n, s, h, d)
         v = fn.matmul(x, params["wv"]).reshape(n, s, h, d)
-        if self._flash_ok(s):
+        if allow_flash and self._flash_ok(s):
             v_ = variant or variants.resolve(self.variant_op, unit=self)
             o = v_.apply(q, k, v, causal=self.causal)
         else:
@@ -121,3 +135,14 @@ class MultiHeadAttention(Forward):
         # so is everything after it, as in the JAX unit
         y = fn.matmul(o.reshape(n, s, h * d), params["wo"])
         return x + y if self.residual else y
+
+
+@register_unit(MultiHeadAttention)
+class AttentionUnit(VJPForwardUnit):
+    """(N, S, E) -> (N, S, E), one firing per minibatch."""
+
+
+@register_gd(MultiHeadAttention)
+class GDMultiHeadAttention(GradientDescentVJP):
+    """The vjp of the attention forward and the update of wq, wk, wv and
+    wo (`vel_wq`, `vel_wk`, `vel_wv`, `vel_wo`)."""

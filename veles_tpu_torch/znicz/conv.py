@@ -6,9 +6,21 @@ and the bias before the activation. The convolution runs through
 `F.conv2d` on a channels-last view; the OIHW copy of the weights it needs
 is made once per weight tensor and cached where no gradient is recorded
 (serving, evaluation) — a training forward permutes afresh, so that the
-copy is part of its autograd graph. (The JAX package's
-space-to-depth stem is an exact rewrite of the same convolution and has
-no counterpart here.)
+copy is part of its autograd graph.
+
+`s2d` ("auto", "on" or "off", JAX conv.py:36-90) picks the
+space-to-depth rewrite of a strided convolution
+(`functional.conv2d_space_to_depth`: the same sums, a stride-1
+convolution over b·b·C channels): "on" forces it (a square stride > 1 is
+required), "off" never takes it, and "auto" asks the registry's
+`conv_stem` op (`resolve("conv_stem")`, default `direct`) where the
+layer is a thin-channel stem — square stride > 1 and fewer than 8 input
+channels (`_s2d_applicable`) — and runs the direct convolution
+elsewhere. The fused step and the granular node both run `fused_apply`,
+so both follow the choice; the backward is autograd's in the fused
+step and gd_conv.py's hand-derived one in the graph, as in the JAX
+package. `variant_op` stays None: the fused plan and its variant table
+do not route the stem (the layer asks the registry itself).
 
 `ConvUnit` is the layer's node in the granular graph (JAX conv.py
 `numpy_run` / `xla_run`): the numpy golden `reference.conv2d_forward`, or
@@ -25,6 +37,7 @@ import torch
 
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import reference as ref
+from veles_tpu_torch.ops import variants
 from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, dev, host, \
     register_unit
 
@@ -36,7 +49,7 @@ class Conv(Forward):
 
     def __init__(self, n_kernels: int = 16, kx: int = 3, ky: int = 3,
                  stride: Tuple[int, int] = (1, 1),
-                 padding: Tuple[int, int] = (0, 0),
+                 padding: Tuple[int, int] = (0, 0), s2d: str = "auto",
                  **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self.n_kernels = n_kernels
@@ -44,6 +57,14 @@ class Conv(Forward):
         self.ky = ky
         self.stride = tuple(stride)
         self.padding = tuple(padding)
+        if s2d not in ("off", "on", "auto"):
+            raise ValueError(f"s2d must be 'off'|'on'|'auto', got {s2d!r}")
+        if s2d == "on" and not (self.stride[0] == self.stride[1]
+                                and self.stride[0] > 1):
+            raise ValueError(
+                f"s2d='on' needs a square stride > 1 (got "
+                f"{self.stride}): the rewrite repacks stride blocks")
+        self.s2d = s2d
         #: (weakref to the HWIO tensor, its version, its device)
         self._oihw_src = None
         self._oihw = None
@@ -80,8 +101,24 @@ class Conv(Forward):
             self._oihw_src = (weakref.ref(w), w._version, w.device)
         return self._oihw
 
+    def _s2d_applicable(self, cin: int) -> bool:
+        """A square-strided thin-channel stem: where "auto" asks the
+        registry."""
+        sy, sx = self.stride
+        return sy == sx and sy > 1 and cin < 8
+
+    def _use_s2d(self, cin: int) -> bool:
+        if self.s2d != "auto":
+            return self.s2d == "on"
+        return self._s2d_applicable(cin) and \
+            variants.resolve("conv_stem", unit=self).name == "s2d"
+
     def fused_apply(self, params, x, *, train=False):
         w = params["weights"]
+        if self._use_s2d(x.shape[-1]):
+            return fn.conv2d_forward(x, w, params["bias"], self.stride,
+                                     self.padding, self.activation,
+                                     s2d=True)
         return fn.conv2d_forward(
             x, w, params["bias"], self.stride, self.padding,
             self.activation,

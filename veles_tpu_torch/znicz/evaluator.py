@@ -25,7 +25,9 @@ to the host only when `confusion_matrix.mem` is read. With
 VALIDATION, 1) it holds that split's latest pass: the matrix restarts at
 the pass's first minibatch. The fused loop fills it only where a split
 is set, from the step's `confusion` companion, once per pass, as the JAX
-loop does.
+loop does. Behind a per-token head (transformer.py's SeqSoftmaxUnit, N·S
+rows of probabilities against the loader's flat (N·S,) labels) each of
+the loader's N sample weights covers its S rows, in both backends.
 
 `EvaluatorMSE` (JAX :131-166) takes the network's output and the
 loader's targets (`minibatch_labels`); `loss` is the per-sample summed
@@ -65,7 +67,20 @@ class EvaluatorBase(AcceleratedUnit):
 
     def _host_weights(self, n: int) -> np.ndarray:
         w = self._weights()
-        return np.ones(n, np.float32) if w is None else host(w)
+        if w is None:
+            return np.ones(n, np.float32)
+        w = host(w)
+        return np.repeat(w, self._w_repeat(n, len(w)))
+
+    @staticmethod
+    def _w_repeat(n: int, nw: int) -> int:
+        """How many rows each sample weight covers: 1, or S where a
+        per-token head flattened (N, S) rows to N·S while the loader's
+        pad mask stays per sample (JAX evaluator.py initialize)."""
+        if n != nw and n % nw:
+            raise ValueError(f"sample_weights ({nw}) incompatible with "
+                             f"evaluator rows ({n})")
+        return n // nw
 
 
 class EvaluatorSoftmax(EvaluatorBase):
@@ -124,10 +139,13 @@ class EvaluatorSoftmax(EvaluatorBase):
 
     def torch_run(self) -> None:
         d = self.device
+        probs = dev(self.input, d)
         w = self._weights()
+        if w is not None:
+            w = dev(w, d)
+            w = w.repeat_interleave(self._w_repeat(len(probs), len(w)))
         loss, err, n_err, conf = fn.softmax_ce(
-            dev(self.input, d), dev(self.labels, d), self.n_classes,
-            weights=None if w is None else dev(w, d))
+            probs, dev(self.labels, d), self.n_classes, weights=w)
         self.err_output.set_devmem(err)
         # the scalars cross to the host here: the Decision is host logic
         self.loss = float(loss)

@@ -41,8 +41,23 @@ granular update makes zeros where there are none — and
 through the registry's `sgd_update` lowering (K1 on the card, the exact
 tree rule where `l1_decay` is not 0), `_sgd_host` is the numpy golden's.
 `register_gd` / `gd_for` pair each forward class with its gradient unit.
-The gradient units of the attention and sequence layers keep no granular
-backward yet (their JAX twins are `jax.vjp` units): running one raises.
+
+`VJPForwardUnit` and `GradientDescentVJP` (JAX nn_units.py:210-291) are
+the node and the gradient unit of the layers whose backward has no
+hand-derived twin, the attention and sequence layers: the node runs the
+layer's differentiable forward `apply_model`, and the twin differentiates
+that same forward at the unit's input and parameters, afresh at each firing
+(`torch.autograd.grad`, as the JAX twin re-traces `jax.vjp`), for
+`err_input` and the parameter gradients, then updates every leaf with
+the JAX twin's `SGDConfig` (its lr_bias_mult left at 2.0, whatever
+`learning_rate_bias` says), through the registry's `sgd_update` (K1) on
+the torch backend, by the tree rule of ops/optim.py on the numpy one.
+No autograd graph outlives a firing. On the numpy backend both run the
+same torch ops on CPU tensors with the flash gate shut
+(`allow_flash=False`): the JAX package's numpy run of these units is
+jax on the host, not a numpy golden. The velocities keep the port's one
+naming (`vel_w`, `vel_b`, `vel_<leaf>`); convert.py maps the JAX twin's
+`vel_weights` / `vel_bias` onto it.
 """
 
 from __future__ import annotations
@@ -219,6 +234,14 @@ class Forward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fused_apply(self.param_arrays(), x, train=False)
 
+    def apply_model(self, params: Dict[str, Any], x: torch.Tensor,
+                    allow_flash: bool = True) -> torch.Tensor:
+        """The differentiable forward a `VJPForwardUnit` runs and its
+        `GradientDescentVJP` twin differentiates (the JAX units'
+        `_apply`); `allow_flash=False` keeps a layer with a flash gate on
+        its einsum golden."""
+        return self.fused_apply(params, x)
+
 
 @register_unit(Forward)
 class ForwardUnit(AcceleratedUnit):
@@ -274,9 +297,9 @@ class ForwardUnit(AcceleratedUnit):
 
     def _no_granular(self) -> None:
         raise NotImplementedError(
-            f"{type(self.layer).__name__} has no granular unit yet: its "
-            "forward runs in the fused step only (a later slice of the "
-            "port brings it to the unit graph)")
+            f"{type(self.layer).__name__} has no granular unit: register "
+            "one for it (register_unit); its forward runs in the fused "
+            "step only")
 
     def numpy_run(self) -> None:
         self._no_granular()
@@ -427,9 +450,9 @@ class GradientDescentBase(AcceleratedUnit):
 
     def _no_granular(self) -> None:
         raise NotImplementedError(
-            f"{type(self).__name__} has no granular backward yet: this "
-            "layer trains in the fused step only (a later slice of the "
-            "port brings it to the unit graph)")
+            f"{type(self).__name__} has no granular backward: register a "
+            "gradient unit for the layer (register_gd); it trains in the "
+            "fused step only")
 
     def numpy_run(self) -> None:
         self._no_granular()
@@ -441,3 +464,69 @@ class GradientDescentBase(AcceleratedUnit):
         st = super().__getstate__()
         st.pop("_fwd", None)
         return st
+
+
+class VJPForwardUnit(ForwardUnit):
+    """The node of a layer whose gradient twin is a `GradientDescentVJP`:
+    `output` is `emit` of the layer's `apply_model` at the unit's input,
+    on the unit's device (torch backend) or on CPU tensors of the host
+    arrays with the flash gate shut (numpy backend)."""
+
+    def emit(self, y: torch.Tensor) -> torch.Tensor:
+        """The unit's output from the model's (a softmax head turns its
+        logits into flattened probabilities)."""
+        return y
+
+    def numpy_run(self) -> None:
+        with torch.no_grad():
+            y = self.layer.apply_model(self.layer.param_arrays(),
+                                       dev(self.input, None),
+                                       allow_flash=False)
+            self.output.mem = self.emit(y).numpy()
+
+    def torch_run(self) -> None:
+        self.output.set_devmem(self.emit(self.layer.apply_model(
+            self.layer.param_arrays(), dev(self.input, self.device))))
+
+
+class GradientDescentVJP(GradientDescentBase):
+    """The gradient unit of a `VJPForwardUnit`: err_output (the error with
+    respect to the twin's output, reshaped to the model's output where a
+    head flattened it) in; `err_input` and the update of every parameter
+    leaf from one differentiation of the layer's `apply_model` at the
+    unit's input and parameters (JAX nn_units.py:210-291)."""
+
+    def sgd_config(self) -> optim.SGDConfig:
+        # the JAX twin builds SGDConfig(lr, momentum, weight_decay,
+        # l1_decay) (nn_units.py:244-249 there): every 1-D leaf gets the
+        # default lr_bias_mult, 2.0
+        return optim.SGDConfig(
+            lr=self.learning_rate, momentum=self.gradient_moment,
+            weight_decay=self.weights_decay, l1_decay=self.l1_decay)
+
+    def _vjp(self, device, allow_flash: bool):
+        """(err_input, {leaf: gradient}) of the layer's forward at the
+        unit's input and parameters, on `device`; the graph is local to
+        the call."""
+        layer = self._fwd.layer
+        params = {n: p.detach().requires_grad_(True)
+                  for n, p in self.params().items()}
+        x = dev(self.input, device).detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = layer.apply_model(params, x, allow_flash=allow_flash)
+            err_y = dev(self.err_output, device).reshape(y.shape)
+            got = torch.autograd.grad(y, [x, *params.values()], err_y)
+        return got[0], dict(zip(params, got[1:]))
+
+    def numpy_run(self) -> None:
+        err_x, grads = self._vjp(None, allow_flash=False)
+        self._ensure_velocity()
+        optim.sgd_update(self.params(), grads,
+                         {n: self.velocity(n) for n in grads},
+                         self.sgd_config(), float(self.lr_scale))
+        self.err_input.mem = err_x.numpy()
+
+    def torch_run(self) -> None:
+        err_x, grads = self._vjp(self.device, allow_flash=True)
+        self.err_input.set_devmem(err_x)
+        self._update(grads)

@@ -45,9 +45,16 @@ is switched to raw bytes for the run and the step normalizes them on the
 card (`_wire_spec`).
 
 Snapshots (`snapshot_config`, the Snapshotter's keywords; JAX :125-129):
-where the Decision marks an improvement, the loop writes the trained
-state back into the units and the gradient twins and runs the
-Snapshotter, after `dec.run()` and before `feed.prefetch()`, so the
+in the granular graph the Snapshotter is a unit after the Decision, at
+the end of the pulse's gradient chain, gated on the Decision's
+`improved` (`_wire_gates`): it pickles a pulse whose updates have all
+run, with the loader's cursor at the next minibatch, and a restored
+workflow's `initialize` moves its tensors to the backend's device and
+keeps what the snapshot holds, so `run()` continues at the next pulse.
+In the fused loop, where the Decision marks an improvement, the loop
+writes the trained state back into the units and the gradient twins and
+runs the Snapshotter, after `dec.run()` and before `feed.prefetch()`, so
+the
 pickled loader cursor is the consumed batch's + 1 (JAX :700-708); a
 lookahead deeper than 1 would pickle a cursor past batches not yet
 trained, so `feed_ahead > 1` is clamped to 1 where a snapshotter runs
@@ -62,8 +69,7 @@ step's `train_accum` (K microbatches, one update; JAX :449-465), the
 feed, the snapshots and the Decision unchanged. The fused loop and the
 granular graph share the layers' parameters and the gradient units'
 velocities, so either continues from where the other stopped.
-Telemetry, meshes, snapshots of a granular run and the granular units of
-the attention and sequence layers come with later slices.
+Telemetry and meshes come with later slices.
 """
 
 from __future__ import annotations
@@ -143,7 +149,8 @@ class AccumulatingStep:
 class StandardWorkflow(Workflow):
     """loader + declarative layer list -> forwards and their granular
     nodes, evaluator, decision, gradient units and, with
-    `snapshot_config`, a Snapshotter (run by the fused loop)."""
+    `snapshot_config`, a Snapshotter (a unit of the granular graph, and
+    run by the fused loop)."""
 
     def __init__(self, layers: Sequence[Dict[str, Any]] = (),
                  loader: Optional[Loader] = None, loss: str = "softmax",
@@ -164,6 +171,11 @@ class StandardWorkflow(Workflow):
         self.repeater = Repeater(self, name="repeater")
         self.loader = loader
         if loader.workflow is not self:
+            if loader.workflow is not None:
+                # a loader taken from another workflow's graph leaves that
+                # graph's pulses behind (its repeater would hold this
+                # graph's loader gate shut)
+                loader.unlink_all()
             self.add_unit(loader)
             loader.workflow = self
 
@@ -225,8 +237,8 @@ class StandardWorkflow(Workflow):
         self.snapshotter = None
         if snapshot_config is not None:
             from veles_tpu_torch.snapshotter import Snapshotter
-            self.snapshotter = Snapshotter(
-                self, **snapshot_config).link_decision(self.decision)
+            self.snapshotter = Snapshotter(self, **snapshot_config)
+            # gating (link_decision) happens in _wire_gates below
 
         # -- control wiring --------------------------------------------------
         self.repeater.link_from(self.start_point)
@@ -241,6 +253,12 @@ class StandardWorkflow(Workflow):
         for g in self.gds:
             g.link_from(prev_u)
             prev_u = g
+        if self.snapshotter is not None:
+            # after the Decision and the whole gradient chain of the pulse
+            # (the JAX graph links it from the Decision, :155-156 there,
+            # where it fires before the later gradient units of a train
+            # minibatch): a snapshot holds every update of its pulse
+            self.snapshotter.link_from(prev_u)
         self.repeater.link_from(prev_u)
         self.end_point.link_from(self.decision)
         self._wire_gates()
@@ -268,6 +286,8 @@ class StandardWorkflow(Workflow):
         self.end_point.gate_block = ~self.decision.complete
         # once complete, the loop-back pulse must die at the repeater
         self.repeater.gate_block = self.decision.complete
+        if self.snapshotter is not None:
+            self.snapshotter.link_decision(self.decision)
 
     @property
     def is_initialized(self) -> bool:
@@ -311,9 +331,14 @@ class StandardWorkflow(Workflow):
         Decision and the gradient units. `device` is a torch device or
         its name (the card unless "cpu" is asked for) or a backend
         `Device`; `backend` "torch" (the default) or "numpy" (the host
-        goldens, on the CPU) builds one from it."""
+        goldens, on the CPU) builds one from it. A restored workflow's
+        tensors move to that device first, and its units keep what the
+        snapshot holds: the parameters and velocities, the loader's
+        schedule, cursor and shuffle, the counters."""
         bdev = device if isinstance(device, Device) \
             else make_backend(backend, device)
+        if self.restored:
+            self.to(bdev.torch_device)
         self._wire_gates()
         try:
             super().initialize(device=bdev, **kwargs)
@@ -322,6 +347,7 @@ class StandardWorkflow(Workflow):
             raise
         self.backend_device = bdev
         self.device = bdev.torch_device
+        self.restored = False
 
     def to(self, device: DeviceLike) -> "StandardWorkflow":
         """Move the parameters and the gradient units' velocities to
@@ -338,14 +364,12 @@ class StandardWorkflow(Workflow):
     # -- the granular loop ----------------------------------------------------
 
     def run(self) -> None:
-        """Pump pulses until the Decision completes (the granular mode).
+        """Pump pulses until the Decision completes (the granular mode);
+        a restored workflow continues at the pulse after its snapshot's.
         A loader offering the uint8 wire emits floats for the run: the
         graph has no normalize prologue."""
         if not self.is_initialized:
             raise RuntimeError("initialize the workflow before run()")
-        if self.snapshotter is not None:
-            self.warning("snapshots of a granular run come with a later "
-                         "slice of the port: this run writes none")
         wire = self._wire_spec(uint8_wire=False)
         prev_emit = getattr(self.loader, "emit", None)
         if wire is not None:

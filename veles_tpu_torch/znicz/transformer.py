@@ -19,9 +19,16 @@ Their products promote as the JAX package's `@` does (`fn.matmul`): the
 f32 activations after a bf16 step's einsum attention meet bf16 weights
 in f32.
 
+In the granular graph (JAX transformer.py:32-254) each layer's node runs
+the same forward (nn_units.VJPForwardUnit), and its gradient twin is the
+vjp of it (nn_units.GradientDescentVJP): `SeqSoftmaxUnit` emits the
+probabilities flattened to (N·S, V), so the softmax evaluator scores
+per-token rows against the loader's flat labels, and its twin reshapes
+the evaluator's (N·S, V) error, the error with respect to the logits,
+back to the (N, S, V) logits it differentiates.
+
 The sequence-sharded ("seq") mode and megatron tensor parallelism come
-with the many-GPU slice; the granular path's flattened probabilities
-with the granular graph.
+with the many-GPU slice.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from veles_tpu_torch.ops import functional as fn
-from veles_tpu_torch.znicz.nn_units import Forward
+from veles_tpu_torch.znicz.nn_units import Forward, GradientDescentVJP, \
+    VJPForwardUnit, register_gd, register_unit
 
 
 class SeqLinear(Forward):
@@ -124,3 +133,37 @@ class SeqSoftmax(SeqLinear):
     `vel_w`, `vel_b`."""
 
     fused_emits_logits = True
+
+
+@register_unit(SeqLinear)
+@register_unit(SeqFFN)
+class SeqUnit(VJPForwardUnit):
+    """A position-wise layer's node: (N, S, D) in, (N, S, D') out."""
+
+
+@register_unit(SeqSoftmax)
+class SeqSoftmaxUnit(VJPForwardUnit):
+    """softmax of the logits, flattened to (N·S, V) for the evaluator
+    (JAX transformer.py:192-229)."""
+
+    def emit(self, y: torch.Tensor) -> torch.Tensor:
+        probs = torch.softmax(y, dim=-1)
+        return probs.reshape(-1, probs.shape[-1])
+
+
+@register_gd(SeqLinear)
+class GDSeqLinear(GradientDescentVJP):
+    """Velocities `vel_w`, `vel_b` and, with `pos_embed`, `vel_pos`."""
+
+
+@register_gd(SeqFFN)
+class GDSeqFFN(GradientDescentVJP):
+    """Velocities `vel_w`, `vel_b`, `vel_w2`, `vel_b2`."""
+
+
+@register_gd(SeqSoftmax)
+class GDSeqSoftmax(GradientDescentVJP):
+    """err_output arrives (N·S, V) from the evaluator, probs − onehot, the
+    error with respect to the logits: the twin differentiates the (N, S,
+    V) logits with it reshaped to their shape (the JAX twin's
+    `_err_reshape`)."""
