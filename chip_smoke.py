@@ -318,6 +318,35 @@
    forward+loss,
    backward and update of each by CUDA events, with AlexNet's backward
    under fused less that under composed on a line of its own.
+   AUTOTUNE (last, so that no winner is selected for another phase): the
+   kernel search (ops/templates.py, ops/autotune.py). (i) Each generated
+   launch shape of K1-K4 against its plain version at the main path's
+   shapes with the kernel's own check (K1's 4 blocks on AlexNet's 16
+   leaves within KERNEL_RTOL; K2's and K3's 4 tiles and K4's 12 bands at
+   AlexNet's LRN and norm->pool inputs at batch TB, f32 and bf16: the
+   same bits), K6 at kv_order fwd and rev with and without the dropout
+   mask and K7 with and without it at ATT_SHAPES[0] (the FLASH
+   tolerances), each point timed (median of 25 by CUDA events, the points
+   in turns); every point's Python footprint rule against the kernel's
+   own `*_smem_bytes`. (ii) Every `conv_stem` point at conv1 against
+   `direct` (an `epi=lrn` point against `direct` and the plain LRN), f32
+   and bf16, at CONV_STEM's tolerances. (iii) The full-width bf16
+   AlexNet through
+   `launcher.train` with `--fused --autotune --autotune-budget 48` at
+   batch 256 and a fresh cache in a temporary directory: a timed winner
+   for each of lrn, maxpool, conv_stem, lrn_maxpool, sgd_update and
+   flash_attn, every timed trial with a passing ledger record, no point
+   failing to launch, the pruned and alias points printed; the same
+   command again: no timing call, the same winners; a plain `--fused`
+   run: its variant table names the winners and the launch counters show
+   exactly their kernels; one step under the winners against one under
+   the same step through the plain versions (the update distance within
+   2^-7) and against one under the defaults from one state on one batch
+   (within 2^-7, or where a winner rounds otherwise than the defaults —
+   a stem packed space to depth or accumulated in f32, an LRN rounding
+   its intermediates to bf16 — within twice the control: the distance of
+   the defaults' bf16 step from their f32 step; `autotune_step_tolerance`).
+   AUTOTUNE lines.
 7. Print one {"kernels": [...]} line, then the card line and the closing
    {"ok": true, "device": {...}} line.
 
@@ -503,9 +532,9 @@ def print_lrn_backward_smem(libs):
     AlexNet's LRN widths, as the kernel's own source computes it."""
     lib = ctypes.CDLL(str(libs["lrn_backward"]))
     smem = lib.lrn_backward_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_int
-    sizes = ", ".join(f"C {c}: {smem(c, N // 2)} B"
+    sizes = ", ".join(f"C {c}: {smem(c, N // 2, 0)} B"
                       for _, _, c in LRN_SHAPES)
     print(f"BUILD lrn_backward dynamic shared memory per block: {sizes}",
           flush=True)
@@ -537,17 +566,17 @@ def print_forward_smem(libs, regs):
     from veles_tpu_torch.ops.functional import pool_out_hw
     k4 = ctypes.CDLL(str(libs["lrn_maxpool_forward"])).\
         lrn_maxpool_forward_smem_bytes
-    k4.argtypes = [ctypes.c_int] * 10
+    k4.argtypes = [ctypes.c_int] * 12
     k4.restype = ctypes.c_int
     k2 = ctypes.CDLL(str(libs["lrn_forward"])).lrn_forward_smem_bytes
-    k2.argtypes = [ctypes.c_int] * 2
+    k2.argtypes = [ctypes.c_int] * 3
     k2.restype = ctypes.c_int
     for layer, (h, w, c) in zip(("L1", "L2"), LRN_SHAPES):
         for name, smem in (
                 ("lrn_maxpool_forward",
                  k4(h, w, c, *pool_out_hw(h, w, 3, 3, 2, 2), 3, 3, 2, 2,
-                    N // 2)),
-                ("lrn_forward", k2(c, N // 2))):
+                    N // 2, 0, 0)),
+                ("lrn_forward", k2(c, N // 2, 0))):
             if smem < 0:
                 raise RuntimeError(f"{name} refuses AlexNet's {layer}")
             parts = []
@@ -827,7 +856,8 @@ def layer_times(srv, x: np.ndarray) -> list:
 
             def step(h=h, u=u, kind=kind, j=j, v=v, i=i):
                 if kind == "pair":
-                    return fwd._apply_fused_pair(v, u, fwd.forwards[j], h)
+                    return fwd._apply_fused_pair(v, u, fwd.forwards[j],
+                                                 fwd.params()[i], h)
                 if v is not None:
                     return u.fused_apply(fwd.params()[i], h, variant=v)
                 return u.fused_apply(fwd.params()[i], h)
@@ -4962,6 +4992,594 @@ def samples_phase(launcher, kernels, dev, bw, flops):
     return launches, rec
 
 
+# ---------------------------------------------------------------------------
+# AUTOTUNE: the kernel search (ops/templates.py, ops/autotune.py)
+# ---------------------------------------------------------------------------
+
+#: the search's run: the full-width bf16 AlexNet at batch 256, one train
+#: and one validation minibatch, `--autotune-budget AT_BUDGET`: the six
+#: template ops' incumbent floors add up to 19 (a budget of 16 would
+#: leave the last of them untimed), and 29 trials more let each op's
+#: descent move its axes
+AT_BATCH, AT_BUDGET = 256, 48
+AT_ARGS = [f"root.alexnet.loader.minibatch_size={AT_BATCH}",
+           f"root.alexnet.loader.n_train={AT_BATCH}",
+           f"root.alexnet.loader.n_validation={AT_BATCH}",
+           "root.alexnet.decision.max_epochs=1", *BF16_ARGS]
+#: the ops the search's report must name a timed winner for
+AT_OPS = ("lrn", "maxpool", "conv_stem", "lrn_maxpool", "sgd_update",
+          "flash_attn")
+#: K1's, K2/K3's and K4's generated launch shapes
+AT_THREADS = (128, 256, 512, 1024)
+AT_TILES = (1536, 3072, 6144, 12288)
+AT_BANDS = tuple((rb, cb) for rb in (1, 2, 3, 4) for cb in (8, 16, 32))
+#: lrn lowerings whose intermediate values round to bf16 (the JAX
+#: package's banded matmul computes in the step's dtype)
+AT_BF16_ROUNDING = ("banded_matmul", "cached_residual")
+
+
+def autotune_step_tolerance(winners, control):
+    """The update distance a bf16 step under `winners` may lie from the
+    defaults' step: BF16_STEP_RTOL where the winners round as the
+    defaults do (the kernels' launch shapes, the pool's lowerings and the
+    update's block change no bit; `composed` routes a pool window on its
+    rounded LRN values, as K2 writes them); where a winner rounds
+    otherwise (an LRN that rounds its intermediates to bf16, a stem that
+    packs space to depth or accumulates in f32: conv1's bf16 outputs an
+    ulp apart, which every later layer and the max pools' routing carry
+    into the update), twice `control`, the distance of the defaults' bf16
+    step from their f32 step on the same state and batch: each bf16 step
+    lies about that far from the f32 one, so two that round otherwise lie
+    within twice it of each other (the triangle inequality). The stem's
+    points are held op by op at 2^-7 (autotune_stem_checks)."""
+    from veles_tpu_torch.ops import templates
+    stem = templates.parse_point("conv_stem", winners.get("conv_stem"))
+    pack = stem[1] if stem else {"pack": winners.get("conv_stem", "direct"),
+                                 "acc": "native"}
+    same = winners.get("lrn") not in AT_BF16_ROUNDING and \
+        pack.get("pack") == "direct" and pack.get("acc") == "native"
+    return BF16_STEP_RTOL if same else 2 * control
+
+
+def autotune_stem_checks(dev):
+    """Every `conv_stem` point at AlexNet's conv1 (CONV_STEM's inputs:
+    batch TB, 227x227x3, 96 kernels 11x11/4, linear), f32 with TF32 off
+    and bf16, held against `direct` on the same inputs, an `epi=lrn`
+    point with AlexNet's LRN after it (K2/K3 in the point, the plain
+    version after `direct`): the forward and the weight and bias
+    gradients at CONV_STEM's tolerances (f32: STEM_RTOL, STEM_ATOL, of the
+    largest for a gradient; bf16: STEM_BF16 of each value and of the
+    largest). Returns {dtype: {point: {y, dw, db: max abs err}}}."""
+    from veles_tpu_torch.backends import full_f32
+    from veles_tpu_torch.ops import functional as fn
+    from veles_tpu_torch.ops import templates, variants
+    rs = np.random.RandomState(17)
+    x32 = torch.from_numpy(rs.randn(*STEM_X).astype(np.float32)).to(dev)
+    w32 = torch.from_numpy(
+        (rs.randn(*STEM_W) * 0.01).astype(np.float32)).to(dev)
+    b32 = torch.from_numpy(rs.randn(STEM_W[-1]).astype(np.float32)
+                           * 0.1).to(dev)
+    oh = (HW - STEM_W[0]) // STEM_STRIDE + 1
+    g32 = torch.from_numpy(rs.randn(TB, oh, oh, STEM_W[-1]).astype(
+        np.float32)).to(dev)
+    stride = (STEM_STRIDE, STEM_STRIDE)
+    epi = {"k": K, "alpha": ALPHA, "beta": BETA, "n": N}
+    (t,) = templates.templates_for("conv_stem")
+    rec = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, w, b, g = (v.to(dtype) for v in (x32, w32, b32, g32))
+
+        def run(apply, lrn, kw):
+            wt = w.detach().requires_grad_(True)
+            bt = b.detach().requires_grad_(True)
+            with full_f32(dev):
+                y = apply(x, wt, bt, stride, (0, 0), "linear", **kw)
+                if lrn:
+                    y = fn.lrn_forward(y, **epi)
+                dw, db = torch.autograd.grad(y, [wt, bt], g)
+            return y.detach(), dw, db
+
+        direct = variants.get("conv_stem", "direct").apply
+        want = {False: run(direct, False, {}), True: run(direct, True, {})}
+        rec[label] = {}
+        for cfg in t.configs():
+            name = t.name(cfg)
+            lrn = cfg["epi"] == "lrn"
+            got = run(variants.get("conv_stem", name).apply, False,
+                      {"epilogue": epi} if lrn else {})
+            errs = {}
+            for part, a, e in zip(("y", "dw", "db"), got, want[lrn]):
+                a, e = a.float(), e.float()
+                top = float(e.abs().max())
+                if dtype == torch.float32:
+                    rtol = STEM_RTOL
+                    atol = STEM_ATOL if part == "y" else STEM_ATOL * top
+                else:
+                    rtol, atol = STEM_BF16, STEM_BF16 * top
+                errs[part] = check_close(
+                    f"AUTOTUNE conv_stem {label} {name} vs direct"
+                    f"{' + LRN' if lrn else ''} {part}", a, e, rtol, atol)
+            rec[label][name] = errs
+            del got
+        del want
+        print(f"AUTOTUNE conv_stem {label}: every point at conv1 "
+              f"{STEM_X} * {STEM_W} / {STEM_STRIDE} against direct (an "
+              f"epi=lrn point against direct + the plain LRN), y, dw, db "
+              f"max abs err {rec[label]} (f32: {STEM_RTOL}*|direct| + "
+              f"{STEM_ATOL}, of the largest gradient for dw, db; bf16: "
+              f"{STEM_BF16} of each and of the largest)", flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def autotune_smem_checks(libs, kernels):
+    """Each generated K2/K3/K4 point's Python footprint (the search's
+    pruning reads it) against the kernel's own `*_smem_bytes` at the main
+    path's shapes, and K6/K7's at every compiled head width; returns the
+    footprints by point."""
+    from veles_tpu_torch.ops.functional import pool_out_hw
+
+    def entry(name, n):
+        f = getattr(ctypes.CDLL(str(libs[name])), f"{name}_smem_bytes")
+        f.argtypes = [ctypes.c_int] * n
+        f.restype = ctypes.c_int
+        return f
+
+    k2, k3 = entry("lrn_forward", 3), entry("lrn_backward", 3)
+    k4 = entry("lrn_maxpool_forward", 12)
+    k6, k7 = (entry(f"flash_attention_{d}", 1)
+              for d in ("forward", "backward"))
+    out, checked = {}, 0
+    for _, _, c in LRN_SHAPES:
+        for tile in (0,) + AT_TILES:
+            for name, f, mirror in (
+                    ("lrn_forward", k2, kernels.lrn_forward_smem_bytes),
+                    ("lrn_backward", k3, kernels.lrn_backward_smem_bytes)):
+                got, want = mirror(c, N // 2, tile), f(c, N // 2, tile)
+                if got != want:
+                    raise AssertionError(f"AUTOTUNE {name} C {c} tile "
+                                         f"{tile}: footprint rule {got} B, "
+                                         f"kernel {want} B")
+                out[f"{name} C {c} tile {tile}"] = want
+                checked += 1
+    for h, w, c in LRN_SHAPES:
+        geo = (h, w, c, *pool_out_hw(h, w, 3, 3, 2, 2), 3, 3, 2, 2, N // 2)
+        for rb, cb in ((0, 0),) + AT_BANDS:
+            got = kernels.lrn_maxpool_forward_smem_bytes(*geo, rb, cb)
+            want = k4(*geo, rb, cb)
+            if got != want:
+                raise AssertionError(f"AUTOTUNE lrn_maxpool_forward {h}x{w}"
+                                     f"x{c} band {rb}x{cb}: footprint rule "
+                                     f"{got} B, kernel {want} B")
+            out[f"lrn_maxpool_forward {h}x{w}x{c} band {rb}x{cb}"] = want
+            checked += 1
+    for d in kernels.FLASH_HEAD_DIMS:
+        for name, f, mirror in (
+                ("forward", k6, kernels.flash_attention_forward_smem_bytes),
+                ("backward", k7,
+                 kernels.flash_attention_backward_smem_bytes)):
+            if mirror(d) != f(d):
+                raise AssertionError(f"AUTOTUNE flash_attention_{name} D "
+                                     f"{d}: footprint rule {mirror(d)} B, "
+                                     f"kernel {f(d)} B")
+            out[f"flash_attention_{name} D {d}"] = f(d)
+            checked += 1
+    print(f"AUTOTUNE footprints: {checked} points' Python rules equal the "
+          f"kernels' *_smem_bytes ({out})", flush=True)
+    return out
+
+
+def autotune_point_times(label, fns, card):
+    """Device ms (median of STEM_REPS by CUDA events, the points in turns)
+    of each point; prints one line with the card's name and power limit."""
+    ms = time_turns(fns)
+    print(f"AUTOTUNE {label}: device ms on {card} (median of {STEM_REPS}, "
+          f"in turns) " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()),
+          flush=True)
+    return ms
+
+
+def autotune_kernel_phase(libs, kernels, dev, card):
+    """Every generated point of K1-K4 against its plain version at the
+    main path's shapes (AlexNet's 16 leaves; its LRN and norm->pool
+    inputs at batch TB, f32 and bf16) with each kernel's own check (K2-K4:
+    the same bits; K1: KERNEL_RTOL), K6/K7 under kv_order=rev and drop=1
+    at ATT_SHAPES[0], each footprint rule against its kernel, and each
+    point timed. Returns {kernel: {point: ms}} and the footprints."""
+    smem = autotune_smem_checks(libs, kernels)
+    rs = np.random.RandomState(18)
+    times = {}
+    # -- K1 -------------------------------------------------------------------
+    ps = [torch.from_numpy((0.01 * rs.randn(*sh)).astype(np.float32))
+          .to(dev) for sh in LEAVES]
+    gs = [torch.from_numpy((1e-3 * rs.randn(*sh)).astype(np.float32))
+          .to(dev) for sh in LEAVES]
+    vs = [torch.from_numpy((1e-3 * rs.randn(*sh)).astype(np.float32))
+          .to(dev) for sh in LEAVES]
+
+    def update(p_list, v_list, threads=None):
+        for sh, p, g, v in zip(LEAVES, p_list, gs, v_list):
+            if threads is None:
+                kernels.sgd_update_plain(p, g, v, leaf_lr(sh), MOMENTUM,
+                                         DECAY)
+            else:
+                kernels.sgd_update(p, g, v, leaf_lr(sh), MOMENTUM, DECAY,
+                                   threads=threads)
+
+    pp, vp = [p.clone() for p in ps], [v.clone() for v in vs]
+    update(pp, vp)
+    work = {}
+    for threads in AT_THREADS:
+        pk, vk = [p.clone() for p in ps], [v.clone() for v in vs]
+        update(pk, vk, threads)
+        torch.cuda.synchronize()
+        for sh, a, b, c, d in zip(LEAVES, pk, pp, vk, vp):
+            check_close(f"AUTOTUNE sgd_update threads {threads} p {sh}", a,
+                        b, KERNEL_RTOL, KERNEL_ATOL)
+            check_close(f"AUTOTUNE sgd_update threads {threads} v {sh}", c,
+                        d, KERNEL_RTOL, KERNEL_ATOL)
+        work[f"cuda_rows[threads={threads}]"] = (
+            lambda pk=pk, vk=vk, t=threads: update(pk, vk, t))
+    print(f"AUTOTUNE sgd_update: each of {len(AT_THREADS)} block sizes on "
+          f"AlexNet's {len(LEAVES)} leaves within rtol {KERNEL_RTOL}, atol "
+          f"{KERNEL_ATOL} of the plain version", flush=True)
+    times["sgd_update"] = autotune_point_times(
+        f"sgd_update {len(LEAVES)} leaves", work, card)
+    del ps, gs, vs, pp, vp, work
+    # -- K2, K3, K4 at AlexNet's shapes, f32 and bf16 -------------------------
+    for layer, hwc in zip(("L1", "L2"), LRN_SHAPES):
+        shape = (TB,) + hwc
+        x32 = torch.from_numpy(np.maximum(rs.randn(*shape), 0)
+                               .astype(np.float32)).to(dev)
+        g32 = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
+        for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            x, g = x32.to(dt), g32.to(dt)
+            y0 = kernels.lrn_forward_plain(x, K, ALPHA, BETA, N)
+            d0 = kernels.lrn_backward_plain(x, g, K, ALPHA, BETA, N)
+            z0 = kernels.lrn_maxpool_forward_plain(x, K, ALPHA, BETA, N)
+            fwd, bwd, pool = {}, {}, {}
+            for tile in AT_TILES:
+                assert_same_bits(f"AUTOTUNE lrn_forward{sfx} {layer} tile "
+                                 f"{tile}", kernels.lrn_forward(
+                                     x, K, ALPHA, BETA, N, tile=tile), y0)
+                assert_same_bits(f"AUTOTUNE lrn_backward{sfx} {layer} tile "
+                                 f"{tile}", kernels.lrn_backward(
+                                     x, g, K, ALPHA, BETA, N, tile=tile), d0)
+                fwd[f"tile={tile}"] = (lambda t=tile, x=x: kernels
+                                       .lrn_forward(x, K, ALPHA, BETA, N,
+                                                    tile=t))
+                bwd[f"tile={tile}"] = (lambda t=tile, x=x, g=g: kernels
+                                       .lrn_backward(x, g, K, ALPHA, BETA,
+                                                     N, tile=t))
+            for rb, cb in AT_BANDS:
+                assert_same_bits(
+                    f"AUTOTUNE lrn_maxpool_forward{sfx} {layer} band {rb}x"
+                    f"{cb}", kernels.lrn_maxpool_forward(
+                        x, K, ALPHA, BETA, N, rb=rb, cb=cb), z0)
+                pool[f"rb={rb},cb={cb}"] = (
+                    lambda r=rb, c=cb, x=x: kernels.lrn_maxpool_forward(
+                        x, K, ALPHA, BETA, N, rb=r, cb=c))
+            print(f"AUTOTUNE {layer} {list(shape)} {dt}: K2 and K3 at "
+                  f"tiles {AT_TILES}, K4 at {len(AT_BANDS)} bands: each "
+                  f"bit-equal to its plain version", flush=True)
+            for name, fns in (("lrn_forward", fwd), ("lrn_backward", bwd),
+                              ("lrn_maxpool_forward", pool)):
+                ms = autotune_point_times(f"{name}{sfx} {layer}", fns, card)
+                for k, v in ms.items():
+                    times.setdefault(name + sfx, {}).setdefault(k, 0.0)
+                    times[name + sfx][k] += v
+            del y0, d0, z0, fwd, bwd, pool, x, g
+        del x32, g32
+        torch.cuda.empty_cache()
+    # -- K6 / K7 under kv_order=rev and drop=1 --------------------------------
+    shape = ATT_SHAPES[0]
+    q, k, v, g = (heads_first(torch.from_numpy(
+        rs.randn(*shape).astype(np.float32)).to(dev)) for _ in range(4))
+    mask = (torch.from_numpy((rs.random_sample(q.shape) < 0.9)
+                             .astype(np.float32)) / 0.9).to(dev)
+    fwd, bwd = {}, {}
+    for kv in ("fwd", "rev"):
+        for drop in (0, 1):
+            m = mask if drop else None
+            name = f"kv_order={kv},drop={drop}"
+            ok, lk = kernels.flash_attention_forward(q, k, v, True, None,
+                                                     kv, m)
+            op, lp = kernels.flash_attention_forward_plain(q, k, v, True,
+                                                           None, kv, m)
+            check_close(f"AUTOTUNE flash_attention_forward {name} O", ok,
+                        op, FLASH_FWD_RTOL, FLASH_FWD_ATOL)
+            check_close(f"AUTOTUNE flash_attention_forward {name} lse", lk,
+                        lp, FLASH_FWD_RTOL, FLASH_FWD_ATOL)
+            fwd[name] = (lambda kv=kv, m=m: kernels.flash_attention_forward(
+                q, k, v, True, None, kv, m))
+            if kv == "fwd":
+                do = g if m is None else g * m
+                di = torch.sum(g * op, dim=-1, keepdim=True)
+                got = kernels.flash_attention_backward(q, k, v, do, lp, di,
+                                                       True)
+                want = kernels.flash_attention_backward_plain(
+                    q, k, v, do, lp, di, True)
+                for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+                    check_close(f"AUTOTUNE flash_attention_backward drop="
+                                f"{drop} {nm}", a, b, FLASH_BWD_RTOL,
+                                FLASH_BWD_ATOL)
+                bwd[f"drop={drop}"] = (
+                    lambda do=do, di=di, lp=lp: kernels
+                    .flash_attention_backward(q, k, v, do, lp, di, True))
+            del ok, lk, op
+    print(f"AUTOTUNE flash {list(shape)} causal: K6 at kv_order fwd and "
+          f"rev, with and without the dropout mask, and K7 with and "
+          f"without it, within the FLASH tolerances of their plain "
+          f"versions", flush=True)
+    times["flash_attention_forward"] = autotune_point_times(
+        f"flash_attention_forward {list(shape)}", fwd, card)
+    times["flash_attention_backward"] = autotune_point_times(
+        f"flash_attention_backward {list(shape)}", bwd, card)
+    del q, k, v, g, mask, fwd, bwd
+    torch.cuda.empty_cache()
+    return times, smem
+
+
+def autotune_want(step, n_train, n_eval):
+    """The launches `n_train` train steps and `n_eval` evaluations of
+    `step` make, from its plan: K4/K5 per claimed (LRN, pool) pair, K2/K3
+    per LRN on a kernel lowering (a stem's epilogue included), in the
+    instance of the point's io (io=f32: the f32 one), K1 per SGD leaf per
+    train step; nothing else."""
+    from veles_tpu_torch.ops import optim, templates
+    bf16 = step.compute_dtype == "bfloat16"
+    fwd, bwd = {}, {}
+
+    def add(table, name, io):
+        inst = name + ("_bf16" if bf16 and io != "f32" else "")
+        table[inst] = table.get(inst, 0) + 1
+
+    for i, (kind, _, v) in enumerate(step.fwd._plan):
+        if v is None or kind == "skip":
+            continue
+        parsed = templates.parse_point(v.op, v.name)
+        io = parsed[1].get("io", "native") if parsed else "native"
+        if kind == "pair" and step.forwards[i].variant_op == "lrn":
+            add(fwd, "lrn_maxpool_forward", io)
+            add(bwd, "lrn_maxpool_backward", io)
+        elif (kind == "pair" and v.op == "conv_stem") \
+                or (v.op == "lrn" and v.kernel):
+            add(fwd, "lrn_forward", io)
+            add(bwd, "lrn_backward", io)
+    want = {k: n * (n_train + n_eval) for k, n in fwd.items()}
+    want.update({k: n * n_train for k, n in bwd.items()})
+    if step._sgd.kernel:
+        leaves = sum(len(p) for p, c in zip(step.fwd.params(), step.cfgs)
+                     if isinstance(c, optim.SGDConfig))
+        want["sgd_update"] = leaves * n_train
+    return want
+
+
+def autotune_table_faults(step, table, winners):
+    """Where the step's variant table does not name what the winners
+    run: the stem, the pool after conv5 and the update their winners; the
+    LRN->pool op its winner where that is a fused point (else no entry);
+    the LRN op its winner where an LRN unit is left unclaimed."""
+    from veles_tpu_torch.ops import variants
+    want = {op: winners[op] for op in ("conv_stem", "maxpool", "sgd_update")}
+    if variants.get("lrn_maxpool", winners["lrn_maxpool"]).fused:
+        want["lrn_maxpool"] = winners["lrn_maxpool"]
+    elif "lrn_maxpool" in table:
+        return {"lrn_maxpool": table["lrn_maxpool"]}
+    claimed = {k for i, j, _ in step.fwd.pairs for k in (i, j)}
+    if any(u.variant_op == "lrn" and i not in claimed
+           for i, u in enumerate(step.forwards)):
+        want["lrn"] = winners["lrn"]
+    return {op: (table.get(op), name) for op, name in want.items()
+            if table.get(op) != name}
+
+
+def autotune_run(launcher, kernels, dev, label, argv):
+    """One `launcher.train(argv)` run, the launch counters zeroed just
+    before it and read just after; (workflow, counts, train steps,
+    evaluations, the last step built)."""
+    from veles_tpu_torch.ops import autotune
+    with timed_steps() as events, watched_steps() as seen:
+        t0 = time.perf_counter()
+        before = dict(autotune.TIMINGS)
+        kernels.reset_launch_counts()
+        wf = launcher.train(argv)
+        counts = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    timings = {k: autotune.TIMINGS[k] - before[k] for k in before}
+    n_train = sum(1 for kind, _, _ in events if kind == "train")
+    n_eval = sum(1 for kind, _, _ in events if kind == "evaluate")
+    print(f"AUTOTUNE {label}: {wall:.2f} s of host time; timing calls "
+          f"{timings}; {n_train} train steps and {n_eval} evaluations "
+          f"outside the search; launches {counts}", flush=True)
+    if not np.isfinite(wf.evaluator.loss):
+        raise AssertionError(f"AUTOTUNE {label}: non-finite loss")
+    return wf, counts, timings, seen["steps"][-1], n_train, n_eval
+
+
+def autotune_search_phase(launcher, kernels, dev):
+    """The full-width bf16 AlexNet through `launcher.train` with `--fused
+    --autotune --autotune-budget AT_BUDGET` at batch AT_BATCH and a fresh
+    cache: a winner and its timings for each of AT_OPS, every timed trial
+    gated, no point failing to launch; again with the same cache: no
+    timing call, the same winners; then a plain `--fused` run: its table
+    names the winners and it launches exactly their kernels; and one
+    step under the winners against one under the defaults from one state
+    on one batch. Returns the record."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import templates, variants
+    from veles_tpu_torch.samples import alexnet
+    argv = [ALEXNET, "--fused", "-r", "1234", *AT_ARGS, *TRAIN_ARGS]
+    rec = {}
+    saved_env = os.environ.get("VELES_AUTOTUNE_CACHE")
+    os.makedirs(OUT, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="autotune_", dir=OUT)
+    os.environ["VELES_AUTOTUNE_CACHE"] = os.path.join(work, "autotune.json")
+    try:
+        with precision_type_kept(), alexnet_config_kept():
+            wf, counts, timings, _, _, _ = autotune_run(
+                launcher, kernels, dev, "search",
+                argv + ["--autotune", "--autotune-budget", str(AT_BUDGET)])
+        report = wf.autotune_report
+        del wf
+        timed = passed = 0
+        for op in AT_OPS:
+            r = report.get(op) or {}
+            if r.get("source") != "searched" or not r.get("timings_s"):
+                raise AssertionError(f"AUTOTUNE search: no timed winner for "
+                                     f"{op}: {r}")
+            for t in r["trace"]:
+                if t["outcome"] == "error":
+                    raise AssertionError(f"AUTOTUNE search: {op}/"
+                                         f"{t['variant']} failed: "
+                                         f"{t['error']}")
+                if t["outcome"] == "timed":
+                    timed += 1
+                    passed += templates.passed(op, t["variant"])
+            print(f"AUTOTUNE search {op}: winner {r['variant']} "
+                  f"({r['timer']}), trials {r['trials']}/{r['budget']}, "
+                  f"outcomes {r['outcomes']}, pruned {r['pruned']}, "
+                  f"aliases {r['aliases']}, ms "
+                  + ", ".join(f"{k} {v * 1e3:.4f}"
+                              for k, v in r["timings_s"].items()),
+                  flush=True)
+        if passed != timed:
+            raise AssertionError(f"AUTOTUNE search: {timed - passed} of "
+                                 f"{timed} timed trials had no passing "
+                                 f"ledger record")
+        print(f"AUTOTUNE search: {timed} timed trials, each with a passing "
+              f"ledger record (budget {AT_BUDGET}, batch {AT_BATCH})",
+              flush=True)
+        winners = {op: report[op]["variant"] for op in report}
+        rec["search"] = {"winners": winners, "timed_trials": timed,
+                         "timings": timings,
+                         "report": {op: {k: r.get(k) for k in (
+                             "variant", "source", "timings_s", "outcomes",
+                             "pruned", "aliases", "trials", "budget",
+                             "timer")} for op, r in report.items()}}
+        # -- a rerun: every winner from the cache, no timing call ----------
+        variants.clear_selection()
+        templates.clear_ledger()
+        with precision_type_kept(), alexnet_config_kept():
+            wf, _, timings, _, _, _ = autotune_run(
+                launcher, kernels, dev, "cache hit",
+                argv + ["--autotune", "--autotune-budget", str(AT_BUDGET)])
+        again = {op: r["variant"] for op, r in wf.autotune_report.items()}
+        del wf
+        if any(timings.values()) or again != winners:
+            raise AssertionError(f"AUTOTUNE cache hit: timing calls "
+                                 f"{timings}, winners {again} (searched "
+                                 f"{winners})")
+        print(f"AUTOTUNE cache hit: no timing call, the same winners "
+              f"{again}", flush=True)
+        # -- a plain --fused run applies the winners -----------------------
+        variants.clear_selection()
+        with precision_type_kept(), alexnet_config_kept():
+            wf, counts, timings, step, n_train, n_eval = autotune_run(
+                launcher, kernels, dev, "plain --fused", argv)
+        selected = wf.autotune_applied
+        if variants.selection_table():
+            raise AssertionError(f"AUTOTUNE plain --fused: the run left "
+                                 f"{variants.selection_table()} selected")
+        table = step.variant_table()
+        want = autotune_want(step, n_train, n_eval)
+        if any(timings.values()):
+            raise AssertionError(f"AUTOTUNE plain --fused timed {timings}")
+        for op, name in winners.items():
+            if selected.get(op) != name:
+                raise AssertionError(f"AUTOTUNE plain --fused: {op} "
+                                     f"applied {selected.get(op)}, the "
+                                     f"cache's winner is {name}")
+        if autotune_table_faults(step, table, winners):
+            raise AssertionError(
+                f"AUTOTUNE plain --fused: table {table} does not name the "
+                f"winners {winners}: "
+                f"{autotune_table_faults(step, table, winners)}")
+        check_counts("AUTOTUNE plain --fused", counts, want)
+        print(f"AUTOTUNE plain --fused: variant table {table}; launches "
+              f"exactly the winners' kernels {want} ({n_train} train "
+              f"steps, {n_eval} evaluations)", flush=True)
+        rec["plain_fused"] = {"table": table, "launches": counts}
+        del wf, step
+        torch.cuda.empty_cache()
+        # -- one step under the winners against the same step through the
+        # plain versions, and against one under the defaults ---------------
+        prng.seed_all(1234)
+        wf = alexnet.create_workflow()
+        wf.initialize(dev)
+        for op, name in winners.items():
+            variants.select(op, name)
+        tuned = wf.build_fused_step(compute_dtype="bfloat16")
+        variants.clear_selection()
+        default = wf.build_fused_step(compute_dtype="bfloat16")
+        default32 = wf.build_fused_step(compute_dtype="float32")
+        state0 = default.init_state()
+        x, y, w = card_batch(dev, TB, 91)
+        after = {}
+        for label, step in (("winners", tuned), ("plain", tuned),
+                            ("defaults", default),
+                            ("defaults_f32", default32)):
+            after[label] = copy_state(state0)
+            step.gen = torch.Generator(dev).manual_seed(5)
+            with plain_kernels(kernels) if label == "plain" \
+                    else contextlib.nullcontext():
+                step.train(after[label], x, y, w)
+        torch.cuda.synchronize()
+        # the control: how far the defaults' bf16 rounding puts their
+        # update from the f32 step's
+        control = update_distance(state0, after["defaults"],
+                                  after["defaults_f32"])
+        rec["step_distance"] = {"control_defaults_vs_f32": control,
+                                "winners_vs_f32": update_distance(
+                                    state0, after["winners"],
+                                    after["defaults_f32"])}
+        for other, tol in (("plain", BF16_STEP_RTOL),
+                           ("defaults", autotune_step_tolerance(
+                               winners, max(control.values())))):
+            dist = update_distance(state0, after["winners"], after[other])
+            if max(dist.values()) > tol:
+                raise AssertionError(f"AUTOTUNE winners' step against the "
+                                     f"{other}' step: update distance "
+                                     f"{dist} beyond {tol}")
+            rec["step_distance"][other] = {"distance": dist,
+                                           "tolerance": tol}
+        print(f"AUTOTUNE winners' step ({tuned.variant_table()}) from one "
+              f"state on one batch of {TB}: update distance to the same "
+              f"step through the plain versions "
+              f"{rec['step_distance']['plain']}, to the defaults' step "
+              f"({default.variant_table()}) "
+              f"{rec['step_distance']['defaults']}; the control, the "
+              f"defaults' bf16 step against their f32 step, {control}; the "
+              f"winners' against the f32 step "
+              f"{rec['step_distance']['winners_vs_f32']}", flush=True)
+        del wf, tuned, default, default32, state0, after, x, y, w
+    finally:
+        variants.clear_selection()
+        templates.clear_ledger()
+        if saved_env is None:
+            os.environ.pop("VELES_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["VELES_AUTOTUNE_CACHE"] = saved_env
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts, rec
+
+
+def autotune_phase(launcher, kernels, libs, dev, card):
+    """AUTOTUNE: the generated points of K1-K4 and K6/K7 held and timed,
+    then the search on the main path. Returns (the plain --fused run's
+    launches, the record)."""
+    t0 = time.perf_counter()
+    times, smem = autotune_kernel_phase(libs, kernels, dev, card)
+    stem = autotune_stem_checks(dev)
+    counts, rec = autotune_search_phase(launcher, kernels, dev)
+    rec.update({"point_ms": times, "footprints": smem, "conv_stem": stem,
+                "seconds": time.perf_counter() - t0})
+    print(f"AUTOTUNE: {rec['seconds']:.1f} s", flush=True)
+    return counts, rec
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="Drive the port on one card.")
@@ -4976,6 +5594,21 @@ def main(argv=None) -> int:
         return 2
     if args.feed_profile is not None:
         return feed_profile_main(args.feed_profile, args.seed)
+    # a plain --fused run applies the autotune cache's winners: every
+    # phase reads a cache of this run's own, so that none under HOME
+    # changes what a phase launches
+    os.makedirs(OUT, exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="autotune_cache_", dir=OUT)
+    os.environ["VELES_AUTOTUNE_CACHE"] = os.path.join(cache_dir,
+                                                      "autotune.json")
+    try:
+        return run_phases(args)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run_phases(args) -> int:
+    """Every phase in turn, then the records and the last lines."""
     sys.path.insert(0, REPO)
     from veles_tpu_torch import launcher
     from veles_tpu_torch.ops import kernels
@@ -5052,6 +5685,9 @@ def main(argv=None) -> int:
     checks["bf16"]["c_update_distance"] = toy_bf16_card_vs_cpu(dev)
     checks["transformer_bf16"] = transformer_step_checks(kernels, dev,
                                                          "bfloat16")
+    # last: its winners are selected for no other phase
+    by_path["autotune_fused"], autotune = autotune_phase(launcher, kernels,
+                                                         libs, dev, card)
 
     pallas = "veles_tpu/ops/pallas_kernels.py"
     meta = {
@@ -5113,6 +5749,10 @@ def main(argv=None) -> int:
             entries[-1]["cifar10_shape"] = r
             entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"],
                                              r["max_abs_err"])
+        if name in autotune["point_ms"]:
+            # the kernel search's generated launch shapes at the main
+            # path's shapes, each timed beside the others (AUTOTUNE lines)
+            entries[-1]["search_point_ms"] = autotune["point_ms"][name]
         if "bound_f32_ms" in per_shape[0]:
             # K6's and K7's bounds at the tensor cores' TF32 rate, and
             # beside them in f32 on the CUDA cores
@@ -5127,7 +5767,8 @@ def main(argv=None) -> int:
                    "granular": granular,
                    "granular_transformer": granular_transformer,
                    "granular_resume": granular_resume,
-                   "conv_stem": conv_stem, "samples": samples},
+                   "conv_stem": conv_stem, "samples": samples,
+                   "autotune": autotune},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -44,6 +44,16 @@ TOY_CLI = ["root.alexnet.loader.input_hw=67", "root.alexnet.width_mult=0.125",
            "root.alexnet.decision.max_epochs=1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _restore_base_seeds():
     saved = jprng._base_seed, prng._base_seed

@@ -271,10 +271,16 @@ def test_fused_forward_freezes_its_lowerings():
         fwd = pwf.build_forward()
     with _Selected(variants, lrn_maxpool="composed"):
         assert fwd.fusion_pairs() == []        # resolved fresh
-        assert fwd.variant_table() == {"lrn_maxpool": "fused",
+        # the stem (conv1) and the pool after conv5 report their own
+        # lowerings; the claimed pairs, theirs
+        assert fwd.variant_table() == {"conv_stem": "direct",
+                                       "maxpool": "reduce_window",
+                                       "lrn_maxpool": "fused",
                                        "lrn": "lrn_maxpool/fused"}
         composed = pwf.build_forward()
-        assert composed.variant_table() == {"lrn": "kernel"}
+        assert composed.variant_table() == {"conv_stem": "direct",
+                                            "lrn": "kernel",
+                                            "maxpool": "reduce_window"}
     x = torch.from_numpy(
         np.random.RandomState(5).randn(2, 67, 67, 3).astype(np.float32))
     np.testing.assert_allclose(fwd._forward(fwd.params(), x).numpy(),

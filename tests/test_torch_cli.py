@@ -18,6 +18,16 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 def test_cli_serves_and_stops_on_sigint():
     cmd = [sys.executable, "-m", "veles_tpu_torch",
            "veles_tpu_torch/samples/alexnet.py", "--serve", "0",
@@ -52,7 +62,9 @@ def test_cli_serves_and_stops_on_sigint():
         assert resp["classes"] == out.argmax(axis=1).tolist()
         with urllib.request.urlopen(url + "/info", timeout=60) as r:
             info = json.loads(r.read())
-        assert info["variants"] == {"lrn": "kernel"}
+        # the stem and the pools report their lowerings beside the LRN's
+        assert info["variants"] == {"lrn": "kernel", "conv_stem": "direct",
+                                    "maxpool": "reduce_window"}
         assert info["device"] == "cpu" and info["ring_slots"] == 4
         proc.send_signal(signal.SIGINT)
         assert proc.wait(timeout=60) == 0, proc.stderr.read()[-2000:]

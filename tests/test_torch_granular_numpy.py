@@ -49,6 +49,16 @@ TOY = dict(minibatch_size=16, input_hw=67, width_mult=0.125, fc_width=64,
            n_train=48, n_validation=16, n_classes=8, init="scaled")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _restore():
     saved = (jprng._base_seed, prng._base_seed, jroot.alexnet.to_dict(),

@@ -24,6 +24,16 @@ TOY = ["root.alexnet.loader.input_hw=67", "root.alexnet.width_mult=0.125",
        "root.alexnet.loader.n_train=8", "root.alexnet.loader.n_validation=4"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 def _forbidden(module: str) -> bool:
     """An import of JAX or of the JAX package: the module `veles_tpu`
     itself or anything under `veles_tpu.` — never a plain prefix match,
@@ -237,6 +247,60 @@ def test_entry_points_ask_for_the_card(monkeypatch):
     finally:
         root.alexnet = saved    # the CLI's overrides stay in this test
     assert not wf.is_initialized
+
+
+def test_the_kernel_search_asks_for_the_card(monkeypatch, tmp_path):
+    """`--autotune`, the tool and the search run on the card unless the
+    CPU is asked for."""
+    from veles_tpu_torch.ops import autotune
+    from veles_tpu_torch.tools import autotune as tool
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("VELES_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    with pytest.raises(SystemExit) as e:
+        tool.main(["--budget", "4"])
+    assert e.value.code == 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        autotune.search_op("sgd_update", budget=2)
+    saved = root.alexnet.to_dict()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launcher.train([str(PKG / "samples" / "alexnet.py"), "--fused",
+                            "--autotune", *TOY])
+    finally:
+        root.alexnet = saved
+    assert not (tmp_path / "c.json").exists()
+
+
+#: the modules the kernel search added or extended
+KERNEL_SEARCH_MODULES = ["veles_tpu_torch.analysis",
+                         "veles_tpu_torch.analysis.findings",
+                         "veles_tpu_torch.analysis.resources",
+                         "veles_tpu_torch.ops.templates",
+                         "veles_tpu_torch.ops.autotune",
+                         "veles_tpu_torch.ops.variants",
+                         "veles_tpu_torch.ops.kernels",
+                         "veles_tpu_torch.ops.functional",
+                         "veles_tpu_torch.tools",
+                         "veles_tpu_torch.tools.autotune",
+                         "veles_tpu_torch.parallel.fused",
+                         "veles_tpu_torch.znicz.conv",
+                         "veles_tpu_torch.znicz.pooling",
+                         "veles_tpu_torch.znicz.normalization",
+                         "veles_tpu_torch.znicz.attention",
+                         "veles_tpu_torch.znicz.standard_workflow",
+                         "veles_tpu_torch.launcher"]
+
+
+@pytest.mark.parametrize("module", KERNEL_SEARCH_MODULES)
+def test_kernel_search_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    rel = module.replace(".", "/")
+    path = REPO / (rel + ".py")
+    if not path.exists():
+        path = REPO / rel / "__init__.py"
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
 
 
 def test_torch_generator_follows_the_seed(monkeypatch):

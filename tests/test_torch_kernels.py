@@ -160,16 +160,21 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
 def test_registry_resolution_and_device_gating():
     """Every registry entry selects a path that runs; no entry depends on
     the device (a wrapper takes its plain version on a CPU tensor by
-    itself), and `lrn_maxpool/composed` is a marker with no `apply`."""
+    itself), and `lrn_maxpool/composed` claims no pair (its `apply`, the
+    LRN then the pool, is the kernel search's contract and bench). The
+    hand-written variants: generated points (ops/templates.py) are kept
+    apart."""
     assert {op: sorted(spec.variants) for op, spec in variants._OPS.items()} \
-        == {"lrn": ["kernel"], "lrn_maxpool": ["composed", "fused"],
+        == {"lrn": ["banded_matmul", "cached_residual", "kernel"],
+            "maxpool": ["reduce_window", "slices"],
+            "lrn_maxpool": ["composed", "fused"],
             "sgd_update": ["kernel", "tree"],
             "flash_attn": ["kernel", "mha"],
             "conv_stem": ["direct", "s2d"]}
     with pytest.raises(KeyError):
         variants.get("lrn", "plain")
     composed = variants.get("lrn_maxpool", "composed")
-    assert composed.apply is None and not composed.fused
+    assert composed.apply is not None and not composed.fused
     assert variants.get("lrn_maxpool", "fused").fused
     prev = {op: variants.selected(op)
             for op in ("lrn", "lrn_maxpool", "sgd_update")}
@@ -222,3 +227,22 @@ def test_kernel_argument_checks():
     assert g.is_contiguous()
     with pytest.raises(ValueError, match="geometry"):
         kernels._pool_geometry((3, 0), (2, 2))
+
+
+def test_cpu_sqrt_is_correctly_rounded():
+    """`functional.sqrt` on the CPU (the plain LRN's s^(-1/4) =
+    sqrt(rsqrt(s)), the log activation's backward, Adam's step) gives
+    numpy's correctly rounded f32 sqrt bit for bit, as CUDA's sqrt does
+    on the card; ATen's own CPU sqrt (MKL VML) is an ulp off for about
+    one value in eight."""
+    rs = np.random.RandomState(0)
+    a = np.concatenate([(rs.rand(200_000) * 10 + 1e-3),
+                        [0.0, 1.0, 4.0, np.inf]]).astype(np.float32)
+    got = fn.sqrt(torch.from_numpy(a)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.sqrt(a))
+    # s^(-3/4) as the kernels build it: t = sqrt(rsqrt(s)), t * (t * t)
+    s = a[:-4] + np.float32(2.0)
+    t = np.sqrt(np.float32(1) / np.sqrt(s))
+    np.testing.assert_array_equal(
+        fn.pow_neg_quarters(torch.from_numpy(s), 0.75).numpy(), t * (t * t))

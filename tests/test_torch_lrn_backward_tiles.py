@@ -21,6 +21,8 @@ through the generic instance. It cannot see nvcc errors, register
 pressure or speed: chip_smoke.py holds the kernel on the card.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -95,10 +97,11 @@ def _inputs(shape, kind, seed=3):
     return torch.from_numpy(x), g
 
 
-def _run(entry, monkeypatch, shape, n, kind, generic=False, bf16_offset=None):
+def _run(entry, monkeypatch, shape, n, kind, generic=False, bf16_offset=None,
+         tile=0):
     """(K3's source through the wrapper, the plain version) on one
     input; in bf16 (x `bf16_offset` elements into its buffer) unless
-    None."""
+    None; `tile`: the launch's own elements of a tile (0: the source's)."""
     x, g = _inputs(shape, kind)
     if bf16_offset is not None:
         x, g = bf16_at(x, bf16_offset), g.to(torch.bfloat16)
@@ -107,7 +110,8 @@ def _run(entry, monkeypatch, shape, n, kind, generic=False, bf16_offset=None):
         m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
         want = fn.lrn_backward(x, g, K, ALPHA, BETA, n)
     with wrapper_on(entry, monkeypatch):
-        got = kernels.lrn_backward(x, g, K, ALPHA, BETA, n, generic=generic)
+        got = kernels.lrn_backward(x, g, K, ALPHA, BETA, n, generic=generic,
+                                   tile=tile)
     return got, want
 
 
@@ -188,3 +192,52 @@ def test_a_halo_left_at_zero_fails(tmp_path, monkeypatch):
     with pytest.raises(AssertionError):
         _assert_bit_equal(*_run(entry, monkeypatch, (2, 5, 7, 40), 5,
                                 "relu"))
+
+
+#: the kernel search's K3 tiles at shapes whose last tile is ragged:
+#: (what, x shape, tile)
+TILE_POINTS = (("C 96 tile 1536: 16 rows a tile, last 6", (2, 9, 11, 96),
+                1536),
+               ("C 96 tile 6144: 40 rows a tile (48 KB), last 38",
+                (2, 9, 11, 96), 6144),
+               ("C 256 tile 1536: 6 rows a tile, last 5", (1, 5, 7, 256),
+                1536),
+               ("C 256 tile 12288: 15 rows a tile (48 KB), last 5",
+                (1, 5, 7, 256), 12288))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("what,shape,tile", TILE_POINTS,
+                         ids=[t[0] for t in TILE_POINTS])
+def test_k3_search_tiles_are_bit_equal(emulated, emulated_bf16, monkeypatch,
+                                       dtype, what, shape, tile):
+    """Each tile the kernel search can ask for, a run-time argument of
+    the source, gives the plain version's bits (the last tile ragged)."""
+    if dtype == "f32":
+        got, want = _run(emulated["as written"], monkeypatch, shape, 5,
+                         "relu", tile=tile)
+    else:
+        got, want = _run(emulated_bf16["as written"], monkeypatch, shape, 5,
+                         "relu", bf16_offset=0, tile=tile)
+    _assert_bit_equal(got, want)
+
+
+#: (the smem entry's arguments C, half, tile; bytes): the source's tile
+#: (0 or 3072) at AlexNet's widths, the search's, and refusals
+K3_SMEM = (((96, 2, 0), 38400), ((256, 2, 0), 37440),
+           ((96, 2, 3072), 38400), ((96, 2, 1536), 19200),
+           ((96, 2, 12288), 48000), ((256, 2, 6144), 46800),
+           ((96, 2, 10), -1), ((96, 4000, 0), -1))
+
+
+@pytest.mark.parametrize("args,want", K3_SMEM)
+def test_k3_smem_bytes_entry(emulated_libs, args, want):
+    """lrn_backward_smem_bytes gives a block's dynamic shared memory (-1
+    where refused), and the kernel search's Python mirror of the plan
+    the same."""
+    entry = ctypes.CDLL(str(emulated_libs["as written"])) \
+        .lrn_backward_smem_bytes
+    entry.argtypes = [ctypes.c_int] * 3
+    entry.restype = ctypes.c_int
+    assert entry(*args) == want
+    assert kernels.lrn_backward_smem_bytes(*args) == want

@@ -138,10 +138,11 @@ def _input(shape, kind, seed=8):
 
 
 def _run(entry, monkeypatch, name, x, *args, generic=False,
-         bf16_offset=None):
+         bf16_offset=None, **launch):
     """(the kernel's source through its wrapper, the plain version) on
-    `x`; `args` are the wrapper's after x. In bf16 (x `bf16_offset`
-    elements into its buffer) unless None."""
+    `x`; `args` are the wrapper's after x, `launch` its launch shape (K2's
+    tile, K4's rb and cb). In bf16 (x `bf16_offset` elements into its
+    buffer) unless None."""
     if bf16_offset is not None:
         x = bf16_at(x.contiguous(), bf16_offset)
     plain = getattr(kernels, f"{name}_plain")
@@ -150,7 +151,7 @@ def _run(entry, monkeypatch, name, x, *args, generic=False,
         m.setattr(torch, "sqrt", lambda t: sqrt(t.double()).to(t.dtype))
         want = plain(x, *args)
     with wrapper_on(entry, monkeypatch):
-        got = getattr(kernels, name)(x, *args, generic=generic)
+        got = getattr(kernels, name)(x, *args, generic=generic, **launch)
     return got, want
 
 
@@ -164,16 +165,17 @@ def _assert_bit_equal(got, want):
 
 
 def _k4(entry, monkeypatch, shape, ksize, stride, n, kind, generic=False,
-        bf16_offset=None):
+        bf16_offset=None, **launch):
     return _run(entry, monkeypatch, "lrn_maxpool_forward",
                 _input(shape, kind), K, ALPHA, BETA, n, ksize, stride,
-                generic=generic, bf16_offset=bf16_offset)
+                generic=generic, bf16_offset=bf16_offset, **launch)
 
 
 def _k2(entry, monkeypatch, shape, n, kind, generic=False,
-        bf16_offset=None):
+        bf16_offset=None, **launch):
     return _run(entry, monkeypatch, "lrn_forward", _input(shape, kind, 3), K,
-                ALPHA, BETA, n, generic=generic, bf16_offset=bf16_offset)
+                ALPHA, BETA, n, generic=generic, bf16_offset=bf16_offset,
+                **launch)
 
 
 @pytest.mark.parametrize("build", list(BUILDS["lrn_maxpool_forward"]))
@@ -306,24 +308,87 @@ def test_a_channel_halo_left_unstaged_fails(tmp_path, monkeypatch, name):
 
 
 #: (kernel, the smem entry's arguments, bytes): K4 at AlexNet's two LRN
-#: inputs under 3x3/2 pools (H, W, C, OH, OW, window, stride, half) takes
-#: 7 x 33 and 7 x 27 staged pixels of 32 + 2*4 floats; K2 at C 96 and
-#: 256 (C, half) 32 rows of 104 and 12 of 264 floats; a window too wide
-#: for 48 KB is refused (-1)
-SMEM = (("lrn_maxpool_forward", (55, 55, 96, 27, 27, 3, 3, 2, 2, 2), 36960),
-        ("lrn_maxpool_forward", (27, 27, 256, 13, 13, 3, 3, 2, 2, 2), 30240),
-        ("lrn_maxpool_forward", (27, 27, 256, 13, 13, 3, 3, 2, 2, 1000), -1),
-        ("lrn_forward", (96, 2), 13312),
-        ("lrn_forward", (256, 2), 12672),
-        ("lrn_forward", (96, 5000), -1))
+#: inputs under 3x3/2 pools (H, W, C, OH, OW, window, stride, half, and
+#: the band at most, 0 x 0 for the source's 3 x 16) takes 7 x 33 and 7 x
+#: 27 staged pixels of 32 + 2*4 floats; K2 at C 96 and 256 (C, half,
+#: tile, 0 for the source's 3072) 32 rows of 104 and 12 of 264 floats; a
+#: window too wide for 48 KB is refused (-1). Then the kernel search's
+#: points: K4's band 4 x 32 shrunk to 2 x 27 at layer 1 (5 x 55 pixels),
+#: 1 x 8 at layer 2 (3 x 17); K2's tile 6144 (64 rows of 104), 12288 at C
+#: 256 (capped by 48 KB: 46 rows of 264), and a tile that is no multiple
+#: of 4, refused
+SMEM = (("lrn_maxpool_forward", (55, 55, 96, 27, 27, 3, 3, 2, 2, 2, 0, 0),
+         36960),
+        ("lrn_maxpool_forward", (27, 27, 256, 13, 13, 3, 3, 2, 2, 2, 0, 0),
+         30240),
+        ("lrn_maxpool_forward",
+         (27, 27, 256, 13, 13, 3, 3, 2, 2, 1000, 0, 0), -1),
+        ("lrn_maxpool_forward", (55, 55, 96, 27, 27, 3, 3, 2, 2, 2, 3, 16),
+         36960),
+        ("lrn_maxpool_forward", (55, 55, 96, 27, 27, 3, 3, 2, 2, 2, 4, 32),
+         44000),
+        ("lrn_maxpool_forward", (27, 27, 256, 13, 13, 3, 3, 2, 2, 2, 1, 8),
+         8160),
+        ("lrn_forward", (96, 2, 0), 13312),
+        ("lrn_forward", (256, 2, 0), 12672),
+        ("lrn_forward", (96, 5000, 0), -1),
+        ("lrn_forward", (96, 2, 3072), 13312),
+        ("lrn_forward", (96, 2, 6144), 26624),
+        ("lrn_forward", (256, 2, 12288), 48576),
+        ("lrn_forward", (96, 2, 6), -1))
 
 
 @pytest.mark.parametrize("name,args,want", SMEM)
 def test_smem_bytes_entry(emulated_libs, name, args, want):
     """The C entry chip_smoke.py's BUILD lines read gives the dynamic
-    shared memory the launch takes, and -1 where the launch refuses."""
+    shared memory the launch takes, and -1 where the launch refuses; the
+    kernel search's Python mirror of the source's plan
+    (kernels.<name>_smem_bytes) gives the same."""
     entry = getattr(ctypes.CDLL(str(emulated_libs[name, "as written"][0])),
                     f"{name}_smem_bytes")
     entry.argtypes = [ctypes.c_int] * len(args)
     entry.restype = ctypes.c_int
     assert entry(*args) == want
+    assert getattr(kernels, f"{name}_smem_bytes")(*args) == want
+
+
+#: the kernel search's K2 tiles and K4 bands at shapes whose last tile or
+#: band is ragged: (kernel, what, x shape, launch shape)
+LAUNCH_POINTS = (
+    ("lrn_forward", "C 96 tile 1536: 13 tiles of 16 rows, last 6",
+     (2, 9, 11, 96), {"tile": 1536}),
+    ("lrn_forward", "C 96 tile 6144: 4 tiles of 64 rows, last 6",
+     (2, 9, 11, 96), {"tile": 6144}),
+    ("lrn_forward", "C 96 tile 12288: 118 rows, then 80",
+     (2, 9, 11, 96), {"tile": 12288}),
+    ("lrn_forward", "C 256 tile 1536: 6 rows a tile, last 5",
+     (1, 5, 7, 256), {"tile": 1536}),
+    ("lrn_forward", "C 256 tile 6144: 24 rows, then 11",
+     (1, 5, 7, 256), {"tile": 6144}),
+    ("lrn_maxpool_forward", "band 1 x 8 over 13 x 13 pooled",
+     (2, 27, 27, 40), {"rb": 1, "cb": 8}),
+    ("lrn_maxpool_forward", "band 4 x 32 over 13 x 13 pooled",
+     (2, 27, 27, 40), {"rb": 4, "cb": 32}),
+    ("lrn_maxpool_forward", "band 2 x 16, ceil-mode edge",
+     (2, 14, 16, 40), {"rb": 2, "cb": 16}))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,what,shape,launch", LAUNCH_POINTS,
+                         ids=[f"{p[0]} {p[1]}" for p in LAUNCH_POINTS])
+def test_search_launch_shapes_are_bit_equal(emulated, emulated_bf16,
+                                            monkeypatch, dtype, name, what,
+                                            shape, launch):
+    """Each launch shape the kernel search can ask for, a run-time
+    argument of the source, gives the plain version's bits (the last tile
+    or band ragged), as the source's constant does."""
+    entry = (emulated if dtype == "f32" else emulated_bf16)[
+        name, "as written"]
+    off = 0 if dtype == "bf16" else None
+    if name == "lrn_maxpool_forward":
+        got, want = _k4(entry, monkeypatch, shape, (3, 3), (2, 2), 5,
+                        "relu", bf16_offset=off, **launch)
+    else:
+        got, want = _k2(entry, monkeypatch, shape, 5, "relu",
+                        bf16_offset=off, **launch)
+    _assert_bit_equal(got, want)

@@ -54,12 +54,23 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
+#: the samples' configuration trees as their modules set them, taken when
+#: this file is imported (before any test runs): a test of another file in
+#: the same worker may leave, say, the JAX `root.mnist.loader.minibatch_size`
+#: changed, and the pairs below hold both packages to the same settings
+_AT_IMPORT = [(node, node.to_dict()) for node in (
+    root.cifar, root.mnist, root.mnist_simple, root.alexnet, jroot.cifar,
+    jroot.mnist)]
+
+
 @pytest.fixture(autouse=True)
 def _restore():
     saved = (jprng._base_seed, prng._base_seed, root.cifar.to_dict(),
              root.mnist.to_dict(), root.mnist_simple.to_dict(),
              jroot.cifar.to_dict(), jroot.mnist.to_dict(),
              root.alexnet.to_dict())
+    for node, values in _AT_IMPORT:
+        node.update(values)
     yield
     (jprng._base_seed, prng._base_seed, cifar, mn, ms, jcifar,
      jmn, alex) = saved

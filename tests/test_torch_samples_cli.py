@@ -21,6 +21,16 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 @pytest.mark.parametrize("sample,node,sizes,threshold", [
     ("mnist", "mnist", {"loader.n_train": 500, "loader.n_validation": 100,
                         "loader.minibatch_size": 50,

@@ -89,6 +89,16 @@ TORCHLESS_PARENT = ("import sys; sys.modules['torch'] = None; "
                     "sys.exit(main(sys.argv[1:]))")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 def _env(fault_plan=""):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     env.pop("VELES_FAULT_STATE", None)

@@ -142,7 +142,9 @@ def test_train_steps_track_the_jax_step(setting):
         else:
             assert pstep.fusion_pairs() == []
             assert jtable["lrn"] == "pallas_one_pass"
-            assert ptable == {"lrn": "kernel", "sgd_update": "kernel"}
+            assert ptable == {"conv_stem": "direct", "lrn": "kernel",
+                              "maxpool": "reduce_window",
+                              "sgd_update": "kernel"}
         jstate = jstep.init_state()
         pstate = convert.state_from_jax(jstate, "cpu", pstep)
         _compare_states(jstate, pstate, "initial state")

@@ -61,6 +61,16 @@ RTOL, ATOL = 1e-4, 1e-7
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _own_autotune_cache(tmp_path_factory):
+    """A plain `--fused` run applies the autotune cache's winners: this
+    module's runs read a cache of their own, not one under HOME."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VELES_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "autotune.json"))
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _restore_base_seeds():
     saved = jprng._base_seed, prng._base_seed

@@ -146,18 +146,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_backward_kernel(
 // The tiles of C-wide rows under a window of 2*half + 1 channels (all of
 // Geom but rows, q, row_tiles and wide); false where one staged row
 // would exceed kSmemMax or a row have more than kMaxGridY tiles.
-bool plan(int C, int half, Geom* p) {
-  if (C < 1 || half < 0 || half > kTile) return false;
+bool plan(int C, int half, int tile, Geom* p) {
+  if (tile == 0) tile = kTile;
+  if (C < 1 || half < 0 || tile < 4 || tile % 4 || half > tile)
+    return false;
   p->C = C;
   p->half = half;
-  p->ct = std::min(C, kTile);
+  p->ct = std::min(C, tile);
   p->n_ct = (C + p->ct - 1) / p->ct;
   p->xp = (2 * half + 3) / 4 * 4;
   p->xw = p->ct + 2 * p->xp;
   p->tw = p->ct + 2 * half;
   const size_t row_bytes = (p->xw + p->ct + p->tw) * sizeof(float);
   p->rb = static_cast<int>(
-      std::min<size_t>(kTile / p->ct, kSmemMax / row_bytes));
+      std::min<size_t>(tile / p->ct, kSmemMax / row_bytes));
   return p->rb > 0 && p->n_ct <= kMaxGridY;
 }
 
@@ -178,10 +180,11 @@ cudaError_t launch(const T* x, const T* g, T* dx, const Geom& p, float k,
 template <typename T>
 int entry(const T* x, const T* g, T* dx, int64_t rows, int C, int half,
           float k, float alpha, int q, float beta, float c2, int generic,
-          void* stream) {
+          int tile, void* stream) {
   if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
   Geom p{};
-  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan(C, half, tile, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.rows = rows;
   p.q = q;
   p.row_tiles = (rows + p.rb - 1) / p.rb;
@@ -200,15 +203,17 @@ int entry(const T* x, const T* g, T* dx, int64_t rows, int C, int half,
 
 }  // namespace
 
-// `generic` nonzero takes the run-time instance at any geometry. A window
-// so wide that one staged row of kTile channels exceeds kSmemMax (half
-// above ~500) returns cudaErrorInvalidValue.
+// `generic` nonzero takes the run-time instance at any geometry. `tile`:
+// the own elements of a tile at most, a multiple of 4 (0: kTile), the
+// kernel search's `tile` axis. A window so wide that one staged row of
+// `tile` channels exceeds kSmemMax (half above ~500 at kTile), or a tile
+// that is no multiple of 4, returns cudaErrorInvalidValue.
 extern "C" int lrn_backward_f32(const float* x, const float* g, float* dx,
                                 int64_t rows, int C, int half, float k,
                                 float alpha, int q, float beta, float c2,
-                                int generic, void* stream) {
+                                int generic, int tile, void* stream) {
   return entry(x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic,
-               stream);
+               tile, stream);
 }
 
 // The same with bf16 x, g and dx (f32 arithmetic, each dx rounded once).
@@ -216,13 +221,14 @@ extern "C" int lrn_backward_bf16(const __nv_bfloat16* x,
                                  const __nv_bfloat16* g, __nv_bfloat16* dx,
                                  int64_t rows, int C, int half, float k,
                                  float alpha, int q, float beta, float c2,
-                                 int generic, void* stream) {
+                                 int generic, int tile, void* stream) {
   return entry(x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic,
-               stream);
+               tile, stream);
 }
 
-// The dynamic shared memory one block takes for C-wide rows (-1: refused).
-extern "C" int lrn_backward_smem_bytes(int C, int half) {
+// The dynamic shared memory one block takes for C-wide rows and tiles of
+// `tile` elements (0: kTile); -1 where the geometry is refused.
+extern "C" int lrn_backward_smem_bytes(int C, int half, int tile) {
   Geom p{};
-  return plan(C, half, &p) ? static_cast<int>(smem_bytes(p)) : -1;
+  return plan(C, half, tile, &p) ? static_cast<int>(smem_bytes(p)) : -1;
 }

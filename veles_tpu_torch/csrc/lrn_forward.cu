@@ -121,17 +121,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lrn_forward_kernel(
 // Geom but rows, q, row_tiles and wide; tw is K3's); false where one
 // staged row would exceed kSmemMax or a row have more than kMaxGridY
 // tiles.
-bool plan(int C, int half, Geom* p) {
-  if (C < 1 || half < 0 || half > kTile) return false;
+bool plan(int C, int half, int tile, Geom* p) {
+  if (tile == 0) tile = kTile;
+  if (C < 1 || half < 0 || tile < 4 || tile % 4 || half > tile)
+    return false;
   p->C = C;
   p->half = half;
-  p->ct = std::min(C, kTile);
+  p->ct = std::min(C, tile);
   p->n_ct = (C + p->ct - 1) / p->ct;
   p->xp = (half + 3) / 4 * 4;
   p->xw = p->ct + 2 * p->xp;
   const size_t row_bytes = p->xw * sizeof(float);
   p->rb = static_cast<int>(
-      std::min<size_t>(kTile / p->ct, kSmemMax / row_bytes));
+      std::min<size_t>(tile / p->ct, kSmemMax / row_bytes));
   return p->rb > 0 && p->n_ct <= kMaxGridY;
 }
 
@@ -148,10 +150,12 @@ cudaError_t launch(const T* x, T* y, const Geom& p, float k, float alpha,
 
 template <typename T>
 int entry(const T* x, T* y, int64_t rows, int C, int half, float k,
-          float alpha, int q, float beta, int generic, void* stream) {
+          float alpha, int q, float beta, int generic, int tile,
+          void* stream) {
   if (rows * static_cast<int64_t>(C) == 0) return cudaSuccess;
   Geom p{};
-  if (!plan(C, half, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan(C, half, tile, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.rows = rows;
   p.q = q;
   p.row_tiles = (rows + p.rb - 1) / p.rb;
@@ -170,26 +174,32 @@ int entry(const T* x, T* y, int64_t rows, int C, int half, float k,
 
 }  // namespace
 
-// `generic` nonzero takes the run-time instance at any geometry. A window
-// so wide that one staged row of kTile channels exceeds kSmemMax (half
-// above ~4500) returns cudaErrorInvalidValue.
+// `generic` nonzero takes the run-time instance at any geometry. `tile`:
+// the own elements of a tile at most, a multiple of 4 (0: kTile), the
+// kernel search's `tile` axis. A window so wide that one staged row of
+// `tile` channels exceeds kSmemMax (half above ~4500 at kTile), or a tile
+// that is no multiple of 4, returns cudaErrorInvalidValue.
 extern "C" int lrn_forward_f32(const float* x, float* y, int64_t rows, int C,
                                int half, float k, float alpha, int q,
-                               float beta, int generic, void* stream) {
-  return entry(x, y, rows, C, half, k, alpha, q, beta, generic, stream);
+                               float beta, int generic, int tile,
+                               void* stream) {
+  return entry(x, y, rows, C, half, k, alpha, q, beta, generic, tile,
+               stream);
 }
 
 // The same with bf16 x and y (f32 arithmetic, each y rounded once).
 extern "C" int lrn_forward_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
                                 int64_t rows, int C, int half, float k,
                                 float alpha, int q, float beta, int generic,
-                                void* stream) {
-  return entry(x, y, rows, C, half, k, alpha, q, beta, generic, stream);
+                                int tile, void* stream) {
+  return entry(x, y, rows, C, half, k, alpha, q, beta, generic, tile,
+               stream);
 }
 
 // The dynamic shared memory one block takes for C-wide rows under a
-// window of 2*half + 1 channels; -1 where the geometry is refused.
-extern "C" int lrn_forward_smem_bytes(int C, int half) {
+// window of 2*half + 1 channels and tiles of `tile` elements (0: kTile);
+// -1 where the geometry is refused.
+extern "C" int lrn_forward_smem_bytes(int C, int half, int tile) {
   Geom p{};
-  return plan(C, half, &p) ? static_cast<int>(smem_bytes(p)) : -1;
+  return plan(C, half, tile, &p) ? static_cast<int>(smem_bytes(p)) : -1;
 }

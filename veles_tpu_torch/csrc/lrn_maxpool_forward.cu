@@ -33,7 +33,8 @@
 //      edge of a ceil-mode window count as -inf, as the TPU kernel's -inf
 //      padding makes them, and a window wholly past the edge gives -inf.
 // Tiles: RB = 3 pooled rows x CB = 16 pooled columns at most (AlexNet's
-// layer 1: two column tiles, 16 and 11), shrunk until a block fits 48 KB.
+// layer 1: two column tiles, 16 and 11), shrunk until a block fits 48 KB;
+// the caller may ask for another band (the kernel search's rb x cb).
 // Recomputation: y for ((RB-1)*sy + ky)/(RB*sy) of the rows (AlexNet:
 // 7/6) and one column more a column tile. Shared memory: rows x cols x
 // (32 + 2*xp) floats, 36,960 bytes at AlexNet's layer 1 (7 x 33 pixels of
@@ -183,12 +184,14 @@ size_t smem_bytes(const Geom& p, int rb, int cb) {
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// The band (rb pooled rows x cb pooled columns): the band, then the
-// width, shrunk until a block fits kSmemMax; false where even one pooled
-// row and column does not, or the bands outnumber a grid's blocks.
-bool plan(const Geom& p, int* rb, int* cb) {
-  *rb = std::min(kRB, p.OH);
-  *cb = std::min(kCB, p.OW);
+// The band (rb pooled rows x cb pooled columns): at most rb0 x cb0 (0:
+// kRB, kCB), the band, then the width, shrunk until a block fits
+// kSmemMax; false where even one pooled row and column does not, the
+// bands outnumber a grid's blocks, or rb0 or cb0 is negative.
+bool plan(const Geom& p, int rb0, int cb0, int* rb, int* cb) {
+  if (rb0 < 0 || cb0 < 0) return false;
+  *rb = std::min(rb0 > 0 ? rb0 : kRB, p.OH);
+  *cb = std::min(cb0 > 0 ? cb0 : kCB, p.OW);
   while (smem_bytes(p, *rb, *cb) > kSmemMax && (*rb > 1 || *cb > 1)) {
     if (*rb > 1)
       --*rb;
@@ -203,9 +206,10 @@ bool plan(const Geom& p, int* rb, int* cb) {
 
 template <int kHalf, int kQ, int kKY, int kKX, int kSY, int kSX, typename T>
 cudaError_t launch(const T* x, T* y, int n, const Geom& p, bool wide,
-                   float k, float alpha, float beta, cudaStream_t st) {
+                   float k, float alpha, float beta, int rb0, int cb0,
+                   cudaStream_t st) {
   int rb = 0, cb = 0;
-  if (!plan(p, &rb, &cb)) return cudaErrorInvalidValue;
+  if (!plan(p, rb0, cb0, &rb, &cb)) return cudaErrorInvalidValue;
   const int n_cb = ceil_div(p.OW, cb), n_ct = ceil_div(p.C, kCT);
   const dim3 grid(ceil_div(p.OH, rb) * n_cb * n_ct,
                   static_cast<unsigned>(std::min(n, kMaxGridY)));
@@ -225,7 +229,7 @@ bool alexnet(const Geom& p, int generic) {
 template <typename T>
 int entry(const T* x, T* y, int64_t n, int H, int W, int C, int OH, int OW,
           int ky, int kx, int sy, int sx, int half, float k, float alpha,
-          int q, float beta, int generic, void* stream) {
+          int q, float beta, int generic, int rb, int cb, void* stream) {
   if (n * OH * OW * static_cast<int64_t>(C) == 0) return cudaSuccess;
   if (static_cast<int64_t>(H) * W * C > INT_MAX || n > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -237,26 +241,29 @@ int entry(const T* x, T* y, int64_t n, int H, int W, int C, int OH, int OW,
   const int nn = static_cast<int>(n);
   const cudaError_t err =
       alexnet(p, generic)
-          ? launch<2, 3, 3, 3, 2, 2>(x, y, nn, p, wide, k, alpha, beta, st)
+          ? launch<2, 3, 3, 3, 2, 2>(x, y, nn, p, wide, k, alpha, beta, rb,
+                                     cb, st)
           : launch<-1, -1, -1, -1, -1, -1>(x, y, nn, p, wide, k, alpha,
-                                           beta, st);
+                                           beta, rb, cb, st);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// `generic` nonzero takes the generic instance at any geometry. A sample
-// of 2^31 elements or more, or a window whose smallest band (one pooled
-// row and column) exceeds 48 KB of shared memory (half above ~600 under
-// 3x3 windows), returns cudaErrorInvalidValue.
+// `generic` nonzero takes the generic instance at any geometry. `rb`,
+// `cb`: the band's pooled rows and columns at most (0: kRB, kCB), the
+// kernel search's axes. A sample of 2^31 elements or more, or a window
+// whose smallest band (one pooled row and column) exceeds 48 KB of shared
+// memory (half above ~600 under 3x3 windows), returns
+// cudaErrorInvalidValue.
 extern "C" int lrn_maxpool_forward_f32(const float* x, float* y, int64_t n,
                                        int H, int W, int C, int OH, int OW,
                                        int ky, int kx, int sy, int sx,
                                        int half, float k, float alpha, int q,
-                                       float beta, int generic,
-                                       void* stream) {
+                                       float beta, int generic, int rb,
+                                       int cb, void* stream) {
   return entry(x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q,
-               beta, generic, stream);
+               beta, generic, rb, cb, stream);
 }
 
 // The same with bf16 x and y (f32 arithmetic, each maximum rounded once).
@@ -265,18 +272,22 @@ extern "C" int lrn_maxpool_forward_bf16(const __nv_bfloat16* x,
                                         int W, int C, int OH, int OW, int ky,
                                         int kx, int sy, int sx, int half,
                                         float k, float alpha, int q,
-                                        float beta, int generic,
-                                        void* stream) {
+                                        float beta, int generic, int rb,
+                                        int cb, void* stream) {
   return entry(x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q,
-               beta, generic, stream);
+               beta, generic, rb, cb, stream);
 }
 
-// The dynamic shared memory one block takes at this geometry; -1 where
-// the geometry is refused.
+// The dynamic shared memory one block takes at this geometry under bands
+// of at most rb0 x cb0 pooled pixels (0: kRB, kCB); -1 where the
+// geometry is refused.
 extern "C" int lrn_maxpool_forward_smem_bytes(int H, int W, int C, int OH,
                                               int OW, int ky, int kx, int sy,
-                                              int sx, int half) {
+                                              int sx, int half, int rb0,
+                                              int cb0) {
   const Geom p{H, W, C, OH, OW, ky, kx, sy, sx, half, 0};
   int rb = 0, cb = 0;
-  return plan(p, &rb, &cb) ? static_cast<int>(smem_bytes(p, rb, cb)) : -1;
+  return plan(p, rb0, cb0, &rb, &cb)
+             ? static_cast<int>(smem_bytes(p, rb, cb))
+             : -1;
 }

@@ -18,7 +18,8 @@
 // tensor it allocates much more coarsely), a scalar pass over the tail of
 // fewer than four, grid-stride loops. One call updates one leaf; the
 // wrapper calls it once per leaf with that leaf's learning rate (the bias
-// multiplier included).
+// multiplier included). The threads of a block are a run-time argument
+// (0: kThreads, 256), the kernel search's `threads` axis.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -74,12 +75,18 @@ unsigned grid_for(int64_t total, int threads) {
   return static_cast<unsigned>(blocks);
 }
 
+constexpr int kThreads = 256;  // threads of a block unless asked otherwise
+
 }  // namespace
 
+// `threads`: the block's threads, a multiple of 32 up to 1024 (0:
+// kThreads); any other count returns cudaErrorInvalidValue.
 extern "C" int sgd_update_f32(float* p, const float* g, float* v, int64_t n,
                               float lr, float momentum, float weight_decay,
-                              void* stream) {
-  const int threads = 256;
+                              int threads, void* stream) {
+  if (threads == 0) threads = kThreads;
+  if (threads < 32 || threads > 1024 || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool aligned = ((reinterpret_cast<uintptr_t>(p) |
                          reinterpret_cast<uintptr_t>(g) |

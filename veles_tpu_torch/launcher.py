@@ -4,7 +4,8 @@ a snapshot, then train or serve it, optionally under the supervisor.
 `python -m veles_tpu_torch WORKFLOW.py [--fused | --serve PORT]
 [-b torch|numpy] [-s SNAPSHOT] [--device cpu] [-r SEED]
 [--lrn-maxpool fused|composed] [--feed-ahead N] [--accum K]
-[--nonfinite-guard] [--serve-ring N] [root.x=y ...]`,
+[--autotune [--autotune-budget N]] [--nonfinite-guard] [--serve-ring N]
+[root.x=y ...]`,
 and in either training mode also `--supervise [--max-restarts N]
 [--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
 [--supervise-report PATH]` — the port's counterpart of
@@ -26,6 +27,14 @@ either training mode: a workflow restored for the granular graph moves
 to the backend's device and continues at the pulse after its
 snapshot's. `--accum` and `--feed-ahead`, which tune the fused step and
 its device feed, are refused without `--fused`.
+
+`--autotune` (with `--fused`) times the candidate lowerings of the
+workflow's tunable ops on the card before training, trains with the
+winners and caches them (ops/autotune.py; `--autotune-budget N` also
+searches the generated kernel points); a plain `--fused` run applies the
+cached winners without timing anything (`apply_cached`, JAX
+launcher.py:787-813). The cache is $VELES_AUTOTUNE_CACHE, else
+~/.cache/veles_tpu_torch/autotune.json.
 
 `--supervise` makes this process the supervisor
 (`resilience/supervisor.py`) of a child running the same command line
@@ -99,6 +108,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "gradient as K microbatches before its one "
                         "update (--fused; activation memory /K, the "
                         "full batch's gradient)")
+    p.add_argument("--autotune", action="store_true",
+                   help="before training, time the candidate lowerings of "
+                        "the workflow's tunable ops (LRN, max pooling, "
+                        "the stem convolution, the LRN->pool pair, the "
+                        "SGD update, attention) in its fused step on the "
+                        "card and train with the winners; decisions "
+                        "persist in the autotune cache "
+                        "($VELES_AUTOTUNE_CACHE), so a rerun times "
+                        "nothing; --fused only")
+    p.add_argument("--autotune-budget", type=int, default=None,
+                   metavar="N",
+                   help="with --autotune: spend up to N trials on a "
+                        "coordinate-descent search over the generated "
+                        "kernel points (K1-K4's launch shapes, K6/K7's "
+                        "key order and dropout epilogue, the stem's and "
+                        "the pool's lowerings), each gated by its "
+                        "reference contract and the card's shared memory "
+                        "before it is timed")
     p.add_argument("--nonfinite-guard", action="store_true",
                    help="abort training with exit code 81 the moment the "
                         "loss goes NaN/inf (the supervisor then rolls "
@@ -171,6 +198,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error(f"--accum needs K >= 1 (got {args.accum})")
     if args.accum and args.accum > 1 and not args.fused:
         p.error("--accum applies to the fused step: combine with --fused")
+    # the JAX launcher's --autotune refusals (launcher.py:75-99 there;
+    # the port has no listen/master modes: it runs one process)
+    if args.autotune and args.serve is not None:
+        p.error("--autotune tunes a training step; it conflicts with "
+                "--serve")
+    if args.autotune and not args.fused:
+        p.error("--autotune tunes the fused-step lowerings: combine with "
+                "--fused")
+    if args.autotune_budget is not None and not args.autotune:
+        p.error("--autotune-budget bounds the generated-candidate search "
+                "of --autotune: combine with --autotune")
+    if args.autotune_budget is not None and args.autotune_budget < 1:
+        p.error("--autotune-budget must be >= 1")
     if args.supervise and args.serve is not None:
         p.error("--supervise supervises a training run: give it with "
                 "--fused or without --serve")
@@ -276,6 +316,30 @@ def _install_run_hooks(wf) -> list:
     return installed
 
 
+def _select_lowerings(wf, args: argparse.Namespace) -> None:
+    """Before a fused run: under --autotune, tune on the run's device
+    (the winners selected for the run; each op's report line printed,
+    the report kept as `wf.autotune_report`); else apply the cache's
+    winners for this workflow and device, timing nothing (JAX
+    launcher.py:787-813; what was applied kept as `wf.autotune_applied`).
+    An explicit --lrn-maxpool stands over a cached `lrn_maxpool`."""
+    from veles_tpu_torch.ops import autotune, variants
+    wf.place(args.device)
+    if args.autotune:
+        wf.autotune_report = wf.autotune(budget=args.autotune_budget)
+        for line in autotune.report_lines(wf.autotune_report):
+            print(line, flush=True)
+        return
+    pinned = variants.selected("lrn_maxpool") if args.lrn_maxpool else None
+    wf.autotune_applied = autotune.apply_cached(wf, device=wf.device)
+    if pinned is not None:
+        variants.select("lrn_maxpool", pinned)
+    if wf.autotune_applied:
+        import logging
+        logging.getLogger("veles_torch.launcher").info(
+            "autotune cache applied: %s", wf.autotune_applied)
+
+
 def train(argv: Optional[List[str]] = None):
     """Parse `argv` (which must not hold --serve), build the workflow
     through its module's `run(load, main)` (or restore it under -s) and
@@ -283,6 +347,7 @@ def train(argv: Optional[List[str]] = None):
     `run_fused` under --fused, else through the granular graph
     (`initialize` on the backend, then `run()`). Returns the trained
     workflow. The CLI and chip_smoke.py both come through here."""
+    from veles_tpu_torch.ops import variants
     from veles_tpu_torch.resilience import hooks
 
     args = parse_args(argv)
@@ -294,10 +359,14 @@ def train(argv: Optional[List[str]] = None):
         installed = _install_run_hooks(wf)
         try:
             if args.fused:
-                wf.run_fused(device=args.device,
-                             feed_ahead=args.feed_ahead,
-                             nonfinite_guard=args.nonfinite_guard,
-                             accum_steps=args.accum)
+                # the run's winners stay its own: the process's selection
+                # is restored when it returns
+                with variants.selection_kept():
+                    _select_lowerings(wf, args)
+                    wf.run_fused(device=args.device,
+                                 feed_ahead=args.feed_ahead,
+                                 nonfinite_guard=args.nonfinite_guard,
+                                 accum_steps=args.accum)
             else:
                 # the granular graph: the Decision raises at the
                 # minibatch whose loss goes non-finite (JAX :909-916)

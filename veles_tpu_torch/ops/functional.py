@@ -61,6 +61,20 @@ def act_forward(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
+def sqrt(t: torch.Tensor) -> torch.Tensor:
+    """`torch.sqrt`, correctly rounded on the CPU as on the card. On the
+    CPU ATen takes an f32 sqrt from MKL VML, which is not correctly
+    rounded (about one value in eight an ulp off) and whose first call in
+    a process has returned one thread's share of a tensor about 2^-12 off
+    on AVX512-FP16 CPUs; an f64 sqrt rounded to f32 is the correctly
+    rounded f32 sqrt (53 >= 2*24 + 2 bits), and stays within an ulp where
+    the f64 call is itself a little off. On the card CUDA's sqrt is
+    correctly rounded already."""
+    if t.device.type != "cpu" or t.dtype == torch.float64:
+        return torch.sqrt(t)
+    return torch.sqrt(t.double()).to(t.dtype)
+
+
 def act_backward(name: str, y: torch.Tensor, err: torch.Tensor,
                  x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dL/dx from dL/dy (`err`) and the forward OUTPUT y, the reference's
@@ -71,7 +85,7 @@ def act_backward(name: str, y: torch.Tensor, err: torch.Tensor,
         if x is None:
             raise ValueError("the log activation's backward needs its "
                              "input x")
-        return err / torch.sqrt(x * x + 1.0)
+        return err / sqrt(x * x + 1.0)
     if name == "linear":
         return err
     if name == "tanh":
@@ -127,7 +141,7 @@ def conv2d_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    padding: Tuple[int, int] = (0, 0),
                    activation: str = "linear",
                    w_oihw: Optional[torch.Tensor] = None,
-                   s2d: bool = False) -> torch.Tensor:
+                   s2d: bool = False, acc: str = "native") -> torch.Tensor:
     """act(conv2d(x, W) + b) with symmetric (ph, ph), (pw, pw) padding and
     the bias added before the activation (xla.py conv2d_forward).
     `w_oihw` is `conv_weight_oihw(w)` when the caller caches it. In f32
@@ -135,8 +149,19 @@ def conv2d_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     convolution is rounded before the bias is added, as XLA's conv
     followed by `+ b` rounds it in the JAX package. `s2d` with a square
     stride > 1 runs the convolution as `conv2d_space_to_depth` (the
-    cached `w_oihw` is then not used)."""
+    cached `w_oihw` is then not used). `acc="f32"` pins a sub-f32
+    convolution's accumulation to f32 (xla.py's `preferred_element_type`
+    axis of the conv_stem template): x and w widened, the result rounded
+    to x's dtype once, before the bias; "native" leaves the accumulation
+    to the backend."""
+    if acc not in ("native", "f32"):
+        raise ValueError(f"acc must be 'native' or 'f32', got {acc!r}")
     narrow = x.element_size() < 4
+    if narrow and acc == "f32":
+        y = conv2d_forward(x.to(torch.float32), w.to(torch.float32),
+                           torch.zeros_like(b, dtype=torch.float32),
+                           stride, padding, "linear", s2d=s2d)
+        return act_forward(activation, y.to(x.dtype) + b)
     if s2d and stride[0] == stride[1] and stride[0] > 1:
         y = conv2d_space_to_depth(x, w, stride[0], tuple(padding),
                                   None if narrow else b)
@@ -217,6 +242,47 @@ def maxpool_forward(x: torch.Tensor, ksize: Tuple[int, int],
         xp = F.pad(xp, (0, ew, 0, eh), value=float("-inf"))
     y = F.max_pool2d(xp, (ky, kx), (sy, sx))
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def maxpool_forward_slices(x: torch.Tensor, ksize: Tuple[int, int],
+                           stride: Tuple[int, int], use_abs: bool = False,
+                           fold: str = "linear") -> torch.Tensor:
+    """Ceil-mode max pooling of NHWC `x` as a max-fold over the ky·kx
+    shifted strided slices of the padded input (xla.py
+    `maxpool_forward_slices`, the `maxpool` op's `slices` lowering): the
+    values of `maxpool_forward`, with a backward of elementwise selects
+    instead of the pool's index scatter. The fill is -inf, and 0 for the
+    max-abs flavor, whose combine keeps the signed value of the larger
+    |x| (the first on a tie). `fold` "linear" combines the slices left to
+    right, "tree" pairwise (the template's combine-DAG axis)."""
+    if fold not in ("linear", "tree"):
+        raise ValueError(f"fold must be 'linear' or 'tree', got {fold!r}")
+    ky, kx = ksize
+    sy, sx = stride
+    _, h, w, _ = x.shape
+    oh, ow = pool_out_hw(h, w, ky, kx, sy, sx)
+    eh, ew = (oh - 1) * sy + ky - h, (ow - 1) * sx + kx - w
+    xp = F.pad(x, (0, 0, 0, ew, 0, eh),
+               value=0.0 if use_abs else float("-inf"))
+
+    def comb(a, b):
+        if use_abs:
+            return torch.where(a.abs() >= b.abs(), a, b)
+        return torch.maximum(a, b)
+
+    slices = [xp[:, dy:dy + (oh - 1) * sy + 1:sy,
+                 dx:dx + (ow - 1) * sx + 1:sx, :]
+              for dy in range(ky) for dx in range(kx)]
+    if fold == "tree":
+        while len(slices) > 1:
+            slices = [comb(slices[i], slices[i + 1])
+                      if i + 1 < len(slices) else slices[i]
+                      for i in range(0, len(slices), 2)]
+        return slices[0].contiguous()
+    out = slices[0]
+    for t in slices[1:]:
+        out = comb(out, t)
+    return out.contiguous()
 
 
 def maxpool_forward_with_idx(x: torch.Tensor, ksize: Tuple[int, int],
@@ -430,7 +496,7 @@ def pow_neg_quarters(s: torch.Tensor, beta: float) -> torch.Tensor:
     xla._pow_neg_quarters, which the kernels use too."""
     q = quarter_exponent(beta)
     if q:
-        t = torch.sqrt(torch.rsqrt(s))
+        t = sqrt(torch.rsqrt(s))
         out = None
         while q:
             if q & 1:
@@ -477,6 +543,54 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
     d = pow_neg_quarters(s, beta)
     tsum = lrn_window_sum(gf * xf * d / s, n)
     return (gf * d - (2.0 * alpha * beta) * xf * tsum).to(x.dtype)
+
+
+def _lrn_band(c: int, n: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """(C, C) 0/1 band: band[i, j] = |i − j| <= n//2 (xla.py `_lrn_band`)."""
+    i = torch.arange(c, device=device)
+    return ((i[:, None] - i[None, :]).abs() <= n // 2).to(dtype)
+
+
+def lrn_window_sum_banded(a: torch.Tensor, n: int) -> torch.Tensor:
+    """The ±n//2 window sum as a banded matmul, a @ band, accumulated in
+    at least f32 and rounded back to a's dtype (xla.py
+    `_lrn_window_sum`); shifted adds above 4096 channels, as there."""
+    c = a.shape[-1]
+    if c > 4096:
+        return lrn_window_sum(a, n)
+    acc = a.dtype if a.dtype in (torch.float32, torch.float64) \
+        else torch.float32
+    return torch.matmul(a.to(acc),
+                        _lrn_band(c, n, acc, a.device)).to(a.dtype)
+
+
+class BandedLRNFunction(torch.autograd.Function):
+    """The `lrn` op's banded-matmul lowerings (xla.py `lrn_forward`'s two
+    custom VJPs), computed in x's dtype as there: y = x·s^(−β) with
+    s = k + α·W(x²); the closed-form backward g·d − 2αβ·x·W(g·x·d/s).
+    `cache` False recomputes s and d from x (`banded_matmul`), True keeps
+    them from the forward (`cached_residual`)."""
+
+    @staticmethod
+    def forward(ctx, x, k, alpha, beta, n, cache):
+        s = k + alpha * lrn_window_sum_banded(x * x, n)
+        d = pow_neg_quarters(s, beta)
+        ctx.save_for_backward(*((x, d, s) if cache else (x,)))
+        ctx.hyper = (k, alpha, beta, n)
+        return x * d
+
+    @staticmethod
+    def backward(ctx, g):
+        k, alpha, beta, n = ctx.hyper
+        if len(ctx.saved_tensors) == 3:
+            x, d, s = ctx.saved_tensors
+        else:
+            (x,) = ctx.saved_tensors
+            s = k + alpha * lrn_window_sum_banded(x * x, n)
+            d = pow_neg_quarters(s, beta)
+        core = lrn_window_sum_banded(g * x * d / s, n)
+        return (g * d - (2.0 * alpha * beta) * x * core,) + (None,) * 5
 
 
 def lrn_maxpool_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,

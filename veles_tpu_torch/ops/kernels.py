@@ -33,6 +33,15 @@ the CPU. Each call that launches adds one to its instance's counter in
 once), and nothing else does. On the CPU the autograd functions run the
 plain closed forms both ways — never autograd of the plain forward.
 
+Launch shapes: K1's block (`threads`), K2's and K3's tile (`tile`) and
+K4's band (`rb` x `cb`) are run-time arguments, 0 (the default) taking the
+source's constant (`SGD_THREADS`, `LRN_TILE`, `LRN_POOL_BAND`): the kernel
+search's axes (ops/templates.py). `lrn_rows_plan`, `lrn_maxpool_plan`
+and the `*_smem_bytes` functions below mirror the sources' `plan` in
+Python, byte for byte, so that the search can size and refuse a point on
+the CPU; chip_smoke.py holds each mirror against the C entry of the same
+name.
+
 Device memory's dtype: K1, K6 and K7 take f32. K2–K5 take f32 or bf16
 (the JAX kernels' io_dtype="native" under a bf16 step): each source has
 a second C entry `*_bf16`, an instance that loads bf16, computes in f32
@@ -53,7 +62,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -188,17 +197,18 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _ARGTYPES = {
-    # p, g, v, n, lr, momentum, weight_decay, stream
-    "sgd_update_f32": [_P, _P, _P, _L, _F, _F, _F, _P],
-    # x, y, rows, C, half, k, alpha, q, beta, generic, stream
-    "lrn_forward_f32": [_P, _P, _L, _I, _I, _F, _F, _I, _F, _I, _P],
-    # x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic, stream
+    # p, g, v, n, lr, momentum, weight_decay, threads, stream
+    "sgd_update_f32": [_P, _P, _P, _L, _F, _F, _F, _I, _P],
+    # x, y, rows, C, half, k, alpha, q, beta, generic, tile, stream
+    "lrn_forward_f32": [_P, _P, _L, _I, _I, _F, _F, _I, _F, _I, _I, _P],
+    # x, g, dx, rows, C, half, k, alpha, q, beta, c2, generic, tile, stream
     "lrn_backward_f32": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _F, _F, _I,
-                         _P],
+                         _I, _P],
     # x, y, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha, q, beta,
-    # generic, stream
+    # generic, rb, cb, stream
     "lrn_maxpool_forward_f32": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _F, _F, _I, _F, _I, _P],
+                                _I, _I, _I, _F, _F, _I, _F, _I, _I, _I,
+                                _P],
     # x, g, dx, win, n, H, W, C, OH, OW, ky, kx, sy, sx, half, k, alpha,
     # q, beta, c2, generic, stream
     "lrn_maxpool_backward_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
@@ -296,15 +306,148 @@ def _stream(x: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
+# launch shapes: the sources' constants and their plans, mirrored
+# ---------------------------------------------------------------------------
+
+#: K1's threads a block (sgd_update.cu kThreads)
+SGD_THREADS = 256
+#: K2's and K3's own elements of a tile at most (kTile of both sources)
+LRN_TILE = 3072
+#: K4's band: pooled rows x pooled columns at most (kRB, kCB)
+LRN_POOL_BAND = (3, 16)
+#: dynamic shared memory a K2, K3 or K4 block takes at most (kSmemMax),
+#: and the grid's y extent K2 and K3 cut a row into (kMaxGridY)
+_LRN_SMEM_MAX = 48 * 1024
+_MAX_GRID_Y = 65535
+#: K4's channels a block (kCT) and the largest grid extent (INT_MAX)
+_POOL_CT = 32
+_INT_MAX = 2 ** 31 - 1
+
+
+def check_launch(threads: int = 0, tile: int = 0, rb: int = 0,
+                 cb: int = 0) -> None:
+    """Refuses, on either device, a launch argument no source takes: K1's
+    threads a multiple of 32 up to 1024, K2's and K3's tile a multiple of
+    4, K4's band not negative (0 everywhere: the source's constant)."""
+    if threads and (threads < 32 or threads > 1024 or threads % 32):
+        raise ValueError(f"threads {threads}: a multiple of 32 up to 1024")
+    if tile and (tile < 4 or tile % 4):
+        raise ValueError(f"tile {tile}: a multiple of 4")
+    if rb < 0 or cb < 0:
+        raise ValueError(f"band {rb} x {cb}: not negative")
+
+
+def lrn_rows_plan(c: int, half: int, tile: int = 0,
+                  backward: bool = False) -> Optional[Tuple[int, int, int]]:
+    """(rb rows, ct channels of a tile, shared-memory bytes of a block) of
+    K2 (`backward` False: lrn_forward.cu `plan`) or K3 (True:
+    lrn_backward.cu `plan`) for C-wide rows under a window of 2*half + 1
+    channels and tiles of `tile` own elements (0: LRN_TILE); None where
+    the source refuses the geometry."""
+    t = tile or LRN_TILE
+    if c < 1 or half < 0 or t < 4 or t % 4 or half > t:
+        return None
+    ct = min(c, t)
+    n_ct = -(-c // ct)
+    if backward:
+        xp = (2 * half + 3) // 4 * 4
+        row = (ct + 2 * xp + ct + ct + 2 * half) * 4
+    else:
+        xp = (half + 3) // 4 * 4
+        row = (ct + 2 * xp) * 4
+    rb = min(t // ct, _LRN_SMEM_MAX // row)
+    if rb <= 0 or n_ct > _MAX_GRID_Y:
+        return None
+    return rb, ct, rb * row
+
+
+def lrn_forward_smem_bytes(c: int, half: int, tile: int = 0) -> int:
+    """lrn_forward.cu's C entry of the same name: a K2 block's dynamic
+    shared memory, -1 where refused."""
+    plan = lrn_rows_plan(c, half, tile)
+    return -1 if plan is None else plan[2]
+
+
+def lrn_backward_smem_bytes(c: int, half: int, tile: int = 0) -> int:
+    """lrn_backward.cu's C entry of the same name: a K3 block's dynamic
+    shared memory, -1 where refused."""
+    plan = lrn_rows_plan(c, half, tile, backward=True)
+    return -1 if plan is None else plan[2]
+
+
+def lrn_maxpool_plan(h: int, w: int, c: int, oh: int, ow: int, ky: int,
+                     kx: int, sy: int, sx: int, half: int, rb0: int = 0,
+                     cb0: int = 0) -> Optional[Tuple[int, int, int]]:
+    """(rb, cb, shared-memory bytes of a block) of K4's band at this
+    geometry under bands of at most rb0 x cb0 pooled pixels (0:
+    LRN_POOL_BAND), shrunk as lrn_maxpool_forward.cu's `plan` shrinks it;
+    None where the source refuses it."""
+    if rb0 < 0 or cb0 < 0:
+        return None
+    xw = _POOL_CT + 2 * ((half + 3) // 4 * 4)
+
+    def smem(rb, cb):
+        return min((rb - 1) * sy + ky, h) * min((cb - 1) * sx + kx, w) \
+            * xw * 4
+
+    rb = min(rb0 or LRN_POOL_BAND[0], oh)
+    cb = min(cb0 or LRN_POOL_BAND[1], ow)
+    while smem(rb, cb) > _LRN_SMEM_MAX and (rb > 1 or cb > 1):
+        if rb > 1:
+            rb -= 1
+        else:
+            cb = (cb + 1) // 2
+    blocks = -(-oh // rb) * -(-ow // cb) * -(-c // _POOL_CT)
+    if smem(rb, cb) > _LRN_SMEM_MAX or blocks > _INT_MAX:
+        return None
+    return rb, cb, smem(rb, cb)
+
+
+def lrn_maxpool_forward_smem_bytes(h: int, w: int, c: int, oh: int, ow: int,
+                                   ky: int, kx: int, sy: int, sx: int,
+                                   half: int, rb0: int = 0,
+                                   cb0: int = 0) -> int:
+    """lrn_maxpool_forward.cu's C entry of the same name: a K4 block's
+    dynamic shared memory, -1 where refused."""
+    plan = lrn_maxpool_plan(h, w, c, oh, ow, ky, kx, sy, sx, half, rb0, cb0)
+    return -1 if plan is None else plan[2]
+
+
+def flash_attention_forward_smem_bytes(d: int) -> int:
+    """A K6 block's dynamic shared memory at head width d: the streamed
+    tiles (flash_common.cuh `Tiles<D>`: two raw stages of K and V, 64
+    rows of d floats each, and the landed tile's TF32 hi and lo planes at
+    a pitch of d + 4 words). The C entry of the same name answers only
+    for the compiled widths; this gives any multiple of 8, so that the
+    search can prune a width the card could not hold (-1 elsewhere)."""
+    if d < 8 or d % 8:
+        return -1
+    return 2048 * d + 4096
+
+
+def flash_attention_backward_smem_bytes(d: int) -> int:
+    """A K7 block's (either launch's) dynamic shared memory at head width
+    d: K6's tiles, and from d = 64 on the two resident arrays of each of
+    the 4 warps that RowPlace moves there (2·(d/8)·32 16-byte words each);
+    -1 where d is no multiple of 8."""
+    fwd = flash_attention_forward_smem_bytes(d)
+    if fwd < 0:
+        return -1
+    return fwd + (4 * 2 * 2 * (d // 8) * 32 * 16 if d >= 64 else 0)
+
+
+# ---------------------------------------------------------------------------
 # K1: SGD + momentum + L2 update of one leaf, in place
 # ---------------------------------------------------------------------------
 
 
 def sgd_update_plain(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                      lr: float, momentum: float = 0.0,
-                     weight_decay: float = 0.0) -> None:
+                     weight_decay: float = 0.0, threads: int = 0) -> None:
     """Plain PyTorch version of K1, in place: g' = g + wd·p;
-    v ← μ·v − lr·g'; p ← p + v (each product and sum its own op)."""
+    v ← μ·v − lr·g'; p ← p + v (each product and sum its own op).
+    `threads`, K1's launch shape, changes nothing here (as for each plain
+    version below: a launch shape does not change the function)."""
     reg = g + weight_decay * p
     v.copy_(momentum * v - lr * reg)
     p.add_(v)
@@ -312,10 +455,12 @@ def sgd_update_plain(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
 
 def sgd_update(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                lr: float, momentum: float = 0.0,
-               weight_decay: float = 0.0) -> None:
+               weight_decay: float = 0.0, threads: int = 0) -> None:
     """Update the leaf `p` and its velocity `v` in place from its
     gradient `g`: K1 for CUDA tensors, the plain version for CPU ones.
-    `lr` is the leaf's own (optim.sgd_leaf_lr)."""
+    `lr` is the leaf's own (optim.sgd_leaf_lr); `threads`, K1's block (0:
+    SGD_THREADS)."""
+    check_launch(threads=threads)
     if not _on_card("sgd_update", p):
         sgd_update_plain(p, g, v, lr, momentum, weight_decay)
         return
@@ -329,7 +474,7 @@ def sgd_update(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(p.device):
         status = _entry("sgd_update")(
             p.data_ptr(), g.data_ptr(), v.data_ptr(), p.numel(), lr,
-            momentum, weight_decay, _stream(p))
+            momentum, weight_decay, threads, _stream(p))
     _check_status("sgd_update", status)
     _count("sgd_update")
     # the kernel wrote through raw pointers: bump the version counters,
@@ -345,7 +490,8 @@ def sgd_update(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
 
 
 def lrn_forward_plain(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
-                      beta: float = 0.75, n: int = 5) -> torch.Tensor:
+                      beta: float = 0.75, n: int = 5,
+                      tile: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K2 (any layout whose LAST axis is C; a
     bf16 x is computed in f32 and rounded once)."""
     return fn.lrn_forward(x, k, alpha, beta, n)
@@ -353,13 +499,15 @@ def lrn_forward_plain(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
 
 def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
                 beta: float = 0.75, n: int = 5, *,
-                generic: bool = False) -> torch.Tensor:
+                generic: bool = False, tile: int = 0) -> torch.Tensor:
     """Across-channel LRN of an NHWC tensor: K2 for a CUDA tensor, the
     plain version for a CPU one. K2 runs AlexNet's geometry (n 5, beta
     0.75) as an instance with it compiled in, unless `generic`, which
     takes the run-time instance every other geometry takes (the same
     bits; it times what the constants buy). x is f32 or bf16, and y
-    comes back in x's dtype."""
+    comes back in x's dtype. `tile`: K2's own elements of a tile at most
+    (0: LRN_TILE)."""
+    check_launch(tile=tile)
     if not _on_card("lrn_forward", x):
         return lrn_forward_plain(x, k, alpha, beta, n)
     inst = "lrn_forward" + _check_lrn_args(x, n, 4)
@@ -369,7 +517,8 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
     with torch.cuda.device(x.device):
         status = _entry(inst)(
             x.data_ptr(), y.data_ptr(), rows, c, n // 2, k, alpha,
-            fn.quarter_exponent(beta), beta, int(generic), _stream(x))
+            fn.quarter_exponent(beta), beta, int(generic), tile,
+            _stream(x))
     _check_status(inst, status)
     _count(inst)
     return y
@@ -382,20 +531,22 @@ def lrn_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
 
 def lrn_backward_plain(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
                        alpha: float = 1e-4, beta: float = 0.75,
-                       n: int = 5) -> torch.Tensor:
+                       n: int = 5, tile: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K3: the closed-form gradient."""
     return fn.lrn_backward(x, g, k, alpha, beta, n)
 
 
 def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
                  alpha: float = 1e-4, beta: float = 0.75, n: int = 5, *,
-                 generic: bool = False) -> torch.Tensor:
+                 generic: bool = False, tile: int = 0) -> torch.Tensor:
     """Gradient of the LRN of NHWC `x` given the output gradient `g`: K3
     for CUDA tensors, the plain version for CPU ones. K3 runs AlexNet's
     geometry (n 5, beta 0.75) as an instance with it compiled in, unless
     `generic`, which takes the run-time instance every other geometry
     takes (the same bits; it times what the constants buy). x is f32 or
-    bf16, g has x's dtype, and dx comes back in it."""
+    bf16, g has x's dtype, and dx comes back in it. `tile`: K3's own
+    elements of a tile at most (0: LRN_TILE)."""
+    check_launch(tile=tile)
     if not _on_card("lrn_backward", x):
         return lrn_backward_plain(x, g, k, alpha, beta, n)
     inst = "lrn_backward" + _check_lrn_args(x, n, 4)
@@ -407,7 +558,7 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
         status = _entry(inst)(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, n // 2, k,
             alpha, fn.quarter_exponent(beta), beta, 2.0 * alpha * beta,
-            int(generic), _stream(x))
+            int(generic), tile, _stream(x))
     _check_status(inst, status)
     _count(inst)
     return dx
@@ -420,8 +571,8 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, k: float = 2.0,
 
 def lrn_maxpool_forward_plain(x: torch.Tensor, k: float = 2.0,
                               alpha: float = 1e-4, beta: float = 0.75,
-                              n: int = 5, ksize=(3, 3),
-                              stride=(2, 2)) -> torch.Tensor:
+                              n: int = 5, ksize=(3, 3), stride=(2, 2),
+                              rb: int = 0, cb: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K4: the LRN, then the ceil-mode pool."""
     return fn.maxpool_forward(fn.lrn_forward(x, k, alpha, beta, n),
                               tuple(ksize), tuple(stride))
@@ -429,15 +580,17 @@ def lrn_maxpool_forward_plain(x: torch.Tensor, k: float = 2.0,
 
 def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
                         beta: float = 0.75, n: int = 5, ksize=(3, 3),
-                        stride=(2, 2), *,
-                        generic: bool = False) -> torch.Tensor:
+                        stride=(2, 2), *, generic: bool = False,
+                        rb: int = 0, cb: int = 0) -> torch.Tensor:
     """LRN then ceil-mode max pool of an NHWC tensor, writing only the
     pooled output: K4 for a CUDA tensor, the plain version for a CPU
     one. K4 runs AlexNet's geometry (n 5, beta 0.75, 3x3/2) as an
     instance with it compiled in, unless `generic`, which takes the
     run-time instance every other geometry takes (the same bits; it
     times what the constants buy). x is f32 or bf16, and the output comes
-    back in x's dtype."""
+    back in x's dtype. `rb` x `cb`: K4's band at most (0: LRN_POOL_BAND),
+    shrunk by the source's plan until a block fits."""
+    check_launch(rb=rb, cb=cb)
     if not _on_card("lrn_maxpool_forward", x):
         return lrn_maxpool_forward_plain(x, k, alpha, beta, n, ksize, stride)
     inst = "lrn_maxpool_forward" + _check_lrn_args(x, n, 4)
@@ -449,7 +602,7 @@ def lrn_maxpool_forward(x: torch.Tensor, k: float = 2.0, alpha: float = 1e-4,
         status = _entry(inst)(
             x.data_ptr(), y.data_ptr(), nb, h, w, c, oh, ow, ky, kx, sy, sx,
             n // 2, k, alpha, fn.quarter_exponent(beta), beta, int(generic),
-            _stream(x))
+            rb, cb, _stream(x))
     _check_status(inst, status)
     _count(inst)
     return y
@@ -681,34 +834,40 @@ def flash_attention_backward(qf: torch.Tensor, kf: torch.Tensor,
 
 
 class LRNFunction(torch.autograd.Function):
-    """LRN with K2 forward and K3 backward (`lrn_pallas`'s custom VJP)."""
+    """LRN with K2 forward and K3 backward (`lrn_pallas`'s custom VJP);
+    `tile` (0: LRN_TILE) is both kernels', as the JAX `row_tile` is both
+    passes'."""
 
     @staticmethod
-    def forward(ctx, x, k, alpha, beta, n):
+    def forward(ctx, x, k, alpha, beta, n, tile=0):
         ctx.save_for_backward(x)
         ctx.hyper = (k, alpha, beta, n)
-        return lrn_forward(x, k, alpha, beta, n)
+        ctx.tile = tile
+        return lrn_forward(x, k, alpha, beta, n, tile=tile)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return (lrn_backward(x, g, *ctx.hyper),) + (None,) * 4
+        return (lrn_backward(x, g, *ctx.hyper, tile=ctx.tile),) \
+            + (None,) * 5
 
 
 class LRNMaxPoolFunction(torch.autograd.Function):
     """LRN then ceil-mode max pool with K4 forward and K5 backward
-    (`lrn_maxpool_pallas`'s custom VJP)."""
+    (`lrn_maxpool_pallas`'s custom VJP); `rb` x `cb` is K4's band (K5
+    keeps its own)."""
 
     @staticmethod
-    def forward(ctx, x, k, alpha, beta, n, ksize, stride):
+    def forward(ctx, x, k, alpha, beta, n, ksize, stride, rb=0, cb=0):
         ctx.save_for_backward(x)
         ctx.hyper = (k, alpha, beta, n, tuple(ksize), tuple(stride))
-        return lrn_maxpool_forward(x, k, alpha, beta, n, ksize, stride)
+        return lrn_maxpool_forward(x, k, alpha, beta, n, ksize, stride,
+                                   rb=rb, cb=cb)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return (lrn_maxpool_backward(x, g, *ctx.hyper),) + (None,) * 6
+        return (lrn_maxpool_backward(x, g, *ctx.hyper),) + (None,) * 8
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:

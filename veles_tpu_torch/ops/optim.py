@@ -22,6 +22,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from veles_tpu_torch.ops import functional
+
 
 class SGDConfig(NamedTuple):
     lr: float = 0.01
@@ -112,7 +114,7 @@ def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         g = g + cfg.weight_decay * p
     m_new = cfg.b1 * m + (1 - cfg.b1) * g
     v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
-    step = lr * (m_new / b1t) / (torch.sqrt(v_new / b2t) + cfg.eps)
+    step = lr * (m_new / b1t) / (functional.sqrt(v_new / b2t) + cfg.eps)
     return p - step, m_new, v_new
 
 

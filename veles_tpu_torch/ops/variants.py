@@ -1,42 +1,65 @@
-"""Lowering-variant registry of the port: the ops `lrn`, `lrn_maxpool`,
-`sgd_update`, `flash_attn` and `conv_stem` and their candidate
-lowerings.
+"""Lowering-variant registry of the port: the ops `lrn`, `maxpool`,
+`lrn_maxpool`, `sgd_update`, `flash_attn` and `conv_stem`, their
+hand-written candidate lowerings, and the generated points of the kernel
+search (ops/templates.py).
 
 The port's counterpart of `veles_tpu/ops/variants.py`, with the same
 `select` / `resolve` precedence (variants.py:152-232 there): a unit's
 per-instance `variant_override`, then the global selection, then the op's
 default. Every entry selects a path that runs; a kernel wrapper takes its
-plain version on a CPU tensor by itself, so no entry is device-gated.
+plain version on a CPU tensor by itself, so no entry is device-gated and
+the JAX package's `fallback` (its stand-in where Pallas cannot run) has
+no counterpart: a kernel that cannot run fails. `kernel=True` marks a
+lowering that launches the port's own kernels (the JAX `pallas` flag);
+`tunable=False` a marker the search never times; `generated=True` a
+point of a template, named `base[axis=value,...]`, which `get`
+materializes from its name alone (a cached winner in a fresh process).
+Generated points are kept apart from the hand-written ones, so
+`variants_for` lists what was registered by hand.
 
-- `lrn`: `kernel` (K2 forward, K3 backward through `LRNFunction`; the
-  counterpart of `pallas_one_pass`).
-- `lrn_maxpool`: `composed` (a marker: no pair is claimed, the member ops
-  run separately — the `lrn` op, then the plain ceil-mode pool) and
-  `fused` (K4 forward, K5 backward through `LRNMaxPoolFunction`; the
-  counterpart of `fused[rt=2,io=native,fuse=1]`). A `fused` selection lets
-  an LRN unit claim the max pooling that follows it (parallel/fused.py).
+- `lrn`: `kernel` (the default: K2 forward, K3 backward through
+  `LRNFunction`; the counterpart of `pallas_one_pass`), and the JAX
+  package's `banded_matmul` and `cached_residual` (a banded matmul for
+  the window sum, recomputing or keeping s and d for the backward:
+  `functional.BandedLRNFunction`); generated `cuda[tile,io]`.
+- `maxpool`: `reduce_window` (the default: `functional.maxpool_forward`,
+  the port's pool so far; the max-abs flavor gathers its winner) and
+  `slices` (a max-fold over shifted strided slices); generated
+  `gen[algo,fold]`.
+- `lrn_maxpool`: `composed` (no pair is claimed, the member ops run
+  separately; its `apply`, K2/K3 and the pool, is the contract's and the
+  bench's) and `fused` (K4 forward, K5 backward through
+  `LRNMaxPoolFunction`; the counterpart of `fused[rt=2,io=native,
+  fuse=1]`); generated `fused[rb,cb,io,fuse]`. A fused selection lets an
+  LRN unit claim the max pooling that follows it (parallel/fused.py).
 - `sgd_update`: `kernel` (K1 per leaf; the counterpart of
   `pallas_rows[rt=8]`, and like that template it takes the tree rule when
   `l1_decay` is not 0: the kernel has no L1 term) and `tree` (the per-leaf
-  tensor rule of ops/optim.py, the counterpart of `xla_tree`).
+  tensor rule of ops/optim.py, the counterpart of `xla_tree`); generated
+  `cuda_rows[threads]`.
 - `flash_attn`: `kernel` (K6 forward, K7 backward through
   `FlashAttentionFunction`; the counterpart of `pallas`) and `mha` (the
-  einsum golden of ops/attention.py, the counterpart of `xla_mha`). The
+  einsum golden of ops/attention.py, the counterpart of `xla_mha`); the
   attention unit consults it only where its gate sends a sequence to the
-  blocked kernel (znicz/attention.py).
+  blocked kernel (znicz/attention.py); generated
+  `cuda[blk_q,blk_k,kv_order,drop]`.
 - `conv_stem`: `direct` (the default, `F.conv2d` at the layer's stride)
   and `s2d` (the space-to-depth rewrite, `functional.
-  conv2d_space_to_depth`), the JAX package's two hand-written points; its
-  generated pack x acc x epi search waits for the kernel search. Where the
-  JAX package defaults to `s2d` (its TPU measurement), the port keeps
-  `direct` until a measurement on the card decides.
+  conv2d_space_to_depth`); generated `gen[pack,acc,epi]`, whose `epi=lrn`
+  points claim the LRN after the stem.
+
+The defaults stay what the port ran before the search: `lrn_maxpool`
+`fused` where the JAX default is `composed`, `conv_stem` `direct` where
+it is `s2d`. `--autotune` (ops/autotune.py) times the candidates on the
+card and selects the winners, which a later run applies from its cache.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from veles_tpu_torch.ops import attention, functional, kernels, optim
 
@@ -45,12 +68,17 @@ from veles_tpu_torch.ops import attention, functional, kernels, optim
 class Variant:
     """One candidate lowering for a tunable op. `fused` marks a cross-op
     fusion point; a variant without `apply` is a marker that the caller
-    reads and does not run."""
+    reads and does not run. `kernel` marks a lowering that launches the
+    port's kernels, `tunable=False` a variant the search does not time,
+    `generated` a template point."""
 
     op: str
     name: str
     apply: Optional[Callable[..., Any]] = None
     fused: bool = False
+    kernel: bool = False
+    tunable: bool = True
+    generated: bool = False
     doc: str = ""
 
 
@@ -60,6 +88,8 @@ class _OpSpec:
     default: str
     doc: str = ""
     variants: Dict[str, Variant] = field(default_factory=dict)
+    #: template points materialized by name (ops/templates.py)
+    generated: Dict[str, Variant] = field(default_factory=dict)
 
 
 _OPS: Dict[str, _OpSpec] = {}
@@ -77,12 +107,22 @@ def register(variant: Variant) -> Variant:
     if spec is None:
         raise KeyError(f"unknown tunable op {variant.op!r}; register_op "
                        f"first (known: {sorted(_OPS)})")
-    spec.variants[variant.name] = variant
+    table = spec.generated if variant.generated else spec.variants
+    table[variant.name] = variant
     return variant
+
+
+def ops() -> List[str]:
+    return sorted(_OPS)
 
 
 def has_op(op: str) -> bool:
     return op in _OPS
+
+
+def variants_for(op: str) -> List[Variant]:
+    """The op's hand-written variants, in registration order."""
+    return list(_spec(op).variants.values())
 
 
 def _spec(op: str) -> _OpSpec:
@@ -93,12 +133,27 @@ def _spec(op: str) -> _OpSpec:
                        f"(registered: {sorted(_OPS)})") from None
 
 
+def _lookup(op: str, name: Any) -> Optional[Variant]:
+    """The registered variant, or a template point materialized from its
+    name (the path a cached generated winner takes in a fresh process)."""
+    spec = _spec(op)
+    v = spec.variants.get(name) or spec.generated.get(name)
+    if v is None and isinstance(name, str) and "[" in name:
+        from veles_tpu_torch.ops import templates
+        v = templates.materialize(op, name)
+    return v
+
+
 def get(op: str, name: str) -> Variant:
-    v = _spec(op).variants.get(name)
+    v = _lookup(op, name)
     if v is None:
         raise KeyError(f"unknown variant {name!r} for op {op!r} "
                        f"(registered: {sorted(_spec(op).variants)})")
     return v
+
+
+def has(op: str, name: Any) -> bool:
+    return op in _OPS and _lookup(op, name) is not None
 
 
 def select(op: str, name: str) -> None:
@@ -112,12 +167,39 @@ def selected(op: str) -> Optional[str]:
     return _selection.get(op)
 
 
+def effective(op: str) -> str:
+    """The variant name resolve() gives absent per-unit overrides."""
+    return _selection.get(op, _spec(op).default)
+
+
 def clear_selection(op: Optional[str] = None) -> None:
     with _lock:
         if op is None:
             _selection.clear()
         else:
             _selection.pop(op, None)
+
+
+def selection_table(include_defaults: bool = False) -> Dict[str, str]:
+    """{op: variant-name}: the explicit selections, and with
+    `include_defaults` every op (its default where nothing is selected)."""
+    if not include_defaults:
+        return dict(_selection)
+    return {op: effective(op) for op in _OPS}
+
+
+@contextlib.contextmanager
+def selection_kept():
+    """Restore the global selection on exit, whatever was selected or
+    cleared inside (a run's cached or tuned winners stay the run's)."""
+    with _lock:
+        saved = dict(_selection)
+    try:
+        yield
+    finally:
+        with _lock:
+            _selection.clear()
+            _selection.update(saved)
 
 
 def resolve(op: str, unit: Any = None) -> Variant:
@@ -142,14 +224,62 @@ def _lrn_kernel(x, *, k, alpha, beta, n):
     return kernels.LRNFunction.apply(x, k, alpha, beta, n)
 
 
+def _lrn_banded(x, *, k, alpha, beta, n):
+    return functional.BandedLRNFunction.apply(x, k, alpha, beta, n, False)
+
+
+def _lrn_cached(x, *, k, alpha, beta, n):
+    return functional.BandedLRNFunction.apply(x, k, alpha, beta, n, True)
+
+
 register_op("lrn", default="kernel",
             doc="AlexNet across-channel LRN, forward and backward")
-register(Variant("lrn", "kernel", _lrn_kernel,
+register(Variant("lrn", "kernel", _lrn_kernel, kernel=True,
                  doc="K2 forward (csrc/lrn_forward.cu), K3 backward "
                      "(csrc/lrn_backward.cu)"))
+register(Variant("lrn", "banded_matmul", _lrn_banded,
+                 doc="banded-matmul window sum; the backward recomputes s "
+                     "and d"))
+register(Variant("lrn", "cached_residual", _lrn_cached,
+                 doc="the same lowering, s and d kept from the forward: "
+                     "one window sum less in the backward for two "
+                     "activation-sized residuals"))
+
+
+# -- maxpool: apply(x, ksize, stride, use_abs) -> y, differentiable ---------
+
+
+def _maxpool_reduce_window(x, ksize, stride, use_abs):
+    if use_abs:
+        return functional.maxpool_forward_with_idx(
+            x, tuple(ksize), tuple(stride), use_abs=True)[0]
+    return functional.maxpool_forward(x, tuple(ksize), tuple(stride))
+
+
+def _maxpool_slices(x, ksize, stride, use_abs):
+    return functional.maxpool_forward_slices(x, tuple(ksize), tuple(stride),
+                                             use_abs)
+
+
+register_op("maxpool", default="reduce_window",
+            doc="max and max-abs pooling in the fused step; the variants "
+                "differ in what the backward lowers to")
+register(Variant("maxpool", "reduce_window", _maxpool_reduce_window,
+                 doc="F.max_pool2d over the -inf-padded input (the max-abs "
+                     "flavor: the winner's gather); backward: the index "
+                     "scatter"))
+register(Variant("maxpool", "slices", _maxpool_slices,
+                 doc="max-fold over ky*kx shifted strided slices; "
+                     "backward: elementwise selects"))
 
 
 # -- lrn_maxpool: apply(x, *, k, alpha, beta, n, ksize, stride) -> pooled ---
+
+
+def _lrn_maxpool_composed(x, *, k, alpha, beta, n, ksize, stride):
+    return functional.maxpool_forward(
+        kernels.LRNFunction.apply(x, k, alpha, beta, n), tuple(ksize),
+        tuple(stride))
 
 
 def _lrn_maxpool_fused(x, *, k, alpha, beta, n, ksize, stride):
@@ -162,12 +292,18 @@ register_op(
     doc="cross-op fusion of an adjacent (lrn, max pooling) unit pair. The "
         "default differs from the JAX package's, which is composed "
         "(veles_tpu/ops/variants.py:327-329) and reaches a fused point "
-        "only when its kernel search selects one; the port has no search "
-        "yet, and its default keeps K4 and K5 on the main path")
-register(Variant("lrn_maxpool", "composed",
-                 doc="marker: no pair is claimed; the LRN writes its "
-                     "output, the pool reads it back"))
+        "only when its kernel search selects one; the port keeps K4 and "
+        "K5 on the main path unless its own search, run on the card, "
+        "selects otherwise")
+register(Variant("lrn_maxpool", "composed", _lrn_maxpool_composed,
+                 kernel=True,
+                 doc="no pair is claimed: the member units run their own "
+                     "ops' lowerings, the LRN writing its output and the "
+                     "pool reading it back; `apply` (K2/K3, then the "
+                     "ceil-mode pool) is what the contract and the bench "
+                     "run"))
 register(Variant("lrn_maxpool", "fused", _lrn_maxpool_fused, fused=True,
+                 kernel=True,
                  doc="K4 forward (csrc/lrn_maxpool_forward.cu), K5 "
                      "backward (csrc/lrn_maxpool_backward.cu): only the "
                      "pooled output written"))
@@ -176,21 +312,22 @@ register(Variant("lrn_maxpool", "fused", _lrn_maxpool_fused, fused=True,
 # -- sgd_update: apply(params, grads, vel, cfg, lr_scale) in place ----------
 
 
-def _sgd_kernel(params, grads, vel, cfg, lr_scale=1.0):
+def sgd_kernel_update(params, grads, vel, cfg, lr_scale=1.0, threads=0):
+    """K1 per leaf with `threads` a block (0: its default); the tree rule
+    where `l1_decay` is not 0 (the kernel has no L1 term: the exact rule
+    wins over the lowering, templates.py:648-652 in the JAX package)."""
     if cfg.l1_decay:
-        # the kernel has no L1 term: the exact rule wins over the lowering
-        # (templates.py:648-652 in the JAX package)
         optim.sgd_update(params, grads, vel, cfg, lr_scale)
         return
     for key, p in params.items():
         kernels.sgd_update(p, grads[key], vel[key],
                            optim.sgd_leaf_lr(cfg, p.ndim, lr_scale),
-                           cfg.momentum, cfg.weight_decay)
+                           cfg.momentum, cfg.weight_decay, threads=threads)
 
 
 register_op("sgd_update", default="kernel",
             doc="SGD + momentum + weight decay update of one layer's leaves")
-register(Variant("sgd_update", "kernel", _sgd_kernel,
+register(Variant("sgd_update", "kernel", sgd_kernel_update, kernel=True,
                  doc="K1 per leaf (csrc/sgd_update.cu)"))
 register(Variant("sgd_update", "tree", optim.sgd_update,
                  doc="per-leaf tensor rule (ops/optim.py)"))
@@ -206,7 +343,7 @@ def _flash_kernel(q, k, v, scale=None, causal=False):
 register_op("flash_attn", default="kernel",
             doc="local multi-head attention of long sequences, forward "
                 "and backward")
-register(Variant("flash_attn", "kernel", _flash_kernel,
+register(Variant("flash_attn", "kernel", _flash_kernel, kernel=True,
                  doc="K6 forward (csrc/flash_attention_forward.cu), K7 "
                      "backward (csrc/flash_attention_backward.cu): the "
                      "(S, S) scores never reach device memory"))
@@ -234,7 +371,7 @@ register_op(
     doc="strided thin-channel (cin < 8) entry convolution. The default "
         "differs from the JAX package's, which is s2d "
         "(veles_tpu/ops/variants.py:339-363, chosen by its TPU "
-        "measurement); on the card the choice waits for a benchmark cell")
+        "measurement); the port's search decides on the card")
 register(Variant("conv_stem", "direct", _conv_direct,
                  doc="F.conv2d at the layer's stride (cuDNN)"))
 register(Variant("conv_stem", "s2d", _conv_s2d,

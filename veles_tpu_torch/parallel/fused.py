@@ -21,7 +21,11 @@ shape still decides per call, as the JAX unit does per trace: the
 attention unit runs the plan's `flash_attn` variant where its gate
 admits the sequence length and the einsum golden elsewhere, and
 `variant_table` reports what it runs (`variant_effective`). The rule
-that a claimed pool is a pass-through is the JAX package's.
+that a claimed unit is a pass-through is the JAX package's: an LRN claims
+the max pooling after it under a fused `lrn_maxpool` point, and an auto
+stem convolution the LRN after it under an `epi=lrn` `conv_stem` point
+(the earlier pair wins a shared LRN). Generated points (`base[...]`,
+ops/templates.py) resolve like hand-written ones.
 
 Compute dtype (the JAX step's `compute_dtype`, fused.py:165-174 and
 :686-736 there): None falls back to `root.common.precision_type` unless
@@ -76,7 +80,7 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.backends import full_f32
 from veles_tpu_torch.config import root
 from veles_tpu_torch.ops import functional as fn
-from veles_tpu_torch.ops import optim, variants
+from veles_tpu_torch.ops import optim, templates, variants
 
 #: compute dtypes the fused step takes, by the names
 #: root.common.precision_type and `compute_dtype` give them
@@ -167,24 +171,34 @@ class FusedForward:
 
     def _pair_fusion(self, u, nxt):
         """The FUSED variant claiming the adjacent (u, nxt) pair, or None
-        (a composed selection, a per-layer override on either side, or a
-        max-abs pooling, which never fuses)."""
+        (a composed selection, a per-layer override on either side, a
+        max-abs pooling, which never fuses, or a convolution that is no
+        auto stem). The pairs (JAX fused.py:612-646): an LRN and the max
+        pooling after it under a fused `lrn_maxpool` point, and an auto
+        stem and the LRN after it under an `epi=lrn` `conv_stem` point."""
         if nxt is None:
             return None
         if getattr(u, "variant_override", None) is not None \
                 or getattr(nxt, "variant_override", None) is not None:
             return None
-        if getattr(u, "variant_op", None) == "lrn" \
-                and getattr(nxt, "variant_op", None) == "maxpool" \
+        op_a = getattr(u, "variant_op", None)
+        op_b = getattr(nxt, "variant_op", None)
+        if op_a == "lrn" and op_b == "maxpool" \
                 and not getattr(nxt, "use_abs", False):
-            v = variants.resolve("lrn_maxpool")
-            return v if v.fused else None
+            return templates.fusion_point("lrn_maxpool")
+        if op_a == "conv_stem" and op_b == "lrn":
+            if u.s2d != "auto" or u.weights is None \
+                    or not u._s2d_applicable(u.weights.shape[2]):
+                return None
+            return templates.fusion_point("conv_stem")
         return None
 
     def fusion_pairs(self):
         """[(i, i+1, Variant), ...] adjacent unit pairs the CURRENT
-        registry selections claim, left to right (a unit joins at most one
-        pair). Resolved fresh per call."""
+        registry selections claim, left to right: a unit joins at most one
+        pair, so where a stem's epilogue and an LRN->pool point both want
+        one LRN, the stem takes it and that pool runs alone. Resolved
+        fresh per call."""
         out = []
         claimed: set = set()
         fwds = self.forwards
@@ -198,11 +212,18 @@ class FusedForward:
         return out
 
     @staticmethod
-    def _apply_fused_pair(v, u, nxt, x):
-        """Run one claimed (LRN, max pooling) pair through the fused
-        variant; the pooling unit is a pass-through."""
-        return v.apply(x, k=u.k, alpha=u.alpha, beta=u.beta, n=u.n,
-                       ksize=tuple(nxt.ksize), stride=tuple(nxt.stride))
+    def _apply_fused_pair(v, u, nxt, params_u, x):
+        """Run one claimed pair through the fused variant; the trailing
+        unit is a pass-through. An (LRN, max pooling) pair: the LRN's
+        hyperparameters and the pool's window; a (stem, LRN) pair: the
+        convolution with the LRN's hyperparameters as its epilogue."""
+        if getattr(u, "variant_op", None) == "lrn":
+            return v.apply(x, k=u.k, alpha=u.alpha, beta=u.beta, n=u.n,
+                           ksize=tuple(nxt.ksize), stride=tuple(nxt.stride))
+        return v.apply(x, params_u["weights"], params_u["bias"], u.stride,
+                       u.padding, u.activation,
+                       epilogue={"k": nxt.k, "alpha": nxt.alpha,
+                                 "beta": nxt.beta, "n": nxt.n})
 
     # -- forward --------------------------------------------------------------
 
@@ -233,7 +254,8 @@ class FusedForward:
                 if kind == "skip":
                     continue
                 if kind == "pair":
-                    x = self._apply_fused_pair(v, u, self.forwards[j], x)
+                    x = self._apply_fused_pair(v, u, self.forwards[j],
+                                               params[i], x)
                     continue
                 kw: Dict[str, Any] = {"train": train}
                 if v is not None:
@@ -244,20 +266,30 @@ class FusedForward:
         return x.to(torch.float32)
 
     def variant_table(self) -> Dict[str, str]:
-        """{op: variant-name} this forward runs. A claimed pair reports the
-        fused variant for `lrn_maxpool`, and `lrn_maxpool/<name>` for the
-        `lrn` op unless an unclaimed LRN unit runs its own lowering; a unit
-        with `variant_effective` reports what a call at its initialized
-        shape runs."""
+        """{op: variant-name} this forward runs (JAX fused.py:1405-1450):
+        each unclaimed unit's lowering (a unit with `variant_effective`
+        reports what a call at its initialized shape runs, or nothing);
+        a claimed (LRN, pool) pair reports its point for `lrn_maxpool` and
+        `lrn_maxpool/<name>` for the `lrn` and `maxpool` ops where no
+        unclaimed unit of them runs its own, and a claimed (stem, LRN)
+        pair its point for `conv_stem` and `conv_stem/<name>` for `lrn`
+        likewise."""
         table: Dict[str, str] = {}
         for u, (kind, _, v) in zip(self.forwards, self._plan):
             if kind == "unit" and v is not None:
                 effective = getattr(u, "variant_effective", None)
-                table[u.variant_op] = (effective(v) if effective is not None
-                                       else v.name)
-        for _, _, v in self.pairs:
-            table["lrn_maxpool"] = v.name
-            table.setdefault("lrn", f"lrn_maxpool/{v.name}")
+                name = effective(v) if effective is not None else v.name
+                if name is not None:
+                    table[u.variant_op] = name
+        for i, j, v in self.pairs:
+            a, b = self.forwards[i], self.forwards[j]
+            if a.variant_op == "lrn":
+                table["lrn_maxpool"] = v.name
+                table.setdefault("lrn", f"lrn_maxpool/{v.name}")
+                table.setdefault("maxpool", f"lrn_maxpool/{v.name}")
+            else:
+                table.setdefault("conv_stem", v.name)
+                table.setdefault(b.variant_op, f"conv_stem/{v.name}")
         return table
 
 

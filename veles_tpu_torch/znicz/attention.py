@@ -34,7 +34,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from veles_tpu_torch.ops import attention, variants
+from veles_tpu_torch.ops import attention, templates, variants
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.znicz.nn_units import Forward, GradientDescentVJP, \
     VJPForwardUnit, register_gd, register_unit
@@ -101,16 +101,35 @@ class MultiHeadAttention(Forward):
             return True
         return s >= FLASH_MIN_SEQ and s % FLASH_SEQ_MULTIPLE == 0
 
+    def variant_signature(self, sample_shape) -> Optional[Dict[str, Any]]:
+        """The kernel search's cache-key payload at the per-sample input
+        shape (S, E) (JAX attention.py:108-123); None under an override,
+        with flash off, or at a sequence the gate keeps out."""
+        if self.variant_override is not None or self.use_flash == "off":
+            return None
+        s, e = sample_shape
+        if not self._flash_ok(s):
+            return None
+        return {"sample_shape": [s, e], "heads": self.n_heads,
+                "head_dim": self.head_dim, "causal": self.causal}
+
     def variant_effective(self, variant=None) -> Optional[str]:
         """The `flash_attn` lowering a call at the unit's sequence length
         runs — `mha` where the gate keeps the kernel out, else `variant`
         (the fused plan's) or the registry's — or None before
-        initialize."""
+        initialize. A winner whose `drop` axis is on reports its drop=0
+        twin: this unit feeds the kernel no mask, so that is what runs
+        (JAX attention.py:125-146)."""
         if self.seq_len is None:
             return None
         if not self._flash_ok(self.seq_len):
             return "mha"
-        return (variant or variants.resolve(self.variant_op, unit=self)).name
+        name = (variant or variants.resolve(self.variant_op,
+                                            unit=self)).name
+        if templates.fusion_config(self.variant_op, name) is not None:
+            t, cfg = templates.parse_point(self.variant_op, name)
+            return t.name({**cfg, t.fuse_axis: 0})
+        return name
 
     def fused_apply(self, params, x, *, train=False, variant=None):
         """`variant`: the `flash_attn` lowering a fused forward resolved at

@@ -16,11 +16,15 @@ required), "off" never takes it, and "auto" asks the registry's
 `conv_stem` op (`resolve("conv_stem")`, default `direct`) where the
 layer is a thin-channel stem — square stride > 1 and fewer than 8 input
 channels (`_s2d_applicable`) — and runs the direct convolution
-elsewhere. The fused step and the granular node both run `fused_apply`,
-so both follow the choice; the backward is autograd's in the fused
-step and gd_conv.py's hand-derived one in the graph, as in the JAX
-package. `variant_op` stays None: the fused plan and its variant table
-do not route the stem (the layer asks the registry itself).
+elsewhere. A generated `conv_stem` point (`gen[pack,acc,epi]`,
+ops/templates.py) runs whole there: its packing and its accumulator;
+its `epi=lrn` claims the LRN unit after the stem in the fused step
+(parallel/fused.py), and an unclaimed stem runs and reports the
+`epi=none` twin. The fused step and the granular node both run
+`fused_apply`, so both follow the choice; the backward is autograd's in
+the fused step and gd_conv.py's hand-derived one in the graph, as in the
+JAX package. `variant_op` is "conv_stem" (JAX conv.py:35): the fused
+plan resolves it for every convolution, and only an auto stem uses it.
 
 `ConvUnit` is the layer's node in the granular graph (JAX conv.py
 `numpy_run` / `xla_run`): the numpy golden `reference.conv2d_forward`, or
@@ -31,13 +35,13 @@ gd_conv.py.
 from __future__ import annotations
 
 import weakref
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import reference as ref
-from veles_tpu_torch.ops import variants
+from veles_tpu_torch.ops import templates, variants
 from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, dev, host, \
     register_unit
 
@@ -46,6 +50,7 @@ class Conv(Forward):
     """y = act(conv2d(x, W) + b); x: (N,H,W,C), W: (ky,kx,C,n_kernels)."""
 
     activation = "linear"
+    variant_op = "conv_stem"
 
     def __init__(self, n_kernels: int = 16, kx: int = 3, ky: int = 3,
                  stride: Tuple[int, int] = (1, 1),
@@ -107,15 +112,58 @@ class Conv(Forward):
         sy, sx = self.stride
         return sy == sx and sy > 1 and cin < 8
 
-    def _use_s2d(self, cin: int) -> bool:
+    def _use_s2d(self, cin: int, variant=None) -> bool:
+        """Whether the convolution packs space to depth: the knob, or
+        for an auto stem the `conv_stem` lowering's packing (`variant`:
+        the fused plan's; None resolves it now)."""
         if self.s2d != "auto":
             return self.s2d == "on"
-        return self._s2d_applicable(cin) and \
-            variants.resolve("conv_stem", unit=self).name == "s2d"
+        if not self._s2d_applicable(cin):
+            return False
+        name = (variant or variants.resolve("conv_stem", unit=self)).name
+        parsed = templates.parse_point("conv_stem", name)
+        return parsed[1]["pack"] == "s2d" if parsed else name == "s2d"
 
-    def fused_apply(self, params, x, *, train=False):
+    def variant_signature(self, sample_shape) -> Optional[Dict[str, Any]]:
+        """The kernel search's cache-key payload at the per-sample input
+        shape (JAX conv.py:121-133): only an auto stem is tunable."""
+        if self.s2d != "auto" or not self._s2d_applicable(sample_shape[-1]):
+            return None
+        return {"sample_shape": list(sample_shape), "dtype": "float32",
+                "params": {"n_kernels": self.n_kernels, "kx": self.kx,
+                           "ky": self.ky, "stride": list(self.stride),
+                           "padding": list(self.padding),
+                           "activation": self.activation}}
+
+    def variant_effective(self, variant=None) -> Optional[str]:
+        """The `conv_stem` lowering this layer runs, for the fused
+        step's variant table (JAX conv.py:93-119): the knob's where it is
+        "on" or "off", None where an auto layer is no stem, and for an
+        `epi=lrn` point its `epi=none` twin (an unclaimed stem gets no
+        epilogue: the fused step reports a claimed pair itself)."""
+        if self.s2d != "auto":
+            return "s2d" if self.s2d == "on" else "direct"
+        if self.weights is None or not self._s2d_applicable(
+                self.weights.shape[2]):
+            return None
+        name = (variant or variants.resolve("conv_stem", unit=self)).name
+        if templates.fusion_config("conv_stem", name) is not None:
+            t, cfg = templates.parse_point("conv_stem", name)
+            return t.name({**cfg, t.fuse_axis: "none"})
+        return name
+
+    def fused_apply(self, params, x, *, train=False, variant=None):
+        """`variant`: the `conv_stem` lowering the fused forward
+        resolved at build time (used only where the layer is an auto
+        stem); None resolves it now."""
         w = params["weights"]
-        if self._use_s2d(x.shape[-1]):
+        if self.s2d == "auto" and self._s2d_applicable(x.shape[-1]):
+            v = variant or variants.resolve("conv_stem", unit=self)
+            if v.generated:
+                return v.apply(x, w, params["bias"], self.stride,
+                               self.padding, self.activation)
+            variant = v
+        if self._use_s2d(x.shape[-1], variant):
             return fn.conv2d_forward(x, w, params["bias"], self.stride,
                                      self.padding, self.activation,
                                      s2d=True)

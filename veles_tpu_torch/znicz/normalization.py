@@ -62,6 +62,17 @@ class LRNormalizerForward(Forward):
     def initialize(self, sample_shape, device):
         return tuple(sample_shape)
 
+    def variant_signature(self, sample_shape) -> Optional[Dict[str, Any]]:
+        """The kernel search's cache-key payload of this layer at its
+        per-sample input shape (JAX normalization.py:126-136; the batch is
+        left out, so a winner applies at any batch); None under a
+        per-layer override."""
+        if self.variant_override is not None:
+            return None
+        return {"sample_shape": list(sample_shape), "dtype": "float32",
+                "params": {"k": self.k, "alpha": self.alpha,
+                           "beta": self.beta, "n": self.n}}
+
     def fused_apply(self, params, x, *, train=False, variant=None):
         """`variant`: the lowering a fused forward resolved for this unit
         at build time; None resolves it now."""

@@ -4,9 +4,11 @@ The port's counterparts of `MaxPooling`, `MaxAbsPooling`, `AvgPooling`
 and `StochasticPooling` in `veles_tpu/znicz/pooling.py`: ceil-mode
 geometry (edge windows truncate), stride defaulting to the window.
 
-- Max pooling pads with -inf. When an LRN unit precedes it and the
-  `lrn_maxpool` selection is a fused point, the LRN unit claims its work
-  and it passes through (parallel/fused.py).
+- Max pooling pads with -inf, through the registry op `maxpool` in the
+  fused step (`reduce_window` by default, or `slices`; `lowering=` pins
+  the layer's). When an LRN unit precedes it and the `lrn_maxpool`
+  selection is a fused point, the LRN unit claims its work and it passes
+  through (parallel/fused.py).
 - Max-abs pooling keeps the signed value of each window's largest |x|,
   the first in row-major window order on a tie (the JAX fused lowering,
   the gather of `maxpool_forward_with_idx`). It never fuses with an LRN.
@@ -29,12 +31,13 @@ in gd_pooling.py.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import reference as ref
+from veles_tpu_torch.ops import variants
 from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, dev, host, \
     register_unit
 
@@ -56,16 +59,36 @@ class Pooling(Forward):
 
 
 class MaxPooling(Pooling):
-    #: the op name fusion pairing matches on (the JAX package's "maxpool"
-    #: registry op; the port has one lowering, so no registry entry)
+    """Max pooling through the registry op `maxpool` (its lowering
+    decides the backward: `reduce_window`, the default, or `slices`);
+    `lowering` pins this layer's, as the JAX unit's does."""
+
     variant_op = "maxpool"
     use_abs = False
 
-    def fused_apply(self, params, x, *, train=False):
-        if self.use_abs:
-            return fn.maxpool_forward_with_idx(x, self.ksize, self.stride,
-                                               use_abs=True)[0]
-        return fn.maxpool_forward(x, self.ksize, self.stride)
+    def __init__(self, ksize: Tuple[int, int] = (2, 2),
+                 stride: Optional[Tuple[int, int]] = None,
+                 lowering: Optional[str] = None, **kwargs: Any) -> None:
+        super().__init__(ksize, stride, **kwargs)
+        if lowering is not None:
+            variants.get("maxpool", lowering)   # validates
+        self.variant_override = lowering
+
+    def variant_signature(self, sample_shape) -> Optional[Dict[str, Any]]:
+        """The kernel search's cache-key payload at the per-sample input
+        shape (JAX pooling.py:112-120); None under a per-layer override."""
+        if self.variant_override is not None:
+            return None
+        return {"sample_shape": list(sample_shape), "dtype": "float32",
+                "params": {"ksize": list(self.ksize),
+                           "stride": list(self.stride),
+                           "use_abs": bool(self.use_abs)}}
+
+    def fused_apply(self, params, x, *, train=False, variant=None):
+        """`variant`: the lowering the fused forward resolved at build
+        time; None resolves it now."""
+        v = variant or variants.resolve("maxpool", unit=self)
+        return v.apply(x, self.ksize, self.stride, self.use_abs)
 
 
 class MaxAbsPooling(MaxPooling):

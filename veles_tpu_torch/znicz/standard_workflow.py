@@ -416,6 +416,22 @@ class StandardWorkflow(Workflow):
         return FusedTrainStep(self, compute_dtype=compute_dtype,
                               input_normalize=input_normalize)
 
+    def autotune(self, compute_dtype: Optional[str] = None,
+                 **kwargs: Any) -> Dict[str, Dict[str, Any]]:
+        """Time the candidate lowerings of every tunable op this workflow
+        holds (LRN, max pooling, the stem convolution, the LRN->pool pair,
+        the SGD update, attention) on its device, keep the winners
+        selected, so that the next `build_fused_step` / `run_fused` runs
+        them, and cache them (ops/autotune.py `autotune_workflow`; `budget=
+        N` searches the generated points). Initializes the workflow on the
+        card first unless it is. Returns the per-op report. CLI:
+        `--autotune [--autotune-budget N]` (JAX standard_workflow.py:302)."""
+        from veles_tpu_torch.ops.autotune import autotune_workflow
+        if not self.is_initialized:
+            self.place(None)
+        return autotune_workflow(self, compute_dtype=compute_dtype,
+                                 device=self.device, **kwargs)
+
     def _wire_spec(self, uint8_wire="auto") -> Optional[Dict[str, Any]]:
         """The uint8 wire's negotiation with the loader: where the loader
         offers raw bytes (`wire_format()`), the prologue spec the step is
