@@ -174,7 +174,44 @@
    restarted child's first step, from RESUMEMARK lines the workflow
    file prints); (c) `--serve 0 -s SNAPSHOT` through `launcher.serve`:
    a 1-row /predict within 1e-5 of the restored workflow's forward on
-   the card, K4 launched twice.
+   the card, K4 launched twice; (a)'s newest snapshot is kept for SERVE
+   WIRES.
+   SERVE WIRES: the full-width AlexNet (seed 1234, init="scaled",
+   written by the phase as an uncompressed snapshot and served with -s)
+   on a 64-row ring through `launcher.serve` with --serve-quantize f32,
+   bf16 and int8 under lrn_maxpool=fused, and bf16 again under
+   composed: 1- and 8-row /predict requests, the counters zeroed just
+   before and read just after holding exactly the wire's K2/K4 instance
+   twice a round (K4 f32 for f32 and int8, which decodes to f32 first;
+   K4 and K2 bf16 for bf16) and nothing else. The reference is the
+   plain forward through the same wire on the card: the served
+   workflow's parameters decoded by the plain functions
+   (reference.serve_quantize_weight and dequantize_blockwise for int8,
+   a bf16 cast for bf16), never the server's placed copies, every LRN
+   through its plain version, no fused pair. The outputs lie within SERVE_ATOL of it, and the logits (the
+   server's own wire forward before its softmax, which a fresh AlexNet
+   would flatten to within about 3e-5 of 1/1000) within LOGIT_ULPS
+   epsilons of the wire's compute type times the largest logit, a bound
+   at most LRN_SIGNAL_SHARE of how far the logits move with every LRN
+   left out.
+   Each non-f32 wire lies within WIRE_F32_TOL (0.05, the JAX rule) of
+   the f32 wire's outputs; the lines give the wire's and the f32 model
+   bytes, and one ring's forward in device ms (CUDA events, mean of 10).
+   The merge core (--serve-dispatch merge --serve-batch 8): 1, 3 and 8
+   rows at buckets 1, 4 and 8, one dispatch each, K4 exactly 6, against
+   the plain forward. On the f32 ring (started with --serve-watch-mirror
+   on an empty DirMirror in the script's output directory, OUT, polled
+   every second), while a thread keeps posting 1-row requests that must
+   all get 200: a perturbed AlexNet (params x 1.01) swapped in answers
+   as the plain forward of the candidate's own params, its logits at
+   least MOVED_X logit bounds from the boot's; POST /rollback restores
+   the boot generation's outputs and logits bit for bit; a NaN candidate
+   is refused (nonfinite) and a toy AlexNet (geometry); then RESUME's
+   snapshot, pushed to the mirror, is applied by the watcher as the
+   generation named by its sidecar digest and answers as the plain
+   forward of the snapshot's own params (Snapshotter.import_), its
+   logits at least MOVED_X bounds from the generation before. The mirror
+   is deleted after the phase.
    GRANULAR: the full-width AlexNet one epoch (4 train minibatches of 128
    and one validation minibatch, dropout 0.5 as the sample has it)
    through the granular Unit/Workflow graph, `launcher.train` without
@@ -369,7 +406,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -819,22 +858,87 @@ def get(url: str, path: str):
         return r.status, json.loads(r.read())
 
 
-def plain_forward(srv, kernels, x: np.ndarray) -> np.ndarray:
-    """The served model on the card in full f32 with every LRN through its
-    plain version and no fused pair: the reference the served outputs are
-    held against. Rows are padded into the same 64-row ring the server
-    runs."""
+def wire_params(wire: str, params, device):
+    """A workflow's parameters (a tuple of {name: tensor}) as `wire`
+    serves them, decoded on `device` by the plain functions and not by
+    the server's: a >=2-D float leaf whose last axis holds a whole block
+    through `reference.serve_quantize_weight` and `dequantize_blockwise`
+    for int8, every float leaf cast for bf16, the leaves as they are for
+    f32."""
+    from veles_tpu_torch.ops import reference
+    out = []
+    for layer in params:
+        d = {}
+        for k, t in layer.items():
+            t = torch.as_tensor(t).detach()
+            if wire == "int8" and t.dim() >= 2 and t.is_floating_point() \
+                    and t.shape[-1] >= INT8_BLOCK:
+                a = t.cpu().numpy().astype(np.float32)
+                q, s = reference.serve_quantize_weight(a, INT8_BLOCK)
+                t = torch.from_numpy(np.ascontiguousarray(
+                    reference.dequantize_blockwise(q, s, INT8_BLOCK)[
+                        :, :a.shape[-1]].reshape(a.shape)))
+            elif wire == "bf16" and t.is_floating_point():
+                t = t.to(torch.bfloat16)
+            d[k] = t.to(device)
+        out.append(d)
+    return tuple(out)
+
+
+def padded(srv, x: np.ndarray, rows=None) -> torch.Tensor:
+    """`x` in the first rows of a zeroed batch of the server's ring (or
+    of `rows`: a merge bucket), on the card."""
+    pad = np.zeros(((rows or srv.ring_slots),) + x.shape[1:], np.float32)
+    pad[:len(x)] = x
+    return torch.from_numpy(pad).to(srv.device)
+
+
+def plain_forward(srv, kernels, x: np.ndarray, params=None, rows=None,
+                  lrn: bool = True):
+    """The served model on the card through `srv`'s wire, with every LRN
+    through its plain version and no fused pair: the reference the served
+    outputs are held against. `params` is a workflow's parameter tuple
+    (the served workflow's by default), decoded by `wire_params`, so the
+    reference shares none of the server's wire transform or placement;
+    the bf16 wire takes a bf16 input, an f32 wire computes in full f32.
+    `lrn=False` leaves every LRN out (what a K2/K4 that skipped its
+    normalisation would serve). Rows are padded as `padded` pads them.
+    Returns (probabilities, logits) of x's rows, f32."""
     from veles_tpu_torch.backends import full_f32
-    ring = np.zeros((srv.ring_slots,) + x.shape[1:], np.float32)
-    ring[:len(x)] = x
-    h = torch.from_numpy(ring).to(srv.device)
     with torch.inference_mode(), full_f32(srv.device):
-        for u, p in zip(srv._fwd.forwards, srv._fwd.params()):
+        ps = wire_params(srv.quantize, srv._fwd.params() if params is None
+                         else params, srv.device)
+        h = padded(srv, x, rows)
+        if srv.quantize == "bf16":
+            h = h.to(torch.bfloat16)
+        for u, p in zip(srv._fwd.forwards, ps):
             if getattr(u, "variant_op", None) == "lrn":
-                h = kernels.lrn_forward_plain(h, u.k, u.alpha, u.beta, u.n)
+                if lrn:
+                    h = kernels.lrn_forward_plain(h, u.k, u.alpha, u.beta,
+                                                  u.n)
             else:
                 h = u.fused_apply(p, h, train=False)
-        return torch.softmax(h, dim=-1)[:len(x)].cpu().numpy()
+        z = h.float()
+        return (torch.softmax(z, dim=-1)[:len(x)].cpu().numpy(),
+                z[:len(x)].cpu().numpy())
+
+
+def served_logits(srv, x: np.ndarray, rows=None) -> np.ndarray:
+    """The logits the server's own wire forward gives x's rows under its
+    live generation, padded as `padded` pads them: the call
+    `InferenceServer._serve` makes before its softmax."""
+    with torch.inference_mode():
+        z = srv._sv(srv._gens.params, padded(srv, x, rows),
+                    srv._fwd._forward, srv._shapes)
+        return z.float()[:len(x)].cpu().numpy()
+
+
+def logit_tol(wire: str, ref: np.ndarray) -> float:
+    """LOGIT_ULPS machine epsilons of the wire's compute type (bf16 for
+    the bf16 wire, f32 for f32 and int8) times the largest reference
+    logit."""
+    dt = torch.bfloat16 if wire == "bf16" else torch.float32
+    return LOGIT_ULPS * torch.finfo(dt).eps * float(np.abs(ref).max())
 
 
 def layer_times(srv, x: np.ndarray) -> list:
@@ -938,7 +1042,7 @@ def serve_phase(launcher, kernels, dev):
                     raise AssertionError("softmax rows do not sum to 1")
                 if classes != out.argmax(axis=1).tolist():
                     raise AssertionError("classes are not the argmax")
-                ref = plain_forward(srv, kernels, x.astype(np.float32))
+                ref, _ = plain_forward(srv, kernels, x.astype(np.float32))
                 err = float(np.abs(out - ref).max())
                 if err > SERVE_ATOL:
                     raise AssertionError(
@@ -3332,7 +3436,8 @@ def resume_serve(launcher, kernels, dev, wf_file, snap):
     return counts, err
 
 
-def resume_phase(launcher, kernels, dev, seed: int, data_dir: str):
+def resume_phase(launcher, kernels, dev, seed: int, data_dir: str,
+                 keep_dir=None):
     """RESUME on the FEED phase's packed memmap: (a) in process, an
     uninterrupted run of RESUME_EPOCHS epochs against a run cut after
     RESUME_CUT epochs and restored from its newest snapshot, taken after
@@ -3340,12 +3445,22 @@ def resume_phase(launcher, kernels, dev, seed: int, data_dir: str):
     velocities, history, best_validation_err, the epoch counter, the
     loss); (b) through the CLI, `--fused --supervise` under RESUME_FAULT
     against (a)'s uninterrupted run, and the time to recover; (c) `--serve
-    0 -s SNAPSHOT` against the restored workflow's forward. Returns
-    (launches by path, the record)."""
+    0 -s SNAPSHOT` against the restored workflow's forward. With
+    `keep_dir`, (a)'s newest snapshot moves there. Returns (launches by
+    path, the record)."""
     work = tempfile.mkdtemp(prefix="veles_resume_")
     with alexnet_config_kept():
         try:
-            return resume_runs(launcher, kernels, dev, seed, data_dir, work)
+            out = resume_runs(launcher, kernels, dev, seed, data_dir, work)
+            if keep_dir is not None:
+                # (a)'s newest cut snapshot and its sidecar, for SERVE
+                # WIRES' watcher
+                from veles_tpu_torch.snapshotter import Snapshotter
+                snap = Snapshotter.latest(os.path.join(work, "cut"),
+                                          prefix="alexnet")
+                for p in (snap, snap + ".sha256"):
+                    shutil.move(p, keep_dir)
+            return out
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -5566,6 +5681,454 @@ def autotune_search_phase(launcher, kernels, dev):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# SERVE WIRES: the bf16 and int8 wires, the merge core, hot swap, rollback
+# and the watcher over a snapshot mirror, at full width
+# ---------------------------------------------------------------------------
+
+#: (wire, lrn_maxpool setting) of each served ring; the instance of K2/K4
+#: each must launch, two a ring round (AlexNet's two LRN -> pool pairs)
+WIRE_RUNS = (("f32", "fused", "lrn_maxpool_forward"),
+             ("bf16", "fused", "lrn_maxpool_forward_bf16"),
+             ("int8", "fused", "lrn_maxpool_forward"),
+             ("bf16", "composed", "lrn_forward_bf16"))
+#: the int8 wire's block (the JAX package's, along a leaf's last axis)
+INT8_BLOCK = 64
+#: a wire's served logits against its plain forward's on the card (the
+#: same parameters decoded by the plain functions, every LRN through its
+#: plain version, no fused pair): at most this many machine epsilons of
+#: the wire's compute type (f32 for f32 and int8, bf16 for bf16) times
+#: the largest reference logit, i.e. at most two ulps of that logit;
+#: both sides run the same arithmetic, and K2/K4 are bit-equal to their
+#: plain versions
+LOGIT_ULPS = 1
+#: that bound at most this share of how far the logits move when every
+#: LRN is left out (what a K2/K4 that skipped its normalisation serves)
+LRN_SIGNAL_SHARE = 0.1
+#: a swapped-in or watcher-applied generation's logits at least this many
+#: logit bounds from the boot generation's: the check tells the params
+#: apart
+MOVED_X = 100
+#: a non-f32 wire against the f32 wire's outputs (the JAX rule)
+WIRE_F32_TOL = 0.05
+#: the merge core's requests and the buckets they must run at
+MERGE_ROWS, MERGE_BUCKETS = (1, 3, 8), [1, 4, 8]
+#: the watcher's poll period in this phase (seconds)
+WATCH_POLL_S = "1"
+
+
+def wire_ring_ms(srv, reps: int = 10) -> float:
+    """Device ms of one ring round's forward through the wire (mean of
+    `reps` after a warm-up; CUDA events)."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        srv.ring_slots, HW, HW, 3).astype(np.float32)).to(srv.device)
+    params = srv._gens.params
+    srv._serve(params, x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        srv._serve(params, x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serve_wire_run(launcher, kernels, dev, snap, wire, setting, want,
+                   requests, extra=()):
+    """Serve the full-width AlexNet of snapshot `snap` through `wire`
+    under `setting`: each request answered, held against the plain
+    forward through the wire, exact launches of `want` on the main path,
+    the bytes and the ring's device ms. Returns (server, (outputs,
+    logits), launches, record); the caller stops the server."""
+    t0 = time.perf_counter()
+    srv = launcher.serve([ALEXNET, "--serve", "0", "-s", snap,
+                          "--lrn-maxpool", setting, "--serve-ring", str(B),
+                          "--serve-quantize", wire, "--serve-max-body",
+                          str(1 << 30), *extra, *SERVE_ARGS])
+    try:
+        up = time.perf_counter() - t0
+        if srv.device != dev:
+            raise AssertionError(f"served on {srv.device}, not {dev}")
+        url = f"http://127.0.0.1:{srv.port}"
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        outs = []
+        for x in requests:
+            status, resp, dt = post(url, x)
+            if status != 200:
+                raise AssertionError(f"/predict answered {status}")
+            outs.append(np.asarray(resp["outputs"], np.float64))
+        counts = kernels.launch_counts()
+        launched = {k: c for k, c in counts.items() if c}
+        if launched != {want: 2 * len(requests)}:
+            raise AssertionError(f"SERVE WIRES {wire} {setting}: launches "
+                                 f"{launched}, not {want} twice a round")
+        # -- checks off the main path
+        errs, zerrs, tols, signals, spreads, logits = [], [], [], [], [], []
+        for x, out in zip(requests, outs):
+            if out.shape != (len(x), N_CLASSES) or \
+                    not np.isfinite(out).all():
+                raise AssertionError(f"outputs {out.shape}, finite "
+                                     f"{np.isfinite(out).all()}")
+            xf = x.astype(np.float32)
+            ref, ref_z = plain_forward(srv, kernels, xf)
+            z = served_logits(srv, xf)
+            logits.append(z)
+            errs.append(float(np.abs(out - ref).max()))
+            zerrs.append(float(np.abs(z - ref_z).max()))
+            tols.append(logit_tol(wire, ref_z))
+            signals.append(float(np.abs(plain_forward(
+                srv, kernels, xf, lrn=False)[1] - ref_z).max()))
+            spreads.append(float(np.abs(out - 1 / N_CLASSES).max()))
+        tol, signal = min(tols), min(signals)
+        if max(errs) > SERVE_ATOL or max(zerrs) > tol \
+                or tol > LRN_SIGNAL_SHARE * signal:
+            raise AssertionError(
+                f"SERVE WIRES {wire} {setting}: served vs plain forward "
+                f"{errs} (> {SERVE_ATOL}?), logits {zerrs} (> {tol}?), the "
+                f"bound against {LRN_SIGNAL_SHARE} of the LRN's {signal}")
+        info = srv.model_info()
+        ms = wire_ring_ms(srv)
+        rec = {"wire": wire, "setting": setting, "up_s": up,
+               "launches": launched, "max_abs_err_vs_plain": max(errs),
+               "tolerance": SERVE_ATOL, "logit_err_vs_plain": max(zerrs),
+               "logit_tolerance": tol, "logits_without_lrn_moved": signal,
+               "outputs_from_uniform": max(spreads),
+               "param_bytes": info["param_bytes"], "ring_ms": ms,
+               "variants": info["variants"]}
+        print(f"SERVE WIRES {wire} {setting}: up in {up:.2f} s; "
+              f"{'/'.join(str(len(x)) for x in requests)} rows -> 200, "
+              f"launches {launched}; vs plain forward through the wire: "
+              f"outputs max abs err {max(errs):.3e} (tolerance "
+              f"{SERVE_ATOL}; the outputs at most {max(spreads):.3e} from "
+              f"1/{N_CLASSES}), logits max abs err {max(zerrs):.3e} "
+              f"(tolerance {tol:.3e}: {LOGIT_ULPS} epsilon of the wire's "
+              f"type times the largest logit; every LRN left out moves "
+              f"them {signal:.3e}); "
+              f"params {info['param_bytes']['wire']} B on the wire, "
+              f"{info['param_bytes']['f32']} B in f32; ring of {B} "
+              f"{ms:.4f} device ms", flush=True)
+        return srv, (outs, logits), counts, rec
+    except BaseException:
+        srv.stop()
+        raise
+
+
+def merge_run(launcher, kernels, dev, snap):
+    """--serve-dispatch merge --serve-batch 8 on snapshot `snap`: 1, 3 and
+    8 rows run at buckets 1, 4 and 8, one dispatch each, against the
+    plain forward."""
+    srv = launcher.serve([ALEXNET, "--serve", "0", "-s", snap,
+                          "--lrn-maxpool", "fused", "--serve-dispatch",
+                          "merge", "--serve-batch", str(MERGE_BUCKETS[-1]),
+                          "--serve-max-body", str(1 << 30), *SERVE_ARGS])
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        shapes = []
+        inner = srv._forward_now
+
+        def counted(x):
+            shapes.append(len(x))
+            return inner(x)
+
+        srv._forward_now = counted
+        rs = np.random.RandomState(6)
+        requests = [rs.randn(n, HW, HW, 3).round(3) for n in MERGE_ROWS]
+        before = srv.n_dispatches
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        outs = []
+        for x in requests:
+            status, resp, _ = post(url, x)
+            if status != 200:
+                raise AssertionError(f"merge /predict answered {status}")
+            outs.append(np.asarray(resp["outputs"], np.float64))
+        counts = kernels.launch_counts()
+        launched = {k: c for k, c in counts.items() if c}
+        if shapes != MERGE_BUCKETS or srv.n_dispatches - before != 3 \
+                or launched != {"lrn_maxpool_forward": 6}:
+            raise AssertionError(f"merge: buckets {shapes}, dispatches "
+                                 f"{srv.n_dispatches - before}, launches "
+                                 f"{launched}")
+        errs, zerrs, tols = [], [], []
+        for x, out, b in zip(requests, outs, MERGE_BUCKETS):
+            xf = x.astype(np.float32)
+            ref, ref_z = plain_forward(srv, kernels, xf, rows=b)
+            errs.append(float(np.abs(out - ref).max()))
+            zerrs.append(float(np.abs(served_logits(srv, xf, rows=b)
+                                      - ref_z).max()))
+            tols.append(logit_tol("f32", ref_z))
+        if max(errs) > SERVE_ATOL or max(zerrs) > min(tols):
+            raise AssertionError(f"merge vs plain forward {errs}, logits "
+                                 f"{zerrs} (> {min(tols)}?)")
+        print(f"SERVE WIRES merge: {list(MERGE_ROWS)} rows -> buckets "
+              f"{shapes}, {srv.n_dispatches - before} dispatches, launches "
+              f"{launched}; vs plain forward max abs err {max(errs):.3e} "
+              f"(tolerance {SERVE_ATOL}), logits {max(zerrs):.3e} "
+              f"(tolerance {min(tols):.3e})", flush=True)
+        return counts, {"rows": list(MERGE_ROWS), "buckets": shapes,
+                        "launches": launched, "max_abs_err": max(errs),
+                        "logit_err": max(zerrs)}
+    finally:
+        srv.stop()
+
+
+def served_snapshot(dev, directory: str) -> str:
+    """The full-width AlexNet SERVE WIRES serves, as an uncompressed
+    snapshot in `directory`: seed 1234, init="scaled" (Kaiming convs,
+    LeCun FC). Its logits follow the input through every layer; under the
+    sample's reference stddevs they hardly depend on it, and its
+    near-uniform outputs would hide a wrong LRN."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    from veles_tpu_torch.snapshotter import Snapshotter
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow(init="scaled")
+    wf.initialize(dev)
+    return Snapshotter(wf, prefix="alexnet_scaled", directory=directory,
+                       compression="").export()
+
+
+def candidate_alexnet(snap: str, factor: float):
+    """The served snapshot's AlexNet with every parameter times `factor`
+    (on the host, as a watcher's import leaves it)."""
+    from veles_tpu_torch.snapshotter import Snapshotter
+    wf = Snapshotter.import_(snap, restore_prng=False)
+    with torch.no_grad():
+        for u in wf.forwards:
+            for t in u.param_arrays().values():
+                t.mul_(factor)
+    return wf
+
+
+class Hammer:
+    """A thread posting 1-row requests until stopped, keeping each
+    status: requests must keep getting 200 through swaps and refusals."""
+
+    def __init__(self, url, x):
+        self.url, self.x, self.statuses = url, x, []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self.stop.is_set():
+            try:
+                self.statuses.append(post(self.url, self.x)[0])
+            except urllib.error.HTTPError as e:
+                self.statuses.append(e.code)
+            except Exception as e:  # noqa: BLE001 — recorded, then fails
+                self.statuses.append(repr(e))
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(120)
+        if self.thread.is_alive():
+            raise AssertionError("request thread still running")
+
+
+def swap_checks(srv, kernels, dev, snap):
+    """On the f32 ring: a perturbed AlexNet (params x 1.01) swapped in
+    answers as the plain forward of the candidate's own params, its
+    logits at least MOVED_X logit bounds from the boot generation's;
+    /rollback restores the boot's outputs and logits bit for bit; a NaN
+    candidate and a geometry mismatch are refused while requests keep
+    getting 200."""
+    from veles_tpu_torch.samples import alexnet
+    from veles_tpu_torch.serving import SwapRefused
+    url = f"http://127.0.0.1:{srv.port}"
+    x = np.random.RandomState(9).randn(8, HW, HW, 3).round(3)
+    xf = x.astype(np.float32)
+    status, resp, _ = post(url, x)
+    before = resp["outputs"]
+    z_boot = served_logits(srv, xf)
+    boot = srv.generation()
+    cand = candidate_alexnet(snap, 1.01)
+    ref, ref_z = plain_forward(srv, kernels, xf, params=cand.params_host())
+    tol = logit_tol("f32", ref_z)
+    t0 = time.perf_counter()
+    with Hammer(url, x[:1]) as h:
+        gen = srv.swap_params(cand, source="chip_smoke")
+        swap_s = time.perf_counter() - t0
+        status, resp, _ = post(url, x)
+        swapped = np.asarray(resp["outputs"], np.float64)
+        z_swap = served_logits(srv, xf)
+        req = urllib.request.Request(url + "/rollback", data=b"",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            rb = json.loads(r.read())["generation"]
+        status, resp, _ = post(url, x)
+        restored = resp["outputs"]
+        z_back = served_logits(srv, xf)
+        refusals = {}
+        # the candidate's own tensors: the server placed copies of them
+        with torch.no_grad():
+            next(iter(cand.forwards[0].param_arrays().values())).fill_(
+                float("nan"))
+        # the toy AlexNet with a head of its own: another geometry
+        toy = alexnet.create_workflow(**dict(
+            TOY_ARGS, n_classes=TOY_ARGS["n_classes"] + 1))
+        toy.initialize(dev)
+        for name, wf in (("nan", cand), ("geometry", toy)):
+            try:
+                srv.swap_params(wf)
+                refusals[name] = "applied"
+            except SwapRefused as e:
+                refusals[name] = e.reason
+        del toy
+        live = srv.generation()
+    codes = sorted(set(map(str, h.statuses)))
+    err = float(np.abs(swapped - ref).max())
+    zerr = float(np.abs(z_swap - ref_z).max())
+    moved = float(np.abs(z_swap - z_boot).max())
+    back = restored == before and np.array_equal(z_back, z_boot)
+    print(f"SERVE WIRES swap: params x 1.01 swapped in {swap_s:.2f} s "
+          f"(generation {gen['digest'][:12]}), 8 rows vs the plain forward "
+          f"of the candidate's params: outputs max abs err {err:.3e} "
+          f"(tolerance {SERVE_ATOL}), logits {zerr:.3e} (tolerance "
+          f"{tol:.3e}), the logits moved {moved:.3e} from boot (at least "
+          f"{MOVED_X} x {tol:.3e}); /rollback -> {rb['digest'][:12]} "
+          f"({rb['source']}), outputs and logits bit for bit the boot's: "
+          f"{back}; refused {refusals}; {len(h.statuses)} requests "
+          f"meanwhile, statuses {codes}", flush=True)
+    if err > SERVE_ATOL or zerr > tol or moved < MOVED_X * tol \
+            or gen["digest"] == boot["digest"] \
+            or rb["digest"] != boot["digest"] or not back \
+            or refusals != {"nan": "nonfinite", "geometry": "geometry"} \
+            or live["digest"] != boot["digest"] or codes != ["200"]:
+        raise AssertionError(f"SERVE WIRES swap: err {err}, logits {zerr} "
+                             f"(tolerance {tol}), moved {moved}, rollback "
+                             f"{rb}, bits back {back}, refusals {refusals}, "
+                             f"live {live}, statuses {codes}")
+    del cand
+    torch.cuda.empty_cache()
+    return {"swap_s": swap_s, "max_abs_err_vs_plain": err,
+            "logit_err_vs_plain": zerr, "logit_tolerance": tol,
+            "logits_moved_from_boot": moved, "rollback_bits_equal": back,
+            "refusals": refusals, "requests_meanwhile": len(h.statuses)}
+
+
+def watcher_check(srv, kernels, snap, mirror_dir):
+    """The ring's WeightWatcher (--serve-watch-mirror) applies an AlexNet
+    snapshot an earlier phase wrote, pushed to a DirMirror: the served
+    generation becomes the snapshot's sidecar digest and answers as the
+    plain forward of the snapshot's own params, its logits at least
+    MOVED_X logit bounds from the generation before."""
+    from veles_tpu_torch.resilience.mirror import DirMirror
+    from veles_tpu_torch.snapshotter import Snapshotter
+    url = f"http://127.0.0.1:{srv.port}"
+    x = np.random.RandomState(10).randn(1, HW, HW, 3).round(3)
+    xf = x.astype(np.float32)
+    z_prev = served_logits(srv, xf)
+    with open(snap + ".sha256") as f:
+        digest = f.read().split()[0]
+    t0 = time.perf_counter()
+    if not DirMirror(mirror_dir).push(snap):
+        raise AssertionError("the snapshot mirror push did not verify")
+    push_s = time.perf_counter() - t0
+    deadline = time.time() + 300
+    while srv.generation()["digest"] != digest and time.time() < deadline:
+        time.sleep(0.2)
+    applied_s = time.perf_counter() - t0
+    gen = srv.generation()
+    st = srv.watcher.status()
+    status, resp, _ = post(url, x)
+    ref, ref_z = plain_forward(
+        srv, kernels, xf,
+        params=Snapshotter.import_(snap, restore_prng=False).params_host())
+    tol = logit_tol("f32", ref_z)
+    err = float(np.abs(np.asarray(resp["outputs"], np.float64)
+                       - ref).max())
+    z = served_logits(srv, xf)
+    zerr = float(np.abs(z - ref_z).max())
+    moved = float(np.abs(z - z_prev).max())
+    print(f"SERVE WIRES watcher: {os.path.basename(snap)} "
+          f"({os.path.getsize(snap)} bytes) pushed to a DirMirror in "
+          f"{push_s:.2f} s, applied {applied_s:.2f} s after the push start "
+          f"as generation {gen['digest'][:12]} ({gen['source']}); watcher "
+          f"{ {k: st[k] for k in ('n_polls', 'n_applied', 'n_refused')} }; "
+          f"1 row -> {status}, vs the plain forward of the snapshot's "
+          f"params: outputs max abs err {err:.3e} (tolerance {SERVE_ATOL}), "
+          f"logits {zerr:.3e} (tolerance {tol:.3e}), the logits moved "
+          f"{moved:.3e} from the generation before (at least {MOVED_X} x "
+          f"{tol:.3e})", flush=True)
+    if gen["digest"] != digest or gen["source"] != "watcher" \
+            or status != 200 or err > SERVE_ATOL or zerr > tol \
+            or moved < MOVED_X * tol:
+        raise AssertionError(f"SERVE WIRES watcher: generation {gen}, "
+                             f"status {st}, err {err}, logits {zerr} "
+                             f"(tolerance {tol}), moved {moved}")
+    return {"snapshot_bytes": os.path.getsize(snap), "push_s": push_s,
+            "applied_s": applied_s, "watcher": st,
+            "max_abs_err_vs_plain": err, "logit_err_vs_plain": zerr,
+            "logit_tolerance": tol, "logits_moved": moved}
+
+
+def serve_wires_phase(launcher, kernels, dev, snap):
+    """SERVE WIRES: the full-width AlexNet of `served_snapshot` on a
+    64-row ring through each wire (f32, bf16, int8 under fused; bf16
+    also under composed), each non-f32 wire within WIRE_F32_TOL of the
+    f32 wire; the merge core; on the f32 ring (with its watcher) hot
+    swap, rollback and refusals, then the watcher applying `snap`
+    (RESUME's snapshot). Returns (launches by path, the record)."""
+    served = tempfile.mkdtemp(prefix="veles_served_alexnet_")
+    mirror_dir = os.path.join(OUT, "serve_mirror")
+    shutil.rmtree(mirror_dir, ignore_errors=True)
+    os.makedirs(mirror_dir)
+    launches, rec, outs = {}, {"wires": []}, {}
+    prev_poll = os.environ.get("VELES_WATCH_POLL_S")
+    os.environ["VELES_WATCH_POLL_S"] = WATCH_POLL_S
+    try:
+        boot = served_snapshot(dev, served)
+        rs = np.random.RandomState(2)
+        requests = [rs.randn(n, HW, HW, 3).round(3) for n in (1, 8)]
+        for wire, setting, want in WIRE_RUNS:
+            first = wire == "f32"
+            srv, out, counts, r = serve_wire_run(
+                launcher, kernels, dev, boot, wire, setting, want, requests,
+                ("--serve-watch-mirror", mirror_dir) if first else ())
+            try:
+                launches[f"serve_wires_{wire}_{setting}"] = counts
+                outs[(wire, setting)] = out
+                if first:
+                    r["swap"] = swap_checks(srv, kernels, dev, boot)
+                    r["watcher"] = watcher_check(srv, kernels, snap,
+                                                 mirror_dir)
+            finally:
+                srv.stop()
+                del srv
+                torch.cuda.empty_cache()
+            if not first:
+                (p, z), (pf, zf) = out, outs[("f32", "fused")]
+                d = max(float(np.abs(a - b).max()) for a, b in zip(p, pf))
+                dz = max(float(np.abs(a - b).max()) for a, b in zip(z, zf))
+                scale = max(float(np.abs(b).max()) for b in zf)
+                r["max_abs_vs_f32_wire"] = d
+                r["logits_vs_f32_wire"] = dz
+                print(f"SERVE WIRES {wire} {setting}: vs the f32 wire max "
+                      f"abs difference {d:.3e} (tolerance {WIRE_F32_TOL}); "
+                      f"logits {dz:.3e} (the f32 logits' largest "
+                      f"magnitude {scale:.3e})", flush=True)
+                if d > WIRE_F32_TOL:
+                    raise AssertionError(f"{wire} wire {d} from f32")
+            rec["wires"].append(r)
+        launches["serve_wires_merge"], rec["merge"] = merge_run(
+            launcher, kernels, dev, boot)
+    finally:
+        if prev_poll is None:
+            os.environ.pop("VELES_WATCH_POLL_S", None)
+        else:
+            os.environ["VELES_WATCH_POLL_S"] = prev_poll
+        shutil.rmtree(mirror_dir, ignore_errors=True)
+        shutil.rmtree(served, ignore_errors=True)
+    return launches, rec
+
+
 def autotune_phase(launcher, kernels, libs, dev, card):
     """AUTOTUNE: the generated points of K1-K4 and K6/K7 held and timed,
     then the search on the main path. Returns (the plain --fused run's
@@ -5646,15 +6209,29 @@ def run_phases(args) -> int:
     for setting, counts in train_bf16_phase(launcher, kernels, dev).items():
         by_path[f"train_bf16_{setting}"] = counts
     data_dir = os.path.join(OUT, "feed_data")
+    kept = tempfile.mkdtemp(prefix="veles_kept_snapshot_")
     try:
-        feed_launches, feed = feed_phase(launcher, kernels, dev, args.seed,
-                                         data_dir)
-        resume_launches, resume = resume_phase(launcher, kernels, dev,
-                                               args.seed, data_dir)
-        local_launches, local = local_step_phase(launcher, kernels, dev,
-                                                 args.seed, data_dir)
+        try:
+            feed_launches, feed = feed_phase(launcher, kernels, dev,
+                                             args.seed, data_dir)
+            resume_launches, resume = resume_phase(
+                launcher, kernels, dev, args.seed, data_dir, keep_dir=kept)
+            local_launches, local = local_step_phase(
+                launcher, kernels, dev, args.seed, data_dir)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        [snap] = [os.path.join(kept, n) for n in os.listdir(kept)
+                  if not n.endswith(".sha256")]
+        t0 = time.perf_counter()
+        with alexnet_config_kept():
+            serve_wires_launches, serve_wires = serve_wires_phase(
+                launcher, kernels, dev, snap)
+        serve_wires["seconds"] = time.perf_counter() - t0
+        print(f"SERVE WIRES: the phase in {serve_wires['seconds']:.2f} s",
+              flush=True)
     finally:
-        shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(kept, ignore_errors=True)
+    by_path.update(serve_wires_launches)
     for label, counts in feed_launches.items():
         by_path[f"feed_{label.replace(' ', '_')}"] = counts
     by_path.update(resume_launches)
@@ -5768,7 +6345,7 @@ def run_phases(args) -> int:
                    "granular_transformer": granular_transformer,
                    "granular_resume": granular_resume,
                    "conv_stem": conv_stem, "samples": samples,
-                   "autotune": autotune},
+                   "autotune": autotune, "serve_wires": serve_wires},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

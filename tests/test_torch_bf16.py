@@ -275,7 +275,12 @@ def test_precision_type_config_sets_fused_dtype(precision_type):
 def test_the_cli_override_trains_in_bf16_and_serving_refuses_it(
         cli_state, monkeypatch):
     """`root.common.precision_type=bfloat16` on the `--fused` CLI trains
-    through a bf16 step; the server keeps serving float32 only."""
+    through a bf16 step. The server no longer refuses such a workflow
+    (it did until the serving slice ported the JAX rule): it serves it
+    as the JAX ring does, its forward computing in the workflow's bf16
+    over the f32 parameters (the f32 wire). The name is kept from the
+    slices where serving refused it, so that the test keeps its
+    identity."""
     from veles_tpu_torch.serving import InferenceServer
     from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
     built = []
@@ -300,8 +305,19 @@ def test_the_cli_override_trains_in_bf16_and_serving_refuses_it(
     for u in wf.forwards:
         assert all(t.dtype == torch.float32
                    for t in u.param_arrays().values())
-    with pytest.raises(ValueError, match="float32 only"):
-        InferenceServer(wf, port=0, device="cpu")
+    srv = InferenceServer(wf, port=0, device="cpu")
+    assert srv._fwd.compute_dtype == BF16 and srv.quantize == "f32"
+    x = np.random.RandomState(2).randn(2, 67, 67, 3).astype(np.float32)
+    out = np.asarray(srv.predict(x)["outputs"])
+    assert out.shape == (2, 16) and np.isfinite(out).all()
+    fwd = wf.build_forward()        # the f32 wire's forward, as served
+    assert fwd.compute_dtype == BF16
+    ring = np.zeros((srv.ring_slots, 67, 67, 3), np.float32)
+    ring[:2] = x
+    with torch.inference_mode():
+        want = torch.softmax(fwd._forward(fwd.params(), torch.from_numpy(
+            ring)), dim=-1)[:2].numpy()
+    np.testing.assert_array_equal(out, want)
 
 
 # ---------------------------------------------------------------------------

@@ -303,6 +303,33 @@ def test_kernel_search_modules_stand_alone(module, imports_with_jax_blocked):
         imports_with_jax_blocked[module]
 
 
+#: the modules the serving slice (the bf16 and int8 wires, the merge core,
+#: hot swap and rollback, the watcher over the snapshot mirror) added or
+#: extended
+SERVING_MODULES = ["veles_tpu_torch.serving",
+                   "veles_tpu_torch.serving_gen",
+                   "veles_tpu_torch.serving_aot",
+                   "veles_tpu_torch.serving_watch",
+                   "veles_tpu_torch.http_util",
+                   "veles_tpu_torch.resilience.mirror",
+                   "veles_tpu_torch.resilience.backoff",
+                   "veles_tpu_torch.resilience.faults",
+                   "veles_tpu_torch.resilience.supervisor",
+                   "veles_tpu_torch.snapshotter",
+                   "veles_tpu_torch.ops.variants",
+                   "veles_tpu_torch.ops.templates",
+                   "veles_tpu_torch.launcher"]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
 def test_torch_generator_follows_the_seed(monkeypatch):
     monkeypatch.setattr(prng, "_generators", {})
     monkeypatch.setattr(prng, "_base_seed", None)
@@ -318,6 +345,10 @@ def test_torch_generator_follows_the_seed(monkeypatch):
 #: the parent never initializes CUDA on the card its children use)
 TORCH_FREE = ["veles_tpu_torch.launcher", "veles_tpu_torch.snapshotter",
               "veles_tpu_torch.resilience",
+              "veles_tpu_torch.resilience.mirror",
+              "veles_tpu_torch.http_util",
+              "veles_tpu_torch.serving_gen",
+              "veles_tpu_torch.serving_aot",
               "veles_tpu_torch.resilience.backoff",
               "veles_tpu_torch.resilience.clock",
               "veles_tpu_torch.resilience.faults",

@@ -170,7 +170,8 @@ def test_registry_resolution_and_device_gating():
             "lrn_maxpool": ["composed", "fused"],
             "sgd_update": ["kernel", "tree"],
             "flash_attn": ["kernel", "mha"],
-            "conv_stem": ["direct", "s2d"]}
+            "conv_stem": ["direct", "s2d"],
+            "serve_forward": ["bf16", "f32", "int8"]}
     with pytest.raises(KeyError):
         variants.get("lrn", "plain")
     composed = variants.get("lrn_maxpool", "composed")

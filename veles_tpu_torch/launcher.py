@@ -4,7 +4,9 @@ a snapshot, then train or serve it, optionally under the supervisor.
 `python -m veles_tpu_torch WORKFLOW.py [--fused | --serve PORT]
 [-b torch|numpy] [-s SNAPSHOT] [--device cpu] [-r SEED]
 [--lrn-maxpool fused|composed] [--feed-ahead N] [--accum K]
-[--autotune [--autotune-budget N]] [--nonfinite-guard] [--serve-ring N]
+[--autotune [--autotune-budget N]] [--nonfinite-guard] [--mirror SPEC]
+[--serve-ring N] [--serve-batch N] [--serve-dispatch ring|merge]
+[--serve-quantize f32|bf16|int8] [--serve-watch-mirror SPEC]
 [root.x=y ...]`,
 and in either training mode also `--supervise [--max-restarts N]
 [--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
@@ -27,6 +29,21 @@ either training mode: a workflow restored for the granular graph moves
 to the backend's device and continues at the pulse after its
 snapshot's. `--accum` and `--feed-ahead`, which tune the fused step and
 its device feed, are refused without `--fused`.
+
+The serving knobs (JAX launcher.py:104-160, __main__.py:140-176 there)
+need `--serve`: `--serve-batch` caps a request's rows (the ring's rows
+when not given: the JAX cap is 64 whatever the ring), `--serve-ring`
+sizes the ring and must hold a whole `--serve-batch` request,
+`--serve-dispatch merge` runs the bucketed pre-ring core (no ring, no
+quantized wire, no watcher), `--serve-quantize bf16|int8` serves a
+low-byte wire of the parameters (refused unserved without a passing
+equivalence record or beyond 0.05 of the f32 forward), and
+`--serve-watch-mirror SPEC` polls a snapshot mirror (a directory or an
+http(s) URL) every $VELES_WATCH_POLL_S seconds (10) and hot-swaps each
+new snapshot into the running ring (serving_watch.py). `--mirror SPEC`
+is the trainer's: every snapshot the run writes is pushed there, and
+`--supervise` restarts restore from it when the snapshot directory
+cannot satisfy them.
 
 `--autotune` (with `--fused`) times the candidate lowerings of the
 workflow's tunable ops on the card before training, trains with the
@@ -162,8 +179,34 @@ def build_parser() -> argparse.ArgumentParser:
                          help="write the supervisor's JSON exit report "
                               "(attempt log, outcome) to PATH"),
     ]
-    p.add_argument("--serve-ring", type=int, default=64, metavar="N",
-                   help="rows in the ring batch (and the per-request cap)")
+    p.add_argument("--mirror", default="", metavar="SPEC",
+                   help="snapshot mirror of a training run: a second "
+                        "directory or an http(s):// blob store; every "
+                        "snapshot written is pushed there (sha256-verified, "
+                        "idempotent) and --supervise restarts restore from "
+                        "it when the snapshot directory cannot")
+    p.add_argument("--serve-ring", type=int, default=None, metavar="N",
+                   help="rows in the ring batch (default: --serve-batch, "
+                        "else 64); --serve only")
+    p.add_argument("--serve-batch", type=int, default=None, metavar="N",
+                   help="most rows one request may send (default: the "
+                        "ring's); --serve only")
+    p.add_argument("--serve-dispatch", default=None,
+                   choices=("ring", "merge"),
+                   help="serving core: 'ring' (default) = the slot ring; "
+                        "'merge' = the bucketed micro-batching baseline; "
+                        "--serve only")
+    p.add_argument("--serve-quantize", default=None,
+                   choices=("f32", "bf16", "int8"),
+                   help="wire format of the served parameters: bf16 halves "
+                        "the model bytes, int8 (weight-only, blockwise) "
+                        "quarters them; refused unserved without a passing "
+                        "equivalence record; --serve only")
+    p.add_argument("--serve-watch-mirror", default=None, metavar="SPEC",
+                   help="poll this snapshot mirror (a directory or an "
+                        "http(s) URL) for new snapshots and hot-swap each "
+                        "into the running ring after it verifies (poll "
+                        "every $VELES_WATCH_POLL_S s, 10); --serve only")
     p.add_argument("--serve-token", default=None,
                    help="shared token /predict requires in X-Veles-Token")
     p.add_argument("--serve-max-body", type=int, default=32 << 20,
@@ -220,7 +263,45 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.snapshot_dir is not None and args.serve is not None:
         p.error("--snapshot-dir is the supervisor's: give it with a "
                 "training run")
+    if args.mirror and args.serve is not None:
+        p.error("--mirror pushes a training run's snapshots: give it with a "
+                "training run (--serve-watch-mirror polls one)")
+    _check_serve_knobs(p, args)
     return args
+
+
+def _check_serve_knobs(p: argparse.ArgumentParser,
+                       args: argparse.Namespace) -> None:
+    """The JAX launcher's serving-knob refusals (launcher.py:104-160
+    there): a knob without --serve, a count below 1, a ring that cannot
+    hold a whole request, and the ring-only knobs under merge."""
+    knobs = (args.serve_ring, args.serve_batch, args.serve_dispatch,
+             args.serve_quantize, args.serve_watch_mirror)
+    if args.serve is None and any(v is not None for v in knobs):
+        p.error("--serve-ring/--serve-batch/--serve-dispatch/"
+                "--serve-quantize/--serve-watch-mirror configure the "
+                "serving tier: combine with --serve")
+    if args.serve_ring is not None and args.serve_ring < 1:
+        p.error(f"--serve-ring needs N >= 1 (got {args.serve_ring})")
+    if args.serve_batch is not None and args.serve_batch < 1:
+        p.error(f"--serve-batch needs N >= 1 (got {args.serve_batch})")
+    if args.serve_ring is not None and args.serve_batch is not None \
+            and args.serve_ring < args.serve_batch:
+        p.error(f"--serve-ring ({args.serve_ring}) must hold a whole "
+                f"--serve-batch request ({args.serve_batch}): raise "
+                f"--serve-ring or lower --serve-batch")
+    if args.serve_dispatch == "merge":
+        if args.serve_ring is not None:
+            p.error("--serve-ring sizes the ring core: it conflicts with "
+                    "--serve-dispatch merge")
+        if args.serve_watch_mirror is not None:
+            p.error("--serve-watch-mirror hot-swaps into the ring core (the "
+                    "merge baseline binds params at build time): drop "
+                    "--serve-dispatch merge")
+        if args.serve_quantize not in (None, "f32"):
+            p.error("--serve-quantize rides the ring core (the merge "
+                    "baseline serves f32): drop --serve-dispatch merge or "
+                    "--serve-quantize")
 
 
 def supervisor_flags() -> dict:
@@ -241,7 +322,7 @@ def supervise(args: argparse.Namespace, argv: List[str]) -> int:
         + strip_flags(argv, supervisor_flags())
     return Supervisor(
         cmd, snapshot_dir=args.snapshot_dir or ".",
-        snapshot_prefix=args.snapshot_prefix,
+        snapshot_prefix=args.snapshot_prefix, mirror=args.mirror,
         max_restarts=args.max_restarts,
         stall_timeout=args.stall_timeout,
         report_path=args.supervise_report).run()
@@ -356,6 +437,9 @@ def train(argv: Optional[List[str]] = None):
     done = {}
 
     def main_fn(wf):
+        if args.mirror and getattr(wf, "snapshotter", None) is not None:
+            # every snapshot this run writes is pushed to the mirror
+            wf.snapshotter.mirror = args.mirror
         installed = _install_run_hooks(wf)
         try:
             if args.fused:
@@ -385,8 +469,12 @@ def train(argv: Optional[List[str]] = None):
 def serve(argv: Optional[List[str]] = None):
     """Parse `argv` (which must hold --serve PORT), build the workflow
     through its module's `run(load, main)` (or restore it under -s) and
-    start its InferenceServer. Returns the started server; the caller
-    stops it. The CLI and chip_smoke.py both come through here."""
+    start its InferenceServer, with its WeightWatcher under
+    --serve-watch-mirror (`server.watcher`, stopped with the server).
+    Returns the started server; the caller stops it. The CLI and
+    chip_smoke.py both come through here."""
+    import logging
+
     from veles_tpu_torch.serving import InferenceServer
 
     args = parse_args(argv)
@@ -395,10 +483,34 @@ def serve(argv: Optional[List[str]] = None):
     done = {}
 
     def main_fn(wf):
-        done["server"] = InferenceServer(
+        srv = InferenceServer(
             wf, port=args.serve, ring_slots=args.serve_ring,
+            max_batch=args.serve_batch,
+            dispatch=args.serve_dispatch or "ring",
+            quantize=args.serve_quantize or "f32",
             token=args.serve_token, max_body=args.serve_max_body,
             device=args.device).start()
+        done["server"] = srv
+        info = srv.model_info()
+        logging.getLogger("veles_torch.launcher").info(
+            "serving: dispatch=%s ring=%s max_batch=%s quantize=%s "
+            "params %s", info["dispatch"], info["ring_slots"],
+            info["max_batch"], info["quantize"], info.get("param_bytes"))
+        if args.serve_watch_mirror:
+            from veles_tpu_torch.resilience.mirror import get_mirror
+            from veles_tpu_torch.serving_watch import WeightWatcher
+            try:
+                poll_s = float(os.environ.get("VELES_WATCH_POLL_S", "10")
+                               or 10)
+            except ValueError:
+                poll_s = 10.0
+            try:
+                srv.watcher = WeightWatcher(
+                    srv, get_mirror(args.serve_watch_mirror,
+                                    token=srv.token), poll_s=poll_s).start()
+            except BaseException:
+                srv.stop(drain_s=0)
+                raise
 
     _run(args, main_fn)
     return done["server"]

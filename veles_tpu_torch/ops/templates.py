@@ -39,6 +39,10 @@ The port's counterpart of `veles_tpu/ops/templates.py`:
   this process; `bench_candidate` and the search's timed trial refuse a
   point without a passing record (`UngatedCandidateError`).
 
+`serve_forward` (the serving wire, ops/variants.py) has a contract and
+no template: the server gates a non-f32 wire on its record, and the
+search never times it.
+
 A bench times its op at the main path's shapes with CUDA events on the
 card and with `perf_counter` on the CPU (at small shapes there: a CPU
 time says nothing of the card).
@@ -939,3 +943,72 @@ register_template(KernelTemplate(
         "hand-written `fused` is 3 x 16, native)"))
 CONTRACTS["lrn_maxpool"] = _lrn_pool_contract
 BENCHES["lrn_maxpool"] = _lrn_pool_bench
+
+
+# ===========================================================================
+# serve_forward: the serving wire (no template: the search never times it)
+# ===========================================================================
+
+
+def _serve_contract(apply, device):
+    """The JAX package's `_serve_contract` (ops/templates.py:1230-1306
+    there): a 24 -> 96 -> 4 tanh MLP whose first weight is wide enough
+    for the int8 block (quantized) and whose second is not (left f32).
+    The int8 transform must be ops/reference.serve_quantize_weight bit
+    for bit; the f32 and int8 forwards must meet the numpy golden of the
+    same transform (2e-5); every wire must stay within its serving
+    tolerance of the unquantized f32 forward (1e-5 f32; 5e-2 bf16, int8)."""
+    cfg = apply.sv_config
+    rs = np.random.RandomState(7)
+    w1 = (rs.randn(24, 96) * 0.2).astype(np.float32)
+    b1 = (rs.randn(96) * 0.1).astype(np.float32)
+    w2 = (rs.randn(96, 4) * 0.2).astype(np.float32)
+    b2 = (rs.randn(4) * 0.1).astype(np.float32)
+    params = ({"weights": w1, "bias": b1}, {"weights": w2, "bias": b2})
+    x = rs.randn(8, 24).astype(np.float32)
+
+    def forward(p, xb):
+        h = torch.tanh(xb @ p[0]["weights"] + p[0]["bias"])
+        return h @ p[1]["weights"] + p[1]["bias"]
+
+    name = {v["wire"]: k for k, v in variants._SERVE_NAMED.items()}[
+        cfg["wire"]]
+    prepared, shapes = variants.serve_prepare_params(name, params)
+    if cfg["wire"] == "int8":
+        for w, layer in ((w1, prepared[0]), (w2, prepared[1])):
+            if w.shape[-1] >= cfg["blk"]:
+                qg, sg = ref.serve_quantize_weight(w, cfg["blk"])
+                np.testing.assert_array_equal(layer["weights"]["q"].numpy(),
+                                              qg)
+                np.testing.assert_array_equal(layer["weights"]["s"].numpy(),
+                                              sg)
+            else:
+                np.testing.assert_array_equal(layer["weights"].numpy(), w)
+    with torch.inference_mode(), full_f32(device):
+        out = _np(apply(variants.serve_to_device(prepared, device),
+                        _t(x, device), forward, shapes))
+    f32 = ref.serve_forward_mlp(x, ((w1, b1), (w2, b2)))
+    if cfg["wire"] == "int8":
+        deq = []
+        for w, b in ((w1, b1), (w2, b2)):
+            if w.shape[-1] >= cfg["blk"]:
+                q, s = ref.serve_quantize_weight(w, cfg["blk"])
+                w = ref.dequantize_blockwise(q, s, cfg["blk"])[
+                    :, :w.shape[-1]].reshape(w.shape)
+            deq.append((w, b))
+        np.testing.assert_allclose(out, ref.serve_forward_mlp(x, deq),
+                                   rtol=2e-5, atol=2e-5)
+    elif cfg["wire"] == "f32":
+        np.testing.assert_allclose(out, f32, rtol=2e-5, atol=2e-5)
+    tol = {"f32": 1e-5, "bf16": 5e-2, "int8": 5e-2}[cfg["wire"]]
+    err = float(np.max(np.abs(out - f32)))
+    if err > tol:
+        raise AssertionError(
+            f"serve_forward/{name}: max |out - f32| = {err:.2e} exceeds the "
+            f"{tol} serving tolerance")
+    return {"checked": f"wire transform bitwise vs ops.reference + forward "
+                       f"vs serve_forward_mlp golden; |out - f32| max "
+                       f"{err:.2e} <= {tol}"}
+
+
+CONTRACTS["serve_forward"] = _serve_contract

@@ -47,6 +47,12 @@ Generated points are kept apart from the hand-written ones, so
   and `s2d` (the space-to-depth rewrite, `functional.
   conv2d_space_to_depth`); generated `gen[pack,acc,epi]`, whose `epi=lrn`
   points claim the LRN after the stem.
+- `serve_forward`: the serving wire of the model's parameters, `f32`
+  (the default), `bf16` and `int8` (`serve_prepare_params` on the host,
+  `serve_forward_apply` on the device; the JAX package's names and rules,
+  ops/variants.py:740-895 there). It has no template, so the search
+  never times it; its equivalence contract gates the non-f32 wires
+  before the server serves them.
 
 The defaults stay what the port ran before the search: `lrn_maxpool`
 `fused` where the JAX default is `composed`, `conv_stem` `direct` where
@@ -60,6 +66,8 @@ import contextlib
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
+
+import torch
 
 from veles_tpu_torch.ops import attention, functional, kernels, optim
 
@@ -378,3 +386,188 @@ register(Variant("conv_stem", "s2d", _conv_s2d,
                  doc="space-to-depth repack (functional."
                      "conv2d_space_to_depth): a stride-1 F.conv2d over "
                      "b*b*C channels, the same sums in another order"))
+
+
+# -- serve_forward: apply(prepared, x, forward, shapes=None) -> f32 output --
+#    The serving tier's wire format for the model's parameters
+#    (veles_tpu/ops/variants.py:740-895 in the JAX package). `forward` is
+#    the server's dense forward ((params, x) -> out: FusedForward._forward),
+#    `prepared` the parameter tree after the wire's host transform
+#    (`serve_prepare_params`), moved to the device, and `shapes` the
+#    original leaf shapes (to undo the int8 padding). Equivalence
+#    contract: templates._serve_contract; the server refuses a non-f32
+#    wire without a passing ledger record and probes it against the f32
+#    forward of the served model at startup (serving.py).
+#
+#    - f32:  the trained parameters as they are;
+#    - bf16: parameters cast to bf16 on the host (model bytes /2), the
+#      input cast at entry, so the forward computes in bf16 (the LRN
+#      kernels' bf16 instances), the output returned in f32;
+#    - int8: weight-only: >=2-D float leaves whose last axis holds a
+#      whole block of 64 become per-block absmax codes and f32 scales
+#      (ops/reference.serve_quantize_weight, model bytes ~/4), decoded to
+#      f32 on the device each call (plain tensor operations, as the JAX
+#      package decodes in XLA outside any Pallas kernel); biases and
+#      narrower leaves stay f32. The leaves keep the JAX package's
+#      layouts (convert.params_from_jax does not transpose), so the
+#      blocks run along the same axis and the codes are the JAX
+#      package's bit for bit.
+
+_SERVE_NAMED: Dict[str, Dict[str, Any]] = {
+    "f32": {"wire": "f32", "blk": 0},
+    "bf16": {"wire": "bf16", "blk": 0},
+    "int8": {"wire": "int8", "blk": 64},
+}
+
+
+def serve_forward_config(name: Any) -> Optional[Dict[str, Any]]:
+    """Canonical config {wire, blk} of a serve_forward variant name (None
+    for a foreign name)."""
+    cfg = _SERVE_NAMED.get(name)
+    return dict(cfg) if cfg is not None else None
+
+
+def _host_array(a):
+    """A parameter leaf as a numpy array (a tensor copied to the host)."""
+    import numpy as np
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _serve_quantizable(a, blk: int) -> bool:
+    """int8-wire eligibility: a >=2-D float leaf whose last axis holds at
+    least one whole block (a narrower one would be padded up to the block
+    and come out larger than its f32 form)."""
+    import numpy as np
+    arr = _host_array(a)
+    return (arr.ndim >= 2 and arr.shape[-1] >= blk
+            and np.issubdtype(arr.dtype, np.floating))
+
+
+def serve_prepare_params(name: str, params):
+    """Host-side wire transform of a (tuple of {name: leaf}) f32 parameter
+    tree into `name`'s serving format, as CPU tensors. Returns (prepared,
+    shapes): int8 leaves become {"q": codes, "s": scales} from the
+    reference quantizer, bf16 leaves are cast (round to nearest even, as
+    numpy's bfloat16 cast in the JAX package), f32 leaves pass through;
+    `shapes` holds each original leaf shape."""
+    import numpy as np
+
+    from veles_tpu_torch.ops import reference
+    cfg = _SERVE_NAMED[name]
+    prepared, shapes = [], []
+    for layer in params:
+        pl: Dict[str, Any] = {}
+        sl: Dict[str, tuple] = {}
+        for k, a in layer.items():
+            arr = _host_array(a)
+            sl[k] = tuple(int(s) for s in arr.shape)
+            if cfg["wire"] == "int8" and _serve_quantizable(arr, cfg["blk"]):
+                q, s = reference.serve_quantize_weight(
+                    arr.astype(np.float32), cfg["blk"])
+                pl[k] = {"q": torch.from_numpy(q), "s": torch.from_numpy(s)}
+            elif cfg["wire"] == "bf16" \
+                    and np.issubdtype(arr.dtype, np.floating):
+                pl[k] = torch.from_numpy(
+                    np.ascontiguousarray(arr)).to(torch.bfloat16)
+            else:
+                pl[k] = torch.from_numpy(np.ascontiguousarray(arr))
+        prepared.append(pl)
+        shapes.append(sl)
+    return tuple(prepared), tuple(shapes)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_param_bytes(prepared) -> int:
+    """Bytes of a prepared (or a plain f32) parameter tree: what the wire
+    holds on the device beside the model's f32 bytes."""
+    total = 0
+    for leaf in _leaves(prepared):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        else:
+            total += int(_host_array(leaf).nbytes)
+    return total
+
+
+def serve_to_device(prepared, device):
+    """The prepared tree's tensors on `device` (one copy each)."""
+    if isinstance(prepared, dict):
+        return {k: serve_to_device(v, device) for k, v in prepared.items()}
+    if isinstance(prepared, (tuple, list)):
+        return tuple(serve_to_device(v, device) for v in prepared)
+    return prepared.to(device)
+
+
+def q8_decode(q: torch.Tensor, scale: torch.Tensor, blk: int):
+    """Codes times scales in f32, (rows, cols) (the JAX `q8_decode`,
+    veles_tpu/ops/variants.py:549-554; ops/reference.dequantize_blockwise
+    bit for bit: each value one exact product rounded once)."""
+    rows = q.shape[0]
+    xb = q.reshape(rows, -1, blk).to(torch.float32)
+    return (xb * scale[..., None]).reshape(rows, -1)
+
+
+def _serve_restore(cfg, prepared, shapes):
+    """Inverse of serve_prepare_params on the device: the tree the dense
+    forward takes (int8 leaves decoded to f32; bf16 leaves stay bf16, so
+    that the forward computes in bf16)."""
+    out = []
+    for li, layer in enumerate(prepared):
+        d = {}
+        for k, v in layer.items():
+            if isinstance(v, dict) and "q" in v:
+                shp = tuple(shapes[li][k])
+                d[k] = q8_decode(v["q"], v["s"], cfg["blk"])[
+                    :, :shp[-1]].reshape(shp)
+            else:
+                d[k] = v
+        out.append(d)
+    return tuple(out)
+
+
+def serve_forward_apply(cfg: Dict[str, Any]) -> Callable[..., Any]:
+    """The one serve_forward apply of a config point; `apply.sv_config`
+    names the wire for the equivalence contract."""
+    cfg = dict(cfg)
+
+    def apply(prepared, x, forward, shapes=None):
+        params = _serve_restore(cfg, prepared, shapes)
+        if cfg["wire"] == "bf16":
+            x = x.to(torch.bfloat16)
+        return forward(params, x).to(torch.float32)
+
+    apply.sv_config = cfg
+    return apply
+
+
+register_op(
+    "serve_forward", default="f32",
+    doc="the serving tier's wire format for the model's parameters: f32, "
+        "bf16 (bytes /2) and weight-only blockwise int8 (bytes ~/4); a "
+        "non-f32 wire serves only with a passing equivalence record and "
+        "within 0.05 of the f32 forward of the served model. No template: "
+        "the kernel search never times it")
+register(Variant("serve_forward", "f32",
+                 serve_forward_apply(_SERVE_NAMED["f32"]),
+                 doc="the trained f32 parameters as they are"))
+register(Variant("serve_forward", "bf16",
+                 serve_forward_apply(_SERVE_NAMED["bf16"]),
+                 doc="parameters stored and computed in bf16 (the LRN "
+                     "kernels' bf16 instances), output in f32"))
+register(Variant("serve_forward", "int8",
+                 serve_forward_apply(_SERVE_NAMED["int8"]),
+                 doc="weight-only per-block absmax int8 (blk 64), quantized "
+                     "on the host by ops/reference.serve_quantize_weight, "
+                     "decoded to f32 on the device each call"))

@@ -10,13 +10,15 @@ The port's counterpart of `veles_tpu/resilience/`, for a single host:
 - `backoff.py` — the jittered exponential backoff it waits by;
 - `faults.py` — deterministic fault injection (`VELES_FAULT_PLAN`):
   `kill@epoch=K`, `hang@epoch=K`, `nan@step=K`,
-  `corrupt_snapshot@write=K`;
+  `corrupt_snapshot@write=K`, `mirror_corrupt@push=K`;
 - `hooks.py` — the process-wide epoch hook registry the Decision fires
   at each epoch boundary (heartbeats and epoch-keyed faults ride it);
-- `clock.py` — the time seam of the supervisor's loop.
+- `clock.py` — the time seam of the supervisor's loop;
+- `mirror.py` — the snapshot mirror (a second directory or an HTTP blob
+  store) the Snapshotter pushes to, restores read from and the serving
+  watcher polls.
 
-The snapshot mirror and the cross-host cluster come with the many-GPU
-slice. Import-light (the standard library only, no torch): the
+The cross-host cluster comes with the many-GPU slice. Import-light (the standard library only, no torch): the
 supervisor process must never initialize CUDA on the card its children
 train on.
 """

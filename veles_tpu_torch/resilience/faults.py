@@ -26,10 +26,14 @@ Actions:
 - ``corrupt_snapshot`` — the K-th snapshot file this process writes is
   torn post-write (garbage bytes mid-file), simulating a half-written
   checkpoint that the sha256 sidecar must catch.
+- ``mirror_corrupt`` — the K-th successful mirror push
+  (``mirror_corrupt@push=K``) is followed by tearing the MIRRORED copy
+  (the local one stays intact): a restore or a serving watcher must
+  refuse it.
 
 The cluster-scale actions of the JAX package (``host_loss``,
-``partition``, ``mirror_corrupt``, ``stale_local_dir``, ``coord_loss``)
-come with the port's cluster.
+``partition``, ``stale_local_dir``, ``coord_loss``) come with the port's
+cluster.
 
 Each entry fires AT MOST ONCE. When ``VELES_FAULT_STATE`` names a file
 (the Supervisor sets it), fired entries are recorded there BEFORE the
@@ -54,7 +58,7 @@ from typing import Any, List, Optional
 _log = logging.getLogger("veles_torch.FaultPlan")
 
 _ACTIONS = {"kill": "epoch", "hang": "epoch", "nan": "step",
-            "corrupt_snapshot": "write"}
+            "corrupt_snapshot": "write", "mirror_corrupt": "push"}
 
 #: sentinel distinguishing "not looked up yet" from "looked up: no plan"
 _UNSET = object()
@@ -92,6 +96,7 @@ class FaultPlan:
         self._fired = set(self._load_state())
         self._train_steps = 0      # counted by the fused loop
         self._snapshot_writes = 0  # counted by the snapshotter hook
+        self._mirror_pushes = 0    # counted by Mirror.push
 
     # -- parsing -------------------------------------------------------------
 
@@ -210,6 +215,18 @@ class FaultPlan:
         self._mark_fired(e)
         corrupt_file(path)
         _log.warning("FAULT INJECTION: %s -> tore %s", e.key, path)
+        return True
+
+    def mirror_corrupt_at_push(self) -> bool:
+        """True when the current mirror push (counted here) is to be
+        followed by tearing the mirrored copy. Called by Mirror.push
+        after a verified upload."""
+        self._mirror_pushes += 1
+        e = self._take("mirror_corrupt", self._mirror_pushes)
+        if e is None:
+            return False
+        self._mark_fired(e)
+        _log.warning("FAULT INJECTION: %s", e.key)
         return True
 
     def __repr__(self) -> str:

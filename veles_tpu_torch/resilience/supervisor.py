@@ -30,9 +30,12 @@ not fire again in the next.
 
 Import-light on purpose (the standard library and the port's jax-free,
 torch-free modules): the parent never imports torch, so it never
-initializes CUDA or holds the card its children train on. The JAX
-package's telemetry, memory and analysis sections of the report, the
-snapshot mirror and the cluster member come with later slices.
+initializes CUDA or holds the card its children train on. With
+`mirror` (the launcher's `--mirror`) a restart whose snapshot directory
+cannot satisfy it restores from the snapshot mirror
+(`Snapshotter.latest(mirror=...)`). The JAX package's telemetry, memory
+and analysis sections of the report and the cluster member come with
+later slices.
 """
 
 from __future__ import annotations
@@ -153,12 +156,15 @@ class Supervisor(Logger):
     def __init__(self, argv: Sequence[str], *, snapshot_dir: str = ".",
                  snapshot_prefix: str = "", max_restarts: int = 3,
                  stall_timeout: float = 0.0, report_path: str = "",
-                 clock: Clock = SYSTEM_CLOCK) -> None:
+                 mirror: str = "", clock: Clock = SYSTEM_CLOCK) -> None:
         self.argv = list(argv)
         if not self.argv:
             raise ValueError("Supervisor needs a command")
         self.snapshot_dir = snapshot_dir
         self.snapshot_prefix = snapshot_prefix
+        #: a resilience/mirror.py spec restarts restore from when the
+        #: snapshot directory cannot satisfy them ('' = none)
+        self.mirror = mirror
         self.max_restarts = max_restarts
         #: 0 disables stall detection (death-only supervision)
         self.stall_timeout = stall_timeout
@@ -261,7 +267,7 @@ class Supervisor(Logger):
             skip = 1 if code == EXIT_NONFINITE else 0
             snapshot = Snapshotter.latest(self.snapshot_dir,
                                           prefix=self.snapshot_prefix,
-                                          skip=skip)
+                                          skip=skip, mirror=self.mirror)
             if snapshot is None:
                 self.warning("no valid snapshot in %s — restarting from "
                              "scratch", self.snapshot_dir)

@@ -22,6 +22,14 @@ contract is the JAX package's:
 - `interval` (every N-th call), `time_interval` (seconds between
   writes), `keep_last` (older files and sidecars deleted), `dry_run`
   (bookkeeping only, no file);
+- `mirror` (or the older `upload_url`): after each export the file and
+  its sidecar are pushed to a second store (resilience/mirror.py: a
+  directory or an http(s) blob store), verified there, skipped where the
+  mirror already holds that digest; a failed push only warns (the local
+  file is what a resume reads first), and `keep_last` prunes the mirror
+  too. `latest(..., mirror=SPEC)` re-populates a local directory that
+  cannot satisfy the request from the mirror's verified copies, and the
+  serving tier's WeightWatcher polls the mirror (serving_watch.py);
 - `import_(path, restore_prng=True)`.
 
 The Snapshotter is a unit (JAX standard_workflow.py:125-156): in the
@@ -37,8 +45,8 @@ device it lay on, and comes back as a CPU tensor of the same dtype,
 shape and bits, so a snapshot written on the card loads in a process
 without CUDA; the workflow drops its device feed and is moved to the
 card by its entry point (`StandardWorkflow.place`). The JAX package's
-`mirror` / `upload_url` (a second store) and `VELES_SNAPSHOT_DRY_RUN`
-(its non-writing hosts) come with the cluster.
+`VELES_SNAPSHOT_DRY_RUN` (its non-writing hosts) comes with the
+cluster.
 
 TRUST MODEL: snapshots are pickles, and `pickle.load` runs arbitrary
 code: point `import_` and `latest` only at snapshots you wrote.
@@ -149,7 +157,8 @@ class Snapshotter(Unit):
     def __init__(self, workflow=None, prefix: str = "wf",
                  directory: str = ".", compression: str = "gz",
                  interval: int = 1, time_interval: float = 0.0,
-                 keep_last: int = 0) -> None:
+                 keep_last: int = 0, upload_url: str = "",
+                 mirror: str = "") -> None:
         _open_codec(compression)
         super().__init__(None, name="snapshotter")
         # any object may be pickled; a workflow also adopts the unit
@@ -159,6 +168,11 @@ class Snapshotter(Unit):
         self.prefix = prefix
         self.directory = directory
         self.compression = compression
+        #: the older name of an http(s) `mirror` (kept for old configs)
+        self.upload_url = upload_url
+        #: a resilience/mirror.py spec (a directory or an http(s) URL)
+        #: each export is pushed to, verified, best effort
+        self.mirror = mirror
         #: bookkeeping only, no file (the JAX package's worker processes)
         self.dry_run = False
         #: fire every `interval`-th run (epoch), like the reference's skip
@@ -216,6 +230,10 @@ class Snapshotter(Unit):
         plan = active_plan()
         if plan is not None:    # deterministic torn-write injection
             plan.maybe_corrupt_snapshot(self.destination)
+        # getattr: a Snapshotter restored from an older snapshot has none
+        spec = getattr(self, "mirror", "") or getattr(self, "upload_url", "")
+        if spec:
+            self._push(spec)
         self._written.append(self.destination)
         if self.keep_last:
             while len(self._written) > self.keep_last:
@@ -225,6 +243,26 @@ class Snapshotter(Unit):
                         os.remove(victim)
                     except OSError:
                         pass
+                if spec:
+                    # the mirror follows the local retention policy
+                    try:
+                        from veles_tpu_torch.resilience.mirror import \
+                            get_mirror
+                        get_mirror(spec).delete(os.path.basename(stale))
+                    except Exception:  # noqa: BLE001 — best effort
+                        pass
+
+    def _push(self, spec: str) -> None:
+        """Push the last export to the mirror `spec`; a failure warns and
+        leaves the local file as the one copy."""
+        try:
+            from veles_tpu_torch.resilience.mirror import get_mirror
+            if get_mirror(spec).push(self.destination):
+                self.info("snapshot mirrored -> %s", spec)
+            else:
+                self.warning("snapshot mirror to %s did not verify", spec)
+        except Exception as e:  # noqa: BLE001 — the mirror is best effort
+            self.warning("snapshot mirror to %s failed: %s", spec, e)
 
     def __getstate__(self):
         d = super().__getstate__()
@@ -314,13 +352,36 @@ class Snapshotter(Unit):
 
     @staticmethod
     def latest(directory: str, prefix: str = "", verify: bool = True,
-               skip: int = 0) -> Optional[str]:
+               skip: int = 0, mirror: str = "") -> Optional[str]:
         """Newest VALID snapshot file in `directory` whose name starts
         with `prefix`. Corrupt or partial files (a bad sha256, a
         truncated stream) and in-flight `.tmp` files are skipped with a
         warning naming the fallback. `skip=N` returns the (N+1)-th newest
         valid snapshot (the supervisor's roll back one after a
-        non-finite abort)."""
+        non-finite abort). With `mirror` (a resilience/mirror.py spec), a
+        directory that cannot satisfy the request (missing, emptied, all
+        candidates corrupt) is re-populated from the mirror's verified
+        copies before giving up."""
+        result = Snapshotter._latest_local(directory, prefix, verify, skip)
+        if result is None and mirror:
+            from veles_tpu_torch.resilience.mirror import restore_missing
+            log = logging.getLogger("veles_torch.Snapshotter")
+            try:
+                restored = restore_missing(mirror, directory, prefix)
+            except Exception as e:  # noqa: BLE001 — degrade, not die
+                log.warning("mirror restore from %s failed: %s", mirror, e)
+                restored = []
+            if restored:
+                log.warning("local snapshot dir %s could not satisfy the "
+                            "restore: re-populated %d file(s) from mirror "
+                            "%s", directory, len(restored), mirror)
+                result = Snapshotter._latest_local(directory, prefix,
+                                                   verify, skip)
+        return result
+
+    @staticmethod
+    def _latest_local(directory: str, prefix: str, verify: bool,
+                      skip: int) -> Optional[str]:
         log = logging.getLogger("veles_torch.Snapshotter")
         try:
             names = [n for n in os.listdir(directory)
