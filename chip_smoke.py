@@ -212,6 +212,30 @@
    forward of the snapshot's own params (Snapshotter.import_), its
    logits at least MOVED_X bounds from the generation before. The mirror
    is deleted after the phase.
+   FLEET: two replicas of the full-width AlexNet of SERVE WIRES (a fresh
+   seed-1234 init="scaled" snapshot served with -s), f32, 64-row rings,
+   lrn_maxpool=fused, started in this process by `launcher.serve` with
+   --serve-replicas 2 --serve-announce DIR (DIR under the script's
+   output directory, removed after the phase), behind a ServingRouter
+   over DIR whose RouterCore evicts after FLEET_TTL_S of beacon silence
+   (the phase polls the bus itself between requests). It fails unless
+   replica 2's start ran no nvcc and loaded no kernel library
+   (`InferenceServer.kernel_builds`); 16 requests of 1-8 rows through the
+   router, the counters zeroed just before and read just after, are all
+   answered 200 by both replicas (their requests sum to 16 plus the
+   router's hedges), K4 launched exactly twice each replica's round and
+   nothing else, each answer within SERVE_ATOL of the plain forward; the
+   same requests again, through the router and straight to a replica
+   back to back, give the router's added host ms a request; a candidate (params x 1.01) swapped into both replicas, then
+   POST /rollback through the router, gives both replicas' boot outputs
+   and logits back bit for bit, every request meanwhile answered 200;
+   the served generation exported (veles_tpu_torch/export.py) and run on
+   2 rows by the port's native engine on the host, within 3e-4 * |card| +
+   3e-5 of the card's served softmax (the package's bytes, the export
+   seconds, the engine's host ms a row printed); replica 1's beacon
+   draining, no request reaches it after the router's next poll; replica
+   2's beacon silenced, every request answered until the router evicts
+   it, more than FLEET_TTL_S after the last beat it saw. FLEET lines.
    GRANULAR: the full-width AlexNet one epoch (4 train minibatches of 128
    and one validation minibatch, dropout 0.5 as the sample has it)
    through the granular Unit/Workflow graph, `launcher.train` without
@@ -6129,6 +6153,324 @@ def serve_wires_phase(launcher, kernels, dev, snap):
     return launches, rec
 
 
+#: FLEET: the router's beacon TTL in the phase (the default is 20 s), and
+#: the rows of its 16 requests
+FLEET_TTL_S = 5.0
+FLEET_ROWS = (1, 2, 3, 4, 5, 6, 7, 8, 8, 7, 6, 5, 4, 3, 2, 1)
+#: the native engine against the card's served softmax (the JAX
+#: package's engine-vs-golden tolerance)
+NATIVE_RTOL, NATIVE_ATOL = 3e-4, 3e-5
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, architecture and logical cores (beside
+    every host time)."""
+    import platform
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    name = next((info[k] for k in ("model name", "cpu model", "hardware")
+                 if info.get(k)), "")
+    if not name and info.get("vendor_id"):
+        name = (f"{info['vendor_id']} family {info.get('cpu family', '?')} "
+                f"model {info.get('model', '?')}")
+    return (f"{name or platform.processor() or 'CPU model not reported'}, "
+            f"{platform.machine()}, {os.cpu_count()} logical cores")
+
+
+def fleet_idle(servers, timeout=120.0) -> None:
+    """Wait until no replica has a request in flight or queued (a hedged
+    duplicate may still be running when its client got the answer)."""
+    deadline = time.time() + timeout
+    while any(s.health()["inflight"] or s.health()["pending"]
+              for s in servers):
+        if time.time() > deadline:
+            raise AssertionError("FLEET: replicas never went idle")
+        time.sleep(0.05)
+
+
+def fleet_requests(router, servers, kernels, rs):
+    """16 requests of 1-8 rows through the router, the counts zeroed just
+    before and read just after: every one answered 200, both replicas
+    dispatched, K4 exactly twice each replica's round and nothing else;
+    then each answer against the plain forward, and the same requests
+    straight to a replica (the router's added host ms)."""
+    url = f"http://127.0.0.1:{router.port}"
+    xs = [rs.randn(n, HW, HW, 3).round(3) for n in FLEET_ROWS]
+    reqs0 = [s.n_requests for s in servers]
+    rounds0 = [s.n_dispatches for s in servers]
+    hedged0 = router.n_hedged
+    kernels.reset_launch_counts()
+    outs, t_router = [], []
+    for x in xs:
+        status, resp, dt = post(url, x)
+        if status != 200:
+            raise AssertionError(f"FLEET: the router answered {status}")
+        outs.append(np.asarray(resp["outputs"], np.float64))
+        t_router.append(dt)
+    fleet_idle(servers)
+    counts = kernels.launch_counts()
+    rounds = [s.n_dispatches - r for s, r in zip(servers, rounds0)]
+    spread = [s.n_requests - r for s, r in zip(servers, reqs0)]
+    hedged = router.n_hedged - hedged0
+    want = {name: 0 for name in counts}
+    want["lrn_maxpool_forward"] = 2 * sum(rounds)
+    print(f"FLEET requests: {len(xs)} of {min(FLEET_ROWS)}-{max(FLEET_ROWS)} "
+          f"rows through the router, all 200; replicas' requests {spread} "
+          f"(hedged {hedged}), rounds {rounds}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != want:
+        raise AssertionError(f"FLEET launches {counts}, want {want}")
+    if min(spread) < 1 or sum(spread) != len(xs) + hedged:
+        raise AssertionError(f"FLEET: replicas answered {spread} for "
+                             f"{len(xs)} requests and {hedged} hedges")
+    err = 0.0
+    for x, out in zip(xs, outs):
+        if out.shape != (len(x), N_CLASSES) or not np.isfinite(out).all():
+            raise AssertionError(f"FLEET: outputs shaped {out.shape}")
+        ref, _ = plain_forward(servers[0], kernels, x.astype(np.float32))
+        err = max(err, float(np.abs(out - ref).max()))
+    # the router's added host time: each request again, through the router
+    # and straight to a replica back to back, in alternating order; a pair
+    # whose routed leg was hedged (a duplicate parsed in this one process)
+    # is counted apart
+    t_via, t_direct, pair_hedged = [], [], []
+    for i, x in enumerate(xs):
+        s = servers[i % len(servers)]
+        for leg in ((0, 1) if i % 2 else (1, 0)):
+            if leg:
+                h0 = router.n_hedged
+                t_via.append(post(url, x)[2])
+                fleet_idle(servers)
+                pair_hedged.append(router.n_hedged > h0)
+            else:
+                t_direct.append(post(f"http://127.0.0.1:{s.port}", x)[2])
+    added = [(a - b) * 1e3 for a, b in zip(t_via, t_direct)]
+    clean = [a for a, h in zip(added, pair_hedged) if not h]
+    dup = [a for a, h in zip(added, pair_hedged) if h]
+    print(f"FLEET requests: vs the plain forward max abs err {err:.3e} "
+          f"(tolerance {SERVE_ATOL}); host ms a request in pairs, through "
+          f"the router {np.mean(t_via) * 1e3:.1f} (mean), straight to a "
+          f"replica {np.mean(t_direct) * 1e3:.1f}: the router adds "
+          f"{np.mean(clean):.1f} ms (median {np.median(clean):.1f}, range "
+          f"{min(clean):.1f} to {max(clean):.1f}) over {len(clean)} "
+          f"unhedged pairs; {len(dup)} hedged pairs add "
+          f"{np.mean(dup) if dup else 0.0:.1f} ms (mean) [{host_cpu()}]",
+          flush=True)
+    if err > SERVE_ATOL:
+        raise AssertionError(f"FLEET: {err} from the plain forward")
+    return counts, {"replica_requests": spread, "replica_rounds": rounds,
+                    "hedged": hedged, "max_abs_err_vs_plain": err,
+                    "router_ms": [t * 1e3 for t in t_router],
+                    "paired_router_ms": [t * 1e3 for t in t_via],
+                    "paired_direct_ms": [t * 1e3 for t in t_direct],
+                    "paired_hedged": pair_hedged,
+                    "router_added_ms_mean": float(np.mean(clean)),
+                    "router_added_ms_median": float(np.median(clean)),
+                    "hedged_pairs_added_ms": dup}
+
+
+def fleet_rollback(router, servers, snap, rs):
+    """A candidate (params x 1.01) swapped into both replicas, then POST
+    /rollback through the router: both replicas give their boot outputs
+    and logits back bit for bit, every request meanwhile answered."""
+    url = f"http://127.0.0.1:{router.port}"
+    x = rs.randn(2, HW, HW, 3).round(3)
+    xf = x.astype(np.float32)
+    boot = [(post(f"http://127.0.0.1:{s.port}", x)[1]["outputs"],
+             served_logits(s, xf)) for s in servers]
+    cand = candidate_alexnet(snap, 1.01)
+    with Hammer(url, x[:1]) as h:
+        for s in servers:
+            s.swap_params(cand, source="chip_smoke")
+        swapped = [post(f"http://127.0.0.1:{s.port}", x)[1]["outputs"]
+                   for s in servers]
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + "/rollback", data=b"",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, rb = r.status, json.loads(r.read())
+        rb_s = time.perf_counter() - t0
+        back = [(post(f"http://127.0.0.1:{s.port}", x)[1]["outputs"],
+                 served_logits(s, xf)) for s in servers]
+    codes = sorted(set(map(str, h.statuses)))
+    bits = all(a[0] == b[0] and np.array_equal(a[1], b[1])
+               for a, b in zip(boot, back))
+    moved = all(o != b[0] for o, b in zip(swapped, boot))
+    applied = sorted(r for r, o in rb["replicas"].items() if o["applied"])
+    print(f"FLEET rollback: params x 1.01 swapped into both replicas (the "
+          f"outputs moved: {moved}); /rollback through the router -> "
+          f"{status} in {rb_s:.3f} s, applied on {applied}; both replicas' "
+          f"outputs and logits bit for bit their boot ones: {bits}; "
+          f"{len(h.statuses)} requests meanwhile, statuses {codes}",
+          flush=True)
+    if status != 200 or applied != sorted(s.replica for s in servers) \
+            or not bits or not moved or codes != ["200"]:
+        raise AssertionError(f"FLEET rollback: {status} {rb}, bits {bits}, "
+                             f"moved {moved}, statuses {codes}")
+    del cand
+    return {"rollback_s": rb_s, "bits_equal": bits,
+            "requests_meanwhile": len(h.statuses)}
+
+
+def fleet_drain_evict(router, servers, beacons, rs):
+    """Replica 0's beacon drains: no request reaches replica 0 after the
+    router's next poll. Replica 1's beacon is then silenced (no goodbye:
+    a crash): requests keep reaching it, every one answered, until the
+    router evicts it after FLEET_TTL_S of silence."""
+    url = f"http://127.0.0.1:{router.port}"
+    x = rs.randn(1, HW, HW, 3).round(3)
+    t0 = time.perf_counter()
+    beacons[0].drain()
+    router.poll_once()
+    drain_s = time.perf_counter() - t0
+    view = router.fleet()
+    before = [s.n_requests for s in servers]
+    for _ in range(4):
+        if post(url, x)[0] != 200:
+            raise AssertionError("FLEET drain: a request failed")
+    fleet_idle(servers)
+    after_drain = [s.n_requests - b for s, b in zip(servers, before)]
+    print(f"FLEET drain: replica {servers[0].replica} draining, routable "
+          f"{view['routable']} after the poll {drain_s * 1e3:.1f} ms after "
+          f"the drain; 4 requests -> replicas {after_drain}", flush=True)
+    if view["routable"] != 1 or after_drain[0] != 0:
+        raise AssertionError(f"FLEET drain: routable {view['routable']}, "
+                             f"requests {after_drain}")
+    rid = servers[1].replica
+    t0 = time.perf_counter()
+    beacons[1].silence()
+    statuses = []
+    while rid in router._core.live():
+        if time.perf_counter() - t0 > 10 * FLEET_TTL_S:
+            raise AssertionError("FLEET: the silenced replica never left")
+        # the router's time of the last beat it saw advance
+        last_beat = router._core.replicas[rid].last_seen
+        statuses.append(post(url, x)[0])
+        router.poll_once()
+    evict_s = time.perf_counter() - t0
+    silent_s = time.monotonic() - last_beat
+    codes = sorted(set(map(str, statuses)))
+    print(f"FLEET evict: {rid}'s beacon silenced, evicted {evict_s:.2f} s "
+          f"later, {silent_s:.2f} s after its last beat the router saw (TTL "
+          f"{FLEET_TTL_S} s; beacons beat every {beacons[1].interval_s} s); "
+          f"{len(statuses)} requests meanwhile, statuses {codes}",
+          flush=True)
+    if silent_s <= FLEET_TTL_S or codes != ["200"]:
+        raise AssertionError(f"FLEET evict: {silent_s} s silent, statuses "
+                             f"{codes}")
+    return {"drain_poll_ms": drain_s * 1e3, "after_drain": after_drain,
+            "evict_s": evict_s, "silent_s": silent_s,
+            "requests_while_silent": len(statuses)}
+
+
+def fleet_export(router, srv, rs):
+    """The served AlexNet exported (the live generation's tensors) and run
+    by the port's native engine on the host: 2 rows within
+    NATIVE_RTOL / NATIVE_ATOL of the card's served softmax."""
+    from veles_tpu_torch.export import export_workflow
+    from veles_tpu_torch.native_engine import NativeEngine, build_library
+    x = rs.randn(2, HW, HW, 3).round(3)
+    card = np.asarray(post(f"http://127.0.0.1:{router.port}", x)[1][
+        "outputs"], np.float64)
+    pkg = tempfile.mkdtemp(prefix="veles_native_", dir=OUT)
+    try:
+        t0 = time.perf_counter()
+        export_workflow(srv.workflow, pkg, params=srv._gens.params)
+        export_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(pkg, f))
+                     for f in os.listdir(pkg))
+        t0 = time.perf_counter()
+        build_library()
+        build_s = time.perf_counter() - t0
+        with NativeEngine(pkg) as eng:
+            t0 = time.perf_counter()
+            got = eng.infer(x.astype(np.float32)).astype(np.float64)
+            infer_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(pkg, ignore_errors=True)
+    err = float(np.abs(got - card).max())
+    excess = float((np.abs(got - card)
+                    - (NATIVE_ATOL + NATIVE_RTOL * np.abs(card))).max())
+    print(f"FLEET export: the served AlexNet exported in {export_s:.2f} s, "
+          f"{nbytes} bytes (topology.json + weights.bin); the native engine "
+          f"(g++ build {build_s:.2f} s) on 2 rows in {infer_s:.2f} s, "
+          f"{infer_s / 2 * 1e3:.1f} host ms a row [{host_cpu()}]; vs the "
+          f"card's served softmax max abs err {err:.3e} (rtol "
+          f"{NATIVE_RTOL}, atol {NATIVE_ATOL})", flush=True)
+    if got.shape != card.shape or excess > 0:
+        raise AssertionError(f"FLEET export: the engine {err} from the card")
+    return {"export_s": export_s, "package_bytes": nbytes,
+            "engine_build_s": build_s, "engine_ms_per_row": infer_s / 2 * 1e3,
+            "max_abs_err_vs_card": err}
+
+
+def fleet_phase(launcher, kernels, dev):
+    """FLEET: two full-width AlexNet replicas (f32, 64-row rings, fused)
+    started by `launcher.serve --serve-replicas 2 --serve-announce DIR`
+    in this process, behind a ServingRouter over DIR with a short beacon
+    TTL: requests, launches, 0 kernel builds for replica 2, the fleet
+    rollback, the drain, the eviction, then the native export. Returns
+    (the requests' launches, the record)."""
+    from veles_tpu_torch.resilience.mirror import DirMirror
+    from veles_tpu_torch.serving_router import RouterCore, ServingRouter
+    t_phase = time.perf_counter()
+    bus = os.path.join(OUT, "fleet_bus")
+    shutil.rmtree(bus, ignore_errors=True)
+    served = tempfile.mkdtemp(prefix="veles_fleet_alexnet_")
+    srv = router = None
+    try:
+        snap = served_snapshot(dev, served)
+        t0 = time.perf_counter()
+        srv = launcher.serve([ALEXNET, "--serve", "0", "-s", snap,
+                              "--lrn-maxpool", "fused", "--serve-ring",
+                              str(B), "--serve-max-body", str(1 << 30),
+                              "--serve-replicas", "2", "--serve-announce",
+                              bus, *SERVE_ARGS])
+        up_s = time.perf_counter() - t0
+        servers, beacons = srv.fleet.servers, srv.fleet.beacons
+        builds = [s.kernel_builds for s in servers]
+        print(f"FLEET: 2 replicas {[s.replica for s in servers]} up in "
+              f"{up_s:.2f} s on {[str(s.device) for s in servers]}, "
+              f"variants {srv._fwd.variant_table()}; kernel builds by "
+              f"replica {builds}", flush=True)
+        if any(s.device != dev for s in servers) or builds[1] != {
+                "nvcc": 0, "loads": 0}:
+            raise AssertionError(f"FLEET: devices, builds {builds}")
+        # the poller idles: the phase polls the bus itself, between
+        # requests, so no request races an eviction
+        router = ServingRouter(DirMirror(bus), poll_s=3600.0,
+                               max_body=1 << 30,
+                               core=RouterCore(beacon_ttl_s=FLEET_TTL_S)
+                               ).start()
+        if router.fleet()["routable"] != 2:
+            raise AssertionError(f"FLEET: router sees {router.fleet()}")
+        rs = np.random.RandomState(12)
+        counts, rec = fleet_requests(router, servers, kernels, rs)
+        rec["up_s"] = up_s
+        rec["kernel_builds"] = builds
+        rec["rollback"] = fleet_rollback(router, servers, snap, rs)
+        rec["export"] = fleet_export(router, srv, rs)
+        rec.update(fleet_drain_evict(router, servers, beacons, rs))
+        rec["router_counters"] = router.counters()
+    finally:
+        if router is not None:
+            router.stop()
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(bus, ignore_errors=True)
+        shutil.rmtree(served, ignore_errors=True)
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"FLEET: the phase in {rec['seconds']:.2f} s", flush=True)
+    return counts, rec
+
+
 def autotune_phase(launcher, kernels, libs, dev, card):
     """AUTOTUNE: the generated points of K1-K4 and K6/K7 held and timed,
     then the search on the main path. Returns (the plain --fused run's
@@ -6229,6 +6571,8 @@ def run_phases(args) -> int:
         serve_wires["seconds"] = time.perf_counter() - t0
         print(f"SERVE WIRES: the phase in {serve_wires['seconds']:.2f} s",
               flush=True)
+        with alexnet_config_kept():
+            by_path["fleet"], fleet = fleet_phase(launcher, kernels, dev)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     by_path.update(serve_wires_launches)
@@ -6345,7 +6689,8 @@ def run_phases(args) -> int:
                    "granular_transformer": granular_transformer,
                    "granular_resume": granular_resume,
                    "conv_stem": conv_stem, "samples": samples,
-                   "autotune": autotune, "serve_wires": serve_wires},
+                   "autotune": autotune, "serve_wires": serve_wires,
+                   "fleet": fleet},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

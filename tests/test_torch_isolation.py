@@ -330,6 +330,23 @@ def test_serving_modules_stand_alone(module, imports_with_jax_blocked):
         imports_with_jax_blocked[module]
 
 
+#: the modules the fleet and export slice (replicas, beacons, the router,
+#: the native export and engine) added or extended
+FLEET_MODULES = ["veles_tpu_torch.serving_router",
+                 "veles_tpu_torch.export",
+                 "veles_tpu_torch.native_engine",
+                 "veles_tpu_torch.resilience.clock"]
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
 def test_torch_generator_follows_the_seed(monkeypatch):
     monkeypatch.setattr(prng, "_generators", {})
     monkeypatch.setattr(prng, "_base_seed", None)
@@ -353,7 +370,8 @@ TORCH_FREE = ["veles_tpu_torch.launcher", "veles_tpu_torch.snapshotter",
               "veles_tpu_torch.resilience.clock",
               "veles_tpu_torch.resilience.faults",
               "veles_tpu_torch.resilience.hooks",
-              "veles_tpu_torch.resilience.supervisor"]
+              "veles_tpu_torch.resilience.supervisor",
+              "veles_tpu_torch.serving_router"]
 
 
 @pytest.mark.parametrize("module", TORCH_FREE)

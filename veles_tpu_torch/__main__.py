@@ -1,5 +1,6 @@
-"""`python -m veles_tpu_torch workflow.py (--fused | --serve PORT) ...`
-(see launcher.py)."""
+"""`python -m veles_tpu_torch workflow.py [--fused | --serve PORT] ...`,
+`python -m veles_tpu_torch --route SPEC [--route-port P]` and
+`python -m veles_tpu_torch --serve-rollback URL` (see launcher.py)."""
 
 import sys
 

@@ -7,7 +7,7 @@ a snapshot, then train or serve it, optionally under the supervisor.
 [--autotune [--autotune-budget N]] [--nonfinite-guard] [--mirror SPEC]
 [--serve-ring N] [--serve-batch N] [--serve-dispatch ring|merge]
 [--serve-quantize f32|bf16|int8] [--serve-watch-mirror SPEC]
-[root.x=y ...]`,
+[--serve-replicas N] [--serve-announce SPEC] [root.x=y ...]`,
 and in either training mode also `--supervise [--max-restarts N]
 [--stall-timeout S] [--snapshot-dir DIR] [--snapshot-prefix P]
 [--supervise-report PATH]` — the port's counterpart of
@@ -40,7 +40,24 @@ low-byte wire of the parameters (refused unserved without a passing
 equivalence record or beyond 0.05 of the f32 forward), and
 `--serve-watch-mirror SPEC` polls a snapshot mirror (a directory or an
 http(s) URL) every $VELES_WATCH_POLL_S seconds (10) and hot-swaps each
-new snapshot into the running ring (serving_watch.py). `--mirror SPEC`
+new snapshot into the running ring (serving_watch.py).
+
+The fleet (JAX launcher.py:698-790): `--serve-replicas N` starts N
+servers of one workflow build in this process (`--serve PORT` gives them
+PORT..PORT+N-1, `--serve 0` lets each pick its own), each with its own
+ring, generation ledger and watcher; a replica's id is `r{i}-{pid}`, or
+`r{i}-{host}` under $VELES_SERVE_ADVERTISE, whose host also goes into
+the URL its beacon advertises. `--serve-announce SPEC` publishes one
+presence beacon per replica on that mirror bus (serving_router.py), for
+a router to discover. SIGTERM and Ctrl-C stop a fleet by its drain
+protocol: the beacons say "draining", the watchers stop, the servers
+stop (finishing their in-flight rounds), the beacons say "gone". Two
+modes take no workflow and never import torch (JAX __main__.py:521-571):
+`--route SPEC [--route-port P]` runs the fleet's router over the beacons
+on SPEC and prints `ROUTING http://127.0.0.1:P`; `--serve-rollback URL`
+POSTs /rollback to a server or a router, prints the answer, and exits 0
+when it applied, 1 on a refusal or a transport failure. Both read the
+shared token from $VELES_WEB_TOKEN. `--mirror SPEC`
 is the trainer's: every snapshot the run writes is pushed there, and
 `--supervise` restarts restore from it when the snapshot directory
 cannot satisfy them.
@@ -88,8 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "[root.path.key=value ...]; without either flag it "
                     "trains through the granular unit graph",
         allow_abbrev=False)
-    p.add_argument("workflow", help="workflow module (.py) with "
-                                    "run(load, main)")
+    p.add_argument("workflow", nargs="?", default=None,
+                   help="workflow module (.py) with run(load, main); none "
+                        "under --route and --serve-rollback")
     p.add_argument("overrides", nargs="*", default=[],
                    help="trailing root.a.b=value overrides")
     p.add_argument("--fused", action="store_true",
@@ -207,12 +225,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "http(s) URL) for new snapshots and hot-swap each "
                         "into the running ring after it verifies (poll "
                         "every $VELES_WATCH_POLL_S s, 10); --serve only")
+    p.add_argument("--serve-replicas", type=int, default=None, metavar="N",
+                   help="run N serving replicas of one workflow build in "
+                        "this process, each with its own ring, port "
+                        "(--serve PORT -> PORT..PORT+N-1; 0 -> each its "
+                        "own), generation ledger and watcher; --serve "
+                        "only")
+    p.add_argument("--serve-announce", default=None, metavar="SPEC",
+                   help="announce each serving replica as a presence "
+                        "beacon on this mirror bus (a directory or an "
+                        "http(s) URL), for a --route router to discover; "
+                        "--serve only")
+    p.add_argument("--route", default=None, metavar="SPEC",
+                   help="router mode (no workflow, no torch): discover the "
+                        "replicas announced on this mirror bus and route "
+                        "POST /predict across them by live capacity, with "
+                        "bounded retry, a circuit breaker per replica, "
+                        "hedging at the measured p99 and drain awareness; "
+                        "POST /rollback fans out to every replica (token "
+                        "from $VELES_WEB_TOKEN)")
+    p.add_argument("--route-port", type=int, default=None, metavar="PORT",
+                   help="listen port of --route (default: any free one)")
+    p.add_argument("--serve-rollback", default=None, metavar="URL",
+                   help="client mode (no workflow): POST /rollback to the "
+                        "server or router at URL, print the answer and "
+                        "exit 0 when it applied, 1 else (token from "
+                        "$VELES_WEB_TOKEN)")
     p.add_argument("--serve-token", default=None,
                    help="shared token /predict requires in X-Veles-Token")
     p.add_argument("--serve-max-body", type=int, default=32 << 20,
                    metavar="BYTES",
-                   help="largest /predict body accepted (413 above it); "
-                        "a full-size 227x227x3 row is ~1-3 MB of JSON")
+                   help="largest /predict body a server (or a --route "
+                        "router) accepts (413 above it); a full-size "
+                        "227x227x3 row is ~1-3 MB of JSON")
     p.add_argument("-v", "--verbose", action="count", default=0,
                    help="-v info, -vv debug")
     return p
@@ -223,6 +268,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     each mode takes (exit 2 else)."""
     p = build_parser()
     args = p.parse_intermixed_args(argv)
+    # the workflow-less modes and their refusals (JAX __main__.py:521-609
+    # there, which exit 1 with these messages)
+    if args.serve_rollback:
+        if args.workflow:
+            raise SystemExit("--serve-rollback is a client mode: it "
+                             "takes no workflow argument")
+        return args
+    if args.route:
+        if args.workflow:
+            raise SystemExit("--route is a router mode: it takes no "
+                             "workflow argument")
+        return args
+    if args.route_port is not None:
+        raise SystemExit("--route-port configures the fleet router: "
+                         "combine with --route")
+    if not args.workflow:
+        raise SystemExit("workflow module required (or --serve-rollback "
+                         "URL / --route SPEC for workflow-less modes)")
     if args.fused and args.serve is not None:
         p.error("--fused trains and --serve serves: give one of them")
     granular = not args.fused and args.serve is None
@@ -276,13 +339,18 @@ def _check_serve_knobs(p: argparse.ArgumentParser,
     there): a knob without --serve, a count below 1, a ring that cannot
     hold a whole request, and the ring-only knobs under merge."""
     knobs = (args.serve_ring, args.serve_batch, args.serve_dispatch,
-             args.serve_quantize, args.serve_watch_mirror)
+             args.serve_quantize, args.serve_watch_mirror,
+             args.serve_replicas, args.serve_announce)
     if args.serve is None and any(v is not None for v in knobs):
         p.error("--serve-ring/--serve-batch/--serve-dispatch/"
-                "--serve-quantize/--serve-watch-mirror configure the "
-                "serving tier: combine with --serve")
+                "--serve-quantize/--serve-watch-mirror/--serve-replicas/"
+                "--serve-announce configure the serving tier: combine "
+                "with --serve")
     if args.serve_ring is not None and args.serve_ring < 1:
         p.error(f"--serve-ring needs N >= 1 (got {args.serve_ring})")
+    if args.serve_replicas is not None and args.serve_replicas < 1:
+        p.error(f"--serve-replicas needs N >= 1 (got "
+                f"{args.serve_replicas})")
     if args.serve_batch is not None and args.serve_batch < 1:
         p.error(f"--serve-batch needs N >= 1 (got {args.serve_batch})")
     if args.serve_ring is not None and args.serve_batch is not None \
@@ -466,13 +534,50 @@ def train(argv: Optional[List[str]] = None):
     return done["workflow"]
 
 
+class Fleet:
+    """The servers of one `serve()` beyond a lone one: its replicas (each
+    with its watcher, `server.watcher`) and their beacons. The first
+    server holds it (`server.fleet`) and stops it with itself."""
+
+    def __init__(self) -> None:
+        self.servers: list = []
+        self.beacons: list = []
+
+    def stop(self, drain_s: float = 5.0) -> None:
+        """The drain protocol (JAX launcher.py:771-784): the beacons say
+        "draining" (a router stops picking the replicas), the watchers
+        stop (no swap lands in a stopping server), the servers stop
+        (each finishing its in-flight rounds), the beacons say "gone"."""
+        import logging
+        log = logging.getLogger("veles_torch.launcher")
+        for b in self.beacons:
+            b.drain()
+        log.info("fleet stop: beacons draining")
+        for s in self.servers:
+            if s.watcher is not None:
+                s.watcher.stop()
+                s.watcher = None
+        log.info("fleet stop: watchers stopped")
+        for s in self.servers:
+            s.fleet = None
+            s.stop(drain_s)
+        log.info("fleet stop: servers stopped")
+        for b in self.beacons:
+            b.stop()
+        log.info("fleet stop: beacons gone")
+
+
 def serve(argv: Optional[List[str]] = None):
     """Parse `argv` (which must hold --serve PORT), build the workflow
     through its module's `run(load, main)` (or restore it under -s) and
     start its InferenceServer, with its WeightWatcher under
     --serve-watch-mirror (`server.watcher`, stopped with the server).
-    Returns the started server; the caller stops it. The CLI and
-    chip_smoke.py both come through here."""
+    Under --serve-replicas N and --serve-announce, N servers of the one
+    build and a beacon each: the first server is returned, the others
+    and the beacons in its `fleet` (a `Fleet`), stopped with it by the
+    drain protocol; a replica that fails to start stops the ones before
+    it and raises. Returns the started server; the caller stops it. The
+    CLI and chip_smoke.py both come through here."""
     import logging
 
     from veles_tpu_torch.serving import InferenceServer
@@ -483,42 +588,135 @@ def serve(argv: Optional[List[str]] = None):
     done = {}
 
     def main_fn(wf):
-        srv = InferenceServer(
-            wf, port=args.serve, ring_slots=args.serve_ring,
-            max_batch=args.serve_batch,
-            dispatch=args.serve_dispatch or "ring",
-            quantize=args.serve_quantize or "f32",
-            token=args.serve_token, max_body=args.serve_max_body,
-            device=args.device).start()
+        n = args.serve_replicas or 1
+        fleet_mode = n > 1 or args.serve_announce is not None
+        # the host other fleet members reach this process at: the
+        # beacon URL's host and the rid suffix (pids collide across
+        # containers, advertised hosts do not)
+        adv = os.environ.get("VELES_SERVE_ADVERTISE", "").strip()
+        suffix = adv.replace(":", "-") if adv else str(os.getpid())
+        fleet = Fleet()
+        try:
+            for i in range(n):
+                fleet.servers.append(InferenceServer(
+                    wf, port=args.serve + i if args.serve else 0,
+                    ring_slots=args.serve_ring, max_batch=args.serve_batch,
+                    dispatch=args.serve_dispatch or "ring",
+                    quantize=args.serve_quantize or "f32",
+                    token=args.serve_token, max_body=args.serve_max_body,
+                    device=args.device,
+                    replica=f"r{i}-{suffix}" if fleet_mode else None
+                ).start())
+            srv = fleet.servers[0]
+            info = srv.model_info()
+            logging.getLogger("veles_torch.launcher").info(
+                "serving: replicas=%d dispatch=%s ring=%s max_batch=%s "
+                "quantize=%s params %s", n, info["dispatch"],
+                info["ring_slots"], info["max_batch"], info["quantize"],
+                info.get("param_bytes"))
+            if args.serve_watch_mirror:
+                from veles_tpu_torch.resilience.mirror import get_mirror
+                from veles_tpu_torch.serving_watch import WeightWatcher
+                try:
+                    poll_s = float(os.environ.get("VELES_WATCH_POLL_S",
+                                                  "10") or 10)
+                except ValueError:
+                    poll_s = 10.0
+                for s in fleet.servers:
+                    s.watcher = WeightWatcher(
+                        s, get_mirror(args.serve_watch_mirror,
+                                      token=s.token), poll_s=poll_s).start()
+            if args.serve_announce:
+                from veles_tpu_torch.resilience.mirror import get_mirror
+                from veles_tpu_torch.serving_router import ReplicaBeacon
+                bus = get_mirror(args.serve_announce, token=srv.token)
+                for s in fleet.servers:
+                    fleet.beacons.append(ReplicaBeacon(
+                        bus, s.replica,
+                        f"http://{adv or '127.0.0.1'}:{s.port}",
+                        health=s.health).start())
+        except BaseException:
+            fleet.stop(drain_s=0)
+            raise
+        if fleet_mode:
+            srv.fleet = fleet
         done["server"] = srv
-        info = srv.model_info()
-        logging.getLogger("veles_torch.launcher").info(
-            "serving: dispatch=%s ring=%s max_batch=%s quantize=%s "
-            "params %s", info["dispatch"], info["ring_slots"],
-            info["max_batch"], info["quantize"], info.get("param_bytes"))
-        if args.serve_watch_mirror:
-            from veles_tpu_torch.resilience.mirror import get_mirror
-            from veles_tpu_torch.serving_watch import WeightWatcher
-            try:
-                poll_s = float(os.environ.get("VELES_WATCH_POLL_S", "10")
-                               or 10)
-            except ValueError:
-                poll_s = 10.0
-            try:
-                srv.watcher = WeightWatcher(
-                    srv, get_mirror(args.serve_watch_mirror,
-                                    token=srv.token), poll_s=poll_s).start()
-            except BaseException:
-                srv.stop(drain_s=0)
-                raise
 
     _run(args, main_fn)
     return done["server"]
 
 
+def serve_rollback(url: str) -> int:
+    """--serve-rollback: POST /rollback to the server (or the router) at
+    `url` and print its JSON answer. 0 on an applied rollback, 1 on a
+    refusal (409: no previous generation) or a transport failure (JAX
+    __main__.py:521-553)."""
+    import json
+    import urllib.error
+    import urllib.request
+    url = url.rstrip("/")
+    if not url.startswith(("http://", "https://")):
+        url = "http://" + url
+    req = urllib.request.Request(url + "/rollback", data=b"",
+                                 method="POST")
+    token = os.environ.get("VELES_WEB_TOKEN")
+    if token:
+        req.add_header("X-Veles-Token", token)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            payload = json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        try:
+            payload = json.loads(e.read())
+        except ValueError:
+            payload = {"error": str(e)}
+        print(json.dumps(payload), flush=True)
+        return 1
+    except (urllib.error.URLError, OSError) as e:
+        print(json.dumps({"error": str(e)}), flush=True)
+        return 1
+    print(json.dumps(payload), flush=True)
+    return 0
+
+
+def _wait_for_stop() -> None:
+    """Block until SIGTERM or Ctrl-C."""
+    stop = threading.Event()
+    # SIGTERM drains like Ctrl-C
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        while not stop.wait(3600):
+            pass
+    except KeyboardInterrupt:
+        pass
+
+
+def route(args: argparse.Namespace) -> int:
+    """--route: the fleet's router over the beacons on the bus, until
+    SIGTERM or Ctrl-C (JAX __main__.py:556-571). Imports no torch and no
+    workflow: a router runs on a box that cannot build the model."""
+    from veles_tpu_torch.resilience.mirror import get_mirror
+    from veles_tpu_torch.serving_router import ServingRouter
+    token = os.environ.get("VELES_WEB_TOKEN")
+    # the body cap is --serve-max-body's (32 MiB by default; the JAX
+    # router's 1 MiB refuses a single full-size 227x227x3 row of JSON)
+    router = ServingRouter(get_mirror(args.route, token=token),
+                           port=args.route_port or 0, token=token,
+                           max_body=args.serve_max_body).start()
+    print(f"ROUTING http://127.0.0.1:{router.port}", flush=True)
+    _wait_for_stop()
+    router.stop()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    if args.serve_rollback:
+        return serve_rollback(args.serve_rollback)
+    if args.route:
+        set_verbosity(args.verbose)
+        return route(args)
     if args.supervise:
         set_verbosity(args.verbose)
         return supervise(args, argv)
@@ -536,14 +734,8 @@ def main(argv: Optional[List[str]] = None) -> int:
               flush=True)
         return 0
     srv = serve(argv)
-    print(f"SERVING http://127.0.0.1:{srv.port}", flush=True)
-    stop = threading.Event()
-    # SIGTERM drains like Ctrl-C
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    try:
-        while not stop.wait(3600):
-            pass
-    except KeyboardInterrupt:
-        pass
+    for s in (srv.fleet.servers if srv.fleet is not None else [srv]):
+        print(f"SERVING http://127.0.0.1:{s.port}", flush=True)
+    _wait_for_stop()
     srv.stop()
     return 0

@@ -106,6 +106,9 @@ _count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_paths: Dict[str, Path] = {}
 _build_lock = threading.Lock()
+#: what build() has done in this process: `nvcc` processes run and
+#: kernel libraries loaded (what a server's start cost; serving.py)
+_BUILDS: Dict[str, int] = {"nvcc": 0, "loads": 0}
 
 
 def reset_launch_counts() -> None:
@@ -117,6 +120,12 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     with _count_lock:
         return dict(LAUNCHES)
+
+
+def build_counts() -> Dict[str, int]:
+    """`nvcc` runs and library loads by build() in this process."""
+    with _build_lock:
+        return dict(_BUILDS)
 
 
 def _count(name: str) -> None:
@@ -175,6 +184,7 @@ def build() -> Dict[str, Path]:
                     procs[name] = (subprocess.Popen(
                         cmd, stdout=subprocess.PIPE,
                         stderr=subprocess.STDOUT, text=True), tmp, out)
+                    _BUILDS["nvcc"] += 1
                 failed = []
                 for name, (proc, tmp, out) in procs.items():
                     log, _ = proc.communicate()
@@ -186,6 +196,7 @@ def build() -> Dict[str, Path]:
                     raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for name, out in outs.items():
             _libs[name] = ctypes.CDLL(str(out))
+            _BUILDS["loads"] += 1
         for kernel, entry in INSTANCES.values():
             _declare(_libs[kernel], entry)
         _lib_paths.update(outs)

@@ -65,9 +65,25 @@ a Retry-After from the measured round latency), a request body above
 (403), a queued request that misses `request_timeout_s` gets 503, and
 `stop()` drains in-flight rounds before it closes. Localhost by default.
 
+Fleet identity (`replica=`, JAX serving.py:181-196): a replica is not a
+process. The launcher's `--serve-replicas N` runs N servers of one
+workflow build in one process, each with its own port, ring, generation
+ledger and watcher; `replica` names one in `/healthz`, `/info` and its
+beacon (serving_router.py), and its per-replica counters (requests,
+rejected, latency, the live generation's age: the JAX package's
+`veles_serving_replica_*` families) are attributes shown in `/healthz`.
+On the card every replica's ring runs on the process's default CUDA
+stream: rounds of two replicas are ordered on the card in the order
+their loops enqueue them, and each round stages into pinned buffers and
+device tensors of its own (`_ring_batch` and `_forward_ring` allocate
+them per round), so no replica reads another's. The kernels are built
+once per process (ops/kernels.py `build`): `kernel_builds` records the
+`nvcc` runs and library loads a server's build caused, 0 for every
+replica after the first.
+
 Left out here and kept in ROADMAP: the telemetry registry and /metrics
 (the counters are attributes and appear in /healthz), the capacity hint
-of /healthz, `mesh=`, `aot_cache=` and `replica=`.
+of /healthz, `mesh=` and `aot_cache=`.
 """
 
 from __future__ import annotations
@@ -148,8 +164,12 @@ class InferenceServer(Logger):
                  request_timeout_s: float = 30.0,
                  token: Optional[str] = None, max_body: int = 32 << 20,
                  dispatch: str = "ring", ring_slots: Optional[int] = None,
-                 quantize: str = "f32", device: DeviceLike = None) -> None:
+                 quantize: str = "f32", device: DeviceLike = None,
+                 replica: Optional[str] = None) -> None:
         self.workflow = workflow
+        #: fleet identity: None for a lone server, else the replica id
+        #: its beacon and the router know it by
+        self.replica = str(replica) if replica is not None else None
         self.host = host
         self.port = port
         if dispatch not in ("ring", "merge"):
@@ -210,10 +230,24 @@ class InferenceServer(Logger):
         self._gens = GenerationLedger()
         self.n_swap_refusals = 0
         self._last_swap_refusal: Optional[Dict[str, Any]] = None
+        #: per-replica counters (the JAX package's labeled families):
+        #: requests admitted, and their summed seconds from admission to
+        #: the answer or the failure
+        self.n_requests = 0
+        self.latency_s_sum = 0.0
+        self.latency_n = 0
         #: a serving_watch.WeightWatcher feeding this server, stopped
         #: with it (the launcher's --serve-watch-mirror)
         self.watcher = None
+        #: the launcher's fleet (its other servers, watchers and
+        #: beacons) when this is its first server: stop() stops it all
+        self.fleet = None
+        builds = kernels.build_counts()
         self._build(device)
+        #: the kernel builds this server's build caused: `nvcc`
+        #: processes run and libraries loaded by ops/kernels.py
+        self.kernel_builds = {k: v - builds[k]
+                              for k, v in kernels.build_counts().items()}
 
     @property
     def ring_slots(self) -> Optional[int]:
@@ -510,17 +544,22 @@ class InferenceServer(Logger):
         if not 1 <= len(x) <= cap:
             raise ValueError(f"batch of {len(x)} rows: expected 1..{cap}")
         n = len(x)
+        t_admit = time.perf_counter()
         with self._cv:
             self._shed_locked()
             self._inflight += 1
+            self.n_requests += 1
         try:
             if self.dispatch == "ring" or self.batch_window_ms > 0:
                 out = self._predict_batched(x)
             else:
                 out = self._forward_rows(x)
         finally:
+            elapsed = time.perf_counter() - t_admit
             with self._cv:
                 self._inflight -= 1
+                self.latency_s_sum += elapsed
+                self.latency_n += 1
                 self._cv.notify_all()   # drain waiters watch this count
         out = out.reshape(n, -1)
         resp: Dict[str, Any] = {"outputs": out.tolist()}
@@ -722,6 +761,7 @@ class InferenceServer(Logger):
             gen["serving_for_s"] = round(now - gen["since"], 3)
             prev = self._gens.prev_gen
             return {"status": status,
+                    "replica": self.replica,
                     "uptime_s": round(now - self._started_at, 3),
                     "inflight": self._inflight,
                     "pending": len(self._pending),
@@ -739,11 +779,19 @@ class InferenceServer(Logger):
                     "previous_generation": (prev or {}).get("digest"),
                     "swaps": {"applied": self._gens.n_swaps,
                               "refused": self.n_swap_refusals,
-                              "last_refusal": self._last_swap_refusal}}
+                              "last_refusal": self._last_swap_refusal},
+                    # the JAX package's veles_serving_replica_* families
+                    "replica_counters": {
+                        "requests": self.n_requests,
+                        "rejected": self.n_rejected,
+                        "latency_s_sum": round(self.latency_s_sum, 6),
+                        "latency_n": self.latency_n,
+                        "generation_age_s": gen["serving_for_s"]}}
 
     def model_info(self) -> Dict[str, Any]:
         wf = self.workflow
         info = {"workflow": wf.name,
+                "replica": self.replica,
                 "input_shape": list(self._sample_shape),
                 "max_batch": self.max_batch,
                 "batch_window_ms": self.batch_window_ms,
@@ -908,7 +956,13 @@ class InferenceServer(Logger):
     def stop(self, drain_s: float = 5.0) -> None:
         """Refuse new requests (503), let in-flight ones finish (bounded
         by `drain_s`), then close the listener and stop the loop (and an
-        attached watcher first: no swap lands in a stopping server)."""
+        attached watcher first: no swap lands in a stopping server). The
+        first server of a fleet stops the whole fleet, through its drain
+        protocol."""
+        fleet, self.fleet = self.fleet, None
+        if fleet is not None:
+            fleet.stop(drain_s)
+            return
         if self.watcher is not None:
             self.watcher.stop()
             self.watcher = None
