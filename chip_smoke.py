@@ -155,9 +155,9 @@
    AlexNet (dropout 0.5 as the sample has it, feed_ahead 1) trained 3
    epochs through `launcher.train` from a workflow file this script
    writes into a temporary directory, which rebuilds the sample's
-   workflow with snapshot_config (gz, keep_last 2): (a) in process, the
-   uninterrupted run against the same argv cut at 2 epochs and resumed
-   from its newest snapshot (`-s`, max_epochs 3), which must be the one
+   workflow with snapshot_config (keep_last 2; (a) codec none, (b) the
+   default gz): (a) in process, the uninterrupted run against the same
+   argv cut at 2 epochs and resumed from its newest snapshot (`-s`, max_epochs 3), which must be the one
    of epoch 2's validation pass, after epoch 1's 10 train steps (the
    resumed run trains 20 steps: trained weights, non-zero velocities, a
    dropout stream past its seed's position): the same bits in every
@@ -236,6 +236,38 @@
    draining, no request reaches it after the router's next poll; replica
    2's beacon silenced, every request answered until the router evicts
    it, more than FLEET_TTL_S after the last beat it saw. FLEET lines.
+   AOT (after FLEET): the serialized serving program (serving_aot.py).
+   A fresh seed-1234 init="scaled" AlexNet snapshot served by
+   `launcher.serve` with $VELES_SERVING_AOT_CACHE naming a cache in a
+   temporary directory must report an exported program; then, for the
+   f32, bf16 and int8 wires on a ring of B rows (fused), an eager
+   server, a server exporting its program into a fresh cache and a fresh
+   server loading it (aot_source "cache", 0 exports) must give the eager
+   ring's answers bit for bit; AOT_ROUNDS rounds through the loaded
+   program, counters zeroed just before and read just after, launch K4
+   (its bf16 instance on the bf16 wire) exactly twice a round and
+   nothing else; a flipped byte of the stored blob is refused with one
+   warning and the program exported anew. Each start's host seconds, the
+   program's export and load seconds, the .pt2's bytes and a ring
+   round's device ms eager and through the program (CUDA events). AOT
+   lines.
+   DP (after AOT): data-parallel training over torch.distributed at
+   world size 1 on NCCL (the machine has one card). (a) `launcher.train`
+   with `-l 127.0.0.1:PORT --n-processes 1 --zero-sharding on`, one epoch
+   of the full-width f32 AlexNet, fused: K1 exactly 16 a train step (on
+   the ZeRO slices), K4 twice a step, K5 twice a train step, nothing
+   else (TRAIN dp lines). (b) In f32 and bf16, the full-width AlexNet at
+   dropout 0, the local step and the dp step (ZeRO on) from one state,
+   DP_STEPS steps each on one batch of TB rows: the dp state gathered
+   within the TRAIN gates of the local state (bf16: the update distance
+   within 2^-7; bit equality reported), the dp steps' launches exact
+   (K1 16, K4 2, K5 2 a step), host and device ms a step of both in turns
+   (local, dp, dp, local), the optimizer-state bytes with ZeRO on and off
+   and the plan's bytes a rank at 2, 4 and 8 ranks, memstats' figures (DP
+   lines). (c) Two processes on the one card (NCCL refuses two ranks on
+   one device): a gloo group over CUDA tensors, one ZeRO step of the toy
+   AlexNet against the local step, or a line saying why the card allows
+   none (DP two ranks).
    GRANULAR: the full-width AlexNet one epoch (4 train minibatches of 128
    and one validation minibatch, dropout 0.5 as the sample has it)
    through the granular Unit/Workflow graph, `launcher.train` without
@@ -3205,8 +3237,12 @@ def feed_phase(launcher, kernels, dev, seed: int, data_dir: str):
 #: RESUME: the FEED phase's packed memmap; full-width AlexNet, bf16 over f32
 #: master weights, fused, batch 128, the sample's dropout, feed_ahead 1,
 #: RESUME_EPOCHS epochs of 10 train + 1 validation steps, (a)'s cut run
-#: RESUME_CUT of them; the snapshot settings a workflow file adds (gz,
-#: keep_last 2) and the fault the supervised run takes
+#: RESUME_CUT of them; the snapshot settings a workflow file adds
+#: (keep_last 2; (a)'s runs uncompressed, codec none, to save the time of
+#: their gzip exports; (b)'s supervised run the Snapshotter's default gz,
+#: so that the default codec is exported and restored at full width and
+#: the time to recover stays one series) and the fault the supervised
+#: run takes
 RESUME_EPOCHS, RESUME_CUT, RESUME_KEEP, RESUME_FAULT = \
     3, 2, 2, "kill@epoch=2"
 #: the workflow file RESUME writes: the AlexNet sample's workflow rebuilt
@@ -3227,6 +3263,7 @@ from veles_tpu_torch.samples import alexnet
 from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
 
 root.resume.snapshot_dir = "."
+root.resume.compression = ""
 root.resume.marks = 0
 
 
@@ -3238,7 +3275,9 @@ def create_workflow():
         decision_config=root.alexnet.decision.to_dict(),
         gd_config=root.alexnet.gd.to_dict(),
         snapshot_config={"directory": root.resume.snapshot_dir,
-                         "prefix": "alexnet", "keep_last": %d},
+                         "prefix": "alexnet",
+                         "compression": root.resume.compression,
+                         "keep_last": %d},
         name="AlexNetWorkflow")
 
 
@@ -3402,7 +3441,8 @@ def supervised_resume(argv, snap_dir, work):
     env.pop("VELES_FAULT_STATE", None)
     cmd = [sys.executable, "-m", "veles_tpu_torch", *argv, "--supervise",
            "--snapshot-dir", snap_dir, "--snapshot-prefix", "alexnet",
-           "--supervise-report", report, "root.resume.marks=1"]
+           "--supervise-report", report, "root.resume.marks=1",
+           "root.resume.compression=gz"]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=900)
@@ -6471,6 +6511,483 @@ def fleet_phase(launcher, kernels, dev):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# AOT: the serialized serving program (serving_aot.py)
+# ---------------------------------------------------------------------------
+
+#: the wires AOT serves and the forward LRN kernel each launches (fused)
+AOT_WIRES = (("f32", "lrn_maxpool_forward"),
+             ("bf16", "lrn_maxpool_forward_bf16"),
+             ("int8", "lrn_maxpool_forward"))
+#: ring rounds through a loaded program whose launches are counted
+AOT_ROUNDS = 3
+
+
+def aot_round(srv, x: torch.Tensor) -> torch.Tensor:
+    """One ring round of host rows `x`, its answer on the host."""
+    host, done = srv._forward_ring(x)
+    if done is not None:
+        done.synchronize()
+    return host.clone()
+
+
+def serve_enqueue_ms(srv, reps: int = 10) -> float:
+    """Host ms to enqueue one ring round's forward through the wire (mean
+    of `reps` after a warm-up, the card synchronized after them): where
+    it exceeds the round's device ms, the card waits on the host."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        srv.ring_slots, HW, HW, 3).astype(np.float32)).to(srv.device)
+    params = srv._gens.params
+    srv._serve(params, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv._serve(params, x)
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def aot_wire(kernels, dev, wf, wire, k4, index, x, warned):
+    """One wire of AOT: an eager server, a cold start exporting its
+    program into `index`, a fresh server loading it, and after a flipped
+    blob byte a third exporting anew with one warning; each start's
+    seconds, the answers bit-equal to the eager ring's, K4 exactly 2 a
+    round through the loaded program. Returns (launches, record)."""
+    from veles_tpu_torch.serving import InferenceServer
+    from veles_tpu_torch.serving_aot import ServingAotCache
+    r = {}
+
+    def start(cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = InferenceServer(wf, ring_slots=B, quantize=wire, device=dev,
+                              aot_cache=cache)
+        torch.cuda.synchronize()
+        return srv, time.perf_counter() - t0
+
+    eager, r["eager_start_s"] = start(None)
+    want = aot_round(eager, x)
+    r["eager_ring_ms"] = wire_ring_ms(eager)
+    r["eager_enqueue_ms"] = serve_enqueue_ms(eager)
+    del eager
+    cold, r["export_start_s"] = start(index)
+    warm, r["load_start_s"] = start(index)
+    if (cold.aot_source, cold.aot_compiles) != ("export", 1) or \
+            (warm.aot_source, warm.aot_compiles) != ("cache", 0):
+        raise AssertionError(f"AOT {wire}: sources {cold.aot_source}, "
+                             f"{warm.aot_source}")
+    r["export_s"], r["load_s"] = cold.aot_seconds, warm.aot_seconds
+    entry = ServingAotCache(index).entry(warm._aot_signature)
+    r["pt2_bytes"] = entry["bytes"]
+    for srv in (cold, warm):
+        assert_same_bits(f"AOT {wire} {srv.aot_source}", aot_round(srv, x),
+                         want)
+    del cold
+    # -- the main path: counts zeroed just before, read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for _ in range(AOT_ROUNDS):
+        aot_round(warm, x)
+    counts = kernels.launch_counts()
+    check_counts(f"AOT {wire} loaded program", counts,
+                 {k4: 2 * AOT_ROUNDS})
+    r["program_ring_ms"] = wire_ring_ms(warm)
+    r["program_enqueue_ms"] = serve_enqueue_ms(warm)
+    del warm
+    # a tampered blob: refused with one warning, exported anew
+    with open(entry["file"], "r+b") as f:
+        f.seek(entry["bytes"] // 2)
+        byte = f.read(1)
+        f.seek(entry["bytes"] // 2)
+        f.write(bytes([byte[0] ^ 1]))
+    seen = len(warned)
+    third, r["tampered_start_s"] = start(index)
+    if third.aot_source != "export" or len(warned) != seen + 1 \
+            or "sha256" not in warned[-1]:
+        raise AssertionError(f"AOT {wire}: a tampered blob gave "
+                             f"{third.aot_source}, warnings "
+                             f"{warned[seen:]}")
+    assert_same_bits(f"AOT {wire} re-exported", aot_round(third, x), want)
+    del third
+    torch.cuda.empty_cache()
+    print(f"AOT {wire}: start {r['eager_start_s']:.3f} s eager, "
+          f"{r['export_start_s']:.3f} s exporting (program "
+          f"{r['export_s']:.3f} s), {r['load_start_s']:.3f} s loading "
+          f"(program {r['load_s']:.3f} s); .pt2 {r['pt2_bytes']} B; the "
+          f"same bits as the eager ring; ring round {r['eager_ring_ms']:.4f}"
+          f" ms eager, {r['program_ring_ms']:.4f} ms through the program "
+          f"(CUDA events), host ms to enqueue it {r['eager_enqueue_ms']:.4f}"
+          f" eager, {r['program_enqueue_ms']:.4f} through the program; "
+          f"{k4} {2 * AOT_ROUNDS} in {AOT_ROUNDS} rounds; a "
+          f"flipped blob byte refused ({warned[-1][:60]}...) and exported "
+          f"anew in {r['tampered_start_s']:.3f} s", flush=True)
+    return counts, r
+
+
+def aot_phase(launcher, kernels, dev):
+    """AOT: SERVE WIRES' full-width AlexNet on a ring of B rows, `fused`:
+    the CLI exporting its f32 program where $VELES_SERVING_AOT_CACHE names
+    a cache, then for each wire `aot_wire`. Returns (the loaded programs'
+    launches by wire, the record)."""
+    from veles_tpu_torch.serving_aot import AOT_CACHE_ENV, ServingAotCache
+    from veles_tpu_torch.snapshotter import Snapshotter
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="veles_aot_")
+    warned = []
+    inner = ServingAotCache.warning
+
+    def warning(self, msg, *args):
+        warned.append(msg % args)
+        inner(self, msg, *args)
+
+    ServingAotCache.warning = warning
+    rec = {"wires": {}}
+    launches = {}
+    try:
+        snap = served_snapshot(dev, work)
+        x = torch.from_numpy(np.random.RandomState(21).randn(
+            B, HW, HW, 3).astype(np.float32)).pin_memory()
+        os.environ[AOT_CACHE_ENV] = os.path.join(work, "cli_aot.json")
+        try:
+            t0 = time.perf_counter()
+            cli = launcher.serve([ALEXNET, "--serve", "0", "-s", snap,
+                                  "--lrn-maxpool", "fused", "--serve-ring",
+                                  str(B), *SERVE_ARGS])
+            rec["cli_start_s"] = time.perf_counter() - t0
+        finally:
+            del os.environ[AOT_CACHE_ENV]
+        info = cli.model_info()["aot"]
+        cli.stop()
+        del cli
+        if info != {"source": "export", "compiles": 1}:
+            raise AssertionError(f"AOT: the CLI's server reports {info}")
+        print(f"AOT: the CLI served its exported program ({info}) after "
+              f"{rec['cli_start_s']:.2f} s (snapshot import included)",
+              flush=True)
+        wf = Snapshotter.import_(snap, restore_prng=False)
+        wf.place(dev)
+        index = os.path.join(work, "serving_aot.json")
+        for wire, k4 in AOT_WIRES:
+            launches[f"aot_{wire}"], rec["wires"][wire] = aot_wire(
+                kernels, dev, wf, wire, k4, index, x, warned)
+    finally:
+        ServingAotCache.warning = inner
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"AOT: the phase in {rec['seconds']:.2f} s", flush=True)
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
+# DP: data-parallel training over torch.distributed
+# ---------------------------------------------------------------------------
+
+#: steps compared and timed at world size 1
+DP_STEPS = 3
+#: world sizes whose ZeRO optimizer-state bytes a rank would hold, from
+#: the plan (mesh.zero_plan_local_elems): a prediction beside the
+#: measured world-1 bytes
+DP_PLAN_WORLDS = (2, 4, 8)
+DP_TWO_RANKS = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+rank, port = int(sys.argv[1]), sys.argv[2]
+from veles_tpu_torch import prng
+from veles_tpu_torch.ops import kernels
+from veles_tpu_torch.parallel import distributed, mesh as M
+from veles_tpu_torch.samples import alexnet
+kernels.build()
+distributed.initialize_distributed(f"127.0.0.1:{port}", rank, 2,
+                                   backend="gloo", timeout_s=60)
+mesh = M.make_mesh(device="cuda:0")
+prng.seed_all(1234)
+wf = alexnet.create_workflow(**json.loads(sys.argv[3]))
+for u in wf.forwards:
+    if hasattr(u, "dropout_ratio"):
+        u.dropout_ratio = 0.0
+wf.initialize(mesh.device)
+gen = torch.Generator().manual_seed(5)
+n = wf.loader.minibatch_size
+x = torch.randn((n,) + tuple(wf.loader.sample_shape), generator=gen)
+y = torch.randint(0, wf.n_classes, (n,), generator=gen)
+dp = wf.build_fused_step(mesh=mesh, zero_sharding="on")
+sd = dp.init_state()
+local = wf.build_fused_step()
+sl = local.init_state()
+sd, (ld, _) = dp.train(sd, x, y)
+sl, (ll, _) = local.train(sl, x, y)
+full = dp.gather_state(sd)
+err = max(float((a - b).abs().max()) for la, lb in
+          zip(full["params"], sl["params"]) for a, b in
+          zip(la.values(), lb.values()))
+if rank == 0:
+    print("DPTWO " + json.dumps({"loss_dp": float(ld), "loss_local":
+          float(ll), "param_err": err, "device": str(mesh.device)}),
+          flush=True)
+distributed.shutdown_distributed()
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_cli_run(launcher, kernels, dev):
+    """DP (a): `launcher.train` with `-l` at world size 1 on NCCL,
+    `--zero-sharding on`, one epoch of the full-width f32 AlexNet,
+    `fused`: exact launches (K1 16 a train step on the ZeRO slices, K4
+    twice a step, K5 twice a train step). Returns the counts."""
+    argv = [ALEXNET, "-l", f"127.0.0.1:{free_port()}", "--n-processes", "1",
+            "--zero-sharding", "on", "-r", "1234", "--lrn-maxpool", "fused",
+            "root.alexnet.decision.max_epochs=1", *TRAIN_ARGS]
+    wf, counts = train_run(launcher, kernels, dev, "dp", argv)
+    cl = wf.loader.class_lengths
+    mb = wf.loader.minibatch_size
+    train = -(-cl[2] // mb)
+    passes = train + sum(-(-c // mb) for c in cl[:2] if c)
+    check_counts("TRAIN dp", counts,
+                 {"sgd_update": N_LEAVES * train,
+                  "lrn_maxpool_forward": 2 * passes,
+                  "lrn_maxpool_backward": 2 * train})
+    print(f"TRAIN dp: K1 {N_LEAVES} a train step on the ZeRO slices, K4 "
+          f"twice in each of {passes} steps, K5 twice in each of {train} "
+          f"train steps", flush=True)
+    del wf
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dp_step_run(kernels, dev, mesh, compute_dtype):
+    """DP (b) at one compute dtype: the full-width AlexNet, dropout 0,
+    the local step and the dp step (ZeRO on) from one state on one batch,
+    DP_STEPS steps each: the states within the TRAIN gates (bf16: the
+    update distance within 2^-7), the dp steps' exact launches, host and
+    device ms a step of each, the optimizer-state bytes. Returns
+    (launches, record)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.parallel.mesh import zero_plan, zero_plan_local_elems
+    from veles_tpu_torch.samples import alexnet
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow()
+    for u in wf.forwards:
+        if hasattr(u, "dropout_ratio"):
+            u.dropout_ratio = 0.0
+    wf.initialize(dev)
+    local = wf.build_fused_step(compute_dtype=compute_dtype)
+    dp = wf.build_fused_step(compute_dtype=compute_dtype, mesh=mesh,
+                             zero_sharding="on")
+    off = wf.build_fused_step(compute_dtype=compute_dtype, mesh=mesh,
+                              zero_sharding="off")
+    sl, sd = local.init_state(), dp.init_state()
+    before = copy_state(sl)
+    x, y, w = card_batch(dev, TB, 77)
+    for _ in range(DP_STEPS):
+        sl, (ll, _) = local.train(sl, x, y, w)
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    for _ in range(DP_STEPS):
+        sd, (ld, _) = dp.train(sd, x, y, w)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    sfx = "_bf16" if compute_dtype else ""
+    check_counts(f"DP {compute_dtype or 'f32'}", counts,
+                 {"sgd_update": N_LEAVES * DP_STEPS,
+                  f"lrn_maxpool_forward{sfx}": 2 * DP_STEPS,
+                  f"lrn_maxpool_backward{sfx}": 2 * DP_STEPS})
+    full = dp.gather_state(sd)
+    bits = all(torch.equal(a, b) for a, b in zip(state_tensors(full),
+                                                  state_tensors(sl)))
+    rec = {"bit_equal_to_local": bits}
+    if compute_dtype:
+        dist = update_distance(before, full, sl)
+        check_update_distance(f"DP bf16 ({DP_STEPS} steps)", dist)
+        rec["update_distance"] = dist
+    else:
+        rec["max_abs_err"] = compare_states("DP f32", full, sl)
+    check_loss(f"DP {compute_dtype or 'f32'}", float(ld), float(ll))
+    # the replicated dp update (ZeRO off: an all-reduce per gradient)
+    so = off.init_state()
+    for _ in range(DP_STEPS):
+        so, (lo, _) = off.train(so, x, y, w)
+    if compute_dtype:
+        check_update_distance(f"DP bf16 ZeRO off ({DP_STEPS} steps)",
+                              update_distance(before, so, sl))
+    else:
+        rec["zero_off_max_abs_err"] = compare_states("DP f32 ZeRO off", so,
+                                                     sl)
+    check_loss(f"DP {compute_dtype or 'f32'} ZeRO off", float(lo),
+               float(ll))
+
+    def timed(step, state):
+        host, dev_ms = [], []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step.train(state, x, y, w)
+            end.record()
+            end.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+        return state, host, dev_ms
+    def busy(step, state):
+        """The card's busy ms a step (the sum of its kernels' and copies'
+        device time by torch.profiler's CUDA activity) over DP_STEPS
+        steps, and the host ms the profiled steps took."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DP_STEPS):
+                state, _ = step.train(state, x, y, w)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+        us = 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "device_time", None)
+                us += float(e.cuda_time if t is None else t)
+        return state, us / 1e3 / DP_STEPS, host
+
+    # in turns: local, dp, dp, local
+    sl, h1, d1 = timed(local, sl)
+    sd, h2, d2 = timed(dp, sd)
+    sd, h3, d3 = timed(dp, sd)
+    sl, h4, d4 = timed(local, sl)
+    rec.update({"local_host_ms": h1 + h4, "local_device_ms": d1 + d4,
+                "dp_host_ms": h2 + h3, "dp_device_ms": d2 + d3})
+    sl, rec["local_busy_ms"], rec["local_profiled_host_ms"] = busy(local, sl)
+    sd, rec["dp_busy_ms"], rec["dp_profiled_host_ms"] = busy(dp, sd)
+    rec["optimizer_state_bytes"] = {
+        "zero_on": dp.optimizer_state_bytes(sd),
+        "zero_off": off.optimizer_state_bytes(so),
+        "local": local.optimizer_state_bytes(sl)}
+    rec["zero_plan_bytes_per_rank"] = {
+        n: 4 * sum(zero_plan_local_elems(zero_plan(u.param_arrays(), n))
+                   for u in wf.forwards) for n in DP_PLAN_WORLDS}
+    rec["collective_accounting"] = {
+        k: v for k, v in dp.collective_accounting().items()
+        if k in ("variant", "elements", "n_shards", "dcn_bytes",
+                 "ici_bytes")}
+    rec["variant_table"] = dp.variant_table()
+    label = compute_dtype or "f32"
+    med = {k: float(np.median(v)) for k, v in rec.items()
+           if k.endswith("_ms")}
+    import torch.distributed as dist
+    print(f"DP {label}: world size 1 on {mesh.device} "
+          f"({dist.get_backend()}), ZeRO on "
+          f"({rec['variant_table'].get('grad_reduce')}): {DP_STEPS} steps "
+          f"against the local step's, "
+          + ("bit-equal" if bits else "not bit-equal")
+          + (f", update distance {max(rec['update_distance'].values()):.3e}"
+             if compute_dtype else f", max abs err {rec['max_abs_err']:.3e}")
+          + f"; launches {counts}; median ms a step: local host "
+          f"{med['local_host_ms']:.3f} device {med['local_device_ms']:.3f},"
+          f" dp host {med['dp_host_ms']:.3f} device "
+          f"{med['dp_device_ms']:.3f} (CUDA events, in turns); the card "
+          f"busy {rec['local_busy_ms']:.3f} ms a step local, "
+          f"{rec['dp_busy_ms']:.3f} dp (torch.profiler, the sum of its "
+          f"kernels and copies; {rec['local_profiled_host_ms']:.3f} and "
+          f"{rec['dp_profiled_host_ms']:.3f} host ms a profiled step)",
+          flush=True)
+    print(f"DP {label}: optimizer-state bytes a rank "
+          f"{rec['optimizer_state_bytes']}; by the ZeRO plan at "
+          f"{list(DP_PLAN_WORLDS)} ranks {rec['zero_plan_bytes_per_rank']}; "
+          f"modeled bytes a step {rec['collective_accounting']}",
+          flush=True)
+    del wf, local, dp, off, sl, sd, so, full
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def dp_two_ranks():
+    """DP (c): two ranks on the one card. NCCL refuses two ranks of one
+    communicator on one device, so the two processes join a gloo group
+    with their tensors on cuda:0 and take one step of the toy AlexNet with
+    ZeRO on, held against the local step; where gloo cannot run the
+    step's collectives on CUDA tensors, the line says why and the check
+    stays at world size 1. Returns the record."""
+    work = tempfile.mkdtemp(prefix="veles_dp2_")
+    script = os.path.join(work, "two_ranks.py")
+    with open(script, "w") as f:
+        f.write(DP_TWO_RANKS)
+    port = str(free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    toy = json.dumps({k: v for k, v in TOY_ARGS.items()})
+    procs = [subprocess.Popen([sys.executable, script, str(r), port, toy],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out after 240 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    line = [ln for out in outs for ln in out.splitlines()
+            if ln.startswith("DPTWO ")]
+    if line and all(p.returncode == 0 for p in procs):
+        rec = json.loads(line[0][len("DPTWO "):])
+        if not rec["param_err"] <= 1e-5 or not np.isfinite(rec["loss_dp"]):
+            raise AssertionError(f"DP two ranks: {rec}")
+        print(f"DP two ranks: gloo over CUDA tensors on one card, ZeRO on, "
+              f"toy AlexNet: one step within {rec['param_err']:.3e} of the "
+              f"local step's parameters (loss {rec['loss_dp']} against "
+              f"{rec['loss_local']})", flush=True)
+        return dict(rec, ran=True)
+    last = [ln for out in outs for ln in out.splitlines()
+            if "Error" in ln or "error" in ln]
+    why = (last[-1] if last else outs[-1][-300:] if outs else "no output")
+    print(f"DP two ranks: none on this card — NCCL refuses two ranks on "
+          f"one device, and gloo over CUDA tensors failed: {why.strip()}; "
+          f"the chip check stays at world size 1", flush=True)
+    return {"ran": False, "why": why.strip()[:500]}
+
+
+def dp_phase(launcher, kernels, dev):
+    """DP: (a) the CLI's dp run at world size 1, (b) the dp step against
+    the local step in f32 and bf16 with memstats' figures, (c) two ranks
+    on the one card where the card allows. Returns (launches by path,
+    record)."""
+    from veles_tpu_torch.parallel import distributed, memstats
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    launches = {"dp_cli": dp_cli_run(launcher, kernels, dev)}
+    rec = {}
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        mesh = make_mesh()
+        for dt in (None, "bfloat16"):
+            label = dt or "f32"
+            launches[f"dp_{label}"], rec[label] = dp_step_run(
+                kernels, dev, mesh, dt)
+        rec["memstats"] = memstats.device_memory_stats()
+        rec["memory_limits"] = memstats.device_memory_limits()
+        print(f"DP memstats: {rec['memstats']}; limits "
+              f"{rec['memory_limits']}", flush=True)
+    finally:
+        distributed.shutdown_distributed()
+    rec["two_ranks"] = dp_two_ranks()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"DP: the phase in {rec['seconds']:.2f} s", flush=True)
+    return launches, rec
+
+
 def autotune_phase(launcher, kernels, libs, dev, card):
     """AUTOTUNE: the generated points of K1-K4 and K6/K7 held and timed,
     then the search on the main path. Returns (the plain --fused run's
@@ -6573,6 +7090,12 @@ def run_phases(args) -> int:
               flush=True)
         with alexnet_config_kept():
             by_path["fleet"], fleet = fleet_phase(launcher, kernels, dev)
+        with alexnet_config_kept():
+            aot_launches, aot = aot_phase(launcher, kernels, dev)
+        by_path.update(aot_launches)
+        with alexnet_config_kept():
+            dp_launches, dp = dp_phase(launcher, kernels, dev)
+        by_path.update(dp_launches)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     by_path.update(serve_wires_launches)
@@ -6690,7 +7213,7 @@ def run_phases(args) -> int:
                    "granular_resume": granular_resume,
                    "conv_stem": conv_stem, "samples": samples,
                    "autotune": autotune, "serve_wires": serve_wires,
-                   "fleet": fleet},
+                   "fleet": fleet, "aot": aot, "dp": dp},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -347,6 +347,70 @@ def test_fleet_modules_stand_alone(module, imports_with_jax_blocked):
         imports_with_jax_blocked[module]
 
 
+#: the modules the serialized serving program and the data-parallel
+#: slice (the mesh, the process group, memory accounting, the
+#: grad_reduce family, the dp step, the loaders' rows, the CLI) added or
+#: extended
+DP_AOT_MODULES = ["veles_tpu_torch.serving_aot",
+                  "veles_tpu_torch.serving",
+                  "veles_tpu_torch.export",
+                  "veles_tpu_torch.ops.kernels",
+                  "veles_tpu_torch.ops.variants",
+                  "veles_tpu_torch.parallel.mesh",
+                  "veles_tpu_torch.parallel.distributed",
+                  "veles_tpu_torch.parallel.memstats",
+                  "veles_tpu_torch.parallel.fused",
+                  "veles_tpu_torch.parallel.checkpoint",
+                  "veles_tpu_torch.loader.base",
+                  "veles_tpu_torch.znicz.standard_workflow",
+                  "veles_tpu_torch.launcher"]
+
+
+@pytest.mark.parametrize("module", DP_AOT_MODULES)
+def test_dp_and_aot_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
+def test_dp_entry_points_ask_for_the_card(monkeypatch):
+    """A rank's device is its card; without CUDA the rank's device and
+    the default (NCCL) process group are refused, as every other entry
+    point refuses, until the caller asks for the CPU. Memory statistics
+    never initialize CUDA, and a process without a group is its own
+    coordinator."""
+    from veles_tpu_torch.parallel import distributed, memstats, mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert mesh.default_device(3) == torch.device("cuda", 1)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert mesh.default_device(3) == torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mesh.default_device(3)
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+
+    def no_group(*args, **kwargs):
+        raise AssertionError("a process group was started")
+
+    monkeypatch.setattr(dist, "init_process_group", no_group)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        distributed.initialize_distributed("127.0.0.1:1", 0, 1)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    assert memstats.device_memory_stats() is None
+    assert memstats.device_memory_limits() is None
+    assert memstats.bytes_per_device(
+        [torch.zeros(3), torch.zeros(2, dtype=torch.float64), "x"]) \
+        == {"cpu": 28}
+    assert distributed.is_coordinator()
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_mesh()
+
+
 def test_torch_generator_follows_the_seed(monkeypatch):
     monkeypatch.setattr(prng, "_generators", {})
     monkeypatch.setattr(prng, "_base_seed", None)

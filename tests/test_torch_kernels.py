@@ -171,7 +171,9 @@ def test_registry_resolution_and_device_gating():
             "sgd_update": ["kernel", "tree"],
             "flash_attn": ["kernel", "mha"],
             "conv_stem": ["direct", "s2d"],
-            "serve_forward": ["bf16", "f32", "int8"]}
+            "serve_forward": ["bf16", "f32", "int8"],
+            "grad_reduce": ["bf16", "f32", "hier2", "int8_block",
+                            "int8_ef"]}
     with pytest.raises(KeyError):
         variants.get("lrn", "plain")
     composed = variants.get("lrn_maxpool", "composed")

@@ -12,8 +12,11 @@ The weights are the workflow's own tensors (`params_host()`: what the
 fused step wrote back and the server serves), or a parameter tree given
 as `params`. Every unit family of the port has an exporter but stochastic
 pooling, which, like a unit with no native twin in the JAX package, is
-refused. The LSTM and MoE exporters come with their units; the JAX
-module's `export_stablehlo` comes with the port's serialized program.
+refused. The LSTM and MoE exporters come with their units.
+
+`export_program` is the counterpart of the JAX module's
+`export_stablehlo` (:182 there): the fused eval forward as a portable
+program, a `torch.export` `.pt2` in place of StableHLO text.
 """
 
 from __future__ import annotations
@@ -148,7 +151,9 @@ def export_workflow(workflow, directory: str,
     for u, p in zip(forwards, params):
         name = type(u).__name__
         if name not in _EXPORTERS:
-            raise ValueError(f"no native exporter for unit {name}")
+            raise ValueError(f"no native exporter for unit {name}; export "
+                             f"the fused forward via export_program "
+                             f"instead")
         spec, arrays = _EXPORTERS[name](
             u, {k: np.asarray(a.detach().cpu() if hasattr(a, "detach")
                               else a) for k, a in p.items()})
@@ -173,3 +178,27 @@ def export_workflow(workflow, directory: str,
         for a in blobs:
             f.write(a.astype("<f4").tobytes())
     return directory
+
+
+def export_program(workflow, path: str, batch: int = 1) -> str:
+    """Write the fused eval forward (the logits, as `FusedForward._forward`
+    returns them) at `batch` rows as a `torch.export` program to `path`
+    (a `.pt2`) and return it: the port's counterpart of the JAX
+    `export_stablehlo` (veles_tpu/export.py:182). As the StableHLO module
+    takes the parameters as arguments, the program takes them as inputs:
+    `torch.export.load(path).module()(x, params)` with x (batch, *sample
+    shape) f32 on the workflow's device and params one `{name: tensor}`
+    per forward unit (`workflow.build_forward().params()`). K2 and K4 are
+    calls of the `veles::` operators: import
+    `veles_tpu_torch.ops.kernels` before loading it (a program is code:
+    load only what you would run)."""
+    import torch
+
+    from veles_tpu_torch.serving_aot import export_forward
+    fwd = workflow.build_forward()
+    params = tuple({k: t.detach() for k, t in layer.items()}
+                   for layer in fwd.params())
+    x = torch.zeros((int(batch),) + tuple(workflow.loader.sample_shape),
+                    dtype=torch.float32, device=fwd.device)
+    torch.export.save(export_forward(fwd._forward, x, params), path)
+    return path

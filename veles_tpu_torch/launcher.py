@@ -40,7 +40,11 @@ low-byte wire of the parameters (refused unserved without a passing
 equivalence record or beyond 0.05 of the f32 forward), and
 `--serve-watch-mirror SPEC` polls a snapshot mirror (a directory or an
 http(s) URL) every $VELES_WATCH_POLL_S seconds (10) and hot-swaps each
-new snapshot into the running ring (serving_watch.py).
+new snapshot into the running ring (serving_watch.py). Where
+$VELES_SERVING_AOT_CACHE names an index file, the ring serves its
+serialized program from that cache, exported at the first start
+(serving_aot.py; a program is code: trust the directory as the python
+environment).
 
 The fleet (JAX launcher.py:698-790): `--serve-replicas N` starts N
 servers of one workflow build in this process (`--serve PORT` gives them
@@ -70,6 +74,21 @@ cached winners without timing anything (`apply_cached`, JAX
 launcher.py:787-813). The cache is $VELES_AUTOTUNE_CACHE, else
 ~/.cache/veles_tpu_torch/autotune.json.
 
+Data-parallel training over several processes (JAX __main__.py:60-67,
+:261; launcher.py:340-365, :874-888): `-l HOST:PORT` founds the process
+group (the coordinator, `--process-id 0`) and `-m HOST:PORT` joins it,
+each process with its `--process-id` and the group's `--n-processes`;
+every process runs the same command, one card each (`LOCAL_RANK`, else
+the process id modulo the host's cards; gloo on the CPU under `--device
+cpu`), and trains the fused step in dp mode on the global minibatches
+(parallel/fused.py; `--fused` is implied, as in the JAX launcher).
+`--zero-sharding {on,off,auto}` gates its ZeRO update ("auto", the
+default: on wherever the data axis has more than one rank; "on" shards it
+on one rank too) and needs `--fused` or `-l`/`-m`. Snapshots are written
+by the coordinator alone (`-s` restores on every rank: a snapshot holds
+the gathered velocities, so it restores at any world size).
+`--autotune`, `--serve` and `--supervise` refuse `-l`/`-m`.
+
 `--supervise` makes this process the supervisor
 (`resilience/supervisor.py`) of a child running the same command line
 without the supervisor's flags: it is routed before torch is imported,
@@ -94,6 +113,7 @@ import threading
 from typing import List, Optional
 
 from veles_tpu_torch.config import parse_override, root
+from veles_tpu_torch.serving_aot import AOT_CACHE_ENV
 from veles_tpu_torch.logger import set_verbosity
 
 
@@ -161,6 +181,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "the pool's lowerings), each gated by its "
                         "reference contract and the card's shared memory "
                         "before it is timed")
+    p.add_argument("-l", "--listen", default="", metavar="HOST:PORT",
+                   help="found the data-parallel process group at this "
+                        "address (the coordinator, --process-id 0)")
+    p.add_argument("-m", "--master", default="", metavar="HOST:PORT",
+                   help="join the data-parallel process group at this "
+                        "address")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's rank in the distributed job")
+    p.add_argument("--n-processes", type=int, default=1,
+                   help="total process count in the distributed job")
+    p.add_argument("--zero-sharding", nargs="?", const="on",
+                   default="auto", choices=("on", "off", "auto"),
+                   metavar="{on,off,auto}",
+                   help="ZeRO-sharded update of the fused dp step: "
+                        "reduce-scatter the gradients, update this rank's "
+                        "1/N slice of the parameters and optimizer state, "
+                        "all-gather the parameters (default auto: on "
+                        "wherever the data axis has more than one rank)")
     p.add_argument("--nonfinite-guard", action="store_true",
                    help="abort training with exit code 81 the moment the "
                         "loss goes NaN/inf (the supervisor then rolls "
@@ -288,6 +326,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "URL / --route SPEC for workflow-less modes)")
     if args.fused and args.serve is not None:
         p.error("--fused trains and --serve serves: give one of them")
+    # the distributed run's refusals (JAX launcher.py:75-106, :275-291)
+    distributed = bool(args.listen or args.master)
+    if args.listen and args.master:
+        p.error("-l founds the process group and -m joins it: give one")
+    if distributed:
+        if args.serve is not None:
+            p.error("-l/-m run distributed training: they conflict with "
+                    "--serve")
+        if args.autotune:
+            p.error("--autotune tunes on one process: it conflicts with "
+                    "a distributed -l/-m run")
+        if args.supervise:
+            p.error("--supervise supervises one process: it conflicts "
+                    "with a distributed -l/-m run")
+        if args.n_processes < 1 or not \
+                0 <= args.process_id < args.n_processes:
+            p.error(f"--process-id {args.process_id} is not a rank of "
+                    f"--n-processes {args.n_processes}")
+        if args.listen and args.process_id != 0:
+            p.error("-l founds the group: it is --process-id 0 (workers "
+                    "join with -m)")
+        args.fused = True
+    if args.zero_sharding != "auto" and not args.fused:
+        raise SystemExit("--zero-sharding gates the fused dp update: "
+                         "combine with --fused or a distributed -l/-m run")
     granular = not args.fused and args.serve is None
     if args.backend != "torch" and not granular:
         p.error("-b/--backend picks the granular graph's backend: give it "
@@ -305,7 +368,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.accum and args.accum > 1 and not args.fused:
         p.error("--accum applies to the fused step: combine with --fused")
     # the JAX launcher's --autotune refusals (launcher.py:75-99 there;
-    # the port has no listen/master modes: it runs one process)
+    # with -l/-m, below)
     if args.autotune and args.serve is not None:
         p.error("--autotune tunes a training step; it conflicts with "
                 "--serve")
@@ -489,6 +552,37 @@ def _select_lowerings(wf, args: argparse.Namespace) -> None:
             "autotune cache applied: %s", wf.autotune_applied)
 
 
+def _run_distributed(wf, args: argparse.Namespace) -> None:
+    """The fused dp run of one rank: join the process group (NCCL on a
+    card, gloo under --device cpu), lay the mesh over it, train, leave
+    (JAX launcher.py:874-888)."""
+    import logging
+
+    from veles_tpu_torch.ops import variants
+    from veles_tpu_torch.parallel import distributed
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    cpu = args.device is not None and str(args.device).startswith("cpu")
+    distributed.initialize_distributed(
+        args.listen or args.master, process_id=args.process_id,
+        n_processes=args.n_processes, backend="gloo" if cpu else None)
+    try:
+        # on a card this makes the rank's card the current device, which
+        # the workflow is placed on below
+        mesh = make_mesh(device="cpu" if cpu else None)
+        logging.getLogger("veles_torch.launcher").info(
+            "distributed %s: %d processes, mesh %s",
+            "coordinator" if args.listen else "worker", args.n_processes,
+            mesh)
+        with variants.selection_kept():
+            _select_lowerings(wf, args)
+            wf.run_fused(mesh=mesh, feed_ahead=args.feed_ahead,
+                         nonfinite_guard=args.nonfinite_guard,
+                         accum_steps=args.accum,
+                         zero_sharding=args.zero_sharding)
+    finally:
+        distributed.shutdown_distributed()
+
+
 def train(argv: Optional[List[str]] = None):
     """Parse `argv` (which must not hold --serve), build the workflow
     through its module's `run(load, main)` (or restore it under -s) and
@@ -510,7 +604,9 @@ def train(argv: Optional[List[str]] = None):
             wf.snapshotter.mirror = args.mirror
         installed = _install_run_hooks(wf)
         try:
-            if args.fused:
+            if args.listen or args.master:
+                _run_distributed(wf, args)
+            elif args.fused:
                 # the run's winners stay its own: the process's selection
                 # is restored when it returns
                 with variants.selection_kept():
@@ -518,7 +614,8 @@ def train(argv: Optional[List[str]] = None):
                     wf.run_fused(device=args.device,
                                  feed_ahead=args.feed_ahead,
                                  nonfinite_guard=args.nonfinite_guard,
-                                 accum_steps=args.accum)
+                                 accum_steps=args.accum,
+                                 zero_sharding=args.zero_sharding)
             else:
                 # the granular graph: the Decision raises at the
                 # minibatch whose loss goes non-finite (JAX :909-916)
@@ -605,7 +702,10 @@ def serve(argv: Optional[List[str]] = None):
                     quantize=args.serve_quantize or "f32",
                     token=args.serve_token, max_body=args.serve_max_body,
                     device=args.device,
-                    replica=f"r{i}-{suffix}" if fleet_mode else None
+                    replica=f"r{i}-{suffix}" if fleet_mode else None,
+                    # the serialized program where its cache is named
+                    aot_cache="auto" if os.environ.get(AOT_CACHE_ENV)
+                    else None
                 ).start())
             srv = fleet.servers[0]
             info = srv.model_info()

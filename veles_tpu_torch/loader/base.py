@@ -32,8 +32,13 @@ the produce threads and their lookahead: with the feed's `prefetch()`
 after the Decision, a snapshot taken there holds the cursor of the
 consumed batch + 1, and the restored loader produces from it again
 (the exact-resume window). Class-balanced
-sampling, and the multi-host `local_rows_fn` sharding of production,
-come with later slices.
+sampling comes with a later slice.
+
+Data-parallel production (`local_rows_fn`, JAX base.py:264-345): a dp
+run (parallel/fused.py) sets it to the step's `local_rows`, and a rank
+then produces only the rows of the global minibatch its data shard
+trains on, the others zero-filled (the step never reads them), so the
+host work divides by the ranks. Not pickled: the next run wires it.
 """
 
 from __future__ import annotations
@@ -221,8 +226,9 @@ class PrefetchingLoader(Loader):
         self._pool: Optional[ThreadPoolExecutor] = None
         #: cursor -> (indices, future) of the lookahead
         self._pending: dict = {}
-        #: the multi-host sharding of production (a later slice): stays
-        #: None, every row is produced
+        #: data-parallel production: `local_rows_fn(n) -> bool (n,)` marks
+        #: the global minibatch rows this rank trains on (set by a dp
+        #: run); None produces every row
         self.local_rows_fn = None
         #: rows produced (tests, observability)
         self.rows_decoded = 0
@@ -275,7 +281,24 @@ class PrefetchingLoader(Loader):
         x, y = self._produce_batch(indices)
         return self._augment(x, indices), y
 
+    def local_rows_mask(self, n: int) -> np.ndarray:
+        """Which of `n` global minibatch rows this process produces (all
+        of them outside a data-parallel run)."""
+        fn = self.local_rows_fn
+        return np.ones(n, bool) if fn is None else np.asarray(fn(n))
+
     def _produce(self, indices: np.ndarray):
+        if self.local_rows_fn is not None:
+            mask = self.local_rows_mask(len(indices))
+            if not mask.all():
+                x, y = self._produce_rows(indices[mask])
+                with self._count_lock:
+                    self.rows_decoded += int(mask.sum())
+                fx = np.zeros((len(indices),) + x.shape[1:], x.dtype)
+                fy = np.zeros((len(indices),) + y.shape[1:], y.dtype)
+                fx[mask] = x
+                fy[mask] = y
+                return fx, fy
         x, y = self._produce_rows(indices)
         with self._count_lock:
             self.rows_decoded += len(indices)

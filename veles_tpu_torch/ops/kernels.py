@@ -18,7 +18,14 @@ The port's counterpart of `veles_tpu/ops/pallas_kernels.py`:
 - `LRNFunction` (K2 forward, K3 backward), `LRNMaxPoolFunction` (K4
   forward, K5 backward) and `FlashAttentionFunction` (K6 forward, K7
   backward) are the counterparts of the custom VJPs `lrn_pallas`,
-  `lrn_maxpool_pallas` and `_flash_attn` / `_flash_attn_drop`.
+  `lrn_maxpool_pallas` and `_flash_attn` / `_flash_attn_drop`;
+- `lrn_forward_op` and `lrn_maxpool_forward_op` are K2 and K4 as the
+  `torch.library` operators `veles::lrn_forward` and
+  `veles::lrn_maxpool_forward` (the wrappers on the card, the plain
+  versions on the CPU, a fake-tensor rule each), which the two LRN
+  autograd functions call inside `operators_traced()`: what a
+  `torch.export` program of a forward records and calls
+  (serving_aot.py).
 
 The kernels are CUDA C++ for `sm_90a` under `veles_tpu_torch/csrc/`,
 each source compiled by `nvcc` into its own shared library with a plain C
@@ -53,6 +60,7 @@ and v to f32 around K6 and K7, as `flash_attention_pallas` does.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -62,7 +70,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -844,16 +852,89 @@ def flash_attention_backward(qf: torch.Tensor, kf: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# K2 and K4 as operators of the `veles` namespace: a program traced by
+# torch.export records one call of each (a ctypes call cannot be traced),
+# and a loaded program calls the hand kernel through them
+# ---------------------------------------------------------------------------
+
+_tracing = threading.local()
+
+
+@contextlib.contextmanager
+def operators_traced():
+    """While a program is traced (serving_aot.export_forward), the LRN
+    autograd functions call K2 and K4 through their operators, which the
+    program records. Elsewhere they call the wrappers: an operator's
+    dispatch costs an eager call 20-45 host us more (op_dispatch_cost.py
+    on an H100 80GB HBM3 machine), which slowed AlexNet's bf16 64-row
+    ring round by 2%."""
+    before = getattr(_tracing, "on", False)
+    _tracing.on = True
+    try:
+        yield
+    finally:
+        _tracing.on = before
+
+
+@torch.library.custom_op("veles::lrn_forward", mutates_args=(),
+                         device_types="cuda")
+def lrn_forward_op(x: torch.Tensor, k: float, alpha: float, beta: float,
+                   n: int, tile: int) -> torch.Tensor:
+    """K2 (through `lrn_forward`, which counts the launch) on the card."""
+    return lrn_forward(x, k, alpha, beta, n, tile=tile)
+
+
+@lrn_forward_op.register_kernel("cpu")
+def _lrn_forward_op_cpu(x, k, alpha, beta, n, tile):
+    return lrn_forward_plain(x, k, alpha, beta, n)
+
+
+@lrn_forward_op.register_fake
+def _lrn_forward_op_fake(x, k, alpha, beta, n, tile):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("veles::lrn_maxpool_forward", mutates_args=(),
+                         device_types="cuda")
+def lrn_maxpool_forward_op(x: torch.Tensor, k: float, alpha: float,
+                           beta: float, n: int, ksize: List[int],
+                           stride: List[int], rb: int,
+                           cb: int) -> torch.Tensor:
+    """K4 (through `lrn_maxpool_forward`, which counts the launch) on the
+    card."""
+    return lrn_maxpool_forward(x, k, alpha, beta, n, ksize, stride,
+                               rb=rb, cb=cb)
+
+
+@lrn_maxpool_forward_op.register_kernel("cpu")
+def _lrn_maxpool_forward_op_cpu(x, k, alpha, beta, n, ksize, stride, rb,
+                                cb):
+    return lrn_maxpool_forward_plain(x, k, alpha, beta, n, ksize, stride)
+
+
+@lrn_maxpool_forward_op.register_fake
+def _lrn_maxpool_forward_op_fake(x, k, alpha, beta, n, ksize, stride, rb,
+                                 cb):
+    nb, h, w, c = x.shape
+    oh, ow = fn.pool_out_hw(h, w, *_pool_geometry(ksize, stride))
+    return x.new_empty((nb, oh, ow, c))
+
+
 class LRNFunction(torch.autograd.Function):
     """LRN with K2 forward and K3 backward (`lrn_pallas`'s custom VJP);
     `tile` (0: LRN_TILE) is both kernels', as the JAX `row_tile` is both
-    passes'."""
+    passes'. Inside `operators_traced()` the forward calls K2 through its
+    operator (`lrn_forward_op`), so that an exported program keeps it."""
 
     @staticmethod
     def forward(ctx, x, k, alpha, beta, n, tile=0):
         ctx.save_for_backward(x)
         ctx.hyper = (k, alpha, beta, n)
         ctx.tile = tile
+        if getattr(_tracing, "on", False):
+            return lrn_forward_op(x, float(k), float(alpha), float(beta),
+                                  int(n), int(tile))
         return lrn_forward(x, k, alpha, beta, n, tile=tile)
 
     @staticmethod
@@ -866,12 +947,19 @@ class LRNFunction(torch.autograd.Function):
 class LRNMaxPoolFunction(torch.autograd.Function):
     """LRN then ceil-mode max pool with K4 forward and K5 backward
     (`lrn_maxpool_pallas`'s custom VJP); `rb` x `cb` is K4's band (K5
-    keeps its own)."""
+    keeps its own). Inside `operators_traced()` the forward calls K4
+    through its operator (`lrn_maxpool_forward_op`), so that an exported
+    program keeps it."""
 
     @staticmethod
     def forward(ctx, x, k, alpha, beta, n, ksize, stride, rb=0, cb=0):
         ctx.save_for_backward(x)
         ctx.hyper = (k, alpha, beta, n, tuple(ksize), tuple(stride))
+        if getattr(_tracing, "on", False):
+            return lrn_maxpool_forward_op(
+                x, float(k), float(alpha), float(beta), int(n),
+                [int(v) for v in ksize], [int(v) for v in stride],
+                int(rb), int(cb))
         return lrn_maxpool_forward(x, k, alpha, beta, n, ksize, stride,
                                    rb=rb, cb=cb)
 

@@ -341,6 +341,260 @@ register(Variant("sgd_update", "tree", optim.sgd_update,
                  doc="per-leaf tensor rule (ops/optim.py)"))
 
 
+# -- grad_reduce: apply(flat, mesh, resid=None) -> this rank's slice -------
+#    The ZeRO update's reduction (JAX variants.py:394-690): every rank
+#    holds its partial of a (padded,) flat gradient (the global-mean
+#    normalization already in it), and each gets back the summed slice
+#    it owns, [rank*local, (rank+1)*local), over the mesh's process
+#    group (parallel/mesh.py):
+#
+#    - f32: `reduce_scatter_tensor` in the gradient dtype, exact;
+#    - bf16: the same in bf16 (bytes /2), summed back in f32;
+#    - int8_block: each rank codes the rows bound for each member as
+#      per-block absmax int8 (blk 256: `q8_encode`, bit for bit
+#      ops/reference.quantize_blockwise) with f32 scales, and an
+#      `all_to_all_single` of the codes and one of the scales takes each
+#      row to its owner, which decodes and sums in f32 (bytes ~/4);
+#    - int8_ef: int8_block with error feedback: the quantization
+#      residual (x + resid - decode(code(x + resid))) rides in the ZeRO
+#      state's "ef" slot and is added back before the next coding;
+#    - hier2: two levels over the (hosts x local) factorization of the
+#      ranks (`grad_reduce_geometry`): a reduce-scatter inside each
+#      host's group in the gradient dtype, then one across the hosts'
+#      groups of the 1/n_local partials (cross-host bytes /n_local);
+#      exact f32, the flat scatter where the factorization degenerates.
+#
+#    The template-generated `wire[dt,blk,ef,hier]` points come with the
+#    kernel search's second half. `grad_reduce_bytes` is the JAX byte
+#    model, modeled from the collective's algorithm and the plan sizes.
+
+GRAD_REDUCE_LOCAL_ENV = "VELES_GRAD_REDUCE_LOCAL"
+
+#: canonical configs of the named family members (JAX variants.py:407)
+_GR_NAMED: Dict[str, Dict[str, Any]] = {
+    "f32": {"dt": "f32", "blk": 0, "ef": 0, "hier": 0},
+    "bf16": {"dt": "bf16", "blk": 0, "ef": 0, "hier": 0},
+    "int8_block": {"dt": "int8", "blk": 256, "ef": 0, "hier": 0},
+    "int8_ef": {"dt": "int8", "blk": 256, "ef": 1, "hier": 0},
+    "hier2": {"dt": "f32", "blk": 0, "ef": 0, "hier": 1},
+}
+
+
+def grad_reduce_local_request(n_shards: int,
+                              n_hosts: Optional[int] = None) -> int:
+    """The UNCLAMPED request for the ranks of one host's group:
+    $VELES_GRAD_REDUCE_LOCAL (an explicit geometry, as in the JAX
+    function: CPU tests, odd topologies), else the mesh's ranks a host
+    (`n_hosts`, the hosts `make_mesh` counted; the ranks laid out host
+    by host, as --process-id numbers them), else $LOCAL_WORLD_SIZE (the
+    processes on this host, as a launcher such as torchrun sets it; the
+    JAX function reads the host's device count), else `n_shards` (one
+    host)."""
+    import os
+    raw = os.environ.get(GRAD_REDUCE_LOCAL_ENV)
+    if not raw and n_hosts:
+        return n_shards // int(n_hosts)
+    raw = raw or os.environ.get("LOCAL_WORLD_SIZE")
+    if raw:
+        try:
+            return int(raw)
+        except ValueError:
+            return 0
+    return n_shards
+
+
+def grad_reduce_geometry(n_shards: int,
+                         n_hosts: Optional[int] = None) -> tuple:
+    """(n_hosts, n_local): the request clamped to the largest divisor of
+    `n_shards` it does not exceed, so the groups tile the ranks; (1, n)
+    or (n, 1) make the hierarchy degenerate to the flat exchange."""
+    loc = grad_reduce_local_request(n_shards, n_hosts)
+    loc = max(1, min(int(loc), n_shards))
+    while n_shards % loc:
+        loc -= 1
+    return n_shards // loc, loc
+
+
+def grad_reduce_config(name: Any) -> Optional[Dict[str, Any]]:
+    """Canonical EFFECTIVE config {dt, blk, ef, hier} of a named
+    grad_reduce variant (None for any other name): error feedback and
+    the block are int8-only, so they read 0 for a float wire."""
+    cfg = _GR_NAMED.get(name)
+    if cfg is None:
+        return None
+    cfg = dict(cfg)
+    if cfg["dt"] != "int8":
+        cfg["ef"] = 0
+        cfg["blk"] = 0
+    return cfg
+
+
+def grad_reduce_resid_len(name: str, padded: int, n_shards: int,
+                          n_hosts: Optional[int] = None) -> Optional[int]:
+    """Per-rank error-feedback residual length of one (padded,) flat leaf
+    under `name`, None for a stateless variant: the flat int8+EF exchange
+    codes the whole partial (padded elements), the hierarchical one only
+    the cross-host leg's 1/n_local slice."""
+    cfg = grad_reduce_config(name)
+    if not cfg or not cfg["ef"]:
+        return None
+    if cfg["hier"]:
+        h, loc = grad_reduce_geometry(n_shards, n_hosts)
+        if h > 1 and loc > 1:
+            return padded // loc
+    return padded
+
+
+def grad_reduce_bytes(name: str, n_elems: int, n_shards: int,
+                      n_hosts: Optional[int] = None) -> Dict[str, Any]:
+    """Modeled per-rank egress bytes a train step's exchange moves (and
+    the parameter all-gather's), split into the cross-host leg ("dcn")
+    and the in-host leg ("ici", the JAX names) under the (hosts x local)
+    geometry (`n_hosts` as in `grad_reduce_local_request`): the JAX
+    function (variants.py:468-504), number for number."""
+    cfg = grad_reduce_config(name) or dict(_GR_NAMED["f32"])
+    h, loc = grad_reduce_geometry(n_shards, n_hosts)
+    item = {"f32": 4.0, "bf16": 2.0, "int8": 1.0}[cfg["dt"]]
+    if cfg["dt"] == "int8" and cfg["blk"]:
+        item += 4.0 / cfg["blk"]      # the scales ride the same exchange
+    n = n_shards
+    if cfg["hier"] and h > 1 and loc > 1:
+        ici = n_elems * (loc - 1) / loc * 4.0
+        dcn = (n_elems / loc) * (h - 1) / h * item
+    else:
+        dcn = n_elems * (n - loc) / n * item
+        ici = n_elems * (loc - 1) / n * item
+    return {"dcn_bytes": int(dcn), "ici_bytes": int(ici),
+            "allgather_dcn_bytes": int(n_elems / n * (n - loc) * 4.0),
+            "allgather_ici_bytes": int(n_elems / n * (loc - 1) * 4.0),
+            "geometry": {"hosts": h, "local": loc},
+            "config": cfg}
+
+
+def q8_encode(x2: torch.Tensor, blk: int):
+    """ops/reference.quantize_blockwise over the last axis of a 2-D
+    (rows, cols) f32 tensor, cols zero-padded up to a block multiple, bit
+    for bit: (codes int8 (rows, colsp), scales f32 (rows, colsp//blk))."""
+    rows, cols = x2.shape
+    pad = (-cols) % blk
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros(rows, pad)], dim=1)
+    xb = x2.reshape(rows, -1, blk)
+    absmax = xb.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127) \
+        .to(torch.int8)
+    return q.reshape(rows, -1), scale
+
+
+def _reduce_scatter(out, inp, group):
+    import torch.distributed as dist
+    dist.reduce_scatter_tensor(out, inp, group=group)
+    return out
+
+
+def _q8_exchange(x, group, blk, resid, local, want_resid):
+    """Blockwise-int8 exchange-and-accumulate over `group`: row j of `x`
+    (rows = the group's size, local columns) is bound for its j-th
+    member; code each row (with `resid` added first), send codes and
+    scales to their owners by `all_to_all_single`, decode and sum in f32.
+    Returns (my summed (local,) slice, the new residual or None)."""
+    import torch.distributed as dist
+    if resid is not None:
+        x = x + resid.reshape(x.shape)
+    q, s = q8_encode(x, blk)
+    new_resid = None
+    if want_resid:
+        new_resid = (x - q8_decode(q, s, blk)[:, :local]).reshape(-1)
+    q_r, s_r = torch.empty_like(q), torch.empty_like(s)
+    dist.all_to_all_single(q_r, q, group=group)
+    dist.all_to_all_single(s_r, s, group=group)
+    return q8_decode(q_r, s_r, blk)[:, :local].sum(dim=0), new_resid
+
+
+def grad_reduce_apply(cfg: Dict[str, Any]) -> Callable[..., Any]:
+    """The one grad_reduce apply of a config point: `apply(flat, mesh,
+    resid=None)` reduces the rank's (padded,) flat partial over
+    `mesh.group` and returns its summed (padded/N,) slice, or (slice,
+    new residual) for a stateful (EF) point; `resid=None` means a zero
+    residual. `apply.gr_config` names the point."""
+    dt = cfg["dt"]
+    blk = int(cfg.get("blk") or 256)
+    ef = bool(cfg.get("ef")) and dt == "int8"
+    hier = bool(cfg.get("hier"))
+
+    def apply(flat, mesh, resid=None):
+        n = mesh.size
+        h, loc = grad_reduce_geometry(n, mesh.n_hosts)
+        two_level = hier and h > 1 and loc > 1
+        local = flat.shape[0] // n
+        new_resid = None
+        if two_level:
+            lgroup, cgroup = mesh.subgroups(h, loc)
+            # in-host leg: rank (host hh, local ll) gets row ll of the
+            # (loc, h, local) layout — the partials of the slices
+            # {hh' * loc + ll}, summed over its host's group
+            x = flat.to(torch.float32).reshape(h, loc, local) \
+                .transpose(0, 1).contiguous().reshape(-1)
+            x = _reduce_scatter(x.new_empty(h * local), x,
+                                lgroup).reshape(h, local)
+            if dt == "int8":
+                out, new_resid = _q8_exchange(
+                    x, cgroup, blk, resid if ef else None, local, ef)
+            else:
+                w = x.to(torch.bfloat16) if dt == "bf16" else x
+                out = _reduce_scatter(w.new_empty(local), w.reshape(-1),
+                                      cgroup).to(torch.float32)
+        elif dt == "int8":
+            out, new_resid = _q8_exchange(
+                flat.to(torch.float32).reshape(n, local), mesh.group, blk,
+                resid if ef else None, local, ef)
+        elif dt == "bf16":
+            w = flat.to(torch.bfloat16)
+            out = _reduce_scatter(w.new_empty(local), w,
+                                  mesh.group).to(torch.float32)
+        else:
+            out = _reduce_scatter(flat.new_empty(local), flat.contiguous(),
+                                  mesh.group)
+        out = out.to(flat.dtype)
+        return (out, new_resid) if ef else out
+
+    apply.gr_config = {"dt": dt, "blk": blk if dt == "int8" else 0,
+                       "ef": int(ef), "hier": int(hier)}
+    return apply
+
+
+register_op(
+    "grad_reduce", default="f32",
+    doc="ZeRO weight-update reduce-scatter of the ranks' partial "
+        "gradients over the process group (the compressed and "
+        "hierarchical points trade gradient bits and exchange topology "
+        "for cross-host bytes — EQuARX, arxiv 2506.17615)")
+register(Variant("grad_reduce", "f32",
+                 grad_reduce_apply(_GR_NAMED["f32"]), tunable=False,
+                 doc="exact: reduce_scatter_tensor in the gradient dtype"))
+register(Variant("grad_reduce", "bf16",
+                 grad_reduce_apply(_GR_NAMED["bf16"]), tunable=False,
+                 doc="wire dtype bf16 (bytes /2), summed back in f32"))
+register(Variant("grad_reduce", "int8_block",
+                 grad_reduce_apply(_GR_NAMED["int8_block"]),
+                 tunable=False,
+                 doc="blockwise-scaled int8 codes (blk 256) and f32 "
+                     "scales by all_to_all_single, decoded and summed in "
+                     "f32: bytes ~0.26x the f32 scatter"))
+register(Variant("grad_reduce", "int8_ef",
+                 grad_reduce_apply(_GR_NAMED["int8_ef"]), tunable=False,
+                 doc="int8_block + error feedback: the coding residual "
+                     "rides in the ZeRO state's 'ef' slot and is added "
+                     "back before the next coding"))
+register(Variant("grad_reduce", "hier2",
+                 grad_reduce_apply(_GR_NAMED["hier2"]), tunable=False,
+                 doc="two-level (hosts x local): an in-host "
+                     "reduce-scatter, then the cross-host one of the "
+                     "1/n_local partials; exact f32"))
+
+
 # -- flash_attn: apply(q, k, v, scale=None, causal=False) -> (B, S, H, D) ---
 
 

@@ -30,9 +30,15 @@ tensor reaches the device or the stream moves: a checkpoint that does not
 match is never loaded in part. A file that cannot be read (cut short,
 not a checkpoint) raises a RuntimeError from the reader.
 
-The ZeRO velocity reshard of the JAX module (`_vel_reshard_restore`,
-`_target_shardings`) restores across data-axis sizes of a mesh; it comes
-with the many-GPU slice.
+A data-parallel state (JAX `_vel_reshard_restore`, `_target_shardings`):
+`save_state(state, dir, step)` gathers a ZeRO state into the local
+layout first (`FusedTrainStep.gather_state`, a collective: every rank
+calls it) and the coordinator alone writes it; `restore_state` gives
+every rank its own slices of the restored state (`shard_state`), so a
+checkpoint restores at any world size. The error-feedback residual of
+an int8_ef update is not saved: a restore restarts it at zero, as the
+JAX module does across data-axis sizes. The stream restored is the
+registry's (rank 0's; a rank past the first keeps its own).
 """
 
 from __future__ import annotations
@@ -87,12 +93,19 @@ def _state_device(state: Dict[str, Any]) -> torch.device:
     return torch.device("cpu")
 
 
-def save_state(state: Dict[str, Any], directory: str) -> str:
+def save_state(state: Dict[str, Any], directory: str, step=None) -> str:
     """Write `state` (a FusedTrainStep state) and the position of its
-    device's dropout stream to `directory`/state.pt; returns the path."""
+    device's dropout stream to `directory`/state.pt; returns the path.
+    With the dp `step` that trains it, the state is gathered first (every
+    rank must call) and only the coordinator writes."""
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, FILE)
+    if step is not None:
+        state = step.gather_state(state)
+        from veles_tpu_torch.parallel.distributed import is_coordinator
+        if getattr(step, "mode", "local") == "dp" and not is_coordinator():
+            return path
+    os.makedirs(directory, exist_ok=True)
     leaves = {key: t.detach().to("cpu", copy=True)
               for key, t in _state_leaves(state)}
     leaves["lr_scale"] = torch.tensor(float(state["lr_scale"]),
@@ -195,6 +208,7 @@ def restore_state(step, directory: str) -> Dict[str, Any]:
             vel[-1]["t"] = put(f"vel/{i}/t")
         else:
             vel.append({k: put(f"vel/{i}/{k}") for k in names})
-    step.gen.set_state(saved[f"prng/{dev.type}"])
-    return {"params": tuple(params), "vel": tuple(vel),
-            "lr_scale": float(saved["lr_scale"])}
+    prng.get().device_stream(dev).set_state(saved[f"prng/{dev.type}"])
+    state = {"params": tuple(params), "vel": tuple(vel),
+             "lr_scale": float(saved["lr_scale"])}
+    return step.shard_state(state)

@@ -3,7 +3,7 @@ call, with the cross-op fusion of adjacent (LRN, max pooling) pairs, and
 the training step built on it.
 
 The port's counterpart of `FusedTrainStep` in
-`veles_tpu/parallel/fused.py` in local mode, one device:
+`veles_tpu/parallel/fused.py`, in its local and dp modes:
 `FusedForward` is its forward half (`_forward`, `_pair_fusion`,
 `fusion_pairs`, `_apply_fused_pair`), which the server serves from;
 `FusedTrainStep` adds the loss, the backward and the update (`init_state`,
@@ -66,6 +66,48 @@ is `torch.autograd.grad` over the parameter leaves, through the kernels'
 autograd functions (ops/kernels.py). Velocities follow the JAX package's
 names (`vel_w` / `vel_b` for weights / bias, `vel_<name>` otherwise;
 `GradientDescentBase.vel_attr`).
+
+Data parallelism (`mesh=`, mode "dp"; JAX fused.py:147-250, :417-580,
+:809-1026). The JAX dp mode is one process over the local devices
+(`shard_map` over the data axis); the port's is PyTorch's: ONE PROCESS
+PER CARD, the mesh's process group the data axis (parallel/mesh.py,
+parallel/distributed.py), every rank running this step on the global
+batch. `train` takes the GLOBAL minibatch (N rows, the loader's), checks
+that N divides the data axis (`_check_batch`) and keeps this rank's
+rows, [d*N/D, (d+1)*N/D) for data shard d of D (`local_rows`), before
+it uploads them: the loss is normalized by the GLOBAL weight sum
+(`_global_wsum`, an all-reduce), so the ranks' gradients sum to the
+global batch's mean gradient, and the loss and n_err come back summed
+over the ranks. Dropout draws a stream per rank (`_shard_step_key`): rank
+0 the registry's device stream, as the local step, every other rank a
+generator of its own seeded from that stream and its rank at build, so
+the ranks' masks are independent and one rank is the local step. The
+update:
+
+- replicated (ZeRO off): the gradients all-reduced (`_reduce_grads`),
+  then the local update on the full leaves;
+- ZeRO (`zero_sharding`, JAX :253-290, :942-1026): every rank owns a
+  1/D slice of each flat, zero-padded leaf (mesh.zero_plan) and only
+  that slice of its velocity or Adam moments; the flat gradient is
+  reduce-scattered through the `grad_reduce` lowering (its f32, bf16,
+  int8_block, int8_ef and hier2 points, ops/variants.py; int8_ef
+  carries its residual in the state's "ef" slot), the `sgd_update`
+  lowering (K1) updates the rank's slice with the leaf's own learning
+  rate (its ORIGINAL rank decides the bias multiplier: ZeroLeaf.ndim),
+  or Adam its slices, and an all-gather rebuilds every leaf. The pad's
+  gradient is zero, so its velocity stays zero. The port does the true
+  reduce-scatter; the JAX `GRAD_TRANSPOSE_PSUM` branch (:992, a
+  jax-version workaround with the same numbers) has no counterpart.
+
+`zero_sharding` "auto" (the default) shards the update wherever the data
+axis has more than one rank, "off" keeps it replicated, and "on" shards
+it at any size, one rank included (the JAX step degrades "on" to the
+replicated update there; the port keeps the sharded path, so that one
+card runs it). `write_back` all-gathers the velocities (a collective:
+every rank calls it), `gather_state` / `shard_state` turn a ZeRO state
+into the local layout and back (a checkpoint restores at another world
+size), and `optimizer_state_bytes` / `collective_accounting` are the
+JAX step's. The gspmd and seq modes come with the next slice.
 """
 
 from __future__ import annotations
@@ -81,6 +123,9 @@ from veles_tpu_torch.backends import full_f32
 from veles_tpu_torch.config import root
 from veles_tpu_torch.ops import functional as fn
 from veles_tpu_torch.ops import optim, templates, variants
+from veles_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
+                                           zero_ef_plan, zero_flatten,
+                                           zero_plan, zero_unflatten)
 
 #: compute dtypes the fused step takes, by the names
 #: root.common.precision_type and `compute_dtype` give them
@@ -339,7 +384,9 @@ class FusedTrainStep:
     """
 
     def __init__(self, workflow, compute_dtype: Optional[str] = None,
-                 input_normalize: Optional[Dict[str, Any]] = None) -> None:
+                 input_normalize: Optional[Dict[str, Any]] = None,
+                 mesh=None, mode: str = "auto",
+                 zero_sharding: Any = "auto") -> None:
         #: "softmax" or "mse" (StandardWorkflow admits no other)
         self.loss_kind = workflow.loss
         if self.loss_kind == "softmax" and not getattr(
@@ -357,13 +404,219 @@ class FusedTrainStep:
         self.gd_units, self.cfgs = pair_gd_configs(workflow)
         #: the SGD update's lowering, fixed at build like the forward's
         self._sgd = variants.resolve("sgd_update")
+        self.mesh = mesh
+        self.mode = self._resolve_mode(mode)
+        #: ZeRO update sharding, resolved now for every later reader
+        #: (state layout, update, write_back, reports)
+        self.zero_active, self.zero_reason = \
+            self._resolve_zero(zero_sharding)
+        self._zero_plan_cache = None
+        self._gr_cache = None
         #: the dropout masks' source: the registry's device stream, which
         #: advances across steps and builds and rides in a snapshot (the
-        #: JAX step draws a new key split, fused.py:470 there)
-        self.gen = prng.get().device_stream(self.device)
+        #: JAX step draws a new key split, fused.py:470 there); a dp rank
+        #: past the first its own (`_shard_step_key`)
+        self.gen = self._shard_step_key()
 
     def fusion_pairs(self):
         return self.fwd.fusion_pairs()
+
+    # -- modes and the data axis (JAX fused.py:177-290) ----------------------
+
+    def _resolve_mode(self, mode: str) -> str:
+        """"auto": local without a mesh, seq / gspmd where the mesh has
+        such an axis, else dp (the JAX rule). gspmd and seq are refused
+        until the slice that ports them; a dp mesh must hold the step's
+        device."""
+        mesh = self.mesh
+        if mode == "auto":
+            if mesh is None:
+                mode = "local"
+            elif mesh.shape.get(SEQ_AXIS, 1) > 1:
+                mode = "seq"
+            elif mesh.shape.get(MODEL_AXIS, 1) > 1:
+                mode = "gspmd"
+            else:
+                mode = "dp"
+        if mode in ("gspmd", "seq"):
+            raise NotImplementedError(
+                f"mode={mode!r}: the tensor- and sequence-parallel fused "
+                "step comes with the next many-GPU slice (ROADMAP Queue 1 "
+                "item 1); this port trains in 'local' and 'dp' modes")
+        if mode not in ("local", "dp"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "dp":
+            if mesh is None:
+                raise ValueError("mode='dp' requires a mesh")
+            if torch.device(mesh.device) != self.device:
+                raise ValueError(
+                    f"the workflow lives on {self.device}, the mesh's "
+                    f"rank on {mesh.device}: place the workflow on the "
+                    f"rank's device")
+        return mode
+
+    @property
+    def n_data(self) -> int:
+        """Ranks along the data axis (1 in local mode)."""
+        return self.mesh.shape[DATA_AXIS] if self.mode == "dp" else 1
+
+    def _resolve_zero(self, req: Any) -> Tuple[bool, str]:
+        """The ZeRO verdict: (active, reason). "on"/True shards the dp
+        update at any data-axis size, "auto" (the default) where it has
+        more than one rank, "off"/False never; local mode never does."""
+        if req in (False, "off"):
+            return False, "zero-sharding disabled by request"
+        if req not in (True, "on", "auto", None):
+            raise ValueError(f"zero_sharding must be on/off/auto "
+                             f"(got {req!r})")
+        if self.mode != "dp":
+            reason = (f"zero-sharding inactive: mode {self.mode!r} "
+                      "(local has one replica)")
+        elif self.n_data < 2 and req not in (True, "on"):
+            reason = ("zero-sharding inactive: data axis has a single "
+                      "shard (nothing to shard the update over)")
+        else:
+            return True, "active"
+        import logging
+        log = logging.getLogger("veles_torch.fused")
+        (log.warning if req in (True, "on") else log.debug)("%s", reason)
+        return False, reason
+
+    def _shard_step_key(self) -> torch.Generator:
+        """This rank's dropout stream: the registry's device stream for
+        the local step and data shard 0; for shard d > 0 a generator of
+        its own, seeded at build from a draw of the registry's stream
+        (which every rank holds alike) plus d, so the shards' masks are
+        independent of each other and a new build draws new ones (the
+        JAX step folds the shard index into the step key, fused.py:825
+        there)."""
+        gen = prng.get().device_stream(self.device)
+        if self.mode != "dp" or self.mesh.data_index == 0:
+            return gen
+        base = int(torch.randint(0, 2 ** 62, (), generator=gen,
+                                 device=self.device))
+        own = torch.Generator(device=self.device)
+        own.manual_seed((base + self.mesh.data_index) % 2 ** 63)
+        return own
+
+    def zero_plans(self):
+        """Per-layer {param: ZeroLeaf} plan over the data axis, from the
+        units' shapes, cached (state, update, write_back and the
+        accounting read the same plan)."""
+        if self._zero_plan_cache is None:
+            self._zero_plan_cache = tuple(
+                zero_plan(u.param_arrays(), self.n_data)
+                for u in self.forwards)
+        return self._zero_plan_cache
+
+    def _grad_reduce_variant(self):
+        """The grad_reduce lowering this step runs, resolved once (the
+        EF slot's geometry depends on it)."""
+        if self._gr_cache is None:
+            self._gr_cache = variants.resolve("grad_reduce")
+        return self._gr_cache
+
+    def ef_active(self) -> bool:
+        """True when the update carries the error-feedback residual slot:
+        ZeRO active and the selected grad_reduce point stateful."""
+        return self.zero_active and bool(
+            self._grad_reduce_variant().apply.gr_config["ef"])
+
+    def ef_lens(self):
+        """Per-layer {param: per-rank residual length} (mesh.zero_ef_plan
+        under the selected point's rule). Call only when ef_active()."""
+        name = self._grad_reduce_variant().name
+        return tuple(
+            zero_ef_plan(plan, lambda padded: variants.grad_reduce_resid_len(
+                name, padded, self.n_data, self.mesh.n_hosts))
+            for plan in self.zero_plans())
+
+    def collective_accounting(self) -> Optional[Dict[str, Any]]:
+        """Modeled per-rank bytes a train step's grad_reduce exchange (and
+        the parameter all-gather) moves, under the selected point and the
+        link geometry (variants.grad_reduce_bytes); None without ZeRO."""
+        if not self.zero_active:
+            return None
+        v = self._grad_reduce_variant()
+        elems = sum(lp.padded for plan in self.zero_plans()
+                    for lp in plan.values())
+        acct = variants.grad_reduce_bytes(v.name, elems, self.n_data,
+                                          self.mesh.n_hosts)
+        acct.update(op="grad_reduce", variant=v.name, elements=elems,
+                    n_shards=self.n_data)
+        return acct
+
+    def optimizer_state_bytes(self, state) -> Dict[str, int]:
+        """{device: bytes} the optimizer state (velocities, Adam moments
+        and steps) holds on this rank: the measured form of the ZeRO
+        memory claim (parallel/memstats.bytes_per_device)."""
+        from torch.utils._pytree import tree_leaves
+
+        from veles_tpu_torch.parallel.memstats import bytes_per_device
+        return bytes_per_device(tree_leaves(state["vel"]))
+
+    def local_rows(self, n: int) -> np.ndarray:
+        """Boolean (n,) mask of the GLOBAL batch rows this rank trains on:
+        its data shard's block; all rows in local mode and where the data
+        axis does not divide n (JAX fused.py:538-569)."""
+        mask = np.ones(n, bool)
+        if self.n_data > 1 and n % self.n_data == 0:
+            block = n // self.n_data
+            mask[:] = False
+            d = self.mesh.data_index
+            mask[d * block:(d + 1) * block] = True
+        return mask
+
+    def _check_batch(self, n: int) -> None:
+        """The fed batch must divide the data axis."""
+        if self.mode == "dp" and n % self.n_data:
+            raise ValueError(
+                f"batch of {n} not divisible by the mesh data axis "
+                f"({self.n_data} shards)")
+
+    def _rows(self, x, y, w, k: int = 1):
+        """This rank's rows of a global batch (host arrays are sliced
+        before they are uploaded); `k` microbatches each give the rank
+        its block, as the JAX step shards each microbatch. Identity in
+        local mode and at one rank."""
+        if self.mode != "dp":
+            return x, y, w
+        n = int(np.shape(x)[0])
+        self._check_batch(n // k)
+        if self.n_data == 1:
+            return x, y, w
+        d = self.mesh.data_index
+        m = n // k                  # a microbatch's rows
+        b = m // self.n_data        # this rank's rows of each
+
+        def take(a):
+            if a is None:
+                return None
+            per = int(np.shape(a)[0]) // n   # flat per-token labels: S
+            if k == 1:
+                return a[d * b * per:(d + 1) * b * per]
+            tail = tuple(np.shape(a)[1:])
+            return a.reshape((k, m * per) + tail)[
+                :, d * b * per:(d + 1) * b * per].reshape(
+                    (k * b * per,) + tail)
+        return take(x), take(y), take(w)
+
+    def _global_wsum(self, w: torch.Tensor) -> torch.Tensor:
+        """The global weight sum (an all-reduce of the ranks' sums in dp;
+        the local sum otherwise)."""
+        s = w.sum()
+        if self.mode == "dp":
+            import torch.distributed as dist
+            dist.all_reduce(s, group=self.mesh.group)
+        return s
+
+    def _psum(self, *ts) -> None:
+        """Each of `ts` summed over the ranks, in place (dp; nothing
+        otherwise)."""
+        if self.mode == "dp":
+            import torch.distributed as dist
+            for t in ts:
+                dist.all_reduce(t, group=self.mesh.group)
 
     # -- state <-> units ------------------------------------------------------
 
@@ -372,30 +625,118 @@ class FusedTrainStep:
         layer the velocities its gradient twin holds (zeros where it holds
         none), for an Adam layer zero moments and `t` = 0 (the twin holds
         no moments: a snapshot resume restarts them, as in the JAX
-        package)."""
+        package). Under ZeRO each velocity and moment is this rank's flat
+        slice of its zero-padded leaf (JAX fused.py:417-484), and a
+        stateful grad_reduce point adds the zero residuals ("ef")."""
         params = tuple(
             {k: t.detach().clone().requires_grad_(True)
              for k, t in u.param_arrays().items()}
             for u in self.forwards)
+        plans = (self.zero_plans() if self.zero_active
+                 else (None,) * len(params))
         vel = []
-        for g, p, cfg in zip(self.gd_units, params, self.cfgs):
+        for g, p, cfg, plan in zip(self.gd_units, params, self.cfgs, plans):
             if isinstance(cfg, optim.AdamConfig):
-                vel.append(optim.adam_init(p, self.device))
+                st = optim.adam_init(p, self.device)
+                if plan is not None:
+                    for slot in ("m", "v"):
+                        st[slot] = {k: torch.zeros(plan[k].local,
+                                                   device=self.device)
+                                    for k in p}
+                vel.append(st)
                 continue
             layer = {}
             for k, t in p.items():
                 seed = g.velocity(k)
-                layer[k] = (seed.detach().to(self.device, copy=True)
-                            if seed is not None
-                            else torch.zeros_like(t, requires_grad=False))
+                if plan is not None:
+                    flat = torch.zeros(plan[k].padded, device=self.device)
+                    if seed is not None:
+                        flat[:plan[k].size] = seed.detach().reshape(-1)
+                    layer[k] = self._my_slice(flat, plan[k]).clone()
+                else:
+                    layer[k] = (seed.detach().to(self.device, copy=True)
+                                if seed is not None
+                                else torch.zeros_like(t,
+                                                      requires_grad=False))
             vel.append(layer)
-        return {"params": params, "vel": tuple(vel), "lr_scale": 1.0}
+        state = {"params": params, "vel": tuple(vel), "lr_scale": 1.0}
+        if self.ef_active():
+            state["ef"] = tuple(
+                {k: torch.zeros(n, device=self.device)
+                 for k, n in lens.items()} for lens in self.ef_lens())
+        return state
+
+    def _my_slice(self, flat: torch.Tensor, lp) -> torch.Tensor:
+        """This rank's [d*local, (d+1)*local) slice of a flat vector."""
+        d = self.mesh.data_index
+        return flat[d * lp.local:(d + 1) * lp.local]
+
+    def _all_gather(self, part: torch.Tensor, lp) -> torch.Tensor:
+        """The (padded,) flat vector whose slices the ranks hold."""
+        import torch.distributed as dist
+        full = part.new_empty(lp.padded)
+        dist.all_gather_into_tensor(full, part.contiguous(),
+                                    group=self.mesh.group)
+        return full
+
+    @torch.no_grad()
+    def gather_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A ZeRO state in the local layout: every velocity and moment
+        all-gathered to its leaf's shape (a collective: every rank calls
+        it), the EF residuals dropped (a restore at another world size
+        restarts them at zero, as the JAX checkpoint does). Any other
+        state is returned as it is."""
+        if not self.zero_active:
+            return state
+        vel = []
+        for layer, plan in zip(state["vel"], self.zero_plans()):
+            def full(t, lp):
+                return zero_unflatten(self._all_gather(t, lp), lp).clone()
+            if optim.is_adam_state(layer):
+                vel.append({"m": {k: full(t, plan[k])
+                                  for k, t in layer["m"].items()},
+                            "v": {k: full(t, plan[k])
+                                  for k, t in layer["v"].items()},
+                            "t": layer["t"]})
+            else:
+                vel.append({k: full(t, plan[k]) for k, t in layer.items()})
+        return {"params": state["params"], "vel": tuple(vel),
+                "lr_scale": state["lr_scale"]}
+
+    @torch.no_grad()
+    def shard_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """`gather_state`'s inverse: a local-layout state with this rank's
+        ZeRO slices (zero residuals where the point is stateful)."""
+        if not self.zero_active:
+            return state
+        vel = []
+        for layer, plan in zip(state["vel"], self.zero_plans()):
+            def part(t, lp):
+                return self._my_slice(zero_flatten(t.detach(), lp),
+                                      lp).clone()
+            if optim.is_adam_state(layer):
+                vel.append({"m": {k: part(t, plan[k])
+                                  for k, t in layer["m"].items()},
+                            "v": {k: part(t, plan[k])
+                                  for k, t in layer["v"].items()},
+                            "t": layer["t"]})
+            else:
+                vel.append({k: part(t, plan[k]) for k, t in layer.items()})
+        out = {"params": state["params"], "vel": tuple(vel),
+               "lr_scale": state["lr_scale"]}
+        if self.ef_active():
+            out["ef"] = tuple(
+                {k: torch.zeros(n, device=self.device)
+                 for k, n in lens.items()} for lens in self.ef_lens())
+        return out
 
     @torch.no_grad()
     def write_back(self, state: Dict[str, Any]) -> None:
         """Copy the state's parameters into the units, and an SGD layer's
         velocities into its gradient twin (an Adam layer's moments stay in
-        the state)."""
+        the state). Under ZeRO the velocities are all-gathered first: a
+        collective, which every rank calls."""
+        state = self.gather_state(state)
         for u, g, p, v, cfg in zip(self.forwards, self.gd_units,
                                    state["params"], state["vel"], self.cfgs):
             adam = isinstance(cfg, optim.AdamConfig)
@@ -458,6 +799,8 @@ class FusedTrainStep:
         loss, n_err) of one batch already on the device; the autograd
         graph is freed before this returns."""
         leaves = [t for layer in state["params"] for t in layer.values()]
+        if wsum is None and self.mode == "dp":
+            wsum = self._global_wsum(w)
         with torch.enable_grad(), full_f32(self.device):
             out = self.fwd._forward(state["params"], x, train=True,
                                     gen=self.gen)
@@ -467,9 +810,81 @@ class FusedTrainStep:
         return grads, loss.detach(), n_err
 
     @torch.no_grad()
+    def _reduce_grads(self, grads):
+        """The replicated dp update's gradient all-reduce (JAX fused.py:865;
+        the global-mean normalization is in the ranks' partials already):
+        one all-reduce per leaf. Identity in local mode and under ZeRO,
+        whose reduce-scatter is the reduction."""
+        if self.mode != "dp" or self.zero_active:
+            return grads
+        import torch.distributed as dist
+        out = []
+        for layer in grads:
+            # a collective takes contiguous tensors; autograd may return a
+            # gradient in its input's layout (a convolution's channels-last
+            # weight gradient)
+            layer = {k: t.contiguous() for k, t in layer.items()}
+            for t in layer.values():
+                dist.all_reduce(t, group=self.mesh.group)
+            out.append(layer)
+        return tuple(out)
+
+    @torch.no_grad()
+    def _apply_update_zero(self, state, grads) -> None:
+        """The ZeRO update (JAX fused.py:942-1026): per leaf, the flat
+        padded gradient reduce-scattered through the grad_reduce lowering
+        (threading the EF residual where the point is stateful), this
+        rank's slice of the leaf updated over its slice of the state (the
+        `sgd_update` lowering, K1, with the leaf's own learning rate, or
+        Adam), and the slices all-gathered into the leaf."""
+        reduce = self._grad_reduce_variant().apply
+        ef_state = state.get("ef") if self.ef_active() else None
+        scale = state["lr_scale"]
+        for li, (p, g, v, cfg, plan) in enumerate(
+                zip(state["params"], grads, state["vel"], self.cfgs,
+                    self.zero_plans())):
+            if not p:
+                continue
+            adam = isinstance(cfg, optim.AdamConfig)
+            if adam:
+                v["t"].add_(1)
+                b1t, b2t = optim.adam_step_factors(cfg, v["t"])
+            for k in p:
+                lp = plan[k]
+                flat_g = zero_flatten(g[k], lp)
+                if ef_state is not None:
+                    g_loc, resid = reduce(flat_g, self.mesh,
+                                          ef_state[li][k])
+                    ef_state[li][k].copy_(resid)
+                else:
+                    g_loc = reduce(flat_g, self.mesh)
+                p_loc = self._my_slice(zero_flatten(p[k].detach(), lp),
+                                       lp).clone()
+                if adam:
+                    new_p, m, vv = optim.adam_leaf(
+                        p_loc, g_loc, v["m"][k], v["v"][k], cfg, b1t, b2t,
+                        cfg.lr * scale)
+                    v["m"][k].copy_(m)
+                    v["v"][k].copy_(vv)
+                    p_loc = new_p
+                else:
+                    # the leaf's own lr (its original rank decides the
+                    # bias multiplier), through the registry's lowering
+                    lr = optim.sgd_leaf_lr(cfg, lp.ndim, lr_scale=scale)
+                    self._sgd.apply({k: p_loc}, {k: g_loc}, {k: v[k]},
+                                    cfg._replace(lr=lr, lr_bias_mult=1.0),
+                                    lr_scale=1.0)
+                p[k].copy_(zero_unflatten(self._all_gather(p_loc, lp), lp))
+
+    @torch.no_grad()
     def _apply_update(self, state, grads) -> None:
         """One update of every layer in place: Adam where the layer's
-        config is Adam, the `sgd_update` lowering (K1) elsewhere."""
+        config is Adam, the `sgd_update` lowering (K1) elsewhere; under
+        ZeRO the sharded update."""
+        if self.zero_active:
+            self._apply_update_zero(state, grads)
+            return
+        grads = self._reduce_grads(grads)
         for p, g, v, cfg in zip(state["params"], grads, state["vel"],
                                 self.cfgs):
             if not p:
@@ -485,9 +900,13 @@ class FusedTrainStep:
         Loader's (N,) pad mask, None == all ones). Updates `state`
         in place and returns `(state, (loss, n_err))`, the metrics as 0-d
         tensors on the device (no host sync)."""
-        x, y, w = self._batch(x, y, w)
+        return self._train_rows(state, *self._batch(*self._rows(x, y, w)))
+
+    def _train_rows(self, state, x, y, w):
+        """One step on this rank's rows, already on the device."""
         grads, loss, n_err = self._grads(state, x, y, w)
         self._apply_update(state, grads)
+        self._psum(loss, n_err)
         return state, (loss, n_err)
 
     def train_accum(self, state, x, y, k: int, w=None):
@@ -512,8 +931,9 @@ class FusedTrainStep:
                 f"{tuple(np.shape(y))} into {k} microbatches along the "
                 f"first dimension: y needs {n} rows, one per sample")
         m = n // k
-        x, y, w = self._batch(x, y, w)
-        wsum = w.sum()
+        x, y, w = self._batch(*self._rows(x, y, w, k))
+        m = m // self.n_data
+        wsum = self._global_wsum(w)
         acc = None
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         n_err = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -531,6 +951,7 @@ class FusedTrainStep:
             loss = loss + mloss
             n_err = n_err + merr
         self._apply_update(state, acc)
+        self._psum(loss, n_err)
         return state, (loss, n_err)
 
     def train_repeat(self, state, x, y, k: int, w=None):
@@ -538,10 +959,10 @@ class FusedTrainStep:
         device (the JAX package's benchmark loop, fused.py:1476-1524
         there). Returns `(state, (losses, n_errs))` with a leading
         dimension of k, tensors on the device (no host sync)."""
-        x, y, w = self._batch(x, y, w)
+        x, y, w = self._batch(*self._rows(x, y, w))
         losses, errs = [], []
         for _ in range(k):
-            state, (loss, n_err) = self.train(state, x, y, w)
+            state, (loss, n_err) = self._train_rows(state, x, y, w)
             losses.append(loss)
             errs.append(n_err)
         return state, (torch.stack(losses), torch.stack(errs))
@@ -552,6 +973,7 @@ class FusedTrainStep:
         (fused.py:1582-1632 in the JAX package). Returns `(state,
         (losses, n_errs))` with a leading dimension of K, tensors on the
         device (no host sync)."""
+        self._check_batch(int(np.shape(xs)[1]))
         xs = torch.as_tensor(xs, device=self.device)
         ys = torch.as_tensor(ys, device=self.device)
         if ws is not None:
@@ -566,11 +988,17 @@ class FusedTrainStep:
         return state, (torch.stack(losses), torch.stack(errs))
 
     def evaluate(self, state, x, y, w=None):
-        """Forward-only `(loss, n_err)` of a validation/test minibatch."""
-        x, y, w = self._batch(x, y, w)
+        """Forward-only `(loss, n_err)` of a validation/test minibatch (in
+        dp, of the global batch: the ranks' sums)."""
+        x, y, w = self._batch(*self._rows(x, y, w))
+        wsum = self._global_wsum(w) if self.mode == "dp" else None
         with torch.inference_mode():
             out = self.fwd._forward(state["params"], x)
-            return self._loss_metrics(out, y, w)
+            loss, n_err = self._loss_metrics(out, y, w, wsum)
+        if self.mode == "dp":
+            loss, n_err = loss.clone(), n_err.clone()
+            self._psum(loss, n_err)
+        return loss, n_err
 
     def confusion(self, state, x, y, n_classes: int, w=None):
         """(C, C) int64 confusion counts, true class by row and predicted
@@ -581,14 +1009,18 @@ class FusedTrainStep:
         (the MSE, a per-token head)."""
         if self.loss_kind != "softmax":
             return None
-        x, y, w = self._batch(x, y, w)
+        x, y, w = self._batch(*self._rows(x, y, w))
         if y.numel() != x.shape[0]:
             return None
         with torch.inference_mode():
             out = self.fwd._forward(state["params"], x)
             if out.dim() != 2:
                 return None
-            return fn.confusion(y, out.argmax(dim=-1), n_classes, w)
+            m = fn.confusion(y, out.argmax(dim=-1), n_classes, w)
+        if self.mode == "dp":
+            m = m.clone()
+            self._psum(m)
+        return m
 
     def variant_table(self) -> Dict[str, str]:
         """{op: variant-name} this step runs: the forward's, and the SGD
@@ -597,4 +1029,7 @@ class FusedTrainStep:
         table = self.fwd.variant_table()
         if any(isinstance(c, optim.SGDConfig) for c in self.cfgs):
             table["sgd_update"] = self._sgd.name
+        if self.zero_active:
+            # the ZeRO reduce-scatter's lowering (JAX fused.py:1450-1459)
+            table["grad_reduce"] = self._grad_reduce_variant().name
         return table

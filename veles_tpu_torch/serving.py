@@ -81,9 +81,21 @@ once per process (ops/kernels.py `build`): `kernel_builds` records the
 `nvcc` runs and library loads a server's build caused, 0 for every
 replica after the first.
 
+The serialized program (`aot_cache=`, JAX serving.py:183, :505-600):
+"auto" (the cache at `serving_aot.default_aot_path()`, i.e.
+`$VELES_SERVING_AOT_CACHE` or under HOME) or an index path makes the
+ring serve a `torch.export` program of its forward for this (model,
+ring, wire) build, loaded from the cache when the signature's entry is
+there (`aot_source` "cache", `aot_compiles` 0) and exported and stored
+else ("export", 1); the program takes the parameters as inputs, so a
+swap and a rollback feed it new ones, and calls K2 / K4 through their
+operators. None (the default; the JAX default is "auto") keeps the eager
+ring: an export costs seconds, and the port has no compile to spare.
+The merge core stays eager, as in the JAX package.
+
 Left out here and kept in ROADMAP: the telemetry registry and /metrics
 (the counters are attributes and appear in /healthz), the capacity hint
-of /healthz, `mesh=` and `aot_cache=`.
+of /healthz and `mesh=`.
 """
 
 from __future__ import annotations
@@ -99,11 +111,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from veles_tpu_torch.backends import DeviceLike, device_name
+from veles_tpu_torch.backends import DeviceLike, device_name, full_f32
 from veles_tpu_torch.http_util import check_shared_token
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.ops import kernels, templates, variants
-from veles_tpu_torch.serving_aot import model_signature
+from veles_tpu_torch.serving_aot import (ServingAotCache, call_trees,
+                                         export_forward, model_signature,
+                                         serve_signature)
 from veles_tpu_torch.serving_gen import GenerationLedger
 
 
@@ -165,7 +179,8 @@ class InferenceServer(Logger):
                  token: Optional[str] = None, max_body: int = 32 << 20,
                  dispatch: str = "ring", ring_slots: Optional[int] = None,
                  quantize: str = "f32", device: DeviceLike = None,
-                 replica: Optional[str] = None) -> None:
+                 replica: Optional[str] = None,
+                 aot_cache: Any = None) -> None:
         self.workflow = workflow
         #: fleet identity: None for a lone server, else the replica id
         #: its beacon and the router know it by
@@ -242,6 +257,15 @@ class InferenceServer(Logger):
         #: the launcher's fleet (its other servers, watchers and
         #: beacons) when this is its first server: stop() stops it all
         self.fleet = None
+        #: the serialized program: None / False (the eager ring), "auto"
+        #: or an index path; programs exported by this server, and where
+        #: the served one came from ("export" / "cache"; None: eager)
+        self._aot_req = aot_cache
+        self.aot_compiles = 0
+        self.aot_source: Optional[str] = None
+        #: host seconds the program took to load, or to export and store
+        self.aot_seconds: Optional[float] = None
+        self._program = None
         builds = kernels.build_counts()
         self._build(device)
         #: the kernel builds this server's build caused: `nvcc`
@@ -300,6 +324,8 @@ class InferenceServer(Logger):
         with self._cv:
             self._gens.boot(params_digest(params_host),
                             variants.serve_to_device(prepared, self.device))
+        if self.dispatch == "ring" and self._aot_req not in (None, False):
+            self._build_program()
         # warm + validate now: on the card this builds and launches the
         # kernels, so a build failure fails the start, not a request
         if self.dispatch == "ring":
@@ -325,14 +351,51 @@ class InferenceServer(Logger):
                       "f32 (params %d -> %d bytes)", self.quantize, err,
                       self._f32_bytes, self._wire_bytes)
 
-    def _serve(self, params, xd: torch.Tensor) -> torch.Tensor:
-        """The served function on device rows: the wire's forward, then
-        the softmax of a softmax head."""
-        with torch.inference_mode():
-            out = self._sv(params, xd, self._fwd._forward, self._shapes)
-            if self._softmax:
-                out = torch.softmax(out, dim=-1)
+    def _serve_fn(self, params, xd: torch.Tensor) -> torch.Tensor:
+        """The served function: the wire's forward, then the softmax of a
+        softmax head (what a serialized program holds)."""
+        out = self._sv(params, xd, self._fwd._forward, self._shapes)
+        if self._softmax:
+            out = torch.softmax(out, dim=-1)
         return out
+
+    def _serve(self, params, xd: torch.Tensor) -> torch.Tensor:
+        """The served function on device rows: through the loaded or
+        exported program where there is one (in full f32, which the
+        program cannot carry: backends.full_f32 sets process flags), else
+        eagerly."""
+        with torch.inference_mode():
+            if self._program is not None:
+                with full_f32(self.device):
+                    return self._program(xd, params)
+            return self._serve_fn(params, xd)
+
+    def _build_program(self) -> None:
+        """The ring's serialized program: loaded from the cache under
+        this build's signature, else exported at the ring's shape and
+        stored (JAX serving.py:562-591)."""
+        t0 = time.perf_counter()
+        sig = serve_signature(
+            self.workflow, None, self._ring_slots, self.quantize,
+            self._softmax, self._sample_shape,
+            variants={**self._fwd.variant_table(),
+                      "serve_forward": self.quantize},
+            device=self.device)
+        self._aot_signature = sig
+        cache = ServingAotCache(None if self._aot_req == "auto"
+                                else self._aot_req)
+        x = self._ring_batch().to(self.device)
+        params = self._gens.params
+        program = cache.load(sig, call_trees((x, params))[0])
+        if program is None:
+            program = export_forward(self._serve_fn, x, params)
+            self.aot_compiles += 1
+            self.aot_source = "export"
+            cache.store(sig, program)
+        else:
+            self.aot_source = "cache"
+        self._program = program.module()
+        self.aot_seconds = time.perf_counter() - t0
 
     def _f32_reference(self, params_f32, xd: torch.Tensor) -> torch.Tensor:
         """The f32 forward of the served model (the reference a non-f32
@@ -772,6 +835,8 @@ class InferenceServer(Logger):
                     "max_batch": self.max_batch,
                     "dispatch": self.dispatch,
                     "ring_slots": self.ring_slots,
+                    "aot": {"source": self.aot_source,
+                            "compiles": self.aot_compiles},
                     "round_latency_s": round(self._round_s, 6),
                     "retry_after_s": self._retry_after_locked(),
                     # what a deploy pipeline polls to confirm a push
@@ -805,6 +870,8 @@ class InferenceServer(Logger):
                 "variants": self._fwd.variant_table(),
                 "kernel_launches": kernels.launch_counts()}
         if self.dispatch == "ring":
+            info["aot"] = {"source": self.aot_source,
+                           "compiles": self.aot_compiles}
             info["param_bytes"] = {"f32": self._f32_bytes,
                                    "wire": self._wire_bytes}
         return info

@@ -406,15 +406,20 @@ class StandardWorkflow(Workflow):
     # -- fused training -------------------------------------------------------
 
     def build_fused_step(self, compute_dtype: Optional[str] = None,
-                         input_normalize: Optional[Dict[str, Any]] = None):
+                         input_normalize: Optional[Dict[str, Any]] = None,
+                         mesh=None, mode: str = "auto",
+                         zero_sharding: Any = "auto"):
         """The fused train step over this workflow's units (see
         parallel/fused.py); resolves its lowerings now. `compute_dtype`
         ("bfloat16": bf16 compute over f32 master weights) falls back to
         root.common.precision_type when None; `input_normalize` is the
-        uint8 wire's prologue spec."""
+        uint8 wire's prologue spec; `mesh` (parallel/mesh.make_mesh) makes
+        it a data-parallel step, its update ZeRO-sharded by
+        `zero_sharding` ("auto", "on", "off")."""
         from veles_tpu_torch.parallel.fused import FusedTrainStep
         return FusedTrainStep(self, compute_dtype=compute_dtype,
-                              input_normalize=input_normalize)
+                              input_normalize=input_normalize, mesh=mesh,
+                              mode=mode, zero_sharding=zero_sharding)
 
     def autotune(self, compute_dtype: Optional[str] = None,
                  **kwargs: Any) -> Dict[str, Dict[str, Any]]:
@@ -455,7 +460,8 @@ class StandardWorkflow(Workflow):
                   device: DeviceLike = None, uint8_wire="auto",
                   feed_ahead: Optional[int] = None,
                   nonfinite_guard: bool = False,
-                  accum_steps: Optional[int] = None) -> None:
+                  accum_steps: Optional[int] = None, mesh=None,
+                  zero_sharding: Any = "auto") -> None:
         """Train with the fused step until the Decision completes
         (`epochs` overrides its `max_epochs`), on `device` (the card unless
         "cpu" is asked for; see `place`). Batches reach the card through
@@ -466,13 +472,22 @@ class StandardWorkflow(Workflow):
         NonFiniteLossError at the first non-finite class-pass loss.
         `accum_steps=K` (K > 1) computes each train minibatch's gradient
         as K microbatches before its one update (activation memory
-        O(minibatch/K), the full batch's gradient)."""
+        O(minibatch/K), the full batch's gradient). `mesh` (the process
+        group's, parallel/mesh.make_mesh) trains data-parallel: every rank
+        runs this loop on the same global minibatches, trains on its rows
+        of each (the loader produces only those), and the coordinator
+        alone writes the snapshots; the workflow lives on the mesh's
+        device. `zero_sharding` gates the ZeRO update (JAX :509-515,
+        :732)."""
         if epochs is not None:
             self.decision.max_epochs = epochs
+        if mesh is not None:
+            device = mesh.device
         self.place(device)
         wire = self._wire_spec(uint8_wire)
         step = self.build_fused_step(
-            input_normalize=wire["normalize"] if wire else None)
+            input_normalize=wire["normalize"] if wire else None,
+            mesh=mesh, zero_sharding=zero_sharding)
         if accum_steps and accum_steps > 1:
             step = AccumulatingStep(step, accum_steps)
         self._run_with_step(step, wire=wire, feed_ahead=feed_ahead,
@@ -517,6 +532,14 @@ class StandardWorkflow(Workflow):
         self.device_feed = feed
         # the loader gathers straight into the feed's pinned buffers
         loader.out_alloc = getattr(feed.put, "empty", None)
+        # a dp rank produces only the rows it trains on (each rank is a
+        # process of its own; the JAX package does this across hosts)
+        prev_rows_fn = getattr(loader, "local_rows_fn", None)
+        dp = getattr(step, "mode", "local") == "dp"
+        if dp and step.n_data > 1 and hasattr(loader, "local_rows_fn"):
+            loader.local_rows_fn = step.local_rows
+        from veles_tpu_torch.parallel.distributed import is_coordinator
+        writes_snapshots = not dp or is_coordinator()
         acc_loss = acc_err = acc_conf = None
         acc_w = 0.0
         # the confusion companion runs on the passes of the evaluator's
@@ -565,8 +588,11 @@ class StandardWorkflow(Workflow):
                     self.feed_stats = feed.stats()
                 dec.run()
                 if self.snapshotter is not None and dec.improved:
+                    # every rank gathers (a collective under ZeRO), the
+                    # coordinator writes
                     step.write_back(state)
-                    self.snapshotter.run()
+                    if writes_snapshots:
+                        self.snapshotter.run()
                 # now batch k+1: its upload runs under step k, and the
                 # snapshot above pickled the consumed batch's cursor
                 if not dec.complete:
@@ -574,6 +600,8 @@ class StandardWorkflow(Workflow):
         finally:
             feed.stop()
             loader.out_alloc = None
+            if hasattr(loader, "local_rows_fn"):
+                loader.local_rows_fn = prev_rows_fn
             self.feed_stats = feed.stats()
             if wire is not None and hasattr(loader, "set_emit") \
                     and prev_emit is not None:
