@@ -341,6 +341,33 @@
    (ValueError), with no fallback to the einsum.
    TRAIN transformer n_heads=1: one epoch of the same at 1 head of 64
    (K6 and K7 at head width 64), with the same exact counts.
+   MOE: the char-transformer at the same widths with its FFN a switch
+   mixture of 8 experts (hidden 128, capacity factor 2.0, residual;
+   routed by index, ops/moe.py): (a) one epoch through the same function
+   with the same exact counts (K1 x 14 leaves); (b) one full-width step
+   (32 distinct windows) through the kernels against the same step
+   through the plain versions from one state, within 6 (a)'s tolerance,
+   exactly K6, K7 once and K1 x 14, the tokens the capacity dropped and
+   each expert's load, and the card's peak bytes; (c) host and device ms
+   a step (CUDA events, 3 steps, in turns) of the MoE step beside the
+   dense-FFN step, then one step of each under torch.profiler: the aten
+   operators with the most device time (MOE profile lines).
+   EP: (a) `-l` with `--ep` at world size 1 on NCCL, one epoch of the MoE
+   char-transformer through the CLI's function, exact counts; (b) the
+   full-width MoE step expert-parallel (one rank holds all 8 experts)
+   against the local step from one state, 3 steps: bf16 bit for bit,
+   f32 within 1e-7; exact launches; host and device ms a step of each in
+   turns; the modeled exchange bytes; (c) two gloo ranks on the one card
+   (the MoE sample, 8 experts, zero-drop capacity) one step against the
+   local step, or the reason there is none.
+   PP: the dense char-transformer at full width as a 4-stage GPipe
+   pipeline on the one card (`build_pipeline_step(devices=[card] * 4,
+   n_microbatches=4)`, embed | attention | FFN | head): 3 steps against
+   the local fused step from one seed, the losses and every parameter
+   within 6 (a)'s tolerance, exactly 4 K6 and 4 K7 a step (one a
+   microbatch) and no K1 (the pipeline's update is plain); host and
+   device ms a step of each in turns; then `--pp 4` through the CLI's
+   function, one epoch, one stage on the one card, exact counts.
    SAMPLES: BASELINE configurations 1 and 2, MNIST (784 -> 100 -> 10)
    and CIFAR-10 (conv 32 5x5 -> max pool -> LRN -> conv 32 5x5 -> avg
    pool -> FC 64 -> softmax 10), each at its sample's own sizes and
@@ -6988,6 +7015,473 @@ def dp_phase(launcher, kernels, dev):
     return launches, rec
 
 
+# ---------------------------------------------------------------------------
+# MOE, EP, PP: the switch mixture of experts, expert parallelism and the
+# GPipe pipeline on the char-transformer at seq_len 4096
+# ---------------------------------------------------------------------------
+
+#: the MoE char-transformer: TRAIN transformer's widths, the dense FFN
+#: swapped for 8 experts of hidden 128 at capacity factor 2.0
+MOE_EXPERTS = 8
+MOE_ARGS = [f"root.char_transformer.moe_experts={MOE_EXPERTS}",
+            "root.char_transformer.moe_capacity_factor=2.0"]
+#: steps a side of each timed comparison (in turns: a, b, b, a)
+MOE_TIMED_STEPS = 3
+EP_STEPS = 3
+EP_F32_ATOL = 1e-7
+PP_STAGES = 4
+PP_MICRO = 4
+PP_STEPS = 3
+
+
+def ct_workflow(dev, experts: int):
+    """The full-width char-transformer (32 distinct windows of 4096 of a
+    longer synthetic text, seed 1234) on the card, its FFN an
+    `experts`-expert MoE (0: the dense FFN), with its first train
+    minibatch (x, y, w)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.loader.text import synthetic_text
+    from veles_tpu_torch.samples import char_transformer
+    prng.seed_all(1234)
+    mb = ATT_SHAPES[0][0]
+    with ct_config({"loader.seq_len": CT_SEQ, "loader.n_validation": 1,
+                    "loader.minibatch_size": mb, "moe_experts": experts,
+                    "moe_capacity_factor": 2.0}):
+        wf = char_transformer.create_workflow(
+            text=synthetic_text((mb + 1) * CT_SEQ + 1))
+    wf.initialize(dev)
+    loader = wf.loader
+    loader.run()
+    while loader.minibatch_class != TRAIN:
+        loader.run()
+    return wf, (loader.minibatch_data, loader.minibatch_labels,
+                loader.minibatch_valid)
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Record every routing of the block: (tokens, capacity, dropped,
+    each expert's load)."""
+    from veles_tpu_torch.ops import moe as om
+    seen = []
+    inner = om.top1_route
+
+    def route(probs, capacity):
+        out = inner(probs, capacity)
+        seen.append({"tokens": int(probs.shape[0]),
+                     "capacity": int(capacity),
+                     "dropped": int((~out[2]).sum()),
+                     "loads": torch.bincount(
+                         out[0], minlength=probs.shape[1]).tolist()})
+        return out
+    om.top1_route = route
+    try:
+        yield seen
+    finally:
+        om.top1_route = inner
+
+
+def timed_train(step, state, batch, n):
+    """n steps of `step` on one batch: (state, host ms, device ms a step
+    by CUDA events)."""
+    host, dev_ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step.train(state, *batch)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return state, host, dev_ms
+
+
+def in_turns(a, b, n=MOE_TIMED_STEPS):
+    """(step, state, batch) pairs a and b timed a, b, b, a: {"a_host_ms",
+    "a_device_ms", "b_host_ms", "b_device_ms"} (every step's)."""
+    out = {}
+    for key, (step, state, batch) in (("a", a), ("b", b), ("b", b),
+                                      ("a", a)):
+        _, host, dev_ms = timed_train(step, state, batch, n)
+        out.setdefault(f"{key}_host_ms", []).extend(host)
+        out.setdefault(f"{key}_device_ms", []).extend(dev_ms)
+    return out
+
+
+def medians(rec):
+    return {k: float(np.median(v)) for k, v in rec.items()}
+
+
+def top_ops(step, state, batch, n=8):
+    """One step under torch.profiler: the card's ms in all and the n
+    operators with the most self device time, [(name, ms, calls)]."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step.train(state, *batch)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        us = float(e.self_cuda_time_total if t is None else t)
+        if us > 0 and e.key.startswith("aten::"):
+            rows.append((e.key, us / 1e3, int(e.count)))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    return total, rows[:n]
+
+
+def moe_phase(launcher, kernels, dev):
+    """MOE: (a) one epoch of the MoE char-transformer through the CLI's
+    `--fused`, exact counts; (b) one step through the kernels against the
+    plain versions, its drops and peak bytes; (c) its host and device ms
+    a step beside the dense-FFN step's. Returns (launches, record)."""
+    t0 = time.perf_counter()
+    launches = {"train_moe": transformer_run(launcher, kernels, dev, "moe",
+                                             MOE_ARGS, 1)}
+    wf, batch = ct_workflow(dev, MOE_EXPERTS)
+    moe = wf.forwards[2]
+    step = wf.build_fused_step()
+    leaves = sum(len(u.param_arrays()) for u in wf.forwards)
+    s0 = step.init_state()
+
+    def run(plain):
+        st = clone_state(s0)
+        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+            st, (loss, n_err) = step.train(st, *batch)
+        torch.cuda.synchronize()
+        return st, float(loss), int(n_err)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    kernels.reset_launch_counts()
+    with moe_routes() as routes:
+        kst, kloss, kerr = run(False)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_counts("MOE step", counts,
+                 {"flash_attention_forward": 1,
+                  "flash_attention_backward": 1, "sgd_update": leaves})
+    launches["moe_step"] = counts
+    pst, ploss, perr = run(True)
+    check_loss("MOE kernel vs plain step", kloss, ploss)
+    err = compare_states("MOE kernel vs plain step", kst, pst)
+    [r] = routes
+    e, c, d = MOE_EXPERTS, r["capacity"], moe.wr.shape[0]
+    rec = {"loss": [kloss, ploss], "n_err": [kerr, perr],
+           "max_abs_err": err, "route": r, "leaves": leaves,
+           "peak_bytes": peak, "resident_bytes": base,
+           "buffer_bytes": {"ECD": 4 * e * c * d,
+                            "ECH": 4 * e * c * moe.hidden,
+                            "NEC_never_built": 4 * r["tokens"] * e * c}}
+    print(f"MOE step at S={CT_SEQ}, {MOE_EXPERTS} experts of hidden "
+          f"{moe.hidden}, capacity {c} of {r['tokens']} tokens: kernels vs "
+          f"plain versions loss {kloss} vs {ploss}, n_err {kerr} vs {perr}, "
+          f"max abs err over every leaf and velocity {err:.3e}; launches "
+          f"{counts}; {r['dropped']} tokens dropped, loads {r['loads']}; "
+          f"peak {peak} B on the card ({base} resident before; the "
+          f"(E, C, D) buffer {rec['buffer_bytes']['ECD']} B, (E, C, H) "
+          f"{rec['buffer_bytes']['ECH']} B; an (N, E, C) mask would be "
+          f"{rec['buffer_bytes']['NEC_never_built']} B)", flush=True)
+    del kst, pst
+    dense_wf, dense_batch = ct_workflow(dev, 0)
+    dense = dense_wf.build_fused_step()
+    timed = medians(in_turns(
+        (dense, dense.init_state(), dense_batch),
+        (step, clone_state(s0), batch)))
+    rec["ms"] = {"dense_host": timed["a_host_ms"],
+                 "dense_device": timed["a_device_ms"],
+                 "moe_host": timed["b_host_ms"],
+                 "moe_device": timed["b_device_ms"]}
+    print(f"MOE ms a step (median of {2 * MOE_TIMED_STEPS}, CUDA events, in "
+          f"turns): MoE host {timed['b_host_ms']:.3f} device "
+          f"{timed['b_device_ms']:.3f}, dense FFN host "
+          f"{timed['a_host_ms']:.3f} device {timed['a_device_ms']:.3f}",
+          flush=True)
+    rec["profile"] = {}
+    for label, st, stt, b in (("moe", step, clone_state(s0), batch),
+                              ("dense", dense, dense.init_state(),
+                               dense_batch)):
+        total, rows = top_ops(st, stt, b)
+        rec["profile"][label] = {"aten_self_ms": total, "top": rows}
+        print(f"MOE profile {label}: {total:.3f} ms of the card's time in "
+              f"aten operators (torch.profiler, one step); the most: "
+              + ", ".join(f"{k} {ms:.3f} ({c})" for k, ms, c in rows),
+              flush=True)
+    del wf, dense_wf, step, dense, s0
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"MOE: the phase in {rec['seconds']:.2f} s", flush=True)
+    return launches, rec
+
+
+EP_TWO_RANKS = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+rank, port = int(sys.argv[1]), sys.argv[2]
+from veles_tpu_torch import prng
+from veles_tpu_torch.loader.synthetic import SyntheticClassifierLoader
+from veles_tpu_torch.ops import kernels
+from veles_tpu_torch.parallel import distributed, mesh as M
+from veles_tpu_torch.znicz.standard_workflow import StandardWorkflow
+kernels.build()
+distributed.initialize_distributed(f"127.0.0.1:{port}", rank, 2,
+                                   backend="gloo", timeout_s=60)
+mesh = M.make_mesh(device="cuda:0")
+prng.seed_all(1234)
+wf = StandardWorkflow(
+    layers=[{"type": "all2all_tanh", "output_sample_shape": 64,
+             "weights_stddev": 0.1},
+            {"type": "moe", "n_experts": 8, "hidden": 128,
+             "capacity_factor": 8.0, "weights_stddev": 0.1},
+            {"type": "softmax", "output_sample_shape": 8,
+             "weights_stddev": 0.05}],
+    loader=SyntheticClassifierLoader(n_classes=8, sample_shape=(32,),
+                                     n_validation=64, n_train=64,
+                                     minibatch_size=64),
+    loss="softmax", n_classes=8, gd_config={"learning_rate": 0.05,
+                                            "gradient_moment": 0.9})
+wf.initialize(mesh.device)
+gen = torch.Generator().manual_seed(5)
+x = torch.randn((64, 32), generator=gen)
+y = torch.randint(0, 8, (64,), generator=gen)
+ep = wf.build_fused_step(mesh=mesh, ep=True)
+se = ep.init_state()
+local = wf.build_fused_step()
+sl = local.init_state()
+se, (le, _) = ep.train(se, x, y)
+sl, (ll, _) = local.train(sl, x, y)
+full = ep.gather_state(se)
+err = max(float((a - b).abs().max()) for la, lb in
+          zip(full["params"], sl["params"]) for a, b in
+          zip(la.values(), lb.values()))
+split = list(se["params"][1]["w1"].shape)
+if rank == 0:
+    print("EPTWO " + json.dumps({"loss_ep": float(le), "loss_local":
+          float(ll), "param_err": err, "w1_local_shape": split,
+          "device": str(mesh.device)}), flush=True)
+distributed.shutdown_distributed()
+"""
+
+
+def ep_two_ranks():
+    """EP (c): two gloo ranks on the one card, 4 experts each, one step
+    of the MoE sample's net at zero-drop capacity against the local
+    step; where gloo cannot exchange CUDA tensors, the reason. Returns
+    the record."""
+    work = tempfile.mkdtemp(prefix="veles_ep2_")
+    script = os.path.join(work, "two_ranks.py")
+    with open(script, "w") as f:
+        f.write(EP_TWO_RANKS)
+    port = str(free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, script, str(r), port],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out after 240 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    line = [ln for out in outs for ln in out.splitlines()
+            if ln.startswith("EPTWO ")]
+    if line and all(p.returncode == 0 for p in procs):
+        rec = json.loads(line[0][len("EPTWO "):])
+        if not rec["param_err"] <= 1e-5 or not np.isfinite(rec["loss_ep"]) \
+                or rec["w1_local_shape"][0] != 4:
+            raise AssertionError(f"EP two ranks: {rec}")
+        print(f"EP two ranks: gloo over CUDA tensors on one card, 4 of 8 "
+              f"experts a rank (w1 {rec['w1_local_shape']}): one step "
+              f"within {rec['param_err']:.3e} of the local step's "
+              f"parameters (loss {rec['loss_ep']} against "
+              f"{rec['loss_local']})", flush=True)
+        return dict(rec, ran=True)
+    last = [ln for out in outs for ln in out.splitlines()
+            if "Error" in ln or "error" in ln]
+    why = (last[-1] if last else outs[-1][-300:] if outs else "no output")
+    print(f"EP two ranks: none on this card — NCCL refuses two ranks on "
+          f"one device, and gloo's exchange over CUDA tensors failed: "
+          f"{why.strip()}; the chip check stays at world size 1",
+          flush=True)
+    return {"ran": False, "why": why.strip()[:500]}
+
+
+def ep_step_run(kernels, dev, mesh, compute_dtype):
+    """EP (b) at one compute dtype: the full-width MoE step with the
+    experts sharded over the mesh's one rank against the local step from
+    one state, EP_STEPS steps each on one batch. Returns (launches,
+    record)."""
+    wf, batch = ct_workflow(dev, MOE_EXPERTS)
+    leaves = sum(len(u.param_arrays()) for u in wf.forwards)
+    local = wf.build_fused_step(compute_dtype=compute_dtype)
+    ep = wf.build_fused_step(compute_dtype=compute_dtype, mesh=mesh,
+                             ep=True)
+    sl, se = local.init_state(), ep.init_state()
+    for _ in range(EP_STEPS):
+        sl, (ll, _) = local.train(sl, *batch)
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    for _ in range(EP_STEPS):
+        se, (le, _) = ep.train(se, *batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    label = compute_dtype or "f32"
+    check_counts(f"EP {label}", counts,
+                 {"flash_attention_forward": EP_STEPS,
+                  "flash_attention_backward": EP_STEPS,
+                  "sgd_update": leaves * EP_STEPS})
+    full = ep.gather_state(se)
+    bits = all(torch.equal(a, b) for a, b in zip(state_tensors(full),
+                                                  state_tensors(sl)))
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(state_tensors(full), state_tensors(sl)))
+    rec = {"bit_equal_to_local": bits, "max_abs_err": err,
+           "loss": [float(le), float(ll)], "zero": ep.zero_reason,
+           "collective_accounting": ep.collective_accounting(),
+           "optimizer_state_bytes": {"ep": ep.optimizer_state_bytes(se),
+                                     "local":
+                                     local.optimizer_state_bytes(sl)}}
+    if compute_dtype and not bits:
+        raise AssertionError(f"EP bf16: not bit-equal to the local step "
+                             f"(max abs err {err:.3e})")
+    if not err <= EP_F32_ATOL:
+        raise AssertionError(f"EP {label}: max abs err {err:.3e} beyond "
+                             f"{EP_F32_ATOL}")
+    rec.update(medians(in_turns((local, sl, batch), (ep, se, batch))))
+    print(f"EP {label}: world size 1 on {mesh.device}, 8 experts on the "
+          f"rank, {EP_STEPS} steps against the local step's: "
+          + ("bit-equal" if bits else f"max abs err {err:.3e}")
+          + f"; launches {counts}; median ms a step (CUDA events, in "
+          f"turns): local host {rec['a_host_ms']:.3f} device "
+          f"{rec['a_device_ms']:.3f}, ep host {rec['b_host_ms']:.3f} "
+          f"device {rec['b_device_ms']:.3f}; modeled exchange "
+          f"{rec['collective_accounting']['exchanges']} all-to-alls of "
+          f"{rec['collective_accounting']['elements'] // max(1, rec['collective_accounting']['exchanges'])} "
+          f"elements a step; {ep.zero_reason}", flush=True)
+    del wf, local, ep, sl, se, full
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def ep_phase(launcher, kernels, dev):
+    """EP: (a) the CLI's `-l --ep` at world size 1, one epoch; (b) the
+    expert-parallel step against the local step, bf16 and f32; (c) two
+    gloo ranks on the card. Returns (launches by path, record)."""
+    from veles_tpu_torch.parallel import distributed
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    argv = ["-l", f"127.0.0.1:{free_port()}", "--n-processes", "1", "--ep",
+            *MOE_ARGS]
+    launches = {"ep_cli": transformer_run(launcher, kernels, dev, "ep", argv,
+                                          1)}
+    rec = {}
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        mesh = make_mesh()
+        for dt in ("bfloat16", None):
+            label = dt or "f32"
+            launches[f"ep_{label}"], rec[label] = ep_step_run(
+                kernels, dev, mesh, dt)
+    finally:
+        distributed.shutdown_distributed()
+    rec["two_ranks"] = ep_two_ranks()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"EP: the phase in {rec['seconds']:.2f} s", flush=True)
+    return launches, rec
+
+
+def pp_phase(launcher, kernels, dev):
+    """PP: the 4-stage pipeline on the one card against the local fused
+    step, then `--pp 4` through the CLI. Returns (launches, record)."""
+    t0 = time.perf_counter()
+    wf_l, batch = ct_workflow(dev, 0)
+    local = wf_l.build_fused_step()
+    sl = local.init_state()
+    wf_p, _ = ct_workflow(dev, 0)
+    pp = wf_p.build_pipeline_step(devices=[dev] * PP_STAGES,
+                                  n_microbatches=PP_MICRO)
+    stages = [[type(u).__name__ for u in st] for st in pp.stages]
+    if [len(st) for st in stages] != [1] * PP_STAGES:
+        raise AssertionError(f"PP stages {stages}")
+    sp = pp.init_state()
+    losses, counts = [], None
+    for i in range(PP_STEPS):
+        sl, (ll, el) = local.train(sl, *batch)
+        torch.cuda.synchronize()
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        sp, (lp, ep) = pp.train(sp, *batch)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+        check_loss(f"PP step {i}", float(lp), float(ll))
+        losses.append((float(lp), float(ll), int(ep), int(el)))
+    check_counts("PP", counts,
+                 {"flash_attention_forward": PP_MICRO * PP_STEPS,
+                  "flash_attention_backward": PP_MICRO * PP_STEPS})
+    got = pp.params_dicts(sp)
+    err = 0.0
+    for layer, want in zip(got, sl["params"]):
+        for k, t in want.items():
+            w = t.detach().cpu().numpy()
+            bad = np.abs(layer[k] - w) > TRAIN_ATOL + TRAIN_RTOL * np.abs(w)
+            err = max(err, float(np.abs(layer[k] - w).max()))
+            if bad.any():
+                raise AssertionError(f"PP {k}: max abs err {err:.3e}")
+    rec = {"stages": stages, "losses": losses, "max_abs_err": err,
+           "launches": counts, "stage_param_bytes": pp.stage_param_bytes(),
+           "bubble": (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1)}
+    rec.update(medians(in_turns((local, sl, batch), (pp, sp, batch))))
+    print(f"PP: {PP_STAGES} stages on {dev} {stages}, {PP_MICRO} "
+          f"microbatches of {batch[0].shape[0] // PP_MICRO}, {PP_STEPS} "
+          f"steps against the local fused step: losses (pp, local, n_err "
+          f"pp, local) {losses}, max abs err over every parameter "
+          f"{err:.3e}; launches {counts}; stage bytes "
+          f"{rec['stage_param_bytes']}; median ms a step (CUDA events, in "
+          f"turns): local host {rec['a_host_ms']:.3f} device "
+          f"{rec['a_device_ms']:.3f}, pipeline host {rec['b_host_ms']:.3f} "
+          f"device {rec['b_device_ms']:.3f} (bubble "
+          f"{rec['bubble']:.3f} of a schedule across cards)", flush=True)
+    del wf_l, wf_p, local, pp, sl, sp
+    torch.cuda.empty_cache()
+    # the CLI: one stage on the one card
+    wf, cli = train_run(launcher, kernels, dev, "pp",
+                        [CHAR_TRANSFORMER, "--pp", str(PP_MICRO), "-r",
+                         "1234", *CT_TRAIN_ARGS,
+                         "root.char_transformer.decision.max_epochs=1"])
+    mb = wf.loader.minibatch_size
+    train = -(-wf.loader.class_lengths[2] // mb)
+    valid = -(-wf.loader.class_lengths[1] // mb)
+    check_counts("TRAIN pp", cli,
+                 {"flash_attention_forward": PP_MICRO * (train + valid),
+                  "flash_attention_backward": PP_MICRO * train})
+    print(f"TRAIN pp: --pp {PP_MICRO}, one stage on {wf.device} of "
+          f"{torch.cuda.device_count()} visible card(s): {train} train and "
+          f"{valid} validation step(s), K6 and K7 once a microbatch, no K1",
+          flush=True)
+    rec["cli"] = {"launches": cli, "history": wf.decision.history}
+    del wf
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"PP: the phase in {rec['seconds']:.2f} s", flush=True)
+    return {"pp_step": counts, "train_pp": cli}, rec
+
+
 def autotune_phase(launcher, kernels, libs, dev, card):
     """AUTOTUNE: the generated points of K1-K4 and K6/K7 held and timed,
     then the search on the main path. Returns (the plain --fused run's
@@ -7115,6 +7609,12 @@ def run_phases(args) -> int:
         launcher, kernels, dev)
     by_path["train_transformer_d64"] = transformer_one_head_phase(
         launcher, kernels, dev)
+    moe_launches, moe = moe_phase(launcher, kernels, dev)
+    by_path.update(moe_launches)
+    ep_launches, ep = ep_phase(launcher, kernels, dev)
+    by_path.update(ep_launches)
+    pp_launches, pp = pp_phase(launcher, kernels, dev)
+    by_path.update(pp_launches)
     sample_launches, samples = samples_phase(launcher, kernels, dev, bw,
                                               flops)
     by_path.update({f"samples_{k}": c for k, c in sample_launches.items()})
@@ -7213,7 +7713,8 @@ def run_phases(args) -> int:
                    "granular_resume": granular_resume,
                    "conv_stem": conv_stem, "samples": samples,
                    "autotune": autotune, "serve_wires": serve_wires,
-                   "fleet": fleet, "aot": aot, "dp": dp},
+                   "fleet": fleet, "aot": aot, "dp": dp, "moe": moe,
+                   "ep": ep, "pp": pp},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

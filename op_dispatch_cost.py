@@ -19,13 +19,16 @@ compares a tree with another whose functions call otherwise:
   at both ends (CUDA events for the device);
 - a 64-row ring round of the eager server per wire (f32, bf16, int8,
   `InferenceServer._serve`): device ms (CUDA events) and host ms to
-  enqueue it.
+  enqueue it;
+- with `dp` among --sections, the same train step data-parallel at world
+  size 1 on NCCL (ZeRO on, as chip_smoke.py's DP), f32 and bf16.
 
 It prints one JSON line and writes it to --out. Two trees are compared
 in one call, in turns (A, B, B, A): unpack the other tree into a
 directory that .gitignore lists and give it as --root.
 
     python3 op_dispatch_cost.py [--root DIR] [--label NAME] [--out FILE]
+        [--sections per_call,train,ring,dp]
 
 It needs a card; the weights are random, from seed 1234.
 """
@@ -108,15 +111,17 @@ def per_call(torch, kernels, dev):
     return out
 
 
-def train_steps(torch, dev, compute_dtype):
-    """The full-width AlexNet's fused step: host and device ms a step
-    over STEPS steps queued back to back, twice."""
+def train_steps(torch, dev, compute_dtype, mesh=None):
+    """The full-width AlexNet's fused step (data-parallel on `mesh`, ZeRO
+    on, where given): host and device ms a step over STEPS steps queued
+    back to back, twice."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.samples import alexnet
     prng.seed_all(1234)
     wf = alexnet.create_workflow()
     wf.initialize(dev)
-    step = wf.build_fused_step(compute_dtype=compute_dtype)
+    kw = {} if mesh is None else {"mesh": mesh, "zero_sharding": "on"}
+    step = wf.build_fused_step(compute_dtype=compute_dtype, **kw)
     state = step.init_state()
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
@@ -141,6 +146,22 @@ def train_steps(torch, dev, compute_dtype):
     del wf, step, state
     torch.cuda.empty_cache()
     return rec
+
+
+def dp_steps(torch, dev, compute_dtype):
+    """`train_steps` data-parallel: one rank of a process group on NCCL."""
+    import socket
+
+    from veles_tpu_torch.parallel import distributed
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 0, 1)
+    try:
+        return train_steps(torch, dev, compute_dtype, mesh=make_mesh())
+    finally:
+        distributed.shutdown_distributed()
 
 
 def ring_rounds(torch, dev, wire):
@@ -183,7 +204,10 @@ def main(argv=None) -> int:
         __file__)), help="the tree whose veles_tpu_torch is timed")
     p.add_argument("--label", default="", help="a name for the record")
     p.add_argument("--out", help="also write the JSON record here")
+    p.add_argument("--sections", default="per_call,train,ring",
+                   help="comma-separated: per_call, train, ring, dp")
     args = p.parse_args(argv)
+    sections = set(args.sections.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -200,12 +224,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rec = {"label": args.label, "root": root, "card": card_line(),
            "torch": torch.__version__,
-           "operators": hasattr(kernels, "lrn_maxpool_forward_op"),
-           "per_call_us": per_call(torch, kernels, dev),
-           "train": {dt or "f32": train_steps(torch, dev, dt)
-                     for dt in (None, "bfloat16")},
-           "ring": {wire: ring_rounds(torch, dev, wire)
-                    for wire in ("f32", "bf16", "int8")}}
+           "operators": hasattr(kernels, "lrn_maxpool_forward_op")}
+    if "per_call" in sections:
+        rec["per_call_us"] = per_call(torch, kernels, dev)
+    if "train" in sections:
+        rec["train"] = {dt or "f32": train_steps(torch, dev, dt)
+                        for dt in (None, "bfloat16")}
+    if "ring" in sections:
+        rec["ring"] = {wire: ring_rounds(torch, dev, wire)
+                       for wire in ("f32", "bf16", "int8")}
+    if "dp" in sections:
+        rec["dp"] = {dt or "f32": dp_steps(torch, dev, dt)
+                     for dt in (None, "bfloat16")}
     rec["seconds"] = time.perf_counter() - t0
     line = json.dumps(rec)
     if args.out:

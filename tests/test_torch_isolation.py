@@ -447,3 +447,60 @@ def test_supervisor_side_modules_import_without_torch(module):
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+#: the modules the experts and pipeline slice (the switch MoE, expert
+#: parallelism in the dp step, the GPipe pipeline, --pp/--ep) added or
+#: extended
+MOE_PP_MODULES = ["veles_tpu_torch.ops.moe", "veles_tpu_torch.znicz.moe",
+                  "veles_tpu_torch.samples.moe",
+                  "veles_tpu_torch.samples.char_transformer",
+                  "veles_tpu_torch.parallel.pipeline",
+                  "veles_tpu_torch.parallel.fused",
+                  "veles_tpu_torch.parallel.checkpoint",
+                  "veles_tpu_torch.export", "veles_tpu_torch.convert",
+                  "veles_tpu_torch.znicz.standard_workflow",
+                  "veles_tpu_torch.launcher"]
+
+
+@pytest.mark.parametrize("module", MOE_PP_MODULES)
+def test_moe_and_pipeline_modules_stand_alone(module,
+                                              imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
+def test_moe_and_pipeline_entry_points_ask_for_the_card(monkeypatch):
+    """`--pp`, `run_pipelined`, the stage list and `--ep` run on the card
+    unless the CPU is asked for; nothing falls back to it, and no process
+    group starts."""
+    import torch.distributed as dist
+
+    from veles_tpu_torch.parallel import pipeline
+    from veles_tpu_torch.samples import moe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_group(*args, **kwargs):
+        raise AssertionError("a process group was started")
+
+    monkeypatch.setattr(dist, "init_process_group", no_group)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.make_stage_mesh()
+    sample = str(PKG / "samples" / "moe.py")
+    small = ["root.moe.loader.n_train=64", "root.moe.loader.n_validation=64"]
+    saved = root.moe.to_dict()
+    try:
+        wf = moe.create_workflow()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wf.run_pipelined(n_microbatches=2)
+        assert not wf.is_initialized
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launcher.train([sample, "--pp", "2", *small])
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            launcher.train([sample, "-l", "127.0.0.1:1", "--n-processes",
+                            "1", "--ep", *small])
+    finally:
+        root.moe = saved

@@ -16,8 +16,8 @@ port and in the JAX package, from one seed.
 - `run_fused` for two epochs at the sample's own widths and seq_len 32
   (the einsum path in both packages): an equal Decision history, loss,
   parameters and velocities.
-- The CLI trains the toy settings; `moe_experts` and the sequence-parallel
-  modes are refused.
+- The CLI trains the toy settings; the sequence-parallel modes are
+  refused, with the MoE FFN too (tests/test_torch_moe.py trains it).
 
 Tolerances: loss rtol 1e-5; params and velocities rtol 1e-4, atol 1e-7
 per leaf; n_err equal; unit forwards rtol 2e-4, atol 2e-5 (the JAX
@@ -384,7 +384,7 @@ def test_cli_trains_the_toy_transformer():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"moe_experts": 2}, "Slice 3, item 17"),
+    ({"moe_experts": 2, "parallel_mode": "ring"}, "many-GPU slice"),
     ({"parallel_mode": "ring"}, "many-GPU slice"),
     ({"parallel_mode": "ulysses"}, "many-GPU slice")])
 def test_multi_card_options_are_refused(override, match):

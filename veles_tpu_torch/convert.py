@@ -19,6 +19,10 @@ the same checks against `step`'s units; an Adam layer's `vel` is
 `state_to_numpy(state)` turns the port's state into host arrays for
 comparisons.
 
+Every leaf travels by its name, so a MoE layer's `wr`, `w1`, `b1`, `w2`,
+`b2` and their velocities (`vel_wr`, ... in both packages) cross like any
+other layer's.
+
 `granular_from_jax(jax_workflow, workflow)` carries a JAX granular
 workflow's units into the port's initialized workflow of the same layer
 list: each forward unit's parameter `Array`s (`weights`, `bias`, ...)

@@ -12,7 +12,8 @@ The weights are the workflow's own tensors (`params_host()`: what the
 fused step wrote back and the server serves), or a parameter tree given
 as `params`. Every unit family of the port has an exporter but stochastic
 pooling, which, like a unit with no native twin in the JAX package, is
-refused. The LSTM and MoE exporters come with their units.
+refused. The MoE exporter is the JAX `_export_moe` (the resolved route in
+the spec); the LSTM exporter comes with its unit.
 
 `export_program` is the counterpart of the JAX module's
 `export_stablehlo` (:182 there): the fused eval forward as a portable
@@ -119,6 +120,19 @@ def _export_attention(u, p):
     return ({"type": "attention", "head_dim": int(u.head_dim),
              "causal": bool(u.causal), "residual": bool(u.residual)},
             [p["wq"], p["wk"], p["wv"], p["wo"]])
+
+
+@_exporter("MoELayer")
+def _export_moe(u, p):
+    # the resolved route rides in the spec (the engine cannot resolve
+    # "auto" against the training-time shapes); the arrays in router-then-
+    # expert order
+    return ({"type": "moe", "n_experts": int(u.n_experts),
+             "hidden": int(u.hidden),
+             "capacity_factor": float(u.capacity_factor),
+             "residual": bool(u.residual),
+             "route": "token" if u.token_wise() else "sample"},
+            [p["wr"], p["w1"], p["b1"], p["w2"], p["b2"]])
 
 
 @_exporter("InputNormalize")

@@ -1,7 +1,7 @@
 """Command line of the port: build a sample workflow, or restore it from
 a snapshot, then train or serve it, optionally under the supervisor.
 
-`python -m veles_tpu_torch WORKFLOW.py [--fused | --serve PORT]
+`python -m veles_tpu_torch WORKFLOW.py [--fused | --pp M | --serve PORT]
 [-b torch|numpy] [-s SNAPSHOT] [--device cpu] [-r SEED]
 [--lrn-maxpool fused|composed] [--feed-ahead N] [--accum K]
 [--autotune [--autotune-budget N]] [--nonfinite-guard] [--mirror SPEC]
@@ -87,7 +87,18 @@ default: on wherever the data axis has more than one rank; "on" shards it
 on one rank too) and needs `--fused` or `-l`/`-m`. Snapshots are written
 by the coordinator alone (`-s` restores on every rank: a snapshot holds
 the gathered velocities, so it restores at any world size).
-`--autotune`, `--serve` and `--supervise` refuse `-l`/`-m`.
+`--autotune`, `--serve` and `--supervise` refuse `-l`/`-m`. `--ep`
+(with `-l`/`-m` only) shards the MoE layers' experts over the ranks
+(the fused step's `ep=True`).
+
+`--pp M` trains the chain as a GPipe pipeline of M microbatches
+(`StandardWorkflow.run_pipelined`, parallel/pipeline.py): one stage per
+visible card, capped at the unit count, in this one process (one card:
+one stage; `--device cpu`: one CPU stage). It is exclusive with
+`--fused`, `--accum`, `--ep`, `--serve` and `-l`/`-m` (the port has no
+`--tp` / `--sp` yet), takes `--autotune`, `--feed-ahead` and
+`--nonfinite-guard` as `--fused` does, and `--zero-sharding on` only
+with a warning (JAX launcher.py:184-236, :276-282).
 
 `--supervise` makes this process the supervisor
 (`resilience/supervisor.py`) of a child running the same command line
@@ -133,6 +144,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused", action="store_true",
                    help="train through the fused step until the workflow's "
                         "decision completes")
+    p.add_argument("--pp", type=int, default=None, metavar="M",
+                   help="train the chain as a GPipe pipeline of M "
+                        "microbatches, one stage per visible card "
+                        "(capped at the unit count)")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve the workflow's forward over HTTP on PORT "
                         "(0 picks a free port)")
@@ -199,6 +214,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "1/N slice of the parameters and optimizer state, "
                         "all-gather the parameters (default auto: on "
                         "wherever the data axis has more than one rank)")
+    p.add_argument("--ep", action="store_true",
+                   help="expert parallelism of a distributed -l/-m run: "
+                        "shard the MoE layers' experts over the ranks, "
+                        "tokens exchanged by all-to-all")
     p.add_argument("--nonfinite-guard", action="store_true",
                    help="abort training with exit code 81 the moment the "
                         "loss goes NaN/inf (the supervisor then rolls "
@@ -326,6 +345,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "URL / --route SPEC for workflow-less modes)")
     if args.fused and args.serve is not None:
         p.error("--fused trains and --serve serves: give one of them")
+    # the GPipe pipeline's refusals (JAX launcher.py:184-236 there)
+    if args.pp is not None:
+        if args.pp < 1:
+            raise SystemExit(f"--pp needs a microbatch count >= 1 "
+                             f"(got {args.pp})")
+        if args.fused:
+            raise SystemExit("--pp and --fused are mutually exclusive "
+                             "execution modes")
+        if args.serve is not None:
+            raise SystemExit("--serve is a serve-only mode: it conflicts "
+                             "with --pp/--fused and distributed -l/-m")
+        if args.accum and args.accum > 1:
+            raise SystemExit("--accum applies to the fused step, not the "
+                             "GPipe pipeline (--pp already microbatches)")
+        if args.ep:
+            raise SystemExit("--pp is its own partitioning (one stage "
+                             "per mesh device); it is exclusive with "
+                             "--tp/--sp/--ep")
+        if args.listen or args.master:
+            raise SystemExit("--pp runs one process over the local cards: "
+                             "it conflicts with a distributed -l/-m run")
+    if args.ep and not (args.listen or args.master):
+        raise SystemExit("--ep shards experts over the distributed global "
+                         "mesh: combine with -l/-m (single-process EP uses "
+                         "build_fused_step(ep=True) directly)")
     # the distributed run's refusals (JAX launcher.py:75-106, :275-291)
     distributed = bool(args.listen or args.master)
     if args.listen and args.master:
@@ -348,20 +392,28 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error("-l founds the group: it is --process-id 0 (workers "
                     "join with -m)")
         args.fused = True
-    if args.zero_sharding != "auto" and not args.fused:
+    if args.zero_sharding != "auto" and not (args.fused or args.pp):
         raise SystemExit("--zero-sharding gates the fused dp update: "
-                         "combine with --fused or a distributed -l/-m run")
-    granular = not args.fused and args.serve is None
+                         "combine with --fused, --pp or a distributed "
+                         "-l/-m run")
+    if args.zero_sharding == "on" and args.pp:
+        import logging
+        logging.getLogger("veles_torch.launcher").warning(
+            "zero-sharding degrades for --pp: the GPipe pipeline step "
+            "partitions by stage, not by data replica — the replicated "
+            "update stays (ZeRO covers the fused dp path this build)")
+    granular = not args.fused and not args.pp and args.serve is None
     if args.backend != "torch" and not granular:
         p.error("-b/--backend picks the granular graph's backend: give it "
                 "without --fused and --serve")
     if args.feed_ahead is not None:
         if args.feed_ahead < 0:
             p.error(f"--feed-ahead needs N >= 0 (got {args.feed_ahead})")
-        if not args.fused:
+        if not (args.fused or args.pp):
             # a knob nothing would read: refused rather than ignored
             p.error("--feed-ahead tunes the device feed of the fused "
-                    "training loop: combine it with --fused")
+                    "and pipelined training loops: combine it with "
+                    "--fused or --pp")
     # the JAX launcher's refusals (launcher.py:193-197 there)
     if args.accum is not None and args.accum < 1:
         p.error(f"--accum needs K >= 1 (got {args.accum})")
@@ -372,9 +424,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.autotune and args.serve is not None:
         p.error("--autotune tunes a training step; it conflicts with "
                 "--serve")
-    if args.autotune and not args.fused:
+    if args.autotune and not (args.fused or args.pp):
         p.error("--autotune tunes the fused-step lowerings: combine with "
-                "--fused")
+                "--fused or --pp")
     if args.autotune_budget is not None and not args.autotune:
         p.error("--autotune-budget bounds the generated-candidate search "
                 "of --autotune: combine with --autotune")
@@ -578,7 +630,7 @@ def _run_distributed(wf, args: argparse.Namespace) -> None:
             wf.run_fused(mesh=mesh, feed_ahead=args.feed_ahead,
                          nonfinite_guard=args.nonfinite_guard,
                          accum_steps=args.accum,
-                         zero_sharding=args.zero_sharding)
+                         zero_sharding=args.zero_sharding, ep=args.ep)
     finally:
         distributed.shutdown_distributed()
 
@@ -587,8 +639,9 @@ def train(argv: Optional[List[str]] = None):
     """Parse `argv` (which must not hold --serve), build the workflow
     through its module's `run(load, main)` (or restore it under -s) and
     train it until its decision completes: through the fused step with
-    `run_fused` under --fused, else through the granular graph
-    (`initialize` on the backend, then `run()`). Returns the trained
+    `run_fused` under --fused, as a GPipe pipeline with `run_pipelined`
+    under --pp, else through the granular graph (`initialize` on the
+    backend, then `run()`). Returns the trained
     workflow. The CLI and chip_smoke.py both come through here."""
     from veles_tpu_torch.ops import variants
     from veles_tpu_torch.resilience import hooks
@@ -616,6 +669,14 @@ def train(argv: Optional[List[str]] = None):
                                  nonfinite_guard=args.nonfinite_guard,
                                  accum_steps=args.accum,
                                  zero_sharding=args.zero_sharding)
+            elif args.pp:
+                # the GPipe pipeline over the visible cards (or the CPU)
+                with variants.selection_kept():
+                    _select_lowerings(wf, args)
+                    wf.run_pipelined(n_microbatches=args.pp,
+                                     device=args.device,
+                                     feed_ahead=args.feed_ahead,
+                                     nonfinite_guard=args.nonfinite_guard)
             else:
                 # the granular graph: the Decision raises at the
                 # minibatch whose loss goes non-finite (JAX :909-916)

@@ -35,7 +35,10 @@ A data-parallel state (JAX `_vel_reshard_restore`, `_target_shardings`):
 layout first (`FusedTrainStep.gather_state`, a collective: every rank
 calls it) and the coordinator alone writes it; `restore_state` gives
 every rank its own slices of the restored state (`shard_state`), so a
-checkpoint restores at any world size. The error-feedback residual of
+checkpoint restores at any world size. An expert-parallel state (`ep`:
+each rank holding E/R experts of every MoE layer) is gathered and sharded
+the same way, so it too restores at another world size. The
+error-feedback residual of
 an int8_ef update is not saved: a restore restarts it at zero, as the
 JAX module does across data-axis sizes. The stream restored is the
 registry's (rank 0's; a rank past the first keeps its own).

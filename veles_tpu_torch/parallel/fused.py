@@ -107,7 +107,24 @@ card runs it). `write_back` all-gathers the velocities (a collective:
 every rank calls it), `gather_state` / `shard_state` turn a ZeRO state
 into the local layout and back (a checkpoint restores at another world
 size), and `optimizer_state_bytes` / `collective_accounting` are the
-JAX step's. The gspmd and seq modes come with the next slice.
+JAX step's.
+
+Expert parallelism (`ep=True`, mode "dp" only; JAX fused.py:212-236,
+:695-708, :1087-1095): the expert leaves each forward unit declares in
+`ep_params` (the MoE layer's w1, b1, w2, b2) are sharded on their leading
+dim over the data axis, rank d holding experts [d*E/D, (d+1)*E/D) in its
+state, parameters and velocities (or Adam moments) alike; the router and
+every other leaf stay replicated. The forward hands the MoE units the
+mesh (`FusedForward.ep_mesh`), which then exchange their slot buffers
+with `all_to_all_single` (ops/moe.py `moe_forward_ep`); the expert
+gradients arrive through the exchange's backward and are not
+all-reduced, the replicated leaves' are, and K1 updates each rank's
+expert slices. ZeRO is inactive under `ep`. `gather_state` /
+`shard_state` / `write_back` all-gather and slice the expert leaves (a
+checkpoint holds the gathered state, so it restores at another world
+size), `optimizer_state_bytes` counts a rank's E/D experts, and
+`collective_accounting` models the exchanges' bytes. The gspmd and seq
+modes come with the next slice.
 """
 
 from __future__ import annotations
@@ -195,6 +212,10 @@ class FusedForward:
             if mean is not None:
                 self.input_normalize["mean"] = torch.as_tensor(
                     mean, dtype=torch.float32, device=self.device)
+        #: the dp mesh whose ranks hold E/R experts each, handed to the
+        #: units that declare `ep_params` (FusedTrainStep(ep=True) sets
+        #: it); None runs every expert locally
+        self.ep_mesh = None
         self.pairs = self.fusion_pairs()
         claimed = {j: i for i, j, _ in self.pairs}
         fused = {i: (j, v) for i, j, v in self.pairs}
@@ -307,6 +328,8 @@ class FusedForward:
                     kw["variant"] = v
                 if u.fused_needs_gen:
                     kw["gen"] = gen
+                if self.ep_mesh is not None and getattr(u, "ep_params", ()):
+                    kw["ep_mesh"] = self.ep_mesh
                 x = u.fused_apply(params[i], x, **kw)
         return x.to(torch.float32)
 
@@ -336,6 +359,40 @@ class FusedForward:
                 table.setdefault("conv_stem", v.name)
                 table.setdefault(b.variant_op, f"conv_stem/{v.name}")
         return table
+
+
+def loss_metrics(loss_kind: str, out: torch.Tensor, y: torch.Tensor,
+                 w: torch.Tensor, wsum=None):
+    """(loss, n_err) of one batch's output `out` (logits for the softmax
+    head). The MSE: the per-sample summed squared error over the valid
+    rows (denominator the weight sum, or `wsum`), n_err the loss itself.
+    The softmax head: (weighted mean cross-entropy, misclassified valid
+    labels): the pad mask's zero rows drop out of both, and of the
+    gradient. The JAX step's rule (fused.py:781-801 there): the (N,)
+    sample weights cover (N,) classifier labels, (N, S) per-token labels,
+    or flat (N·S,) labels, each sample's weight repeated over its S
+    consecutive tokens, and the denominator is the weight sum times the
+    tokens per sample. `wsum` overrides that weight sum: gradient
+    accumulation passes the full batch's, so the microbatches' losses and
+    gradients sum to the full batch's mean."""
+    if loss_kind == "mse":
+        loss, _ = fn.mse(out, y.reshape(out.shape), weights=w,
+                         denom=w.sum() if wsum is None else wsum)
+        return loss, loss.detach()
+    if y.dim() == w.dim() and y.shape[0] != w.shape[0] \
+            and y.shape[0] % w.shape[0] == 0:
+        wt = w.repeat_interleave(y.shape[0] // w.shape[0])
+    else:
+        wt = w.reshape(w.shape + (1,) * (y.dim() - w.dim())) \
+            .broadcast_to(y.shape)
+    tokens = wt.numel() // w.numel()
+    loss = fn.ce_loss_from_logits(
+        out, y, weights=wt,
+        denom=(w.sum() if wsum is None else wsum) * tokens)
+    wrong = (out.reshape(-1, out.shape[-1]).argmax(dim=-1)
+             != y.reshape(-1))
+    n_err = (wrong & (wt.reshape(-1) > 0)).sum()
+    return loss, n_err
 
 
 #: the update rules a gradient twin's `optimizer` names
@@ -386,7 +443,7 @@ class FusedTrainStep:
     def __init__(self, workflow, compute_dtype: Optional[str] = None,
                  input_normalize: Optional[Dict[str, Any]] = None,
                  mesh=None, mode: str = "auto",
-                 zero_sharding: Any = "auto") -> None:
+                 zero_sharding: Any = "auto", ep: bool = False) -> None:
         #: "softmax" or "mse" (StandardWorkflow admits no other)
         self.loss_kind = workflow.loss
         if self.loss_kind == "softmax" and not getattr(
@@ -406,6 +463,11 @@ class FusedTrainStep:
         self._sgd = variants.resolve("sgd_update")
         self.mesh = mesh
         self.mode = self._resolve_mode(mode)
+        #: expert parallelism over the data axis (checked now)
+        self.ep = bool(ep)
+        if self.ep:
+            self._check_ep()
+            self.fwd.ep_mesh = mesh
         #: ZeRO update sharding, resolved now for every later reader
         #: (state layout, update, write_back, reports)
         self.zero_active, self.zero_reason = \
@@ -472,6 +534,10 @@ class FusedTrainStep:
         if self.mode != "dp":
             reason = (f"zero-sharding inactive: mode {self.mode!r} "
                       "(local has one replica)")
+        elif self.ep:
+            reason = ("zero-sharding inactive: ep=True already shards "
+                      "expert tensors over the data axis (the "
+                      "composition is not covered by this build)")
         elif self.n_data < 2 and req not in (True, "on"):
             reason = ("zero-sharding inactive: data axis has a single "
                       "shard (nothing to shard the update over)")
@@ -481,6 +547,73 @@ class FusedTrainStep:
         log = logging.getLogger("veles_torch.fused")
         (log.warning if req in (True, "on") else log.debug)("%s", reason)
         return False, reason
+
+    # -- expert parallelism (JAX fused.py:212-236, :1087-1095) ---------------
+
+    def _check_ep(self) -> None:
+        """The JAX step's refusals: ep needs the dp mode, a forward unit
+        that declares `ep_params`, and an expert count the data axis
+        divides."""
+        if self.mode != "dp":
+            raise ValueError(
+                f"ep=True needs the explicit shard_map 'dp' mode "
+                f"(got mode={self.mode!r}): expert tensors are sharded "
+                "via per-param shard_map specs")
+        n_data = self.n_data
+        any_ep = False
+        for u in self.forwards:
+            for name in getattr(u, "ep_params", ()):
+                any_ep = True
+                t = u.param_arrays().get(name)
+                e = t.shape[0] if t is not None else u.n_experts
+                if e % n_data:
+                    raise ValueError(
+                        f"{type(u).__name__}: {e} experts not divisible by "
+                        f"the data axis ({n_data})")
+        if not any_ep:
+            raise ValueError(
+                "ep=True but no forward unit declares ep_params — the "
+                "step would silently run plain DP")
+
+    def ep_names(self, i: int) -> Tuple[str, ...]:
+        """The expert leaves of forward unit i this step shards (none
+        without `ep`)."""
+        return tuple(getattr(self.forwards[i], "ep_params", ())) \
+            if self.ep else ()
+
+    def _ep_part(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a full expert leaf (a view)."""
+        e_loc = t.shape[0] // self.n_data
+        d = self.mesh.data_index
+        return t[d * e_loc:(d + 1) * e_loc]
+
+    def _ep_full(self, part: torch.Tensor) -> torch.Tensor:
+        """The full expert leaf whose leading-dim blocks the ranks hold."""
+        import torch.distributed as dist
+        full = part.new_empty((part.shape[0] * self.n_data,)
+                              + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(full, part.detach().contiguous(),
+                                    group=self.mesh.group)
+        return full
+
+    def _ep_map(self, state, leaf_fn) -> Dict[str, Any]:
+        """`state` with `leaf_fn` applied to every expert leaf of the
+        parameters and of the velocities or Adam moments."""
+        params, vel = [], []
+        for i, (p, v) in enumerate(zip(state["params"], state["vel"])):
+            names = self.ep_names(i)
+
+            def conv(layer):
+                return {k: leaf_fn(t) if k in names else t
+                        for k, t in layer.items()}
+            params.append(conv(p))
+            if optim.is_adam_state(v):
+                vel.append({"m": conv(v["m"]), "v": conv(v["v"]),
+                            "t": v["t"]})
+            else:
+                vel.append(conv(v))
+        return {"params": tuple(params), "vel": tuple(vel),
+                "lr_scale": state["lr_scale"]}
 
     def _shard_step_key(self) -> torch.Generator:
         """This rank's dropout stream: the registry's device stream for
@@ -534,7 +667,10 @@ class FusedTrainStep:
     def collective_accounting(self) -> Optional[Dict[str, Any]]:
         """Modeled per-rank bytes a train step's grad_reduce exchange (and
         the parameter all-gather) moves, under the selected point and the
-        link geometry (variants.grad_reduce_bytes); None without ZeRO."""
+        link geometry (variants.grad_reduce_bytes); under `ep`, the MoE
+        exchanges' (`ep_accounting`); None otherwise."""
+        if self.ep:
+            return self.ep_accounting()
         if not self.zero_active:
             return None
         v = self._grad_reduce_variant()
@@ -545,6 +681,31 @@ class FusedTrainStep:
         acct.update(op="grad_reduce", variant=v.name, elements=elems,
                     n_shards=self.n_data)
         return acct
+
+    def ep_accounting(self) -> Dict[str, Any]:
+        """The expert exchanges of one train step on the loader's global
+        minibatch: per MoE layer two all-to-alls forward and their two
+        transposes backward, each sending this rank's (E, C, D) slot
+        buffer, C the capacity of its rows' tokens, of which (D-1)/D
+        leaves the rank. Bytes at the compute dtype's item size (modeled:
+        the buffer takes the dtype its input promotes to)."""
+        n = self.n_data
+        rows = self.fwd.workflow.loader.minibatch_size // n
+        item = 4 if self.compute_dtype in (None, "float32") else 2
+        layers = []
+        for u in self.forwards:
+            if not getattr(u, "ep_params", ()):
+                continue
+            tokens = rows * u.input_tokens_per_sample()
+            e, d = u.wr.shape[1], u.wr.shape[0]
+            elems = e * u.capacity(tokens) * d
+            layers.append({"tokens": tokens, "capacity": u.capacity(tokens),
+                           "elements": elems})
+        per = sum(lay["elements"] for lay in layers)
+        return {"op": "moe_all_to_all", "n_shards": n,
+                "exchanges": 4 * len(layers), "layers": layers,
+                "elements": 4 * per,
+                "egress_bytes": int(4 * per * item * (n - 1) / n)}
 
     def optimizer_state_bytes(self, state) -> Dict[str, int]:
         """{device: bytes} the optimizer state (velocities, Adam moments
@@ -629,13 +790,15 @@ class FusedTrainStep:
         slice of its zero-padded leaf (JAX fused.py:417-484), and a
         stateful grad_reduce point adds the zero residuals ("ef")."""
         params = tuple(
-            {k: t.detach().clone().requires_grad_(True)
+            {k: (self._ep_part(t.detach()) if k in self.ep_names(i)
+                 else t.detach()).clone().requires_grad_(True)
              for k, t in u.param_arrays().items()}
-            for u in self.forwards)
+            for i, u in enumerate(self.forwards))
         plans = (self.zero_plans() if self.zero_active
                  else (None,) * len(params))
         vel = []
-        for g, p, cfg, plan in zip(self.gd_units, params, self.cfgs, plans):
+        for i, (g, p, cfg, plan) in enumerate(zip(self.gd_units, params,
+                                                  self.cfgs, plans)):
             if isinstance(cfg, optim.AdamConfig):
                 st = optim.adam_init(p, self.device)
                 if plan is not None:
@@ -654,6 +817,8 @@ class FusedTrainStep:
                         flat[:plan[k].size] = seed.detach().reshape(-1)
                     layer[k] = self._my_slice(flat, plan[k]).clone()
                 else:
+                    if seed is not None and k in self.ep_names(i):
+                        seed = self._ep_part(seed)
                     layer[k] = (seed.detach().to(self.device, copy=True)
                                 if seed is not None
                                 else torch.zeros_like(t,
@@ -684,8 +849,11 @@ class FusedTrainStep:
         """A ZeRO state in the local layout: every velocity and moment
         all-gathered to its leaf's shape (a collective: every rank calls
         it), the EF residuals dropped (a restore at another world size
-        restarts them at zero, as the JAX checkpoint does). Any other
-        state is returned as it is."""
+        restarts them at zero, as the JAX checkpoint does). Under `ep` the
+        expert leaves of the parameters and velocities (moments) are
+        all-gathered. Any other state is returned as it is."""
+        if self.ep:
+            return self._ep_map(state, self._ep_full)
         if not self.zero_active:
             return state
         vel = []
@@ -706,7 +874,14 @@ class FusedTrainStep:
     @torch.no_grad()
     def shard_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """`gather_state`'s inverse: a local-layout state with this rank's
-        ZeRO slices (zero residuals where the point is stateful)."""
+        ZeRO slices (zero residuals where the point is stateful), or its
+        experts under `ep`."""
+        if self.ep:
+            out = self._ep_map(state, lambda t: self._ep_part(t).clone())
+            out["params"] = tuple(
+                {k: t.detach().requires_grad_(True) for k, t in p.items()}
+                for p in out["params"])
+            return out
         if not self.zero_active:
             return state
         vel = []
@@ -763,36 +938,8 @@ class FusedTrainStep:
         return x, y, w
 
     def _loss_metrics(self, out, y, w, wsum=None):
-        """(loss, n_err) of one batch. The MSE: the per-sample summed
-        squared error over the valid rows (denominator the weight sum, or
-        `wsum`), n_err the loss itself. The softmax head: (weighted mean
-        cross-entropy, misclassified valid labels): the
-        pad mask's zero rows drop out of both, and of the gradient. The
-        JAX step's rule (fused.py:781-801 there): the (N,) sample weights
-        cover (N,) classifier labels, (N, S) per-token labels, or flat
-        (N·S,) labels, each sample's weight repeated over its S
-        consecutive tokens, and the denominator is the weight sum times
-        the tokens per sample. `wsum` overrides that weight sum: gradient
-        accumulation passes the full batch's, so the microbatches' losses
-        and gradients sum to the full batch's mean."""
-        if self.loss_kind == "mse":
-            loss, _ = fn.mse(out, y.reshape(out.shape), weights=w,
-                             denom=w.sum() if wsum is None else wsum)
-            return loss, loss.detach()
-        if y.dim() == w.dim() and y.shape[0] != w.shape[0] \
-                and y.shape[0] % w.shape[0] == 0:
-            wt = w.repeat_interleave(y.shape[0] // w.shape[0])
-        else:
-            wt = w.reshape(w.shape + (1,) * (y.dim() - w.dim())) \
-                .broadcast_to(y.shape)
-        tokens = wt.numel() // w.numel()
-        loss = fn.ce_loss_from_logits(
-            out, y, weights=wt,
-            denom=(w.sum() if wsum is None else wsum) * tokens)
-        wrong = (out.reshape(-1, out.shape[-1]).argmax(dim=-1)
-                 != y.reshape(-1))
-        n_err = (wrong & (wt.reshape(-1) > 0)).sum()
-        return loss, n_err
+        """(loss, n_err) of one batch (`loss_metrics`)."""
+        return loss_metrics(self.loss_kind, out, y, w, wsum)
 
     def _grads(self, state, x, y, w, wsum=None):
         """(gradients, one tuple per layer aligned with state["params"],
@@ -813,19 +960,24 @@ class FusedTrainStep:
     def _reduce_grads(self, grads):
         """The replicated dp update's gradient all-reduce (JAX fused.py:865;
         the global-mean normalization is in the ranks' partials already):
-        one all-reduce per leaf. Identity in local mode and under ZeRO,
-        whose reduce-scatter is the reduction."""
+        one all-reduce per leaf but the expert leaves under `ep`. Identity
+        in local mode and under ZeRO, whose reduce-scatter is the
+        reduction."""
         if self.mode != "dp" or self.zero_active:
             return grads
         import torch.distributed as dist
         out = []
-        for layer in grads:
+        for i, layer in enumerate(grads):
             # a collective takes contiguous tensors; autograd may return a
             # gradient in its input's layout (a convolution's channels-last
             # weight gradient)
             layer = {k: t.contiguous() for k, t in layer.items()}
-            for t in layer.values():
-                dist.all_reduce(t, group=self.mesh.group)
+            experts = self.ep_names(i)
+            for k, t in layer.items():
+                # an expert leaf's gradient came through the exchange's
+                # backward: it is this rank's experts' already
+                if k not in experts:
+                    dist.all_reduce(t, group=self.mesh.group)
             out.append(layer)
         return tuple(out)
 

@@ -14,9 +14,12 @@ fused step with `--fused`, else through the granular Unit/Workflow graph
 attention runs the einsum `mha` path; at seq_len 4096 (S >= 4096,
 S % 128 == 0, the attention unit's flash gate) it runs K6 forward and K7
 backward, in the granular graph K6 in the attention unit's firing and K6
-and K7 in its gradient unit's vjp. The sequence-parallel modes
-(`parallel_mode` "ring" / "ulysses") and the mixture-of-experts FFN
-(`moe_experts` > 0) come with the many-GPU slice.
+and K7 in its gradient unit's vjp. `root.char_transformer.moe_experts=N`
+(N > 0) replaces the FFN with an N-expert token-routed switch MoE
+(znicz/moe.py; hidden `ffn`, residual, capacity factor
+`moe_capacity_factor`), which the data-parallel step can shard over its
+ranks (`-l/-m --ep`). The sequence-parallel modes (`parallel_mode`
+"ring" / "ulysses") come with the many-GPU slice.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ root.char_transformer.embed = 64
 root.char_transformer.n_heads = 4
 root.char_transformer.ffn = 128
 root.char_transformer.parallel_mode = "local"  # | "ring" | "ulysses"
-#: 0 = dense SeqFFN; N = an N-expert token-routed MoE (many-GPU slice)
+#: 0 = dense SeqFFN; N = replace it with an N-expert token-routed MoE
 root.char_transformer.moe_experts = 0
+#: per-expert slot budget (capacity = factor x tokens / experts); raise
+#: it to the expert count for zero-drop runs
 root.char_transformer.moe_capacity_factor = 2.0
 root.char_transformer.decision.max_epochs = 5
 root.char_transformer.decision.fail_iterations = 20
@@ -49,16 +54,19 @@ class CharTransformerWorkflow(StandardWorkflow):
 
 def create_workflow(text: Optional[str] = None) -> CharTransformerWorkflow:
     cfg = root.char_transformer
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "moe_experts > 0 replaces the FFN with a token-routed mixture "
-            "of experts: ops/moe.py and znicz/moe.py come with the "
-            "many-GPU slice (ROADMAP Slice 3, item 17)")
     loader = CharSequenceLoader(
         text=text, seq_len=cfg.loader.seq_len,
         n_validation=cfg.loader.n_validation,
         minibatch_size=cfg.loader.minibatch_size)
     e = cfg.embed
+    if cfg.moe_experts:
+        ffn = {"type": "moe", "n_experts": cfg.moe_experts,
+               "hidden": cfg.ffn, "residual": True,
+               "capacity_factor": float(cfg.moe_capacity_factor),
+               "weights_stddev": 0.05}
+    else:
+        ffn = {"type": "seq_ffn", "hidden": cfg.ffn, "activation": "tanh",
+               "weights_stddev": 0.05}
     return CharTransformerWorkflow(
         layers=[
             {"type": "seq_linear", "output_features": e,
@@ -66,8 +74,7 @@ def create_workflow(text: Optional[str] = None) -> CharTransformerWorkflow:
             {"type": "attention", "n_heads": cfg.n_heads, "causal": True,
              "residual": True, "parallel_mode": cfg.parallel_mode,
              "weights_stddev": 0.05},
-            {"type": "seq_ffn", "hidden": cfg.ffn, "activation": "tanh",
-             "weights_stddev": 0.05},
+            ffn,
             {"type": "seq_softmax", "output_features": loader.n_vocab,
              "weights_stddev": 0.05},
         ],

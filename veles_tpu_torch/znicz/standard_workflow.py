@@ -69,7 +69,14 @@ step's `train_accum` (K microbatches, one update; JAX :449-465), the
 feed, the snapshots and the Decision unchanged. The fused loop and the
 granular graph share the layers' parameters and the gradient units'
 velocities, so either continues from where the other stopped.
-Telemetry and meshes come with later slices.
+
+`run_fused(mesh=..., ep=True)` trains data-parallel with the MoE
+layers' experts sharded over the ranks (parallel/fused.py). `run_pipelined`
+(JAX :390-416) trains the chain as a GPipe pipeline
+(parallel/pipeline.py `PipelineTrainStep`, `build_pipeline_step`): one
+stage per visible card by default, capped at the unit count (one card:
+one stage; `--device cpu`: one CPU stage), through the same loop, feed,
+Decision and snapshots. Telemetry comes with a later slice.
 """
 
 from __future__ import annotations
@@ -87,7 +94,7 @@ from veles_tpu_torch.loader.base import TRAIN, VALIDATION, Loader
 from veles_tpu_torch.units import Unit
 from veles_tpu_torch.workflow import Repeater, Workflow
 from veles_tpu_torch.znicz import activation, all2all, attention, conv, \
-    dropout, normalization, pooling, transformer
+    dropout, moe, normalization, pooling, transformer
 # the gradient units register their pairs with the layers when imported
 from veles_tpu_torch.znicz import gd, gd_conv, gd_pooling  # noqa: F401
 from veles_tpu_torch.znicz.decision import DecisionGD
@@ -96,8 +103,8 @@ from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, gd_for, \
     unit_for
 
 #: layer-type name -> forward layer class (the JAX package's types of
-#: the all2all, conv, pooling, normalization, activation, dropout and
-#: attention families)
+#: the all2all, conv, pooling, normalization, activation, dropout,
+#: attention and mixture-of-experts families)
 LAYER_TYPES: Dict[str, type] = {
     "all2all": all2all.All2All,
     "all2all_tanh": all2all.All2AllTanh,
@@ -127,6 +134,7 @@ LAYER_TYPES: Dict[str, type] = {
     "seq_linear": transformer.SeqLinear,
     "seq_ffn": transformer.SeqFFN,
     "seq_softmax": transformer.SeqSoftmax,
+    "moe": moe.MoELayer,
 }
 
 
@@ -408,18 +416,34 @@ class StandardWorkflow(Workflow):
     def build_fused_step(self, compute_dtype: Optional[str] = None,
                          input_normalize: Optional[Dict[str, Any]] = None,
                          mesh=None, mode: str = "auto",
-                         zero_sharding: Any = "auto"):
+                         zero_sharding: Any = "auto", ep: bool = False):
         """The fused train step over this workflow's units (see
         parallel/fused.py); resolves its lowerings now. `compute_dtype`
         ("bfloat16": bf16 compute over f32 master weights) falls back to
         root.common.precision_type when None; `input_normalize` is the
         uint8 wire's prologue spec; `mesh` (parallel/mesh.make_mesh) makes
         it a data-parallel step, its update ZeRO-sharded by
-        `zero_sharding` ("auto", "on", "off")."""
+        `zero_sharding` ("auto", "on", "off"), its MoE experts sharded over
+        the ranks with `ep`."""
         from veles_tpu_torch.parallel.fused import FusedTrainStep
         return FusedTrainStep(self, compute_dtype=compute_dtype,
                               input_normalize=input_normalize, mesh=mesh,
-                              mode=mode, zero_sharding=zero_sharding)
+                              mode=mode, zero_sharding=zero_sharding, ep=ep)
+
+    def build_pipeline_step(self, devices=None, n_microbatches: int = 4,
+                            boundaries=None,
+                            compute_dtype: Optional[str] = None,
+                            input_normalize: Optional[Dict[str, Any]] = None):
+        """The chain as a GPipe pipeline over the stage `devices`
+        (parallel/pipeline.py; default one stage per visible card, repeats
+        allowed) in `n_microbatches` microbatches (JAX :313-323). The
+        workflow must be initialized first."""
+        from veles_tpu_torch.parallel.pipeline import PipelineTrainStep, \
+            make_stage_mesh
+        return PipelineTrainStep(self, make_stage_mesh(devices),
+                                 n_microbatches, boundaries=boundaries,
+                                 compute_dtype=compute_dtype,
+                                 input_normalize=input_normalize)
 
     def autotune(self, compute_dtype: Optional[str] = None,
                  **kwargs: Any) -> Dict[str, Dict[str, Any]]:
@@ -461,7 +485,7 @@ class StandardWorkflow(Workflow):
                   feed_ahead: Optional[int] = None,
                   nonfinite_guard: bool = False,
                   accum_steps: Optional[int] = None, mesh=None,
-                  zero_sharding: Any = "auto") -> None:
+                  zero_sharding: Any = "auto", ep: bool = False) -> None:
         """Train with the fused step until the Decision completes
         (`epochs` overrides its `max_epochs`), on `device` (the card unless
         "cpu" is asked for; see `place`). Batches reach the card through
@@ -478,7 +502,7 @@ class StandardWorkflow(Workflow):
         of each (the loader produces only those), and the coordinator
         alone writes the snapshots; the workflow lives on the mesh's
         device. `zero_sharding` gates the ZeRO update (JAX :509-515,
-        :732)."""
+        :732); `ep` shards the MoE experts over the ranks."""
         if epochs is not None:
             self.decision.max_epochs = epochs
         if mesh is not None:
@@ -487,9 +511,40 @@ class StandardWorkflow(Workflow):
         wire = self._wire_spec(uint8_wire)
         step = self.build_fused_step(
             input_normalize=wire["normalize"] if wire else None,
-            mesh=mesh, zero_sharding=zero_sharding)
+            mesh=mesh, zero_sharding=zero_sharding, ep=ep)
         if accum_steps and accum_steps > 1:
             step = AccumulatingStep(step, accum_steps)
+        self._run_with_step(step, wire=wire, feed_ahead=feed_ahead,
+                            nonfinite_guard=nonfinite_guard)
+
+    def run_pipelined(self, devices=None, n_microbatches: int = 4,
+                      epochs: Optional[int] = None,
+                      device: DeviceLike = None, boundaries=None,
+                      compute_dtype: Optional[str] = None,
+                      nonfinite_guard: bool = False, uint8_wire="auto",
+                      feed_ahead: Optional[int] = None) -> None:
+        """Train as a GPipe pipeline with the Loader / Decision /
+        Snapshotter loop and the DeviceFeed of `run_fused` (JAX
+        :390-416). `devices`: the stage devices; by default one stage per
+        visible card, capped at the unit count, or the one CPU stage
+        where `device` asks for the CPU (without a card and without that,
+        refused). The CLI's `--pp M` (M = `n_microbatches`)."""
+        if epochs is not None:
+            self.decision.max_epochs = epochs
+        if devices is None:
+            dev = make_device(device)
+            if device is None and dev.type == "cuda":
+                from veles_tpu_torch.parallel.pipeline import \
+                    make_stage_mesh
+                devices = make_stage_mesh()[:max(1, len(self.forwards))]
+            else:
+                devices = [dev]
+        self.place(devices[0])
+        wire = self._wire_spec(uint8_wire)
+        step = self.build_pipeline_step(
+            devices, n_microbatches, boundaries=boundaries,
+            compute_dtype=compute_dtype,
+            input_normalize=wire["normalize"] if wire else None)
         self._run_with_step(step, wire=wire, feed_ahead=feed_ahead,
                             nonfinite_guard=nonfinite_guard)
 
