@@ -268,6 +268,20 @@
    one device): a gloo group over CUDA tensors, one ZeRO step of the toy
    AlexNet against the local step, or a line saying why the card allows
    none (DP two ranks).
+   TP (after DP): tensor parallelism, the fused step's gspmd mode (the
+   JAX megatron plan, parallel/tp.py) on the full-width AlexNet at TB
+   rows, dropout 0.5, TP_STEPS steps. (a) World size 1 on NCCL, mode
+   "gspmd" at model 1, in f32 and bf16: the local step's bits from the
+   same state and dropout stream position under PyTorch's deterministic
+   algorithms, K1 16, K4 2 and K5 2 a step exactly (TP lines). (b) Two
+   gloo processes over CUDA tensors on the one card, data 1 x model 2,
+   f32 and bf16, against the local step from the same state and masks:
+   f32 parameters within 1e-5; the bf16 update no further from the f32
+   local step's than the bf16 local step's (plus TP_BF16_SLACK); every
+   rank K1 16, K4 2, K5 2 a step; a rank's parameter and optimizer bytes
+   within TP_SHARE of the local step's; gloo's host ms a step (no TP
+   figure). The script exits non-zero where (b) does not run (TP two
+   ranks lines). The phase's seconds.
    GRANULAR: the full-width AlexNet one epoch (4 train minibatches of 128
    and one validation minibatch, dropout 0.5 as the sample has it)
    through the granular Unit/Workflow graph, `launcher.train` without
@@ -305,7 +319,7 @@
    same state on the same batch, every parameter and velocity within
    TRAIN_ATOL + TRAIN_RTOL*|fused|, the fused step's synchronized host
    ms per train step printed beside the granular cycles.
-   GRANULAR RESUME: the full-width AlexNet (synthetic loader of 1280
+   GRANULAR RESUME: the full-width AlexNet (synthetic loader of 640
    train and 128 validation images, dropout 0.5) 3 granular epochs
    through `launcher.train` from a workflow file this script writes,
    which rebuilds the sample's workflow with snapshot_config (codec none,
@@ -4680,11 +4694,13 @@ def granular_transformer_phase(launcher, kernels, dev):
 
 #: GRANULAR RESUME: the full-width AlexNet (synthetic loader, dropout 0.5)
 #: through the granular graph, GR_EPOCHS uninterrupted against GR_CUT and
-#: resumed with -s; snapshots uncompressed (codec none), keep_last 2; 1280
-#: train images (10 minibatches an epoch, as RESUME's), so that epoch
-#: GR_CUT's validation pass improves and its snapshot follows updates
+#: resumed with -s; snapshots uncompressed (codec none), keep_last 2; 640
+#: train images (5 minibatches an epoch: 4 updates, so every snapshot
+#: follows updates; 1280 until the TP phase came and the script passed
+#: 850 s, a granular minibatch costing ~0.7 s under the deterministic
+#: algorithms)
 GR_EPOCHS, GR_CUT, GR_FAULT = 3, 2, "kill@epoch=2"
-GR_ARGS = ["root.alexnet.loader.n_train=1280"]
+GR_ARGS = ["root.alexnet.loader.n_train=640"]
 GRANULAR_RESUME_WORKFLOW = '''
 import torch
 
@@ -7016,6 +7032,294 @@ def dp_phase(launcher, kernels, dev):
 
 
 # ---------------------------------------------------------------------------
+# TP: tensor parallelism, the fused step's gspmd mode (parallel/tp.py)
+# ---------------------------------------------------------------------------
+
+#: steps of each TP check
+TP_STEPS = 3
+#: TP (b) bf16: the two ranks' update no further from the f32 local
+#: step's than the bf16 local step's is, plus one bf16 unit roundoff. A
+#: row-parallel product rounds each rank's partial sum to bf16 before
+#: the all-reduce, the local step rounds the whole sum once: the two bf16
+#: updates differ by about as much as each differs from the f32 one
+#: (0.0093 apart, 0.0117 and 0.0118 from f32 on an H100, 3 steps at 128
+#: rows), beyond BF16_STEP_RTOL, which holds bf16 steps of the same
+#: roundings to each other
+TP_BF16_SLACK = BF16_U
+#: a rank's share of the local step's parameter and optimizer bytes at
+#: model 2 (every leaf the megatron plan shards halved; the replicated
+#: biases of the row-parallel layers, 5,736 of 62,378,344 elements, whole)
+TP_SHARE = (0.5, 0.501)
+TP_TWO_RANKS = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+rank, port = int(sys.argv[1]), sys.argv[2]
+cfg = json.loads(sys.argv[3])
+from veles_tpu_torch import prng
+from veles_tpu_torch.ops import kernels
+from veles_tpu_torch.parallel import distributed, memstats, mesh as M
+from veles_tpu_torch.samples import alexnet
+kernels.build()
+distributed.initialize_distributed(f"127.0.0.1:{port}", rank, 2,
+                                   backend="gloo", timeout_s=600)
+mesh = M.make_mesh(model=2, device="cuda:0")
+dev = mesh.device
+n = cfg["steps"]
+out = {"mesh": str(mesh), "device": str(dev)}
+
+
+def distance(a, b, before):
+    # ||(a - before) - (b - before)|| / ||b - before|| over the leaves,
+    # and per layer
+    num = mv = 0.0
+    layers = []
+    for la, lb, l0 in zip(a, b, before):
+        n_ = sum(float(((x.double() - y.double()) ** 2).sum())
+                 for x, y in zip(la, lb))
+        m_ = sum(float(((y.double() - z.double()) ** 2).sum())
+                 for y, z in zip(lb, l0))
+        num, mv = num + n_, mv + m_
+        layers.append((n_ / m_) ** 0.5 if m_ else 0.0)
+    return (num / mv) ** 0.5, layers
+
+
+ref32 = None
+for label, dt in (("f32", None), ("bf16", "bfloat16")):
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow()          # dropout 0.5
+    wf.initialize(dev)
+    tp = wf.build_fused_step(compute_dtype=dt, mesh=mesh, mode="gspmd")
+    local = wf.build_fused_step(compute_dtype=dt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    x = torch.randn((cfg["rows"], cfg["hw"], cfg["hw"], 3), generator=gen,
+                    device=dev)
+    y = torch.randint(0, cfg["classes"], (cfg["rows"],), generator=gen,
+                      device=dev)
+    st, sl = tp.init_state(), local.init_state()
+    before = [[t.detach().clone() for t in layer.values()]
+              for layer in sl["params"]]
+    pos = tp.gen.get_state()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    host = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        st, (lt, _) = tp.train(st, x, y)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    # the local step draws the same dropout masks from the same stream
+    tp.gen.set_state(pos)
+    for _ in range(n):
+        sl, (ll, _) = local.train(sl, x, y)
+    full = tp.gather_state(st)
+    got = [[t.detach() for t in layer.values()] for layer in full["params"]]
+    want = [[t.detach() for t in layer.values()] for layer in sl["params"]]
+    dist_local, by_layer = distance(got, want, before)
+    if ref32 is None:
+        ref32 = [[t.clone() for t in layer] for layer in want]
+    got, want = sum(got, []), sum(want, [])
+    vel_got = [t for layer in full["vel"] for t in layer.values()]
+    vel_want = [t for layer in sl["vel"] for t in layer.values()]
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out[label] = {
+        "loss_tp": float(lt), "loss_local": float(ll),
+        "param_err": max(float((a - b).abs().max())
+                         for a, b in zip(got, want)),
+        "vel_err": max(float((a - b).abs().max())
+                       for a, b in zip(vel_got, vel_want)),
+        "update_distance": dist_local,
+        "update_distance_by_layer": by_layer,
+        # each bf16 step's distance to the f32 local step's update
+        "to_f32_tp": distance([[t.detach() for t in layer.values()]
+                               for layer in full["params"]], ref32,
+                              before)[0],
+        "to_f32_local": distance([[t.detach() for t in layer.values()]
+                                  for layer in sl["params"]], ref32,
+                                 before)[0],
+        "launches": counts, "host_ms": host,
+        "param_bytes": nbytes([t for layer in st["params"]
+                               for t in layer.values()]),
+        "local_param_bytes": nbytes(want),
+        "opt_bytes": sum(tp.optimizer_state_bytes(st).values()),
+        "local_opt_bytes": sum(local.optimizer_state_bytes(sl).values()),
+        "roles": tp.fwd.tp.roles, "table": tp.variant_table(),
+        "memstats": memstats.device_memory_stats()}
+    del wf, tp, local, st, sl, full, got, want, before
+    torch.cuda.empty_cache()
+every = [None, None]
+torch.distributed.all_gather_object(every, out)
+if rank == 0:
+    print("TPTWO " + json.dumps(every), flush=True)
+distributed.shutdown_distributed()
+"""
+
+
+def tp_solo_run(kernels, dev, mesh, compute_dtype):
+    """TP (a) at one compute dtype: the full-width AlexNet at the DP
+    phase's batch, dropout 0.5, the local step and the step with
+    mode="gspmd" at model 1 from one state, the same dropout stream
+    position and PyTorch's deterministic algorithms (cuDNN's sums
+    otherwise change with the call): the same bits, the gspmd steps'
+    exact launches. Returns (launches, record)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples import alexnet
+    prng.seed_all(1234)
+    wf = alexnet.create_workflow()
+    wf.initialize(dev)
+    local = wf.build_fused_step(compute_dtype=compute_dtype)
+    tp = wf.build_fused_step(compute_dtype=compute_dtype, mesh=mesh,
+                             mode="gspmd")
+    sl, st = local.init_state(), tp.init_state()
+    x, y, w = card_batch(dev, TB, 77)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        pos = local.gen.get_state()
+        for _ in range(TP_STEPS):
+            sl, (ll, _) = local.train(sl, x, y, w)
+        tp.gen.set_state(pos)
+        torch.cuda.synchronize()
+        # -- the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        for _ in range(TP_STEPS):
+            st, (lt, _) = tp.train(st, x, y, w)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    sfx = "_bf16" if compute_dtype else ""
+    label = compute_dtype or "f32"
+    check_counts(f"TP {label}", counts,
+                 {"sgd_update": N_LEAVES * TP_STEPS,
+                  f"lrn_maxpool_forward{sfx}": 2 * TP_STEPS,
+                  f"lrn_maxpool_backward{sfx}": 2 * TP_STEPS})
+    bits = all(torch.equal(a, b) for a, b in zip(state_tensors(st),
+                                                  state_tensors(sl)))
+    if not bits or float(lt) != float(ll):
+        raise AssertionError(
+            f"TP {label}: the gspmd step at model 1 is not the local "
+            f"step's bits (max abs err "
+            f"{compare_states(f'TP {label}', st, sl, 1.0, 1.0):.3e}, loss "
+            f"{float(lt)} against {float(ll)})")
+    rec = {"bit_equal_to_local": bits, "loss": float(lt),
+           "zero": tp.zero_reason, "variant_table": tp.variant_table()}
+    print(f"TP {label}: world size 1 on {mesh.device}, mode gspmd at model "
+          f"1, dropout 0.5: {TP_STEPS} steps bit-equal to the local step's "
+          f"(deterministic algorithms); launches {counts}", flush=True)
+    del wf, local, tp, sl, st
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def tp_two_ranks():
+    """TP (b): two gloo processes over CUDA tensors on the one card (NCCL
+    refuses two ranks on one device), data 1 x model 2, the full-width
+    AlexNet at TB rows, dropout 0.5, TP_STEPS steps in f32 and bf16
+    against the local step from the same state and masks: the gathered
+    parameters within 1e-5 (f32; bf16: the update as near the f32 local
+    step's as the bf16 local step's, TP_BF16_SLACK), every rank's K1 16,
+    K4 2 and K5 2 a step, a rank's
+    parameter and optimizer bytes about half the local step's. Raises
+    where it does not run. Returns the record."""
+    work = tempfile.mkdtemp(prefix="veles_tp2_")
+    script = os.path.join(work, "two_ranks.py")
+    with open(script, "w") as f:
+        f.write(TP_TWO_RANKS)
+    port = str(free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    cfg = json.dumps({"steps": TP_STEPS, "rows": TB, "hw": HW,
+                      "classes": N_CLASSES})
+    procs = [subprocess.Popen([sys.executable, script, str(r), port, cfg],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out after 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    line = [ln for out in outs for ln in out.splitlines()
+            if ln.startswith("TPTWO ")]
+    if not line or any(p.returncode != 0 for p in procs):
+        tail = "\n".join(out[-3000:] for out in outs)
+        raise AssertionError(f"TP two ranks did not run:\n{tail}")
+    ranks = json.loads(line[0][len("TPTWO "):])
+    rec = {"ranks": ranks}
+    for label in ("f32", "bf16"):
+        sfx = "_bf16" if label == "bf16" else ""
+        for r, got in enumerate(ranks):
+            g = got[label]
+            check_counts(f"TP two ranks {label} rank {r}", g["launches"],
+                         {"sgd_update": N_LEAVES * TP_STEPS,
+                          f"lrn_maxpool_forward{sfx}": 2 * TP_STEPS,
+                          f"lrn_maxpool_backward{sfx}": 2 * TP_STEPS})
+            for what in ("param", "opt"):
+                share = g[f"{what}_bytes"] / g[f"local_{what}_bytes"]
+                if not TP_SHARE[0] <= share <= TP_SHARE[1]:
+                    raise AssertionError(
+                        f"TP two ranks {label} rank {r}: {what} bytes "
+                        f"{g[f'{what}_bytes']} of the local step's "
+                        f"{g[f'local_{what}_bytes']} ({share:.5f})")
+            if label == "f32" and not g["param_err"] <= 1e-5:
+                raise AssertionError(f"TP two ranks f32 rank {r}: {g}")
+            if label == "bf16" and not g["to_f32_tp"] <= \
+                    g["to_f32_local"] + TP_BF16_SLACK:
+                raise AssertionError(f"TP two ranks bf16 rank {r}: {g}")
+            if not np.isfinite(g["loss_tp"]):
+                raise AssertionError(f"TP two ranks {label}: loss {g}")
+        g = ranks[0][label]
+        print(f"TP two ranks {label}: gloo over CUDA tensors on one card, "
+              f"data 1 x model 2, the full-width AlexNet at {TB} rows, "
+              f"dropout 0.5, {TP_STEPS} steps: parameters within "
+              f"{g['param_err']:.3e} of the local step's (velocities "
+              f"{g['vel_err']:.3e}, update distance "
+              f"{g['update_distance']:.3e}; to the f32 local step's "
+              f"update {g['to_f32_tp']:.3e}, the local step's "
+              f"{g['to_f32_local']:.3e}); loss {g['loss_tp']} against "
+              f"{g['loss_local']}; a rank holds {g['param_bytes']} parameter "
+              f"and {g['opt_bytes']} optimizer bytes of the local step's "
+              f"{g['local_param_bytes']} and {g['local_opt_bytes']}; "
+              f"launches a rank {g['launches']}; host ms a step "
+              f"{[round(t, 1) for t in g['host_ms']]} (gloo stages every "
+              f"collective through the host: no TP figure); roles "
+              f"{g['roles']}", flush=True)
+    return rec
+
+
+def tp_phase(launcher, kernels, dev):
+    """TP: (a) the gspmd step at model 1 on NCCL (world size 1) bit-equal
+    to the local step in f32 and bf16, (b) two gloo ranks at model 2 on
+    the one card. Returns (launches by path, record)."""
+    from veles_tpu_torch.parallel import distributed
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    launches, rec = {}, {}
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        mesh = make_mesh()
+        for dt in (None, "bfloat16"):
+            label = dt or "f32"
+            launches[f"tp_{label}"], rec[label] = tp_solo_run(
+                kernels, dev, mesh, dt)
+    finally:
+        distributed.shutdown_distributed()
+    rec["two_ranks"] = tp_two_ranks()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"TP: the phase in {rec['seconds']:.2f} s", flush=True)
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
 # MOE, EP, PP: the switch mixture of experts, expert parallelism and the
 # GPipe pipeline on the char-transformer at seq_len 4096
 # ---------------------------------------------------------------------------
@@ -7590,6 +7894,9 @@ def run_phases(args) -> int:
         with alexnet_config_kept():
             dp_launches, dp = dp_phase(launcher, kernels, dev)
         by_path.update(dp_launches)
+        with alexnet_config_kept():
+            tp_launches, tp = tp_phase(launcher, kernels, dev)
+        by_path.update(tp_launches)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     by_path.update(serve_wires_launches)
@@ -7713,7 +8020,8 @@ def run_phases(args) -> int:
                    "granular_resume": granular_resume,
                    "conv_stem": conv_stem, "samples": samples,
                    "autotune": autotune, "serve_wires": serve_wires,
-                   "fleet": fleet, "aot": aot, "dp": dp, "moe": moe,
+                   "fleet": fleet, "aot": aot, "dp": dp, "tp": tp,
+                   "moe": moe,
                    "ep": ep, "pp": pp},
                   f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

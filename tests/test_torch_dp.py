@@ -650,8 +650,9 @@ def test_loader_local_rows_mask_matches_the_jax_loader():
 
 def test_modes_outside_this_slice_are_refused():
     wf = _port_wf()
-    with pytest.raises(NotImplementedError, match="next many-GPU slice"):
-        FusedTrainStep(wf, mesh=Mesh(mesh_shape(4, model=2), 0, "cpu"))
+    # a model axis is the gspmd mode (tensor parallelism), ported since
+    assert FusedTrainStep(wf, mesh=Mesh(mesh_shape(4, model=2), 0,
+                                        "cpu")).mode == "gspmd"
     with pytest.raises(NotImplementedError, match="next many-GPU slice"):
         FusedTrainStep(wf, mesh=Mesh(mesh_shape(4, seq=4), 0, "cpu"))
     with pytest.raises(ValueError, match="requires a mesh"):

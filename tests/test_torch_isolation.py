@@ -504,3 +504,43 @@ def test_moe_and_pipeline_entry_points_ask_for_the_card(monkeypatch):
                             "1", "--ep", *small])
     finally:
         root.moe = saved
+
+
+TP_MODULES = ["veles_tpu_torch.parallel.tp", "veles_tpu_torch.parallel.mesh",
+              "veles_tpu_torch.parallel.fused",
+              "veles_tpu_torch.parallel.checkpoint",
+              "veles_tpu_torch.znicz.conv", "veles_tpu_torch.znicz.all2all",
+              "veles_tpu_torch.znicz.dropout",
+              "veles_tpu_torch.znicz.pooling",
+              "veles_tpu_torch.znicz.activation",
+              "veles_tpu_torch.znicz.standard_workflow",
+              "veles_tpu_torch.launcher"]
+
+
+@pytest.mark.parametrize("module", TP_MODULES)
+def test_tp_modules_stand_alone(module, imports_with_jax_blocked):
+    assert module in MODULES
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert imports_with_jax_blocked[module] is None, \
+        imports_with_jax_blocked[module]
+
+
+def test_tp_entry_points_ask_for_the_card(monkeypatch):
+    """`-l --tp 2` runs on the card unless the CPU is asked for: without
+    CUDA it is refused before any process group starts, and the gspmd
+    step's mesh asks for the card as every rank's does."""
+    import torch.distributed as dist
+
+    from veles_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_group(*args, **kwargs):
+        raise AssertionError("a process group was started")
+
+    monkeypatch.setattr(dist, "init_process_group", no_group)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launcher.train(["veles_tpu_torch/samples/mnist.py", "-l",
+                        "127.0.0.1:1", "--n-processes", "2", "--tp", "2"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mesh.default_device(1)

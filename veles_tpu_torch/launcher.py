@@ -89,14 +89,21 @@ by the coordinator alone (`-s` restores on every rank: a snapshot holds
 the gathered velocities, so it restores at any world size).
 `--autotune`, `--serve` and `--supervise` refuse `-l`/`-m`. `--ep`
 (with `-l`/`-m` only) shards the MoE layers' experts over the ranks
-(the fused step's `ep=True`).
+(the fused step's `ep=True`). `--tp K` (JAX __main__.py:242-245,
+launcher.py:202-212) lays the ranks out as data x model=K
+(`make_mesh(model=K)`: data outermost, model innermost, as in JAX: rank
+= d*K + m), and the step's mode "auto" makes K > 1 its gspmd mode, the
+megatron column/row plan over each data shard's K ranks
+(parallel/tp.py); K >= 1, K > 1 only with `-l`/`-m`, and exclusive with
+`--ep` and `--pp`. `--sp` (sequence parallelism) is refused until the
+slice that ports it.
 
 `--pp M` trains the chain as a GPipe pipeline of M microbatches
 (`StandardWorkflow.run_pipelined`, parallel/pipeline.py): one stage per
 visible card, capped at the unit count, in this one process (one card:
 one stage; `--device cpu`: one CPU stage). It is exclusive with
-`--fused`, `--accum`, `--ep`, `--serve` and `-l`/`-m` (the port has no
-`--tp` / `--sp` yet), takes `--autotune`, `--feed-ahead` and
+`--fused`, `--accum`, `--ep`, `--tp`, `--serve` and `-l`/`-m`, takes
+`--autotune`, `--feed-ahead` and
 `--nonfinite-guard` as `--fused` does, and `--zero-sharding on` only
 with a warning (JAX launcher.py:184-236, :276-282).
 
@@ -218,6 +225,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="expert parallelism of a distributed -l/-m run: "
                         "shard the MoE layers' experts over the ranks, "
                         "tokens exchanged by all-to-all")
+    p.add_argument("--tp", type=int, default=None, metavar="K",
+                   help="tensor-parallel degree for distributed runs: "
+                        "global mesh (data x model=K), megatron gspmd "
+                        "step; combine with -l/-m")
+    p.add_argument("--sp", type=int, default=None, metavar="K",
+                   help="sequence-parallel degree (refused: ring and "
+                        "Ulysses attention come with a later slice)")
     p.add_argument("--nonfinite-guard", action="store_true",
                    help="abort training with exit code 81 the moment the "
                         "loss goes NaN/inf (the supervisor then rolls "
@@ -345,6 +359,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "URL / --route SPEC for workflow-less modes)")
     if args.fused and args.serve is not None:
         p.error("--fused trains and --serve serves: give one of them")
+    # the tensor-parallel degree's refusals (JAX launcher.py:206-212,
+    # :225-232 there)
+    if args.tp is not None and args.tp < 1:
+        raise SystemExit(f"--tp needs K >= 1 (got {args.tp})")
+    if args.tp and args.tp > 1 and not (args.listen or args.master):
+        raise SystemExit("--tp shards over the distributed global "
+                         "mesh: combine with -l/-m (single-process "
+                         "TP uses build_fused_step(mesh=...) directly)")
+    if args.sp is not None:
+        raise SystemExit("--sp: sequence parallelism (the fused step's "
+                         "seq mode, ring and Ulysses attention) comes with "
+                         "the next many-GPU slice (ROADMAP Queue 1 item "
+                         "1(b))")
+    if args.ep and args.tp and args.tp > 1:
+        raise SystemExit("--ep composes with the data axis; it is "
+                         "exclusive with --tp/--sp in this launcher")
     # the GPipe pipeline's refusals (JAX launcher.py:184-236 there)
     if args.pp is not None:
         if args.pp < 1:
@@ -359,7 +389,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         if args.accum and args.accum > 1:
             raise SystemExit("--accum applies to the fused step, not the "
                              "GPipe pipeline (--pp already microbatches)")
-        if args.ep:
+        if args.ep or (args.tp and args.tp > 1):
             raise SystemExit("--pp is its own partitioning (one stage "
                              "per mesh device); it is exclusive with "
                              "--tp/--sp/--ep")
@@ -605,9 +635,10 @@ def _select_lowerings(wf, args: argparse.Namespace) -> None:
 
 
 def _run_distributed(wf, args: argparse.Namespace) -> None:
-    """The fused dp run of one rank: join the process group (NCCL on a
-    card, gloo under --device cpu), lay the mesh over it, train, leave
-    (JAX launcher.py:874-888)."""
+    """The fused dp (or, under --tp K > 1, gspmd) run of one rank: join
+    the process group (NCCL on a card, gloo under --device cpu), lay the
+    mesh over it (data x model=K), train with the step's mode "auto",
+    leave (JAX launcher.py:874-888)."""
     import logging
 
     from veles_tpu_torch.ops import variants
@@ -620,7 +651,7 @@ def _run_distributed(wf, args: argparse.Namespace) -> None:
     try:
         # on a card this makes the rank's card the current device, which
         # the workflow is placed on below
-        mesh = make_mesh(device="cpu" if cpu else None)
+        mesh = make_mesh(model=args.tp or 1, device="cpu" if cpu else None)
         logging.getLogger("veles_torch.launcher").info(
             "distributed %s: %d processes, mesh %s",
             "coordinator" if args.listen else "worker", args.n_processes,
@@ -629,7 +660,7 @@ def _run_distributed(wf, args: argparse.Namespace) -> None:
             _select_lowerings(wf, args)
             wf.run_fused(mesh=mesh, feed_ahead=args.feed_ahead,
                          nonfinite_guard=args.nonfinite_guard,
-                         accum_steps=args.accum,
+                         accum_steps=args.accum, mode="auto",
                          zero_sharding=args.zero_sharding, ep=args.ep)
     finally:
         distributed.shutdown_distributed()

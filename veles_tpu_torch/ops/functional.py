@@ -397,6 +397,15 @@ def avgpool_backward(err_y: torch.Tensor, x_shape: Tuple[int, ...],
     return out[:, :h, :w, :].contiguous()
 
 
+def gumbel_noise(shape, generator: torch.Generator, device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """−log(−log u), u uniform in (0, 1) from `generator`: stochastic
+    pooling's Gumbel draw (jax.random.gumbel's distribution)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return (-torch.log(-torch.log(torch.clamp(u, min=tiny)))).to(dtype)
+
+
 def stochastic_pool_forward_with_idx(
         x: torch.Tensor, ksize: Tuple[int, int], stride: Tuple[int, int],
         generator: Optional[torch.Generator] = None,
@@ -426,10 +435,7 @@ def stochastic_pool_forward_with_idx(
         if generator is None:
             raise ValueError("stochastic pooling needs a generator or the "
                              "noise")
-        u = torch.rand(p.shape, generator=generator, device=x.device)
-        tiny = torch.finfo(torch.float32).tiny
-        noise = (-torch.log(-torch.log(torch.clamp(u, min=tiny)))
-                 ).to(p.dtype)
+        noise = gumbel_noise(p.shape, generator, x.device, p.dtype)
     logp = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)),
                        torch.full((), float("-inf"), dtype=p.dtype,
                                   device=p.device))

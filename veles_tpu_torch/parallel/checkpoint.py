@@ -36,8 +36,10 @@ layout first (`FusedTrainStep.gather_state`, a collective: every rank
 calls it) and the coordinator alone writes it; `restore_state` gives
 every rank its own slices of the restored state (`shard_state`), so a
 checkpoint restores at any world size. An expert-parallel state (`ep`:
-each rank holding E/R experts of every MoE layer) is gathered and sharded
-the same way, so it too restores at another world size. The
+each rank holding E/R experts of every MoE layer) and a tensor-parallel
+one (gspmd: each rank holding its blocks of the megatron plan) are
+gathered and sharded the same way, so they too restore at another world
+or model size, or in local mode. The
 error-feedback residual of
 an int8_ef update is not saved: a restore restarts it at zero, as the
 JAX module does across data-axis sizes. The stream restored is the
@@ -99,14 +101,15 @@ def _state_device(state: Dict[str, Any]) -> torch.device:
 def save_state(state: Dict[str, Any], directory: str, step=None) -> str:
     """Write `state` (a FusedTrainStep state) and the position of its
     device's dropout stream to `directory`/state.pt; returns the path.
-    With the dp `step` that trains it, the state is gathered first (every
-    rank must call) and only the coordinator writes."""
+    With the dp or gspmd `step` that trains it, the state is gathered
+    first (every rank must call) and only the coordinator writes."""
     directory = os.path.abspath(directory)
     path = os.path.join(directory, FILE)
     if step is not None:
         state = step.gather_state(state)
         from veles_tpu_torch.parallel.distributed import is_coordinator
-        if getattr(step, "mode", "local") == "dp" and not is_coordinator():
+        if getattr(step, "mode", "local") in ("dp", "gspmd") \
+                and not is_coordinator():
             return path
     os.makedirs(directory, exist_ok=True)
     leaves = {key: t.detach().to("cpu", copy=True)

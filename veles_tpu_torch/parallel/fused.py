@@ -3,7 +3,7 @@ call, with the cross-op fusion of adjacent (LRN, max pooling) pairs, and
 the training step built on it.
 
 The port's counterpart of `FusedTrainStep` in
-`veles_tpu/parallel/fused.py`, in its local and dp modes:
+`veles_tpu/parallel/fused.py`, in its local, dp and gspmd modes:
 `FusedForward` is its forward half (`_forward`, `_pair_fusion`,
 `fusion_pairs`, `_apply_fused_pair`), which the server serves from;
 `FusedTrainStep` adds the loss, the backward and the update (`init_state`,
@@ -123,8 +123,33 @@ expert slices. ZeRO is inactive under `ep`. `gather_state` /
 `shard_state` / `write_back` all-gather and slice the expert leaves (a
 checkpoint holds the gathered state, so it restores at another world
 size), `optimizer_state_bytes` counts a rank's E/D experts, and
-`collective_accounting` models the exchanges' bytes. The gspmd and seq
-modes come with the next slice.
+`collective_accounting` models the exchanges' bytes.
+
+Tensor parallelism (mode "gspmd", the "auto" choice where the mesh has a
+model axis above 1; JAX fused.py:181-190, :1229-1310): the JAX step hands
+the partitioner its megatron plan; the port runs the same plan as an
+explicit program, one process per rank (parallel/tp.py): each rank holds
+its blocks of every leaf the plan shards (`_tp_plan`: column-parallel and
+row-parallel weights alternating, the bias with a column shard, a leaf
+that does not divide replicated), in its parameters and velocities (or
+Adam moments) alike, and its forward runs each unit on them with the
+megatron collectives over its model group (`Mesh.tp_groups`); the kernels
+run there as in the local step (K4 / K5 on the gathered channels of a
+sharded LRN, K1 on each rank's blocks, one launch a leaf), where the
+JAX gspmd mode leaves Pallas for XLA's lowerings (a `pallas_call` cannot
+be partitioned). The rows are the data axis's, as in dp; the metrics,
+the weight sum and the gradients are summed over the rank's data group
+only (a model group's ranks hold the same rows), and not at all at one
+data shard, where the step is the local step's program. Dropout draws the
+global batch's mask on every rank and keeps its block, so a gspmd step
+at any mesh draws the local step's masks. ZeRO is inactive; `ep` is
+refused, as in JAX. `gather_state` / `write_back` all-gather the blocks
+over the model group, `shard_state` slices them (a checkpoint holds the
+gathered state, so it restores at another model size or in local mode).
+At model 1 the plan replicates every leaf and the step runs any
+workflow; at model > 1 a parameterised unit other than the convolutions
+and the All2All family is refused (ROADMAP Queue 1 item 1(a2)). The seq
+mode comes with the next slice.
 """
 
 from __future__ import annotations
@@ -143,6 +168,8 @@ from veles_tpu_torch.ops import optim, templates, variants
 from veles_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
                                            zero_ef_plan, zero_flatten,
                                            zero_plan, zero_unflatten)
+from veles_tpu_torch.parallel.tp import (RankForward, leaf_full, leaf_part,
+                                         tp_plan)
 
 #: compute dtypes the fused step takes, by the names
 #: root.common.precision_type and `compute_dtype` give them
@@ -216,6 +243,20 @@ class FusedForward:
         #: units that declare `ep_params` (FusedTrainStep(ep=True) sets
         #: it); None runs every expert locally
         self.ep_mesh = None
+        #: the tensor-parallel rank program (parallel/tp.py RankForward;
+        #: FusedTrainStep(mode="gspmd") sets it through `set_tp`); None
+        #: runs every unit on whole tensors
+        self.tp = None
+        self._build_plan()
+
+    def set_tp(self, tp) -> None:
+        """Run the chain as tensor-parallel rank `tp` (a RankForward):
+        the plan is made again, since a column-parallel stem claims no
+        LRN epilogue."""
+        self.tp = tp
+        self._build_plan()
+
+    def _build_plan(self) -> None:
         self.pairs = self.fusion_pairs()
         claimed = {j: i for i, j, _ in self.pairs}
         fused = {i: (j, v) for i, j, v in self.pairs}
@@ -272,7 +313,8 @@ class FusedForward:
             if i in claimed or (i + 1) in claimed:
                 continue
             v = self._pair_fusion(u, fwds[i + 1])
-            if v is not None:
+            if v is not None and (self.tp is None
+                                  or self.tp.pair_allowed(i)):
                 out.append((i, i + 1, v))
                 claimed.update((i, i + 1))
         return out
@@ -305,7 +347,9 @@ class FusedForward:
         (logits for a softmax head) in f32. `train=False` runs under
         `torch.inference_mode()`; `train=True` records the autograd graph
         in the caller's grad mode and hands `gen` to the units that draw
-        random numbers (dropout)."""
+        random numbers (dropout). Under tensor parallelism (`tp`) `params`
+        are this rank's shards and each unit runs through `tp.run`; the
+        output is whole on every rank."""
         mode = contextlib.nullcontext() if train else torch.inference_mode()
         with mode, full_f32(self.device):
             x = apply_input_normalize(self.input_normalize, x)
@@ -315,22 +359,35 @@ class FusedForward:
                 x = x.to(self._dtype)
                 params = tuple({k: t.to(self._dtype) for k, t in p.items()}
                                for p in params)
+            sharded = False
             for i, (kind, j, v) in enumerate(self._plan):
                 u = self.forwards[i]
                 if kind == "skip":
                     continue
                 if kind == "pair":
-                    x = self._apply_fused_pair(v, u, self.forwards[j],
-                                               params[i], x)
-                    continue
-                kw: Dict[str, Any] = {"train": train}
-                if v is not None:
-                    kw["variant"] = v
-                if u.fused_needs_gen:
-                    kw["gen"] = gen
-                if self.ep_mesh is not None and getattr(u, "ep_params", ()):
-                    kw["ep_mesh"] = self.ep_mesh
-                x = u.fused_apply(params[i], x, **kw)
+                    def call(x, u=u, j=j, v=v, p=params[i]):
+                        return self._apply_fused_pair(
+                            v, u, self.forwards[j], p, x)
+                else:
+                    kw: Dict[str, Any] = {"train": train}
+                    if v is not None:
+                        kw["variant"] = v
+                    if u.fused_needs_gen:
+                        kw["gen"] = gen
+                    if self.ep_mesh is not None \
+                            and getattr(u, "ep_params", ()):
+                        kw["ep_mesh"] = self.ep_mesh
+
+                    def call(x, u=u, kw=kw, p=params[i], **extra):
+                        return u.fused_apply(p, x, **kw, **extra)
+                if self.tp is None:
+                    x = call(x)
+                else:
+                    x, sharded = self.tp.run(
+                        i, u, call, x, sharded,
+                        draws=kind == "unit" and u.fused_needs_gen and train)
+            if sharded:
+                x = self.tp.whole(x)
         return x.to(torch.float32)
 
     def variant_table(self) -> Dict[str, str]:
@@ -468,6 +525,10 @@ class FusedTrainStep:
         if self.ep:
             self._check_ep()
             self.fwd.ep_mesh = mesh
+        if self.mode == "gspmd":
+            # the rank's shards of the megatron plan (refuses a unit
+            # family it does not cover at model > 1)
+            self.fwd.set_tp(RankForward(self.forwards, mesh))
         #: ZeRO update sharding, resolved now for every later reader
         #: (state layout, update, write_back, reports)
         self.zero_active, self.zero_reason = \
@@ -483,12 +544,23 @@ class FusedTrainStep:
     def fusion_pairs(self):
         return self.fwd.fusion_pairs()
 
+    def _tp_plan(self):
+        """(per-layer {param: spec}, per-layer output-sharded flags) of
+        the megatron plan over the mesh's model axis (parallel/tp.py
+        `tp_plan`, JAX fused.py:1253-1310): a spec is the axis name or
+        None per dim, () for a replicated leaf, as the JAX
+        PartitionSpec's tuple reads. Every leaf replicated outside
+        gspmd."""
+        if self.fwd.tp is not None:
+            return self.fwd.tp.plan, list(self.fwd.tp.out_flags)
+        return tp_plan(self.forwards, 1)
+
     # -- modes and the data axis (JAX fused.py:177-290) ----------------------
 
     def _resolve_mode(self, mode: str) -> str:
         """"auto": local without a mesh, seq / gspmd where the mesh has
-        such an axis, else dp (the JAX rule). gspmd and seq are refused
-        until the slice that ports them; a dp mesh must hold the step's
+        such an axis, else dp (the JAX rule). seq is refused until the
+        slice that ports it; a dp or gspmd mesh must hold the step's
         device."""
         mesh = self.mesh
         if mode == "auto":
@@ -500,16 +572,17 @@ class FusedTrainStep:
                 mode = "gspmd"
             else:
                 mode = "dp"
-        if mode in ("gspmd", "seq"):
+        if mode == "seq":
             raise NotImplementedError(
-                f"mode={mode!r}: the tensor- and sequence-parallel fused "
-                "step comes with the next many-GPU slice (ROADMAP Queue 1 "
-                "item 1); this port trains in 'local' and 'dp' modes")
-        if mode not in ("local", "dp"):
+                "mode='seq': the sequence-parallel fused step (ring and "
+                "Ulysses attention) comes with the next many-GPU slice "
+                "(ROADMAP Queue 1 item 1(b)); this port trains in 'local', "
+                "'dp' and 'gspmd' modes")
+        if mode not in ("local", "dp", "gspmd"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "dp":
+        if mode in ("dp", "gspmd"):
             if mesh is None:
-                raise ValueError("mode='dp' requires a mesh")
+                raise ValueError(f"mode={mode!r} requires a mesh")
             if torch.device(mesh.device) != self.device:
                 raise ValueError(
                     f"the workflow lives on {self.device}, the mesh's "
@@ -520,7 +593,29 @@ class FusedTrainStep:
     @property
     def n_data(self) -> int:
         """Ranks along the data axis (1 in local mode)."""
-        return self.mesh.shape[DATA_AXIS] if self.mode == "dp" else 1
+        return (self.mesh.shape[DATA_AXIS] if self.mode in ("dp", "gspmd")
+                else 1)
+
+    @property
+    def n_model(self) -> int:
+        """Ranks along the model axis (1 but in gspmd mode)."""
+        return self.mesh.shape[MODEL_AXIS] if self.mode == "gspmd" else 1
+
+    @property
+    def _sums_data(self) -> bool:
+        """Whether the loss's weight sum, the metrics and the gradients
+        are summed over the data axis: always in dp, in gspmd where it
+        has more than one rank (one is the local step's own sums)."""
+        return self.mode == "dp" or (self.mode == "gspmd"
+                                     and self.n_data > 1)
+
+    def _data_group(self):
+        """The group of the ranks that hold other rows and the same
+        shards: the mesh's in dp, the rank's data group in gspmd (a
+        model group's ranks hold the same rows: summing over them would
+        count each sample `model` times)."""
+        return (self.mesh.tp_groups()[1] if self.mode == "gspmd"
+                else self.mesh.group)
 
     def _resolve_zero(self, req: Any) -> Tuple[bool, str]:
         """The ZeRO verdict: (active, reason). "on"/True shards the dp
@@ -533,7 +628,9 @@ class FusedTrainStep:
                              f"(got {req!r})")
         if self.mode != "dp":
             reason = (f"zero-sharding inactive: mode {self.mode!r} "
-                      "(local has one replica)")
+                      "(covered: the explicit shard_map 'dp' update; "
+                      "gspmd relies on the partitioner, local has one "
+                      "replica)")
         elif self.ep:
             reason = ("zero-sharding inactive: ep=True already shards "
                       "expert tensors over the data axis (the "
@@ -599,13 +696,26 @@ class FusedTrainStep:
     def _ep_map(self, state, leaf_fn) -> Dict[str, Any]:
         """`state` with `leaf_fn` applied to every expert leaf of the
         parameters and of the velocities or Adam moments."""
+        return self._map_leaves(
+            state, lambda i, k, t: leaf_fn(t) if k in self.ep_names(i)
+            else t)
+
+    def _tp_map(self, state, leaf_fn) -> Dict[str, Any]:
+        """`state` with `leaf_fn(tensor, spec)` applied to every leaf the
+        megatron plan shards."""
+        plan = self.fwd.tp.plan
+        return self._map_leaves(
+            state, lambda i, k, t: leaf_fn(t, plan[i][k])
+            if plan[i].get(k) else t)
+
+    def _map_leaves(self, state, leaf_fn) -> Dict[str, Any]:
+        """`state` with `leaf_fn(layer index, name, tensor)` applied to
+        every leaf of the parameters and of the velocities or Adam
+        moments."""
         params, vel = [], []
         for i, (p, v) in enumerate(zip(state["params"], state["vel"])):
-            names = self.ep_names(i)
-
             def conv(layer):
-                return {k: leaf_fn(t) if k in names else t
-                        for k, t in layer.items()}
+                return {k: leaf_fn(i, k, t) for k, t in layer.items()}
             params.append(conv(p))
             if optim.is_adam_state(v):
                 vel.append({"m": conv(v["m"]), "v": conv(v["v"]),
@@ -617,12 +727,14 @@ class FusedTrainStep:
 
     def _shard_step_key(self) -> torch.Generator:
         """This rank's dropout stream: the registry's device stream for
-        the local step and data shard 0; for shard d > 0 a generator of
-        its own, seeded at build from a draw of the registry's stream
-        (which every rank holds alike) plus d, so the shards' masks are
-        independent of each other and a new build draws new ones (the
-        JAX step folds the shard index into the step key, fused.py:825
-        there)."""
+        the local step, every gspmd rank and dp data shard 0; for dp shard
+        d > 0 a generator of its own, seeded at build from a draw of the
+        registry's stream (which every rank holds alike) plus d, so the
+        shards' masks are independent of each other and a new build draws
+        new ones (the JAX step folds the shard index into the step key,
+        fused.py:825 there). A gspmd rank draws the global batch's masks
+        and keeps its block (parallel/tp.py RankPart), as the JAX gspmd
+        step partitions one mask (its key is not folded there)."""
         gen = prng.get().device_stream(self.device)
         if self.mode != "dp" or self.mesh.data_index == 0:
             return gen
@@ -730,7 +842,7 @@ class FusedTrainStep:
 
     def _check_batch(self, n: int) -> None:
         """The fed batch must divide the data axis."""
-        if self.mode == "dp" and n % self.n_data:
+        if self.mode in ("dp", "gspmd") and n % self.n_data:
             raise ValueError(
                 f"batch of {n} not divisible by the mesh data axis "
                 f"({self.n_data} shards)")
@@ -739,8 +851,8 @@ class FusedTrainStep:
         """This rank's rows of a global batch (host arrays are sliced
         before they are uploaded); `k` microbatches each give the rank
         its block, as the JAX step shards each microbatch. Identity in
-        local mode and at one rank."""
-        if self.mode != "dp":
+        local mode and at one data shard."""
+        if self.mode not in ("dp", "gspmd"):
             return x, y, w
         n = int(np.shape(x)[0])
         self._check_batch(n // k)
@@ -763,21 +875,21 @@ class FusedTrainStep:
         return take(x), take(y), take(w)
 
     def _global_wsum(self, w: torch.Tensor) -> torch.Tensor:
-        """The global weight sum (an all-reduce of the ranks' sums in dp;
-        the local sum otherwise)."""
+        """The global weight sum (an all-reduce of the data shards' sums
+        in dp and gspmd; the local sum otherwise)."""
         s = w.sum()
-        if self.mode == "dp":
+        if self._sums_data:
             import torch.distributed as dist
-            dist.all_reduce(s, group=self.mesh.group)
+            dist.all_reduce(s, group=self._data_group())
         return s
 
     def _psum(self, *ts) -> None:
-        """Each of `ts` summed over the ranks, in place (dp; nothing
-        otherwise)."""
-        if self.mode == "dp":
+        """Each of `ts` summed over the data shards, in place (dp and
+        gspmd; nothing otherwise)."""
+        if self._sums_data:
             import torch.distributed as dist
             for t in ts:
-                dist.all_reduce(t, group=self.mesh.group)
+                dist.all_reduce(t, group=self._data_group())
 
     # -- state <-> units ------------------------------------------------------
 
@@ -790,8 +902,7 @@ class FusedTrainStep:
         slice of its zero-padded leaf (JAX fused.py:417-484), and a
         stateful grad_reduce point adds the zero residuals ("ef")."""
         params = tuple(
-            {k: (self._ep_part(t.detach()) if k in self.ep_names(i)
-                 else t.detach()).clone().requires_grad_(True)
+            {k: self._part(i, k, t.detach()).clone().requires_grad_(True)
              for k, t in u.param_arrays().items()}
             for i, u in enumerate(self.forwards))
         plans = (self.zero_plans() if self.zero_active
@@ -817,8 +928,8 @@ class FusedTrainStep:
                         flat[:plan[k].size] = seed.detach().reshape(-1)
                     layer[k] = self._my_slice(flat, plan[k]).clone()
                 else:
-                    if seed is not None and k in self.ep_names(i):
-                        seed = self._ep_part(seed)
+                    if seed is not None:
+                        seed = self._part(i, k, seed)
                     layer[k] = (seed.detach().to(self.device, copy=True)
                                 if seed is not None
                                 else torch.zeros_like(t,
@@ -830,6 +941,17 @@ class FusedTrainStep:
                 {k: torch.zeros(n, device=self.device)
                  for k, n in lens.items()} for lens in self.ef_lens())
         return state
+
+    def _part(self, i: int, k: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of leaf `k` of forward unit i (a view): its
+        experts under `ep`, its block of the megatron plan in gspmd, else
+        the leaf itself."""
+        if k in self.ep_names(i):
+            return self._ep_part(t)
+        if self.fwd.tp is not None:
+            tp = self.fwd.tp
+            return leaf_part(t, tp.plan[i][k], tp.index, tp.m)
+        return t
 
     def _my_slice(self, flat: torch.Tensor, lp) -> torch.Tensor:
         """This rank's [d*local, (d+1)*local) slice of a flat vector."""
@@ -851,9 +973,14 @@ class FusedTrainStep:
         it), the EF residuals dropped (a restore at another world size
         restarts them at zero, as the JAX checkpoint does). Under `ep` the
         expert leaves of the parameters and velocities (moments) are
-        all-gathered. Any other state is returned as it is."""
+        all-gathered, in gspmd every leaf the megatron plan shards (over
+        the model group). Any other state is returned as it is."""
         if self.ep:
             return self._ep_map(state, self._ep_full)
+        if self.n_model > 1:
+            tp = self.fwd.tp
+            return self._tp_map(state, lambda t, spec: leaf_full(
+                t, spec, tp.group, tp.m))
         if not self.zero_active:
             return state
         vel = []
@@ -874,10 +1001,14 @@ class FusedTrainStep:
     @torch.no_grad()
     def shard_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """`gather_state`'s inverse: a local-layout state with this rank's
-        ZeRO slices (zero residuals where the point is stateful), or its
-        experts under `ep`."""
-        if self.ep:
-            out = self._ep_map(state, lambda t: self._ep_part(t).clone())
+        ZeRO slices (zero residuals where the point is stateful), its
+        experts under `ep`, or its blocks of the megatron plan in
+        gspmd."""
+        if self.ep or self.n_model > 1:
+            def part(i, k, t):
+                mine = self._part(i, k, t)
+                return t if mine is t else mine.clone()
+            out = self._map_leaves(state, part)
             out["params"] = tuple(
                 {k: t.detach().requires_grad_(True) for k, t in p.items()}
                 for p in out["params"])
@@ -946,7 +1077,7 @@ class FusedTrainStep:
         loss, n_err) of one batch already on the device; the autograd
         graph is freed before this returns."""
         leaves = [t for layer in state["params"] for t in layer.values()]
-        if wsum is None and self.mode == "dp":
+        if wsum is None and self._sums_data:
             wsum = self._global_wsum(w)
         with torch.enable_grad(), full_f32(self.device):
             out = self.fwd._forward(state["params"], x, train=True,
@@ -960,10 +1091,12 @@ class FusedTrainStep:
     def _reduce_grads(self, grads):
         """The replicated dp update's gradient all-reduce (JAX fused.py:865;
         the global-mean normalization is in the ranks' partials already):
-        one all-reduce per leaf but the expert leaves under `ep`. Identity
-        in local mode and under ZeRO, whose reduce-scatter is the
-        reduction."""
-        if self.mode != "dp" or self.zero_active:
+        one all-reduce per leaf but the expert leaves under `ep`; in gspmd
+        over the rank's data group, a sharded leaf's gradient being whole
+        for its block on each rank of a model group. Identity in local
+        mode, at one gspmd data shard and under ZeRO, whose
+        reduce-scatter is the reduction."""
+        if not self._sums_data or self.zero_active:
             return grads
         import torch.distributed as dist
         out = []
@@ -977,7 +1110,7 @@ class FusedTrainStep:
                 # an expert leaf's gradient came through the exchange's
                 # backward: it is this rank's experts' already
                 if k not in experts:
-                    dist.all_reduce(t, group=self.mesh.group)
+                    dist.all_reduce(t, group=self._data_group())
             out.append(layer)
         return tuple(out)
 
@@ -1143,11 +1276,11 @@ class FusedTrainStep:
         """Forward-only `(loss, n_err)` of a validation/test minibatch (in
         dp, of the global batch: the ranks' sums)."""
         x, y, w = self._batch(*self._rows(x, y, w))
-        wsum = self._global_wsum(w) if self.mode == "dp" else None
+        wsum = self._global_wsum(w) if self._sums_data else None
         with torch.inference_mode():
             out = self.fwd._forward(state["params"], x)
             loss, n_err = self._loss_metrics(out, y, w, wsum)
-        if self.mode == "dp":
+        if self._sums_data:
             loss, n_err = loss.clone(), n_err.clone()
             self._psum(loss, n_err)
         return loss, n_err
@@ -1169,7 +1302,7 @@ class FusedTrainStep:
             if out.dim() != 2:
                 return None
             m = fn.confusion(y, out.argmax(dim=-1), n_classes, w)
-        if self.mode == "dp":
+        if self._sums_data:
             m = m.clone()
             self._psum(m)
         return m

@@ -157,11 +157,68 @@ class Mesh:
         self.group = group
         self.n_hosts = int(n_hosts)
         self._subgroups: Dict[Tuple[int, int], Any] = {}
+        self._tp_groups = None
 
     @property
     def data_index(self) -> int:
         """This rank's shard along the data axis."""
         return self.rank // (self.shape[SEQ_AXIS] * self.shape[MODEL_AXIS])
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's shard along the seq axis."""
+        return (self.rank // self.shape[MODEL_AXIS]) % self.shape[SEQ_AXIS]
+
+    @property
+    def model_index(self) -> int:
+        """This rank's shard along the model axis (innermost)."""
+        return self.rank % self.shape[MODEL_AXIS]
+
+    def tp_groups(self):
+        """(model group, data group) of this rank: the `model` ranks of
+        its (data, seq) cell, and the ranks of its (seq, model) index
+        along the data axis (rank = d*seq*model + s*model + m, the JAX
+        layout). Where an axis spans the whole mesh its group is the
+        mesh's own; where it has one rank, None for the model group (no
+        model collective runs). Made on first use, every group by every
+        rank in the same order (`new_group` is a collective), and kept."""
+        if self._tp_groups is None:
+            d_n = self.shape[DATA_AXIS]
+            s_n, m_n = self.shape[SEQ_AXIS], self.shape[MODEL_AXIS]
+            if m_n == 1:
+                model = None
+                data = (self.group if s_n == 1
+                        else self._new_groups(
+                            [[d * s_n + s for d in range(d_n)]
+                             for s in range(s_n)], self.seq_index))
+            elif d_n == 1 and s_n == 1:
+                model, data = self.group, None
+            else:
+                cells = [[(d * s_n + s) * m_n + m for m in range(m_n)]
+                         for d in range(d_n) for s in range(s_n)]
+                model = self._new_groups(
+                    cells, self.data_index * s_n + self.seq_index)
+                lines = [[(d * s_n + s) * m_n + m for d in range(d_n)]
+                         for s in range(s_n) for m in range(m_n)]
+                data = self._new_groups(
+                    lines, self.seq_index * m_n + self.model_index)
+            self._tp_groups = (model, data)
+        return self._tp_groups
+
+    def _new_groups(self, members, mine: int):
+        """`new_group` of each list of mesh ranks in `members`, in order;
+        returns the `mine`-th (the one holding this rank)."""
+        import torch.distributed as dist
+        # the group's ranks in the world, by their rank in the group
+        ranks = (dist.get_process_group_ranks(self.group)
+                 if self.group is not None
+                 else list(range(dist.get_world_size())))
+        out = None
+        for k, ms in enumerate(members):
+            g = dist.new_group([ranks[r] for r in ms])
+            if k == mine:
+                out = g
+        return out
 
     def subgroups(self, n_hosts: int, n_local: int):
         """(the local group holding this rank, the cross group holding
@@ -172,22 +229,12 @@ class Mesh:
         `new_group` is a collective) and kept."""
         key = (int(n_hosts), int(n_local))
         if key not in self._subgroups:
-            import torch.distributed as dist
-            # the group's ranks in the world, by their rank in the group
-            ranks = (dist.get_process_group_ranks(self.group)
-                     if self.group is not None
-                     else list(range(dist.get_world_size())))
-            local = cross = None
-            for h in range(n_hosts):
-                g = dist.new_group([ranks[h * n_local + k]
-                                    for k in range(n_local)])
-                if self.rank // n_local == h:
-                    local = g
-            for k in range(n_local):
-                g = dist.new_group([ranks[h * n_local + k]
-                                    for h in range(n_hosts)])
-                if self.rank % n_local == k:
-                    cross = g
+            local = self._new_groups(
+                [[h * n_local + k for k in range(n_local)]
+                 for h in range(n_hosts)], self.rank // n_local)
+            cross = self._new_groups(
+                [[h * n_local + k for h in range(n_hosts)]
+                 for k in range(n_local)], self.rank % n_local)
             self._subgroups[key] = (local, cross)
         return self._subgroups[key]
 

@@ -25,6 +25,8 @@ class ActivationForward(Forward):
     """y = act(x)."""
 
     activation = "linear"
+    #: elementwise: runs on a tensor-parallel rank's channels
+    tp_channel_local = True
 
     def initialize(self, sample_shape, device):
         return tuple(sample_shape)

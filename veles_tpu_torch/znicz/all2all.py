@@ -26,6 +26,16 @@ from veles_tpu_torch.znicz.nn_units import Forward, ForwardUnit, dev, host, \
     register_unit
 
 
+def _product(x, params, activation, reduce=None):
+    """act(x·W + b); under `reduce` the product is summed by it before
+    the bias."""
+    if reduce is None:
+        return fn.all2all_forward(x, params["weights"], params["bias"],
+                                  activation)
+    y = reduce(x.reshape(x.shape[0], -1) @ params["weights"])
+    return fn.act_forward(activation, y + params["bias"])
+
+
 class All2All(Forward):
     """y = act(x·W + b); W: (fan_in, units)."""
 
@@ -47,9 +57,14 @@ class All2All(Forward):
         self.init_params((fan_in, self.n_output), fan_in, device)
         return self.output_sample_shape
 
-    def fused_apply(self, params, x, *, train=False):
-        y = fn.all2all_forward(x, params["weights"], params["bias"],
-                               self.activation)
+    def fused_apply(self, params, x, *, train=False, reduce=None):
+        """`reduce`: tensor parallelism's row-parallel sum
+        (parallel/tp.py), applied to the product of this rank's input
+        rows before the bias and the activation. A column shard (fewer
+        outputs than the layer's) stays flat."""
+        y = _product(x, params, self.activation, reduce)
+        if y.shape[-1] != self.n_output:
+            return y
         return y.reshape((-1,) + self.output_sample_shape)
 
 
@@ -79,8 +94,8 @@ class All2AllSoftmax(All2All):
 
     fused_emits_logits = True
 
-    def fused_apply(self, params, x, *, train=False):
-        return fn.all2all_forward(x, params["weights"], params["bias"])
+    def fused_apply(self, params, x, *, train=False, reduce=None):
+        return _product(x, params, "linear", reduce)
 
 
 @register_unit(All2All)

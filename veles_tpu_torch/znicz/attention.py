@@ -58,7 +58,8 @@ class MultiHeadAttention(Forward):
             raise NotImplementedError(
                 f"parallel_mode {parallel_mode!r} shards the sequence over "
                 f"several cards: ring and Ulysses attention come with the "
-                f"many-GPU slice (ROADMAP Slice 3); this one runs 'local'")
+                f"next many-GPU slice (ROADMAP Queue 1 item 1(b)); this one "
+                f"runs 'local'")
         if use_flash not in ("auto", "on", "off"):
             raise ValueError(f"use_flash must be 'auto', 'on' or 'off', got "
                              f"{use_flash!r}")

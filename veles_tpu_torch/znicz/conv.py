@@ -152,24 +152,32 @@ class Conv(Forward):
             return t.name({**cfg, t.fuse_axis: "none"})
         return name
 
-    def fused_apply(self, params, x, *, train=False, variant=None):
+    def fused_apply(self, params, x, *, train=False, variant=None,
+                    reduce=None):
         """`variant`: the `conv_stem` lowering the fused forward
         resolved at build time (used only where the layer is an auto
-        stem); None resolves it now."""
-        w = params["weights"]
+        stem); None resolves it now. `reduce`: tensor parallelism's
+        row-parallel sum (parallel/tp.py), applied to the convolution of
+        this rank's input channels before the bias and the activation."""
+        w, b = params["weights"], params["bias"]
+        if reduce is None:
+            return self._conv(x, w, b, self.activation, variant)
+        y = reduce(self._conv(x, w, torch.zeros_like(b), "linear", variant))
+        return fn.act_forward(self.activation, y + b)
+
+    def _conv(self, x, w, b, activation, variant):
+        """act(conv2d(x, w) + b) through the layer's lowering."""
         if self.s2d == "auto" and self._s2d_applicable(x.shape[-1]):
             v = variant or variants.resolve("conv_stem", unit=self)
             if v.generated:
-                return v.apply(x, w, params["bias"], self.stride,
-                               self.padding, self.activation)
+                return v.apply(x, w, b, self.stride, self.padding,
+                               activation)
             variant = v
         if self._use_s2d(x.shape[-1], variant):
-            return fn.conv2d_forward(x, w, params["bias"], self.stride,
-                                     self.padding, self.activation,
-                                     s2d=True)
+            return fn.conv2d_forward(x, w, b, self.stride, self.padding,
+                                     activation, s2d=True)
         return fn.conv2d_forward(
-            x, w, params["bias"], self.stride, self.padding,
-            self.activation,
+            x, w, b, self.stride, self.padding, activation,
             w_oihw=None if torch.is_grad_enabled() else self._weights_oihw(w))
 
 

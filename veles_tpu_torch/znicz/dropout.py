@@ -38,6 +38,8 @@ make_mask = fn.dropout_mask
 class DropoutForward(Forward):
 
     fused_needs_gen = True
+    #: elementwise: runs on a tensor-parallel rank's channels
+    tp_channel_local = True
 
     def __init__(self, dropout_ratio: float = 0.5, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -46,7 +48,10 @@ class DropoutForward(Forward):
     def initialize(self, sample_shape, device):
         return tuple(sample_shape)
 
-    def fused_apply(self, params, x, *, train=False, gen=None):
+    def fused_apply(self, params, x, *, train=False, gen=None, part=None):
+        """`part` (parallel/tp.py `RankPart`): x is a block of the global
+        batch's activation; the mask is drawn for the whole and the
+        block kept, so every rank of a model group draws the same."""
         if not train:
             return x
         if gen is None:
@@ -54,8 +59,12 @@ class DropoutForward(Forward):
                              "torch.Generator (gen=)")
         # the mask in x's dtype (the compute dtype), as the JAX unit
         # draws it (dropout.py:84 there)
-        return x * make_mask(x.shape, self.dropout_ratio, gen, x.device,
-                             dtype=x.dtype)
+        if part is None:
+            return x * make_mask(x.shape, self.dropout_ratio, gen,
+                                 x.device, dtype=x.dtype)
+        return x * part.take(make_mask(part.global_shape(x.shape),
+                                       self.dropout_ratio, gen, x.device,
+                                       dtype=x.dtype))
 
 
 @register_unit(DropoutForward)

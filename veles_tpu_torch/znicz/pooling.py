@@ -46,6 +46,9 @@ class Pooling(Forward):
     """The common geometry: ksize (ky, kx), stride defaulting to ksize,
     the ceil-mode output size; no parameters."""
 
+    #: per channel: runs on a tensor-parallel rank's channels
+    tp_channel_local = True
+
     def __init__(self, ksize: Tuple[int, int] = (2, 2),
                  stride: Optional[Tuple[int, int]] = None,
                  **kwargs: Any) -> None:
@@ -105,14 +108,26 @@ class StochasticPooling(Pooling):
 
     fused_needs_gen = True
 
-    def fused_apply(self, params, x, *, train=False, gen=None):
+    def fused_apply(self, params, x, *, train=False, gen=None, part=None):
+        """`part` (parallel/tp.py `RankPart`): x is a block of the global
+        batch's activation; the noise is drawn for the whole, (N, OH, OW,
+        C, ky·kx), and the block kept."""
         if not train:   # deterministic at evaluation: the average
             return fn.avgpool_forward(x, self.ksize, self.stride)
         if gen is None:
             raise ValueError("a training stochastic pooling needs the "
                              "step's torch.Generator (gen=)")
+        if part is None:
+            return fn.stochastic_pool_forward_with_idx(
+                x, self.ksize, self.stride, generator=gen)[0]
+        oh, ow = fn.pool_out_hw(x.shape[1], x.shape[2], *self.ksize,
+                                *self.stride)
+        shape = part.global_shape((x.shape[0], oh, ow, x.shape[-1],
+                                   self.ksize[0] * self.ksize[1]), -2)
         return fn.stochastic_pool_forward_with_idx(
-            x, self.ksize, self.stride, generator=gen)[0]
+            x, self.ksize, self.stride,
+            noise=part.take(fn.gumbel_noise(shape, gen, x.device, x.dtype),
+                            -2))[0]
 
 
 @register_unit(MaxPooling)

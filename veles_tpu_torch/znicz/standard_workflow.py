@@ -424,7 +424,8 @@ class StandardWorkflow(Workflow):
         uint8 wire's prologue spec; `mesh` (parallel/mesh.make_mesh) makes
         it a data-parallel step, its update ZeRO-sharded by
         `zero_sharding` ("auto", "on", "off"), its MoE experts sharded over
-        the ranks with `ep`."""
+        the ranks with `ep`, or under `mode="gspmd"` (the "auto" choice
+        where the mesh has a model axis) a tensor-parallel one."""
         from veles_tpu_torch.parallel.fused import FusedTrainStep
         return FusedTrainStep(self, compute_dtype=compute_dtype,
                               input_normalize=input_normalize, mesh=mesh,
@@ -485,7 +486,8 @@ class StandardWorkflow(Workflow):
                   feed_ahead: Optional[int] = None,
                   nonfinite_guard: bool = False,
                   accum_steps: Optional[int] = None, mesh=None,
-                  zero_sharding: Any = "auto", ep: bool = False) -> None:
+                  mode: str = "auto", zero_sharding: Any = "auto",
+                  ep: bool = False) -> None:
         """Train with the fused step until the Decision completes
         (`epochs` overrides its `max_epochs`), on `device` (the card unless
         "cpu" is asked for; see `place`). Batches reach the card through
@@ -501,8 +503,10 @@ class StandardWorkflow(Workflow):
         runs this loop on the same global minibatches, trains on its rows
         of each (the loader produces only those), and the coordinator
         alone writes the snapshots; the workflow lives on the mesh's
-        device. `zero_sharding` gates the ZeRO update (JAX :509-515,
-        :732); `ep` shards the MoE experts over the ranks."""
+        device. `mode` is the step's ("auto": dp, or gspmd where the mesh
+        has a model axis: tensor parallelism); `zero_sharding` gates the
+        ZeRO update (JAX :509-515, :732); `ep` shards the MoE experts
+        over the ranks."""
         if epochs is not None:
             self.decision.max_epochs = epochs
         if mesh is not None:
@@ -511,7 +515,7 @@ class StandardWorkflow(Workflow):
         wire = self._wire_spec(uint8_wire)
         step = self.build_fused_step(
             input_normalize=wire["normalize"] if wire else None,
-            mesh=mesh, zero_sharding=zero_sharding, ep=ep)
+            mesh=mesh, mode=mode, zero_sharding=zero_sharding, ep=ep)
         if accum_steps and accum_steps > 1:
             step = AccumulatingStep(step, accum_steps)
         self._run_with_step(step, wire=wire, feed_ahead=feed_ahead,
@@ -587,10 +591,11 @@ class StandardWorkflow(Workflow):
         self.device_feed = feed
         # the loader gathers straight into the feed's pinned buffers
         loader.out_alloc = getattr(feed.put, "empty", None)
-        # a dp rank produces only the rows it trains on (each rank is a
-        # process of its own; the JAX package does this across hosts)
+        # a dp or gspmd rank produces only the rows it trains on (each
+        # rank is a process of its own; the JAX package does this across
+        # hosts)
         prev_rows_fn = getattr(loader, "local_rows_fn", None)
-        dp = getattr(step, "mode", "local") == "dp"
+        dp = getattr(step, "mode", "local") in ("dp", "gspmd")
         if dp and step.n_data > 1 and hasattr(loader, "local_rows_fn"):
             loader.local_rows_fn = step.local_rows
         from veles_tpu_torch.parallel.distributed import is_coordinator
