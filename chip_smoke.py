@@ -281,7 +281,21 @@
    rank K1 16, K4 2, K5 2 a step; a rank's parameter and optimizer bytes
    within TP_SHARE of the local step's; gloo's host ms a step (no TP
    figure). The script exits non-zero where (b) does not run (TP two
-   ranks lines). The phase's seconds.
+   ranks lines). (c) The full-width char-transformer (32 windows of
+   4096, 4 causal heads of 16, FFN 128, seed 1234) under the JAX plan's
+   last-dim rule for attention and MoE and the single-weight rule for
+   the sequence layers, TP_STEPS steps: (c1) world size 1 on NCCL, mode
+   "gspmd" at model 1, dense f32 and bf16: the local step's bits, K6 1,
+   K7 1 and K1 13 a step exactly (TP transformer lines); (c2) two gloo
+   processes on the card, data 1 x model 2: dense f32 and bf16, MoE (8
+   experts of hidden 128, capacity factor 2.0) f32, and one head of 64
+   (a head straddling the ranks) f32 for TP_CT_ONE_STEPS step, against
+   the local step from the same state: f32 parameters within 1e-5, bf16
+   as (b); every rank K6 1 and K7 1 a train step (on its 2 heads, or on
+   the gathered head) and K1 13 (14 with MoE); a rank's parameter and
+   optimizer elements TP_CT_ELEMENTS of the local step's; gloo's host ms
+   a step (no TP figure) (TP transformer two ranks lines). The phase's
+   seconds.
    GRANULAR: the full-width AlexNet one epoch (4 train minibatches of 128
    and one validation minibatch, dropout 0.5 as the sample has it)
    through the granular Unit/Workflow graph, `launcher.train` without
@@ -4698,7 +4712,7 @@ def granular_transformer_phase(launcher, kernels, dev):
 #: train images (5 minibatches an epoch: 4 updates, so every snapshot
 #: follows updates; 1280 until the TP phase came and the script passed
 #: 850 s, a granular minibatch costing ~0.7 s under the deterministic
-#: algorithms)
+#: algorithms; at 384 the cut run's newest snapshot holds epoch 0)
 GR_EPOCHS, GR_CUT, GR_FAULT = 3, 2, "kill@epoch=2"
 GR_ARGS = ["root.alexnet.loader.n_train=640"]
 GRANULAR_RESUME_WORKFLOW = '''
@@ -7296,10 +7310,270 @@ def tp_two_ranks():
     return rec
 
 
+#: TP (c2): the straddling head's steps (n_heads=1, D 64: q, k and v
+#: all-gathered, K6 / K7 on the whole head on each rank)
+TP_CT_ONE_STEPS = 1
+#: TP (c2): a rank's elements of the parameters (and of the SGD
+#: velocities) and the local step's, by the plan at model 2, with and
+#: without MoE: the replicated 4096 x 64 `pos` table dominates (its
+#: embed's weights, attention's four matrices and the softmax head's
+#: halved; the FFN's w2 and b2, MoE's nothing, replicated)
+TP_CT_ELEMENTS = {"dense": (284009, 297490), "moe": (338098, 414034)}
+TP_CT_TWO_RANKS = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+rank, port = int(sys.argv[1]), sys.argv[2]
+cfg = json.loads(sys.argv[3])
+from veles_tpu_torch import prng
+from veles_tpu_torch.config import root
+from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.loader.text import synthetic_text
+from veles_tpu_torch.ops import kernels
+from veles_tpu_torch.parallel import distributed, memstats, mesh as M
+from veles_tpu_torch.samples import char_transformer
+kernels.build()
+distributed.initialize_distributed(f"127.0.0.1:{port}", rank, 2,
+                                   backend="gloo", timeout_s=600)
+mesh = M.make_mesh(model=2, device="cuda:0")
+dev = mesh.device
+out = {"mesh": str(mesh), "device": str(dev)}
+
+
+def workflow(experts, heads):
+    # chip_smoke.py ct_workflow's: 32 windows of 4096 from seed 1234
+    prng.seed_all(1234)
+    node = root.char_transformer
+    saved = node.to_dict()
+    mb, seq = cfg["rows"], cfg["seq"]
+    for k, v in {"loader.seq_len": seq, "loader.n_validation": 1,
+                 "loader.minibatch_size": mb, "moe_experts": experts,
+                 "moe_capacity_factor": 2.0, "n_heads": heads}.items():
+        node.override(k, v)
+    try:
+        wf = char_transformer.create_workflow(
+            text=synthetic_text((mb + 1) * seq + 1))
+    finally:
+        node.update(saved)
+    wf.initialize(dev)
+    loader = wf.loader
+    loader.run()
+    while loader.minibatch_class != TRAIN:
+        loader.run()
+    return wf, (loader.minibatch_data, loader.minibatch_labels,
+                loader.minibatch_valid)
+
+
+def distance(a, b, before):
+    # ||(a - before) - (b - before)|| / ||b - before|| over the leaves
+    num = mv = 0.0
+    for x, y, z in zip(a, b, before):
+        num += float(((x.double() - y.double()) ** 2).sum())
+        mv += float(((y.double() - z.double()) ** 2).sum())
+    return (num / mv) ** 0.5
+
+
+def leaves(state, slot="params"):
+    return [t.detach() for layer in state[slot] for t in layer.values()]
+
+
+ref32 = None
+for label, experts, heads, dt, n in cfg["runs"]:
+    wf, batch = workflow(experts, heads)
+    tp = wf.build_fused_step(compute_dtype=dt, mesh=mesh, mode="gspmd")
+    local = wf.build_fused_step(compute_dtype=dt)
+    st, sl = tp.init_state(), local.init_state()
+    before = [t.clone() for t in leaves(sl)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    host = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        st, (lt, et) = tp.train(st, *batch)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    for _ in range(n):
+        sl, (ll, el) = local.train(sl, *batch)
+    full = tp.gather_state(st)
+    got, want = leaves(full), leaves(sl)
+    if label == "dense f32":
+        ref32 = [t.clone() for t in want]
+    rec = {
+        "loss_tp": float(lt), "loss_local": float(ll),
+        "n_err_tp": int(et), "n_err_local": int(el),
+        "param_err": max(float((a - b).abs().max())
+                         for a, b in zip(got, want)),
+        "vel_err": max(float((a - b).abs().max()) for a, b in
+                       zip(leaves(full, "vel"), leaves(sl, "vel"))),
+        "update_distance": distance(got, want, before),
+        "launches": counts, "host_ms": host,
+        "elements": sum(t.numel() for t in leaves(st)),
+        "local_elements": sum(t.numel() for t in want),
+        "opt_bytes": sum(tp.optimizer_state_bytes(st).values()),
+        "local_opt_bytes": sum(local.optimizer_state_bytes(sl).values()),
+        "roles": tp.fwd.tp.roles, "table": tp.variant_table(),
+        "memstats": memstats.device_memory_stats()}
+    if dt is not None:
+        # each bf16 step's distance to the f32 local step's update
+        rec["to_f32_tp"] = distance(got, ref32, before)
+        rec["to_f32_local"] = distance(want, ref32, before)
+    out[label] = rec
+    del wf, tp, local, st, sl, full, got, want, before
+    torch.cuda.empty_cache()
+every = [None, None]
+torch.distributed.all_gather_object(every, out)
+if rank == 0:
+    print("TPCTTWO " + json.dumps(every), flush=True)
+distributed.shutdown_distributed()
+"""
+
+
+def tp_ct_solo_run(kernels, dev, mesh, compute_dtype):
+    """TP (c1) at one compute dtype: the full-width char-transformer, the
+    local step and the step with mode="gspmd" at model 1 from one state
+    on one batch: the same bits, the gspmd steps' exact launches (K6 and
+    K7 1 a step, K1 13). Returns (launches, record)."""
+    wf, batch = ct_workflow(dev, 0)
+    local = wf.build_fused_step(compute_dtype=compute_dtype)
+    tp = wf.build_fused_step(compute_dtype=compute_dtype, mesh=mesh,
+                             mode="gspmd")
+    sl, st = local.init_state(), tp.init_state()
+    leaves = sum(len(u.param_arrays()) for u in wf.forwards)
+    for _ in range(TP_STEPS):
+        sl, (ll, _) = local.train(sl, *batch)
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    for _ in range(TP_STEPS):
+        st, (lt, _) = tp.train(st, *batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    label = compute_dtype or "f32"
+    check_counts(f"TP transformer {label}", counts,
+                 {"sgd_update": leaves * TP_STEPS,
+                  "flash_attention_forward": TP_STEPS,
+                  "flash_attention_backward": TP_STEPS})
+    bits = all(torch.equal(a, b) for a, b in zip(state_tensors(st),
+                                                  state_tensors(sl)))
+    if not bits or float(lt) != float(ll):
+        err = compare_states(f"TP transformer {label}", st, sl, 1.0, 1.0)
+        raise AssertionError(
+            f"TP transformer {label}: the gspmd step at model 1 is not the "
+            f"local step's bits (max abs err {err:.3e}, loss {float(lt)} "
+            f"against {float(ll)})")
+    rec = {"bit_equal_to_local": bits, "loss": float(lt),
+           "variant_table": tp.variant_table()}
+    print(f"TP transformer {label}: world size 1 on {mesh.device}, mode "
+          f"gspmd at model 1, 32 x {CT_SEQ}: {TP_STEPS} steps bit-equal to "
+          f"the local step's; launches {counts}", flush=True)
+    del wf, local, tp, sl, st
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def tp_ct_two_ranks():
+    """TP (c2): two gloo processes over CUDA tensors on the one card, data
+    1 x model 2, the full-width char-transformer dense in f32 and bf16,
+    with MoE in f32 and with one head of 64 in f32, each against the
+    local step from the same state on the same batch: f32 parameters
+    within 1e-5, bf16 as TP (b) holds it; every rank's K6 1, K7 1 a train
+    step and K1 one a leaf; a rank's parameter and optimizer elements
+    TP_CT_ELEMENTS. Raises where it does not run. Returns (launches by
+    path, the record)."""
+    work = tempfile.mkdtemp(prefix="veles_tp_ct2_")
+    script = os.path.join(work, "two_ranks.py")
+    with open(script, "w") as f:
+        f.write(TP_CT_TWO_RANKS)
+    port = str(free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    runs = [("dense f32", 0, 4, None, TP_STEPS),
+            ("dense bf16", 0, 4, "bfloat16", TP_STEPS),
+            ("moe f32", MOE_EXPERTS, 4, None, TP_STEPS),
+            ("one head f32", 0, 1, None, TP_CT_ONE_STEPS)]
+    cfg = json.dumps({"rows": ATT_SHAPES[0][0], "seq": CT_SEQ,
+                      "runs": runs})
+    procs = [subprocess.Popen([sys.executable, script, str(r), port, cfg],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out after 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    line = [ln for out in outs for ln in out.splitlines()
+            if ln.startswith("TPCTTWO ")]
+    if not line or any(p.returncode != 0 for p in procs):
+        tail = "\n".join(out[-3000:] for out in outs)
+        raise AssertionError(f"TP transformer two ranks did not run:\n"
+                             f"{tail}")
+    ranks = json.loads(line[0][len("TPCTTWO "):])
+    launches = {}
+    for label, experts, heads, dt, n in runs:
+        leaves = 14 if experts else 13
+        elements = TP_CT_ELEMENTS["moe" if experts else "dense"]
+        for r, got in enumerate(ranks):
+            g = got[label]
+            check_counts(f"TP transformer two ranks {label} rank {r}",
+                         g["launches"],
+                         {"sgd_update": leaves * n,
+                          "flash_attention_forward": n,
+                          "flash_attention_backward": n})
+            launches[f"tp_ct_rank{r}_{label.replace(' ', '_')}"] = \
+                g["launches"]
+            if (g["elements"], g["local_elements"]) != elements \
+                    or (g["opt_bytes"], g["local_opt_bytes"]) != \
+                    tuple(4 * e for e in elements):
+                raise AssertionError(
+                    f"TP transformer two ranks {label} rank {r}: elements "
+                    f"{g['elements']} of {g['local_elements']}, optimizer "
+                    f"bytes {g['opt_bytes']} of {g['local_opt_bytes']}, "
+                    f"not {elements}")
+            if dt is None and not g["param_err"] <= 1e-5:
+                raise AssertionError(
+                    f"TP transformer two ranks {label} rank {r}: {g}")
+            if dt is not None and not g["to_f32_tp"] <= \
+                    g["to_f32_local"] + TP_BF16_SLACK:
+                raise AssertionError(
+                    f"TP transformer two ranks {label} rank {r}: {g}")
+            if not np.isfinite(g["loss_tp"]):
+                raise AssertionError(f"TP transformer two ranks {label}: "
+                                     f"loss {g}")
+        g = ranks[0][label]
+        extra = (f"; to the f32 local step's update {g['to_f32_tp']:.3e}, "
+                 f"the local step's {g['to_f32_local']:.3e}"
+                 if dt is not None else "")
+        print(f"TP transformer two ranks {label}: gloo over CUDA tensors on "
+              f"one card, data 1 x model 2, 32 x {CT_SEQ}, {n} step(s): "
+              f"parameters within {g['param_err']:.3e} of the local step's "
+              f"(velocities {g['vel_err']:.3e}, update distance "
+              f"{g['update_distance']:.3e}{extra}); loss {g['loss_tp']} "
+              f"against {g['loss_local']}, n_err {g['n_err_tp']} against "
+              f"{g['n_err_local']}; a rank holds {g['elements']} of the "
+              f"local step's {g['local_elements']} parameter elements "
+              f"({g['elements'] / g['local_elements']:.4f}; optimizer "
+              f"bytes {g['opt_bytes']} of {g['local_opt_bytes']}); "
+              f"launches a rank {g['launches']}; host ms a step "
+              f"{[round(t, 1) for t in g['host_ms']]} (gloo stages every "
+              f"collective through the host: no TP figure); roles "
+              f"{g['roles']}; flash lowering "
+              f"{g['table'].get('flash_attn')}", flush=True)
+    return launches, {"ranks": ranks}
+
+
 def tp_phase(launcher, kernels, dev):
     """TP: (a) the gspmd step at model 1 on NCCL (world size 1) bit-equal
     to the local step in f32 and bf16, (b) two gloo ranks at model 2 on
-    the one card. Returns (launches by path, record)."""
+    the one card; (c) the same for the char-transformer (c1, c2).
+    Returns (launches by path, record)."""
     from veles_tpu_torch.parallel import distributed
     from veles_tpu_torch.parallel.mesh import make_mesh
     t_phase = time.perf_counter()
@@ -7311,9 +7585,19 @@ def tp_phase(launcher, kernels, dev):
             label = dt or "f32"
             launches[f"tp_{label}"], rec[label] = tp_solo_run(
                 kernels, dev, mesh, dt)
+        for dt in (None, "bfloat16"):
+            label = dt or "f32"
+            launches[f"tp_ct_{label}"], rec[f"transformer_{label}"] = \
+                tp_ct_solo_run(kernels, dev, mesh, dt)
     finally:
         distributed.shutdown_distributed()
     rec["two_ranks"] = tp_two_ranks()
+    t_ct = time.perf_counter()
+    two_ct_launches, rec["transformer_two_ranks"] = tp_ct_two_ranks()
+    launches.update(two_ct_launches)
+    rec["transformer_two_ranks"]["seconds"] = time.perf_counter() - t_ct
+    print(f"TP transformer two ranks: in "
+          f"{rec['transformer_two_ranks']['seconds']:.2f} s", flush=True)
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"TP: the phase in {rec['seconds']:.2f} s", flush=True)
     return launches, rec

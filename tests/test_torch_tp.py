@@ -296,6 +296,35 @@ def surface(mesh):
             "confusion": conf.numpy().copy()}
 
 
+def toy_transformer(mesh):
+    """The toy char-transformer, 2 steps in gspmd at model 2 and in the
+    local step from one seed: the largest parameter difference."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import char_transformer as ct
+    steps = []
+    for kw in ({"mesh": mesh, "mode": "gspmd"}, {}):
+        saved = root.char_transformer.to_dict()
+        try:
+            for k, v in cfg["ct_toy"].items():
+                root.char_transformer.override(k, v)
+            prng._generators.clear()
+            prng.seed_all(cfg["seed"])
+            wf = ct.create_workflow()
+        finally:
+            root.char_transformer.update(saved)
+        wf.initialize("cpu")
+        step = wf.build_fused_step(**kw)
+        st = step.init_state()
+        for x, y in cfg["ct_batches"]:
+            st, _ = step.train(st, x, y)
+        steps.append((step, step.gather_state(st)))
+    (tp, got), (_, want) = steps
+    err = max(float((a - b).abs().max())
+              for la, lb in zip(got["params"], want["params"])
+              for a, b in zip(la.values(), lb.values()))
+    return {"roles": tp.fwd.tp.roles, "err": err}
+
+
 snap = os.path.join(cfg["snap_dir"], "tp_snapshot.pickle")
 ckpt = os.path.join(cfg["snap_dir"], "ckpt")
 train = cfg["batches"]["fc"][0]
@@ -351,6 +380,8 @@ for d, m in cfg["meshes"]:
     dist.all_gather_object(draws, torch.rand(64, generator=step.gen).numpy())
     res[key, "draws"] = draws
     res[key, "mesh"] = (mesh.data_index, mesh.model_index)
+    if m == 2 and d == 1:
+        res[key, "ct"] = toy_transformer(mesh)
 
 if rank == 0:
     with open(os.path.join(out, "result.pkl"), "wb") as f:
@@ -474,10 +505,16 @@ def everything(tmp_path_factory):
         for u in wf.forwards)
     wf._stop_units()
     snap_dir = tmp_path_factory.mktemp("tp_snap")
+    rs = np.random.RandomState(17)
     cfg = {"seed": SEED, "nets": NETS, "gd": GD, "adam": ADAM,
            "loader": {n: _loader_kw(n) for n in NETS},
            "batches": {n: _batches(n) for n in NETS},
-           "init": init, "stem_epi": STEM_EPI, "snap_dir": str(snap_dir)}
+           "init": init, "stem_epi": STEM_EPI, "snap_dir": str(snap_dir),
+           "ct_toy": CT_TOY,
+           "ct_batches": [(np.eye(18, dtype=np.float32)[
+               rs.randint(0, 18, (4, 32))],
+               rs.randint(0, 18, (4, 32)).astype(np.int32))
+               for _ in range(2)]}
     outs = {n: tmp_path_factory.mktemp(f"world{n}") for n in MESHES}
     procs = {n: _start_world(n, outs[n], dict(cfg, meshes=MESHES[n],
                                               restore=n == 4))
@@ -857,14 +894,23 @@ def test_refusals():
         for spec in layer.values())
 
 
-def test_attention_at_model_2_is_refused():
+CT_TOY = {"embed": 16, "n_heads": 2, "ffn": 24, "loader.seq_len": 32,
+          "loader.minibatch_size": 4, "loader.n_validation": 4}
+
+
+def test_attention_at_model_2_trains(everything):
+    """The toy char-transformer trains at model 2 through gloo: 2 steps
+    within 1e-6 of the local step's parameters (the JAX comparisons are
+    tests/test_torch_tp_seq.py's); at model 1 every leaf is
+    replicated."""
+    got = everything["worlds"][2][(1, 2), "ct"]
+    assert got["roles"] == ["column", "lastdim", "row", "column"]
+    assert got["err"] <= 1e-6
     from veles_tpu_torch.config import root
     from veles_tpu_torch.samples import char_transformer as ct
-    toy = {"embed": 16, "n_heads": 2, "ffn": 24, "loader.seq_len": 32,
-           "loader.minibatch_size": 4, "loader.n_validation": 4}
     saved = root.char_transformer.to_dict()
     try:
-        for k, v in toy.items():
+        for k, v in CT_TOY.items():
             root.char_transformer.override(k, v)
         prng._generators.clear()
         prng.seed_all(SEED)
@@ -872,11 +918,11 @@ def test_attention_at_model_2_is_refused():
     finally:
         root.char_transformer.update(saved)
     wf.initialize("cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1\(a2\)"):
-        FusedTrainStep(wf, mesh=Mesh(mesh_shape(2, model=2), 0, "cpu"))
     step = FusedTrainStep(wf, mesh=Mesh(mesh_shape(1), 0, "cpu"),
                           mode="gspmd")
     assert step.n_model == 1
+    assert all(spec == () for layer in step._tp_plan()[0]
+               for spec in layer.values())
 
 
 @pytest.mark.parametrize("argv,msg", [

@@ -93,9 +93,10 @@ the gathered velocities, so it restores at any world size).
 launcher.py:202-212) lays the ranks out as data x model=K
 (`make_mesh(model=K)`: data outermost, model innermost, as in JAX: rank
 = d*K + m), and the step's mode "auto" makes K > 1 its gspmd mode, the
-megatron column/row plan over each data shard's K ranks
-(parallel/tp.py); K >= 1, K > 1 only with `-l`/`-m`, and exclusive with
-`--ep` and `--pp`. `--sp` (sequence parallelism) is refused until the
+megatron column/row plan (the last-dim rule for attention and MoE) over
+each data shard's K ranks (parallel/tp.py): AlexNet, the
+char-transformer, dense or MoE, and every sample train under it; K >= 1,
+K > 1 only with `-l`/`-m`, and exclusive with `--ep` and `--pp`. `--sp` (sequence parallelism) is refused until the
 slice that ports it.
 
 `--pp M` trains the chain as a GPipe pipeline of M microbatches

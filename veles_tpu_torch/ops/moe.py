@@ -28,6 +28,16 @@ Gradients flow through the gate and the experts, never through the
 argmax or the count. `top1_dispatch` returns the dense masks for small N,
 so that tests can hold the routing against the JAX function's masks.
 
+Under the fused step's tensor parallelism (parallel/tp.py) `moe_forward`
+runs on one rank's blocks of the JAX plan's last-dim rule: `wr`'s expert
+columns give the rank's router logits, `w1` / `b1` its block of the
+hidden, `w2` / `b2` its block of D, and `gather` all-gathers the logits
+(so that every rank routes alike, each logit a whole contraction) and
+the hidden between the experts' two products; `counts_before` offsets
+the slots by the tokens the data shards before this one route to each
+expert, so that a gspmd step over several data shards routes its global
+batch as one, as the JAX gspmd step does.
+
 `moe_forward_ep` is the expert-parallel form over a `torch.distributed`
 group: every rank routes its own tokens over all E experts and holds
 E/R of them (`w1`, `b1`, `w2`, `b2` sliced on their leading dim, the
@@ -41,7 +51,7 @@ the JAX function.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -123,29 +133,47 @@ def combine_rows(ye: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
 
 
 def expert_ffn(xe: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+               w2: torch.Tensor, b2: torch.Tensor,
+               gather: Optional[Callable] = None) -> torch.Tensor:
     """Every expert's 2-layer FFN on its slots: xe (E, C, D), w1 (E, D, H),
     b1 (E, H), w2 (E, H, D), b2 (E, D) -> (E, C, D); relu(xe·w1 + b1)·w2
-    + b2, in the dtype the JAX einsums promote to."""
+    + b2, in the dtype the JAX einsums promote to. `gather` makes a
+    block of the hidden (w1 sharded on H) whole for w2."""
     t = torch.promote_types(xe.dtype, w1.dtype)
     h = torch.relu(torch.bmm(xe.to(t), w1.to(t)) + b1[:, None, :])
+    if h.shape[-1] != w2.shape[1]:
+        h = gather(h)
     t = torch.promote_types(h.dtype, w2.dtype)
     return torch.bmm(h.to(t), w2.to(t)) + b2[:, None, :]
 
 
 def moe_forward(x: torch.Tensor, wr: torch.Tensor, w1: torch.Tensor,
                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                capacity: Optional[int] = None) -> torch.Tensor:
-    """All experts local: x (N, D) -> (N, D)."""
+                capacity: Optional[int] = None,
+                gather: Optional[Callable] = None,
+                counts_before: Optional[Callable] = None) -> torch.Tensor:
+    """All experts local: x (N, D) -> (N, D). On a tensor-parallel rank
+    (`wr` sharded on its experts, w1 / b1 on H, w2 / b2 on D) `gather`
+    all-gathers a last-dim block over the model group and the result is
+    the rank's block of D; `counts_before(counts)` gives, per expert, the
+    tokens routed to it in the rows before x's in the global batch (None:
+    x is the whole batch)."""
     n = x.shape[0]
-    e = wr.shape[1]
+    e = w1.shape[0]
     if capacity is None:
         capacity = default_capacity(n, e)
-    probs = router_probs(x, wr)
+    logits = fn.matmul(x, wr)
+    if logits.shape[-1] != e:
+        logits = gather(logits)
+    probs = torch.softmax(logits, dim=-1)
     expert, slot, keep, gate = top1_route(probs, capacity)
+    if counts_before is not None:
+        slot = slot + counts_before(torch.bincount(expert,
+                                                   minlength=e))[expert]
+        keep = slot < capacity
     xe = dispatch_rows(x, expert, slot, keep, e, capacity,
                        torch.promote_types(x.dtype, probs.dtype))
-    ye = expert_ffn(xe, w1, b1, w2, b2)
+    ye = expert_ffn(xe, w1, b1, w2, b2, gather)
     return combine_rows(ye, expert, slot, keep, gate)
 
 

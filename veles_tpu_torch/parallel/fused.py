@@ -130,14 +130,16 @@ model axis above 1; JAX fused.py:181-190, :1229-1310): the JAX step hands
 the partitioner its megatron plan; the port runs the same plan as an
 explicit program, one process per rank (parallel/tp.py): each rank holds
 its blocks of every leaf the plan shards (`_tp_plan`: column-parallel and
-row-parallel weights alternating, the bias with a column shard, a leaf
-that does not divide replicated), in its parameters and velocities (or
-Adam moments) alike, and its forward runs each unit on them with the
-megatron collectives over its model group (`Mesh.tp_groups`); the kernels
-run there as in the local step (K4 / K5 on the gathered channels of a
-sharded LRN, K1 on each rank's blocks, one launch a leaf), where the
-JAX gspmd mode leaves Pallas for XLA's lowerings (a `pallas_call` cannot
-be partitioned). The rows are the data axis's, as in dp; the metrics,
+row-parallel weights alternating, the bias with a column shard; the
+multi-matrix families, attention and MoE, on the last dim of every leaf
+that divides; a leaf that does not divide replicated), in its
+parameters and velocities (or Adam moments) alike, and its forward runs
+each unit on them with the megatron collectives over its model group
+(`Mesh.tp_groups`); the kernels run there as in the local step (K4 / K5
+on the gathered channels of a sharded LRN, K6 / K7 on each rank's
+heads, or on every head where the heads straddle the ranks, K1 on each
+rank's blocks, one launch a leaf), where the JAX gspmd mode leaves
+Pallas for XLA's lowerings (a `pallas_call` cannot be partitioned). The rows are the data axis's, as in dp; the metrics,
 the weight sum and the gradients are summed over the rank's data group
 only (a model group's ranks hold the same rows), and not at all at one
 data shard, where the step is the local step's program. Dropout draws the
@@ -146,10 +148,10 @@ at any mesh draws the local step's masks. ZeRO is inactive; `ep` is
 refused, as in JAX. `gather_state` / `write_back` all-gather the blocks
 over the model group, `shard_state` slices them (a checkpoint holds the
 gathered state, so it restores at another model size or in local mode).
-At model 1 the plan replicates every leaf and the step runs any
-workflow; at model > 1 a parameterised unit other than the convolutions
-and the All2All family is refused (ROADMAP Queue 1 item 1(a2)). The seq
-mode comes with the next slice.
+A MoE layer routes the global batch as one over the data shards, as
+the JAX gspmd step does. At model 1 the plan replicates every leaf; at
+model > 1 a parameterised unit without a rank program is refused. The
+seq mode comes with the next slice.
 """
 
 from __future__ import annotations
@@ -527,7 +529,7 @@ class FusedTrainStep:
             self.fwd.ep_mesh = mesh
         if self.mode == "gspmd":
             # the rank's shards of the megatron plan (refuses a unit
-            # family it does not cover at model > 1)
+            # without a rank program at model > 1)
             self.fwd.set_tp(RankForward(self.forwards, mesh))
         #: ZeRO update sharding, resolved now for every later reader
         #: (state layout, update, write_back, reports)

@@ -38,14 +38,28 @@ over the rank's model group (`Mesh.tp_groups`):
   mesh draws the local step's masks.
 
 The activation the plan marks sharded is the rank's 1/model block of the
-last dim (channels of NHWC, features of an FC output). An auto stem's
-`epi=lrn` pair is not claimed under a column-parallel stem (its LRN needs
-every channel of the convolution): the stem runs its `epi=none` twin, the
-LRN after it gathers (the fused step's `variant_table` says so).
-Parameterised units other than the convolutions and the All2All family
-(attention, the transformer blocks, MoE: the JAX last-dim rule, fused.py:
-1299-1306 there) are refused at model > 1: they come with ROADMAP Queue 1
-item 1(a2). At model 1 every leaf is replicated and any workflow runs.
+last dim (channels of NHWC, features of an FC output or of a sequence
+layer's (N, S, E) output). An auto stem's `epi=lrn` pair is not claimed
+under a column-parallel stem (its LRN needs every channel of the
+convolution): the stem runs its `epi=none` twin, the LRN after it
+gathers (the fused step's `variant_table` says so).
+
+The multi-matrix families (attention, MoE) take the JAX plan's last-dim
+rule (fused.py:1299-1306 there): every leaf of two or more dims whose
+last dim divides is sharded on it, and the output is feature-sharded
+where one such leaf's last dim is the output's. The sequence layers
+(SeqLinear, SeqFFN, SeqSoftmax: one 2-D `weights`) take the column/row
+branch, their other leaves (`pos`, `w2`, `b2`) replicated. These units
+run their own rank programs (`tp_program`: `fused_apply(..., tp=)` with
+a `UnitRank`), in roles "column", "row", "lastdim" and "replicated":
+position-wise, so a row-parallel one contracts the rank's feature rows
+of an (N, S, E) input without any flatten, and a replicated leaf of
+which the rank uses a block (`pos` beside a column-parallel SeqLinear,
+`w2` and `b2` of a column-parallel SeqFFN, a leaf of attention or MoE
+the rule leaves whole) passes megatron's *f*, so that its gradient is
+all-reduced over the model group and every rank updates it alike. A
+parameterised unit of another family (no rank program) is refused at
+model > 1. At model 1 every leaf is replicated and any workflow runs.
 """
 
 from __future__ import annotations
@@ -60,12 +74,14 @@ from veles_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 Spec = Tuple[Optional[str], ...]
 
 
-def _covered(u) -> bool:
-    """The unit families the plan shards: the convolutions and the
-    All2All family (the softmax head included)."""
+def _has_rank_program(u) -> bool:
+    """Whether the rank program covers a parameterised unit: the
+    convolutions and the All2All family through the generic column and
+    row roles, the units that declare `tp_program` through their own."""
     from veles_tpu_torch.znicz.all2all import All2All
     from veles_tpu_torch.znicz.conv import Conv
-    return isinstance(u, (Conv, All2All))
+    return isinstance(u, (Conv, All2All)) or getattr(u, "tp_program",
+                                                     False)
 
 
 def tp_plan(forwards: Sequence[Any], m: int
@@ -73,13 +89,15 @@ def tp_plan(forwards: Sequence[Any], m: int
     """(per-layer {param: spec}, per-layer "output feature-sharded"
     flags) of the megatron plan over a model axis of `m` ranks, from the
     units' shapes (JAX `_tp_plan`, veles_tpu/parallel/fused.py:1253-1310):
-    a 2-D (in, out) or 4-D HWIO weight is row-parallel where its input
-    arrives sharded and its contraction dim divides, else
+    a 2-D (in, out) or 4-D HWIO `weights` is row-parallel where its
+    input arrives sharded and its contraction dim divides, else
     column-parallel where its output dim divides (the bias with it where
-    it divides), else replicated; a unit without parameters keeps the
-    incoming flag; a leaf that does not divide stays replicated. Raises
-    NotImplementedError at m > 1 for a parameterised unit of another
-    family."""
+    it divides), else replicated, the unit's other leaves replicated; a
+    unit without such a weight (attention, MoE) shards every leaf of two
+    or more dims on its last dim where that divides, its output sharded
+    where one such leaf's last dim is the output's (`out_sample_shape`);
+    a unit without parameters keeps the incoming flag; a leaf that does
+    not divide stays replicated."""
     plan: List[Dict[str, Spec]] = []
     out_flags: List[bool] = []
     act_sh = False
@@ -90,12 +108,6 @@ def tp_plan(forwards: Sequence[Any], m: int
             plan.append(pd)
             out_flags.append(False)
             continue
-        if arrs and not _covered(u):
-            raise NotImplementedError(
-                f"{type(u).__name__} under tensor parallelism (model={m}): "
-                "the gspmd step shards the convolutions and the All2All "
-                "family; attention, the transformer blocks and MoE (the "
-                "JAX last-dim rule) come with ROADMAP Queue 1 item 1(a2)")
         out_sh = act_sh if not arrs else False
         w = arrs.get("weights")
         if w is not None and w.dim() in (2, 4):
@@ -114,6 +126,14 @@ def tp_plan(forwards: Sequence[Any], m: int
                 out_sh = True
             else:
                 out_sh = False
+        elif arrs:
+            shape = getattr(u, "out_sample_shape", None)
+            out_dim = shape[-1] if shape else None
+            for k, a in arrs.items():
+                if a.dim() >= 2 and a.shape[-1] % m == 0:
+                    pd[k] = (None,) * (a.dim() - 1) + (MODEL_AXIS,)
+                    if out_dim is not None and a.shape[-1] == out_dim:
+                        out_sh = True
         plan.append(pd)
         out_flags.append(out_sh)
         act_sh = out_sh
@@ -228,6 +248,22 @@ class _Gather(torch.autograd.Function):
             None, None
 
 
+class _ScatterOut(torch.autograd.Function):
+    """The ranks' partial products summed and scattered along the last
+    dim, this rank keeping its block (a row-parallel product whose
+    output stays feature-sharded); the backward all-gathers the blocks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, y, group, m):
+        ctx.group, ctx.m = group, m
+        return _reduce_scatter(y, group, m)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.m), None, None
+
+
 class RankPart:
     """This rank's block of a draw made for the global batch and the
     unsharded features: rows [row0, row0 + rows) of `n_rows`, and where
@@ -268,24 +304,34 @@ class RankForward:
         self.data_index = mesh.data_index
         self.plan, self.out_flags = tp_plan(self.forwards, self.m)
         self._mesh = mesh
-        #: per unit: "column", "row", "replicated" or "free"
+        #: per unit: "column", "row", "lastdim", "replicated" or "free"
         self.roles = []
         for u, pd in zip(self.forwards, self.plan):
             w = pd.get("weights", ())
+            own = getattr(u, "tp_program", False)
             if not u.param_arrays():
                 role = "free"
-            elif shard_dim(w) is None:
+            elif self.m > 1 and not _has_rank_program(u):
+                raise NotImplementedError(
+                    f"{u.name} ({type(u).__name__}) under tensor "
+                    f"parallelism (model={self.m}): the unit has no rank "
+                    "program")
+            elif all(shard_dim(s) is None for s in pd.values()):
                 role = "replicated"
+            elif shard_dim(w) is None:
+                role = "lastdim"
             elif shard_dim(w) == len(w) - 1:
                 role = "column"
             else:
                 role = "row"
-            if role == "column" and len(getattr(
+            if role == "column" and not own and len(getattr(
                     u, "output_sample_shape", ())) > 1:
                 raise NotImplementedError(
                     f"{u.name}: a column-parallel FC layer of output "
                     f"shape {u.output_sample_shape} (its shard of the "
                     "flat outputs is no block of the last dim)")
+            if hasattr(u, "tp_check") and role != "free":
+                u.tp_check(role, pd, self.m)
             self.roles.append(role)
 
     @property
@@ -320,9 +366,15 @@ class RankForward:
     def _gather(self, x, partial: bool):
         return _Gather.apply(x, self.group, self.m, self.index, partial)
 
-    def _slice(self, y: torch.Tensor) -> torch.Tensor:
-        c = y.shape[-1] // self.m
-        return y.narrow(-1, self.index * c, c)
+    @property
+    def data_group(self):
+        """The rank's data group (None at one data shard)."""
+        return self._mesh.tp_groups()[1]
+
+    def _slice(self, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of a whole tensor along `dim`."""
+        c = y.shape[dim] // self.m
+        return y.narrow(dim, self.index * c, c)
 
     def run(self, i: int, u, call, x: torch.Tensor, sharded: bool,
             draws: bool) -> Tuple[torch.Tensor, bool]:
@@ -331,6 +383,17 @@ class RankForward:
         channel-sharded). `draws`: the unit takes `part=`."""
         role = self.roles[i]
         extra: Dict[str, Any] = {}
+        if getattr(u, "tp_program", False) and role != "free":
+            # the unit's own rank program (sequence layers, attention,
+            # MoE): position-wise, it takes the activation as it comes
+            if role == "row" and not sharded:
+                raise RuntimeError(f"{u.name}: a row-parallel unit fed a "
+                                   "replicated activation")
+            if role == "replicated" and sharded:
+                x = self._gather(x, False)
+                sharded = False
+            return call(x, tp=UnitRank(self, i, sharded)), \
+                self.out_flags[i]
         if role == "column":
             x = self._gather(x, True) if sharded else \
                 _CopyIn.apply(x, self.group)
@@ -371,3 +434,68 @@ class RankForward:
                 f"{u.name}: a unit without parameters that changes the "
                 "channel count, on a channel-sharded activation")
         return self._slice(y), True
+
+
+class UnitRank:
+    """What a unit's own rank program (`fused_apply(..., tp=)`, units
+    with `tp_program`) is handed: its role and plan, whether its input
+    arrives feature-sharded, and the collectives over the model group
+    (the data group's for MoE's global routing). Every consumer in such
+    a program is partial (a column shard, or the rank's block of the
+    output) unless it says otherwise."""
+
+    def __init__(self, fwd: RankForward, i: int, sharded: bool) -> None:
+        self.role = fwd.roles[i]
+        self.spec = fwd.plan[i]
+        self.sharded = sharded
+        self.m = fwd.m
+        self.n_data, self.data_index = fwd.n_data, fwd.data_index
+        self._fwd = fwd
+
+    def is_sharded(self, leaf: str) -> bool:
+        """Whether the plan shards `leaf` (on its last dim)."""
+        return shard_dim(self.spec.get(leaf, ())) is not None
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The unit's input made whole for partial consumers: a sharded
+        one all-gathered (the backward reduce-scatters), a replicated one
+        through megatron's f (the backward all-reduces)."""
+        if self.sharded:
+            return self.gather(x)
+        return self.copy_in(x)
+
+    def gather(self, x: torch.Tensor, partial: bool = True
+               ) -> torch.Tensor:
+        """The ranks' last-dim blocks of `x` all-gathered; `partial`
+        False where every rank consumes the whole alike."""
+        return self._fwd._gather(x, partial)
+
+    def copy_in(self, t: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: `t` itself, its gradient all-reduced over the
+        model group (a replicated leaf's, zero off the block the rank
+        used, so summed into the whole gradient on every rank)."""
+        return _CopyIn.apply(t, self._fwd.group)
+
+    def reduce_out(self, y: torch.Tensor) -> torch.Tensor:
+        """Megatron's g: the ranks' partial products summed."""
+        return _ReduceOut.apply(y, self._fwd.group)
+
+    def scatter_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial products summed, this rank's last-dim
+        block kept."""
+        return _ScatterOut.apply(y, self._fwd.group, self.m)
+
+    def mine(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of a whole tensor along `dim`."""
+        return self._fwd._slice(t, dim)
+
+    def counts_before(self, counts: torch.Tensor) -> torch.Tensor:
+        """Per expert, the tokens that the data shards before this rank's
+        route to it (their rows precede this shard's in the global batch,
+        which the JAX gspmd step routes as one), from every shard's
+        `counts`: an all-gather over the data group."""
+        import torch.distributed as dist
+        every = [torch.empty_like(counts) for _ in range(self.n_data)]
+        dist.all_gather(every, counts.contiguous(),
+                        group=self._fwd.data_group)
+        return sum(every[:self.data_index], torch.zeros_like(counts))

@@ -18,8 +18,11 @@ and K7 in its gradient unit's vjp. `root.char_transformer.moe_experts=N`
 (N > 0) replaces the FFN with an N-expert token-routed switch MoE
 (znicz/moe.py; hidden `ffn`, residual, capacity factor
 `moe_capacity_factor`), which the data-parallel step can shard over its
-ranks (`-l/-m --ep`). The sequence-parallel modes (`parallel_mode`
-"ring" / "ulysses") come with the many-GPU slice.
+ranks (`-l/-m --ep`). Dense or MoE, the gspmd step trains it under
+tensor parallelism over K ranks (`-l/-m --tp K`: the attention's heads,
+the embed and the head split, parallel/tp.py). The sequence-parallel
+modes (`parallel_mode` "ring" / "ulysses") come with the many-GPU
+slice.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ The port's counterpart of `veles_tpu/samples/moe.py`, with its layer
 list and `root.moe` defaults. It trains dense-local through the granular
 graph or the fused step, and expert-parallel in the data-parallel fused
 step, each rank holding 8/R of the experts: `build_fused_step(mesh=...,
-ep=True)` / `run_fused(mesh=..., ep=True)`, or the CLI's `-l/-m --ep`.
+ep=True)` / `run_fused(mesh=..., ep=True)`, or the CLI's `-l/-m --ep`;
+and tensor-parallel in the gspmd step (`-l/-m --tp K`: every MoE leaf
+on its last dim, parallel/tp.py).
 
 Train it: `python -m veles_tpu_torch veles_tpu_torch/samples/moe.py
 [--fused | --pp M] [-b torch|numpy] [--device cpu] [-r SEED]

@@ -25,9 +25,15 @@ in the twin's differentiation); on the numpy backend `allow_flash=False`
 keeps them on the einsum golden, as the JAX unit's `numpy_run` does, so
 the host path stays a reference independent of the kernels.
 
-Ring and Ulysses attention (`parallel_mode` "ring" / "ulysses") and
-megatron tensor parallelism shard over several cards and come with the
-many-GPU slice.
+Under the fused step's tensor parallelism (mode "gspmd", parallel/tp.py)
+the JAX plan's last-dim rule shards wq, wk, wv on H·D and wo on E
+(`fused_apply(..., tp=)`): the rank projects the gathered input onto its
+columns of wq, wk and wv, which are its whole heads where the model
+group divides the heads (K6 / K7 run on them), else parts of heads that
+it all-gathers to run every head; the heads' output is all-gathered for
+wo's contraction, and the rank keeps its block of E. The flash gate is
+the local one. Ring and Ulysses attention (`parallel_mode` "ring" /
+"ulysses") shard the sequence and come with the next many-GPU slice.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ class MultiHeadAttention(Forward):
     `residual`. Velocities `vel_wq`, `vel_wk`, `vel_wv`, `vel_wo`."""
 
     variant_op = "flash_attn"
+    #: runs its own tensor-parallel rank program (parallel/tp.py)
+    tp_program = True
 
     def __init__(self, n_heads: int = 4, head_dim: Optional[int] = None,
                  causal: bool = True, parallel_mode: str = "local",
@@ -132,29 +140,66 @@ class MultiHeadAttention(Forward):
             return t.name({**cfg, t.fuse_axis: 0})
         return name
 
-    def fused_apply(self, params, x, *, train=False, variant=None):
+    def tp_check(self, role, spec, m) -> None:
+        """The last-dim rule's program needs wo's E sharded wherever a
+        projection is."""
+        if role == "lastdim" and not spec["wo"]:
+            raise NotImplementedError(
+                f"{self.name}: wq, wk, wv sharded with wo replicated "
+                f"(E {self.wo.shape[1]} does not divide over {m} ranks)")
+
+    def fused_apply(self, params, x, *, train=False, variant=None,
+                    tp=None):
         """`variant`: the `flash_attn` lowering a fused forward resolved at
-        build time, taken where the gate admits S; None resolves it now."""
+        build time, taken where the gate admits S; None resolves it now.
+        `tp`: this rank's part of the tensor-parallel plan
+        (parallel/tp.py UnitRank), None on whole tensors."""
+        if tp is not None and tp.role == "lastdim":
+            return self._rank_apply(params, x, tp, variant)
         return self.apply_model(params, x, variant=variant)
 
-    def apply_model(self, params, x, allow_flash=True, variant=None):
-        """The forward; `allow_flash=False` runs the einsum golden
-        whatever the gate says (the numpy backend's)."""
-        n, s, _ = x.shape
+    def _attend(self, q, k, v, allow_flash=True, variant=None):
+        """The heads' output (N, S, h·D) of the projections (N, S, h·D):
+        K6 / K7 where the gate admits S, else the einsum golden."""
+        n, s, hd = q.shape
         d = self.head_dim
-        h = params["wq"].shape[1] // d
-        q = fn.matmul(x, params["wq"]).reshape(n, s, h, d)
-        k = fn.matmul(x, params["wk"]).reshape(n, s, h, d)
-        v = fn.matmul(x, params["wv"]).reshape(n, s, h, d)
+        q, k, v = (t.reshape(n, s, hd // d, d) for t in (q, k, v))
         if allow_flash and self._flash_ok(s):
             v_ = variant or variants.resolve(self.variant_op, unit=self)
             o = v_.apply(q, k, v, causal=self.causal)
         else:
             o = attention.mha_forward(q, k, v, causal=self.causal)
+        return o.reshape(n, s, hd)
+
+    def apply_model(self, params, x, allow_flash=True, variant=None):
+        """The forward; `allow_flash=False` runs the einsum golden
+        whatever the gate says (the numpy backend's)."""
+        q, k, v = (fn.matmul(x, params[w]) for w in ("wq", "wk", "wv"))
         # the einsum's output is f32 under bf16 (mha_forward's promotion):
         # so is everything after it, as in the JAX unit
-        y = fn.matmul(o.reshape(n, s, h * d), params["wo"])
+        y = fn.matmul(self._attend(q, k, v, allow_flash, variant),
+                      params["wo"])
         return x + y if self.residual else y
+
+    def _rank_apply(self, params, x, tp, variant):
+        """The rank's program under the last-dim rule: (N, S, E/m), its
+        block of E. wq, wk and wv are sharded alike (one H·D); a
+        replicated one (H·D does not divide) passes megatron's f."""
+        x = tp.whole(x)
+        q, k, v = (fn.matmul(x, params[w] if tp.is_sharded(w)
+                             else tp.copy_in(params[w]))
+                   for w in ("wq", "wk", "wv"))
+        if not tp.is_sharded("wq"):
+            o = self._attend(q, k, v, variant=variant)
+        elif self.n_heads % tp.m == 0:
+            # the rank's whole heads, contiguous in the last dim
+            o = tp.gather(self._attend(q, k, v, variant=variant))
+        else:
+            # heads straddle ranks: every rank runs every head
+            o = self._attend(tp.gather(q), tp.gather(k), tp.gather(v),
+                             variant=variant)
+        y = fn.matmul(o, params["wo"])
+        return tp.mine(x) + y if self.residual else y
 
 
 @register_unit(MultiHeadAttention)

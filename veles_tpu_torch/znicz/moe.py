@@ -26,6 +26,16 @@ replicated), every rank's capacity its own tokens' (JAX :126-135:
 dense and expert-parallel forms drop the same tokens only where no
 capacity binds). Without a mesh it runs the dense local form.
 
+Under the fused step's tensor parallelism (mode "gspmd", parallel/tp.py)
+the JAX plan's last-dim rule shards `wr` on its experts, `w1` / `b1` on
+H and `w2` / `b2` on D (`fused_apply(..., tp=)`): the rank routes the
+gathered input on the gathered router logits (every rank alike), runs
+its block of the hidden, gathers it, and returns its block of D (the
+residual adds x's); a leaf the rule leaves whole passes megatron's f.
+Over several data shards the routing and the capacity are the global
+batch's, as in the JAX gspmd step (ops/moe.py `moe_forward`). `ep`
+stays exclusive with it, as in JAX.
+
 In the granular graph the layer's node is a `VJPForwardUnit` and its
 gradient unit `GDMoELayer` the vjp of the same forward (the argmax has
 no gradient: the gate and the experts do), velocities `vel_wr`,
@@ -53,6 +63,8 @@ class MoELayer(Forward):
     #: leaves sharded on their leading (expert) dim when the fused step
     #: runs expert-parallel; the router wr stays replicated
     ep_params = ("w1", "b1", "w2", "b2")
+    #: runs its own tensor-parallel rank program (parallel/tp.py)
+    tp_program = True
 
     def __init__(self, n_experts: int = 4, hidden: int = 64,
                  capacity_factor: float = 2.0, residual: bool = False,
@@ -124,26 +136,52 @@ class MoELayer(Forward):
         self.input_shape = sample_shape
         return sample_shape if token_wise else (d,)
 
-    def _tokens(self, params, x2: torch.Tensor, ep_mesh) -> torch.Tensor:
+    def tp_check(self, role, spec, m) -> None:
+        """The last-dim rule's program returns the rank's block of D: w2
+        sharded wherever another leaf is."""
+        if role == "lastdim" and not spec["w2"]:
+            raise NotImplementedError(
+                f"{self.name}: the router or the hidden sharded with w2 "
+                f"replicated (D {self.w2.shape[-1]} does not divide over "
+                f"{m} ranks)")
+
+    def _tokens(self, params, x2: torch.Tensor, ep_mesh, tp
+                ) -> torch.Tensor:
         args = (x2, params["wr"], params["w1"], params["b1"], params["w2"],
                 params["b2"])
-        cap = self.capacity(x2.shape[0])
         if ep_mesh is not None:
             return om.moe_forward_ep(*args, group=ep_mesh.group,
-                                     capacity=cap)
-        return om.moe_forward(*args, capacity=cap)
+                                     capacity=self.capacity(x2.shape[0]))
+        if tp is None:
+            return om.moe_forward(*args,
+                                  capacity=self.capacity(x2.shape[0]))
+        if tp.role == "lastdim":
+            args = (x2,) + tuple(
+                params[k] if tp.is_sharded(k) else tp.copy_in(params[k])
+                for k in ("wr", "w1", "b1", "w2", "b2"))
+        return om.moe_forward(
+            *args, capacity=self.capacity(x2.shape[0] * tp.n_data),
+            gather=tp.gather,
+            counts_before=tp.counts_before if tp.n_data > 1 else None)
 
-    def fused_apply(self, params, x, *, train=False, ep_mesh=None):
+    def fused_apply(self, params, x, *, train=False, ep_mesh=None, tp=None):
         """`ep_mesh`: the dp mesh whose ranks hold E/R experts each (the
-        fused step's under `ep=True`); None runs every expert here."""
+        fused step's under `ep=True`); None runs every expert here.
+        `tp`: this rank's part of the tensor-parallel plan
+        (parallel/tp.py UnitRank; the output is the rank's block of D in
+        the role "lastdim"), None on whole tensors."""
+        if tp is not None and tp.role == "lastdim":
+            x = tp.whole(x)
         if self._token_wise(x.dim()):
             n, s, d = x.shape
-            y = self._tokens(params, x.reshape(n * s, d),
-                             ep_mesh).reshape(n, s, d)
-            return x + y if self.residual else y
-        x2 = x.reshape(x.shape[0], -1)
-        y = self._tokens(params, x2, ep_mesh)
-        return x2 + y if self.residual else y
+            y = self._tokens(params, x.reshape(n * s, d), ep_mesh, tp)
+            y = y.reshape(n, s, y.shape[-1])
+        else:
+            x = x.reshape(x.shape[0], -1)
+            y = self._tokens(params, x, ep_mesh, tp)
+        if not self.residual:
+            return y
+        return (x if y.shape[-1] == x.shape[-1] else tp.mine(x)) + y
 
 
 @register_unit(MoELayer)

@@ -162,6 +162,9 @@ class Forward(nn.Module):
     variant_override: Optional[str] = None
     #: the fused step hands this unit its torch.Generator (`gen=`)
     fused_needs_gen = False
+    #: the per-sample output shape, recorded when the unit's node
+    #: initializes it (None before)
+    out_sample_shape: Optional[Tuple[int, ...]] = None
 
     def __init__(self, weights_filling: str = "uniform",
                  weights_stddev: Optional[float] = None,
@@ -293,6 +296,9 @@ class ForwardUnit(AcceleratedUnit):
             return False
         self.sample_shape = tuple(self.layer.initialize(
             tuple(self.input_sample_shape), target_device(device)))
+        # the tensor-parallel plan's last-dim rule reads the output's
+        # last dim (parallel/tp.py tp_plan)
+        self.layer.out_sample_shape = self.sample_shape
         return super().initialize(device=device, **kwargs)
 
     def _no_granular(self) -> None:

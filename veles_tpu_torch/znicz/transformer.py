@@ -27,8 +27,11 @@ per-token rows against the loader's flat labels, and its twin reshapes
 the evaluator's (N·S, V) error, the error with respect to the logits,
 back to the (N, S, V) logits it differentiates.
 
-The sequence-sharded ("seq") mode and megatron tensor parallelism come
-with the many-GPU slice.
+Under the fused step's tensor parallelism (mode "gspmd", parallel/tp.py)
+each layer runs its own rank program (`fused_apply(..., tp=)`): one 2-D
+`weights`, column- or row-parallel by the JAX plan's single-weight rule,
+its other leaves (`pos`, `w2`, `b2`) replicated. The sequence-sharded
+("seq") mode comes with the next many-GPU slice.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ class SeqLinear(Forward):
     """Position-wise linear: x (N, S, Din) -> act(x·W + b [+ pos[:S]])
     (N, S, Dout); W (Din, Dout). Velocities `vel_w`, `vel_b` and, with
     `pos_embed`, `vel_pos`."""
+
+    #: runs its own tensor-parallel rank program (parallel/tp.py)
+    tp_program = True
 
     def __init__(self, output_features: int = 64, activation: str = "linear",
                  pos_embed: bool = False, max_seq: int = 0,
@@ -83,10 +89,26 @@ class SeqLinear(Forward):
                     device)
         return (s, dout)
 
-    def fused_apply(self, params, x, *, train=False):
-        y = fn.matmul(x, params["weights"]) + params["bias"]
-        if self.pos_embed:
-            y = y + params["pos"][:x.shape[1]][None]
+    def fused_apply(self, params, x, *, train=False, tp=None):
+        """`tp`: this rank's part of the tensor-parallel plan
+        (parallel/tp.py UnitRank), None on whole tensors."""
+        pos = params.get("pos") if self.pos_embed else None
+        if tp is not None and tp.role == "row":
+            # x is the rank's block of the features: its rows' partial
+            # product, summed; the bias and `pos` replicated
+            y = tp.reduce_out(fn.matmul(x, params["weights"])) \
+                + params["bias"]
+        else:
+            if tp is not None and tp.role == "column":
+                x = tp.whole(x)
+                if pos is not None:
+                    # the rank adds its columns of the replicated table;
+                    # the table's gradient, zero off them, is all-reduced
+                    # (megatron's f), so every rank updates it alike
+                    pos = tp.mine(tp.copy_in(pos))
+            y = fn.matmul(x, params["weights"]) + params["bias"]
+        if pos is not None:
+            y = y + pos[:x.shape[1]][None]
         return fn.act_forward(self.activation, y)
 
 
@@ -94,6 +116,9 @@ class SeqFFN(Forward):
     """Transformer FFN block with residual: x (N, S, E) -> (N, S, E),
     hidden width `hidden`; W1 is `weights` (E, hidden), W2 is `w2`
     (hidden, E). Velocities `vel_w`, `vel_b`, `vel_w2`, `vel_b2`."""
+
+    #: runs its own tensor-parallel rank program (parallel/tp.py)
+    tp_program = True
 
     def __init__(self, hidden: int = 128, activation: str = "tanh",
                  **kwargs: Any) -> None:
@@ -120,11 +145,38 @@ class SeqFFN(Forward):
             self.b2 = self._param(np.zeros((e,), np.float32), device)
         return (s, e)
 
-    def fused_apply(self, params, x, *, train=False):
-        hmid = fn.act_forward(self.activation,
-                              fn.matmul(x, params["weights"])
-                              + params["bias"])
-        return x + fn.matmul(hmid, params["w2"]) + params["b2"]
+    def tp_check(self, role, spec, m) -> None:
+        """A column-parallel W1 scatters the output over E: E divides."""
+        if role == "column" and self.w2.shape[1] % m:
+            raise NotImplementedError(
+                f"{self.name}: a column-parallel W1 with an output width "
+                f"{self.w2.shape[1]} that {m} ranks do not divide")
+
+    def fused_apply(self, params, x, *, train=False, tp=None):
+        """`tp`: this rank's part of the tensor-parallel plan
+        (parallel/tp.py UnitRank), None on whole tensors."""
+        w1, b1, w2, b2 = (params[k] for k in ("weights", "bias", "w2",
+                                              "b2"))
+        if tp is not None and tp.role == "row":
+            # x is the rank's block of E (the char-transformer's FFN
+            # after attention): its rows' partial product summed, then
+            # b1, the activation, w2 and b2, replicated and alike on
+            # every rank; the residual adds the whole x
+            hmid = fn.act_forward(self.activation,
+                                  tp.reduce_out(fn.matmul(x, w1)) + b1)
+            return tp.gather(x, partial=False) + fn.matmul(hmid, w2) + b2
+        if tp is not None and tp.role == "column":
+            # a replicated input: the rank's block of the hidden times
+            # w2's matching rows, the partial products reduce-scattered
+            # over E (the output is the rank's block of E). w2 and b2 are
+            # replicated leaves of which the rank uses a block: their
+            # gradients, zero off it, are all-reduced (megatron's f)
+            x = tp.whole(x)
+            hmid = fn.act_forward(self.activation, fn.matmul(x, w1) + b1)
+            y = tp.scatter_out(fn.matmul(hmid, tp.mine(tp.copy_in(w2), 0)))
+            return tp.mine(x) + y + tp.mine(tp.copy_in(b2))
+        hmid = fn.act_forward(self.activation, fn.matmul(x, w1) + b1)
+        return x + fn.matmul(hmid, w2) + b2
 
 
 class SeqSoftmax(SeqLinear):
